@@ -1,0 +1,279 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Drives ``replicatinggpt_tpu_torch`` (never the JAX package) in phases,
+and fails (non-zero exit) on the first phase that fails:
+
+1. the card's name and power limit (``nvidia-smi``);
+2. build the CUDA kernels from ``replicatinggpt_tpu_torch/csrc/``;
+3. kernel phase: ``paged_window_attention`` against its plain PyTorch
+   version at the serving path's shapes (GPT-2 124M: C=768, H=12,
+   page 16, 64 pages per slot, 512 pages, 8 slots), W in {1, 4}, bf16
+   (atol = rtol = 2e-2: bf16 output rounding and another summation
+   order) and f32 (1e-4); then CUDA-event timings of the kernel, the
+   plain version and ``F.scaled_dot_product_attention`` over the same
+   K/V gathered dense (the library yardstick, used nowhere in the port);
+4. parity phase: one greedy request set through the engine at f32,
+   2 layers of full width, on the kernel route and on the gather route;
+   the token streams must be identical;
+5. slice phase (the main path): ``serve-replay`` of GPT-2 124M at random
+   init through the port's CLI with the kernel route, greedy and then
+   sampled; every request completes, every token is in the vocabulary,
+   the prefix cache hits, and the kernel ran 12 times per decode step.
+
+Prints a ``{"kernels": [...]}`` line and, last, the
+``{"ok": true, "device": {...}}`` line.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import io
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+import torch.nn.functional as F
+
+from replicatinggpt_tpu_torch import cli
+from replicatinggpt_tpu_torch.config import get_config
+from replicatinggpt_tpu_torch.models.gpt import init_params
+from replicatinggpt_tpu_torch.ops import _build
+from replicatinggpt_tpu_torch.ops import paged_attention as pa
+from replicatinggpt_tpu_torch.serve import (Engine, EngineConfig,
+                                            ReplayConfig, make_trace)
+
+KERNEL_SOURCE = "replicatinggpt_tpu_torch/csrc/paged_window_attention.cu"
+KERNEL_REPLACES = "replicatinggpt_tpu/ops/paged_pallas.py:202"
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+BF16_FLOPS = 989e12                # dense tensor-core bf16
+F32_FLOPS = 67e12                  # f32 outside the tensor cores
+C, H, PSZ, MP, N, B = 768, 12, 16, 64, 512, 8
+POS = [0, 1, 15, 16, 17, 333, 777, 1000]
+TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def paged_inputs(W: int, dtype: torch.dtype, seed: int = 0):
+    """The kernel's inputs at the path's shapes; table entries past each
+    slot's live frontier hold ids past the pool, which neither side may
+    read."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+
+    def rnd(*s):
+        return torch.randn(s, generator=g, device=dev).to(dtype)
+
+    perm = torch.randperm(N, generator=g, device=dev)[:B * MP]
+    tables = perm.reshape(B, MP).to(torch.int32)
+    pos = torch.tensor(POS, dtype=torch.int32, device=dev)
+    live = (pos + PSZ - 1) // PSZ
+    past = torch.arange(MP, device=dev)[None, :] >= live[:, None]
+    tables = torch.where(past, torch.full_like(tables, N + 7), tables)
+    return (rnd(B, W, C), rnd(B, W, C), rnd(B, W, C), rnd(N, PSZ, C),
+            rnd(N, PSZ, C), tables.contiguous(), pos)
+
+
+def time_ms(fn, flush: torch.Tensor, n: int = 30, warm: int = 5) -> float:
+    """Median device time of ``fn`` over ``n`` runs, each after an L2
+    flush (the serving path reads a layer's pages cold)."""
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(n):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound_ms(args, W: int) -> tuple:
+    """Least time for the work of one call on this run's data: bytes
+    (window rows, live K/V pages, live table prefix, pos, output) over
+    the memory rate vs operations over the peak rate of the input type.
+    """
+    q, *_, pos = args
+    isz = q.element_size()
+    live = ((pos.long() + PSZ - 1) // PSZ).sum().item()
+    nbytes = (4 * B * W * C * isz + 2 * live * PSZ * C * isz
+              + live * 4 + B * 4)
+    flops = 4 * C * W * (pos.long().sum().item() + B * W)
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def sdpa_inputs(args, W: int):
+    """The same K/V gathered dense with the fresh rows appended, and the
+    same mask, for the library yardstick."""
+    q, kn, vn, kp, vp, tables, pos = args
+    S = MP * PSZ
+    live = (pos.long() + PSZ - 1) // PSZ
+    owned = torch.arange(MP, device="cuda")[None, :] < live[:, None]
+    tab = torch.where(owned, tables.long(), torch.zeros_like(tables.long()))
+
+    def heads(x, T):
+        return x.reshape(B, T, H, C // H).transpose(1, 2).contiguous()
+
+    k = heads(torch.cat([kp[tab].reshape(B, S, C), kn], 1), S + W)
+    v = heads(torch.cat([vp[tab].reshape(B, S, C), vn], 1), S + W)
+    kpos = torch.arange(S + W, device="cuda")
+    hist = (kpos[None, None] < pos.long()[:, None, None]) & (kpos < S)
+    fresh = ((kpos[None] - S) <= torch.arange(W, device="cuda")[:, None]) \
+        & (kpos >= S)
+    mask = (hist | fresh[None])[:, None]                   # (B, 1, W, S+W)
+    return heads(q, W), k, v, mask
+
+
+def kernel_phase() -> dict:
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for W in (1, 4):
+            args = paged_inputs(W, dtype)
+            got = pa.paged_window_attention(*args, n_head=H)
+            torch.cuda.synchronize()
+            ref = pa.paged_window_attention_ref(*args, n_head=H)
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = TOL[dtype]
+            torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                       rtol=tol)
+            errs[(dtype, W)] = err
+            print(f"kernel check: {str(dtype)[6:]} W={W} max_abs_err "
+                  f"{err:.3e} (atol=rtol={tol})")
+    args = paged_inputs(1, torch.bfloat16)
+    sq, sk, sv, mask = sdpa_inputs(args, 1)
+    ms = time_ms(lambda: pa.paged_window_attention(*args, n_head=H), flush)
+    plain_ms = time_ms(
+        lambda: pa.paged_window_attention_ref(*args, n_head=H), flush)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        sq, sk, sv, attn_mask=mask), flush)
+    b_ms, b_by = bound_ms(args, 1)
+    print(f"kernel timing (bf16, W=1, B={B}, pos {POS}): kernel "
+          f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, sdpa "
+          f"{library_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by})")
+    return {"name": "paged_window_attention", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
+            "max_abs_err": errs[(torch.bfloat16, 1)], "ms": ms,
+            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms}
+
+
+def parity_phase() -> None:
+    base = get_config("gpt2-small").model
+    mcfg = dataclasses.replace(base, n_layer=2, dtype="float32",
+                               decode_cache_layout="packed")
+    model = init_params(mcfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    trace = make_trace(mcfg, ReplayConfig(
+        n_requests=8, seed=1, prompt_len_max=300, prompt_mode="shared_prefix",
+        max_new_tokens=24, greedy=True))
+    streams = {}
+    for kernel in (True, False):
+        eng = Engine(model, mcfg, EngineConfig(pool_size=8, page_size=16,
+                                               paged_kernel=kernel),
+                     device="cuda")
+        assert eng.kernel_route.decode == ("kernel" if kernel else "gather")
+        for _, req in trace:
+            assert eng.submit(req) is None
+        streams[kernel] = {r.id: r.tokens for r in eng.drain()}
+    a, b = streams[True], streams[False]
+    for rid in sorted(b):
+        if a[rid] != b[rid]:
+            i = next(j for j, (x, y) in enumerate(zip(a[rid], b[rid]))
+                     if x != y)
+            raise AssertionError(f"parity: {rid} differs at token {i}: "
+                                 f"kernel {a[rid][i]} vs gather {b[rid][i]}")
+    n = sum(len(s) for s in a.values())
+    print(f"parity: {len(a)} greedy streams, {n} tokens identical on the "
+          f"kernel and gather routes (f32, 2 layers, C=768)")
+
+
+def replay(extra) -> dict:
+    argv = ["serve-replay", "--preset", "gpt2-small",
+            "--decode-cache-layout", "packed", "--paged-kernel",
+            "--rate", "1000", "--pool-size", "8", "--page-size", "16",
+            "--prompt-mode", "shared_prefix", "--prompt-len-max", "512",
+            "--request-max-new-tokens", "64", "--json", *extra]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli.main(argv) == 0
+    lines = out.getvalue().strip().splitlines()
+    print("\n".join(lines[:-1]))
+    s = json.loads(lines[-1])
+    n_layer = get_config("gpt2-small").model.n_layer
+    V = get_config("gpt2-small").model.vocab_size
+    assert s["n_completed"] == s["n_requests"], s["n_completed"]
+    assert s["kernel_route"]["decode"] == "kernel", s["kernel_route"]
+    assert s["kernel_launches"] == n_layer * s["n_steps"], (
+        s["kernel_launches"], s["n_steps"])
+    assert s["pages"]["prefix_hits"] > 0, s["pages"]
+    toks = [t for st in s["streams"].values() for t in st]
+    assert toks and all(0 <= t < V for t in toks)
+    return s
+
+
+def slice_phase(card: str) -> int:
+    pa.paged_window_attention.launches = 0
+    s = replay(["--n-requests", "16", "--greedy"])
+    launches = pa.paged_window_attention.launches
+    assert launches > 0
+    h = s["histograms"]
+    print(f"slice (greedy, 16 requests) on {card}: "
+          f"{s['aggregate_tokens_per_s']} tok/s, TTFT p50 "
+          f"{h['ttft_s']['p50'] * 1e3:.2f} ms / p99 "
+          f"{h['ttft_s']['p99'] * 1e3:.2f} ms, step p50 "
+          f"{s['step_latency']['p50_s'] * 1e3:.3f} ms over {s['n_steps']} "
+          f"steps, {s['kernel_launches']} kernel launches")
+    s2 = replay(["--n-requests", "8", "--top-k", "50", "--temperature",
+                 "0.8"])
+    print(f"slice (sampled, 8 requests) on {card}: "
+          f"{s2['aggregate_tokens_per_s']} tok/s over {s2['n_steps']} "
+          f"steps")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card}")
+    t0 = time.perf_counter()
+    _build.build("paged_window_attention", verbose=True)
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    row = kernel_phase()
+    parity_phase()
+    row["launches"] = slice_phase(card)
+    print(json.dumps({"kernels": [row]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

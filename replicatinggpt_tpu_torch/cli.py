@@ -1,0 +1,179 @@
+"""Command-line interface of the PyTorch/CUDA port.
+
+    python -m replicatinggpt_tpu_torch serve-replay --preset gpt2-small \\
+        --decode-cache-layout packed --paged-kernel --n-requests 16
+
+``serve-replay`` takes the JAX subcommand's flags. Those this port does
+not implement yet are still accepted by the parser, so that a command
+written for the JAX package fails with the ROADMAP item that will bring
+the feature, instead of being half-run or silently ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import torch
+
+from .config import add_config_flags, config_from_args
+
+#: (flag, dest, value that means "off", ROADMAP.md item that brings it)
+UNPORTED_FLAGS = (
+    ("--decode-window", "decode_window", 1,
+     "queue A item 9 (decode windows > 1)"),
+    ("--decode-window-auto", "decode_window_auto", False,
+     "queue A item 9 (decode windows > 1)"),
+    ("--spec", "spec", "off", "queue A item 9 (speculative verify)"),
+    ("--spec-k", "spec_k", None, "queue A item 9 (speculative verify)"),
+    ("--spec-ngram", "spec_ngram", None,
+     "queue A item 9 (speculative verify)"),
+    ("--draft-model", "draft_model", None,
+     "queue A item 9 (speculative verify)"),
+    ("--mesh-shape", "mesh_shape", "1x1", "queue A item 11 (meshes)"),
+    ("--kv-quant", "kv_quant", "none", "queue A item 8 (quantization)"),
+    ("--weight-quant", "weight_quant", "none",
+     "queue A item 8 (quantization)"),
+    ("--act-quant", "act_quant", "none", "queue A item 8 (quantization)"),
+    ("--quant-granularity", "quant_granularity", "page",
+     "queue A item 8 (quantization)"),
+    ("--trace-out", "trace_out", None, "queue A item 12 (telemetry)"),
+    ("--metrics-timeline", "metrics_timeline", None,
+     "queue A item 12 (telemetry)"),
+    ("--metrics-timeline-interval", "metrics_timeline_interval", None,
+     "queue A item 12 (telemetry)"),
+    ("--metrics-out", "metrics_out", None, "queue A item 12 (telemetry)"),
+    ("--profile-dir", "profile_dir", None, "queue A item 12 (telemetry)"),
+    ("--profile-start", "profile_start", None,
+     "queue A item 12 (telemetry)"),
+    ("--profile-steps", "profile_steps", None,
+     "queue A item 12 (telemetry)"),
+    ("--checkpoint-dir", "checkpoint_dir", None,
+     "queue A item 4 (checkpoints)"),
+)
+
+
+def _add_unported_flags(p: argparse.ArgumentParser) -> None:
+    for flag, dest, off, _ in UNPORTED_FLAGS:
+        if isinstance(off, bool):
+            p.add_argument(flag, dest=dest, action="store_true")
+        else:
+            kind = type(off) if off is not None else str
+            p.add_argument(flag, dest=dest, type=kind, default=off,
+                           help="not in this port yet (see ROADMAP.md)")
+
+
+def check_unported(args: argparse.Namespace) -> None:
+    """Raise for any unported flag set away from its off value."""
+    for flag, dest, off, item in UNPORTED_FLAGS:
+        if getattr(args, dest) != off:
+            raise SystemExit(
+                f"{flag} is not implemented in replicatinggpt_tpu_torch "
+                f"yet: ROADMAP.md {item}")
+
+
+def add_engine_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--pool-size", type=int, default=8,
+                   help="decode slots of the engine")
+    p.add_argument("--max-queue", type=int, default=64,
+                   help="admission queue bound (backpressure past it)")
+    p.add_argument("--prefill-chunk", type=int, default=0,
+                   help="prompt tokens per prefill chunk "
+                        "(0 = min(64, block_size))")
+    p.add_argument("--page-size", type=int, default=0,
+                   help="tokens per KV page (0 = min(16, block_size))")
+    p.add_argument("--max-pages", type=int, default=0,
+                   help="logical KV pages per slot (0 = "
+                        "ceil(block_size / page_size))")
+    p.add_argument("--n-pages", type=int, default=0,
+                   help="physical KV pages in the pool (0 = pool_size * "
+                        "pages per slot)")
+    p.add_argument("--no-prefix-cache", action="store_true",
+                   help="disable radix prefix reuse (pages only)")
+    p.add_argument("--paged-kernel", action="store_true",
+                   help="decode attention through the paged attention "
+                        "kernel (packed layout; CUDA on the card, its "
+                        "plain version on the CPU); the route and any "
+                        "failed gate are reported in the summary's "
+                        "kernel_route")
+
+
+def engine_config_from_args(args: argparse.Namespace):
+    from .serve.engine import EngineConfig
+    return EngineConfig(pool_size=args.pool_size, max_queue=args.max_queue,
+                        prefill_chunk=args.prefill_chunk,
+                        page_size=args.page_size, max_pages=args.max_pages,
+                        n_pages=args.n_pages,
+                        prefix_cache=not args.no_prefix_cache,
+                        paged_kernel=args.paged_kernel)
+
+
+def cmd_serve_replay(args) -> int:
+    """Replay a synthetic Poisson request trace through the engine at
+    random-init weights and print the serving metrics summary."""
+    check_unported(args)
+    from .device import resolve_device
+    from .models.gpt import init_params
+    from .serve.replay import ReplayConfig, format_summary, run_replay
+    cfg = config_from_args(args)
+    dev = resolve_device(args.device)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    model = init_params(cfg.model, gen, device=dev)
+    rcfg = ReplayConfig(
+        n_requests=args.n_requests, rate=args.rate, seed=args.seed or 0,
+        prompt_len_min=args.prompt_len_min,
+        prompt_len_max=args.prompt_len_max or cfg.model.block_size // 2,
+        max_new_tokens=args.request_max_new_tokens, greedy=args.greedy,
+        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+        deadline_s=args.deadline_s, prompt_mode=args.prompt_mode,
+        shared_prefix_len=args.shared_prefix_len)
+    ecfg = engine_config_from_args(args)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    m = cfg.model
+    print(f"serve-replay: {rcfg.n_requests} requests @ {rcfg.rate}/s, "
+          f"pool {ecfg.pool_size}, queue {ecfg.max_queue}, model "
+          f"{m.n_layer}L/{m.n_head}H/{m.n_embd}C {m.dtype} on {dev} "
+          f"({name})", file=sys.stderr)
+    summary = run_replay(model, cfg.model, rcfg, ecfg, device=dev)
+    print(format_summary(summary))
+    if args.json:
+        print(json.dumps(summary))
+    return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="replicatinggpt_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    ps = sub.add_parser("serve-replay",
+                        help="replay a synthetic Poisson request trace "
+                             "through the paged serving engine and report "
+                             "TTFT/throughput/occupancy")
+    add_config_flags(ps)
+    ps.add_argument("--device", default=None,
+                    help="'cuda' (default; fails without a card) or 'cpu'")
+    ps.add_argument("--n-requests", type=int, default=64)
+    ps.add_argument("--rate", type=float, default=200.0,
+                    help="mean Poisson arrival rate, requests/sec")
+    add_engine_flags(ps)
+    ps.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="--prompt-mode shared_prefix: common prefix "
+                         "length (0 = prompt-len-max // 2)")
+    ps.add_argument("--prompt-len-min", type=int, default=1)
+    ps.add_argument("--prompt-len-max", type=int, default=0,
+                    help="0 = block_size // 2")
+    ps.add_argument("--request-max-new-tokens", type=int, default=16)
+    ps.add_argument("--greedy", action="store_true")
+    ps.add_argument("--temperature", type=float, default=1.0)
+    ps.add_argument("--top-k", type=int, default=20)
+    ps.add_argument("--top-p", type=float, default=0.0)
+    ps.add_argument("--deadline-s", type=float, default=0.0,
+                    help="per-request deadline after arrival (0 = none)")
+    ps.add_argument("--prompt-mode", default="random",
+                    choices=["random", "repeat", "shared_prefix"])
+    ps.add_argument("--json", action="store_true",
+                    help="also print the summary as one JSON line")
+    _add_unported_flags(ps)
+    ps.set_defaults(fn=cmd_serve_replay)
+    args = p.parse_args(argv)
+    return args.fn(args)

@@ -1,0 +1,182 @@
+"""Windowed paged attention for one layer of a packed page pool.
+
+The port of ``replicatinggpt_tpu/ops/paged_pallas.py``
+``paged_window_attention`` (``quantized=False, fold=True``): per slot, a
+(W, C) window of fresh query rows attends the STALE pool pages its page
+table maps, masked to positions < ``pos``, and then the fresh (W, W)
+K/V block causally. Row j of slot b sits at logical position
+``pos[b] + j``; the caller scatters the fresh rows into the pool
+afterwards (attend-stale-then-write == write-then-attend).
+
+- ``paged_window_attention_ref``: the plain PyTorch version (the CPU
+  path and the card's yardstick of correctness);
+- ``paged_window_attention``: the wrapper. A CPU tensor takes the plain
+  version; a CUDA tensor launches ``csrc/paged_window_attention.cu`` or
+  raises. ``paged_window_attention.launches`` counts kernel launches;
+- ``paged_attention_envelope``: which shapes the kernel takes, with the
+  failed checks named (the engine's route export reports them).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30   # large-negative instead of -inf: NaN-free masked rows
+
+#: kernel constants (csrc/paged_window_attention.cu: kTile, kMaxSmem)
+_TILE = 64
+_MAX_SMEM = 232_448
+_KERNEL = "paged_window_attention"
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def smem_bytes(window: int, head_dim: int, max_pages: int) -> int:
+    """Dynamic shared memory of one kernel block (mirrors the carve-up at
+    the top of the kernel)."""
+    W, D = window, head_dim
+    ks = D + 8
+    floats = (W * D + W * ks + 2 * W * D + _TILE * ks + _TILE * D
+              + W * max(_TILE, W) + 3 * W)
+    return 4 * (floats + max_pages)
+
+
+def paged_attention_envelope(n_head: int, head_dim: int, page_size: int,
+                             *, itemsize: int = 2, window: int = 1,
+                             max_pages: int = 64) -> tuple:
+    """``(ok, reasons)`` for the CUDA kernel at these shapes; the reasons
+    use the JAX envelope's vocabulary where a check has a counterpart."""
+    reasons = []
+    if itemsize not in (2, 4):
+        reasons.append("dtype")
+    if head_dim % 8 or not 8 <= head_dim <= 256:
+        reasons.append("head_dim")
+    if smem_bytes(window, head_dim, max_pages) > _MAX_SMEM:
+        reasons.append("smem_budget")
+    return (not reasons), tuple(reasons)
+
+
+def paged_window_attention_ref(q, k_new, v_new, k_pages, v_pages, tables,
+                               pos, *, n_head: int) -> torch.Tensor:
+    """Plain version. q/k_new/v_new: (B, W, C); k_pages/v_pages:
+    (N, page, C); tables: (B, max_pages) int32; pos: (B,) int32.
+    Returns (B, W, C) in q's dtype; softmax in f32.
+
+    Table entries past a slot's live frontier (page index >= ceil(pos /
+    page)) may hold stale ids; they are replaced by page 0 before the
+    gather and every position they cover is masked."""
+    B, W, C = q.shape
+    N, psz, _ = k_pages.shape
+    mp = tables.shape[1]
+    H, D = n_head, C // n_head
+    dev = q.device
+    pos = pos.to(dev, torch.int64)
+    tables = tables.to(dev, torch.int64)
+    live = (pos + psz - 1) // psz
+    owned = torch.arange(mp, device=dev)[None, :] < live[:, None]
+    tab = torch.where(owned, tables, torch.zeros_like(tables))
+    S = mp * psz
+
+    def heads(x, T):  # (B, T, C) -> (B, H, T, D) in f32
+        return x.float().reshape(B, T, H, D).transpose(1, 2)
+
+    k_all = torch.cat([k_pages[tab].reshape(B, S, C), k_new], dim=1)
+    v_all = torch.cat([v_pages[tab].reshape(B, S, C), v_new], dim=1)
+    s = (heads(q, W) @ heads(k_all, S + W).transpose(-1, -2)) * D ** -0.5
+    kpos = torch.arange(S + W, device=dev)
+    hist = (kpos[None, None, :] < pos[:, None, None]) & (kpos < S)
+    fresh = (kpos[None, :] - S) <= torch.arange(W, device=dev)[:, None]
+    fresh = fresh & (kpos >= S)
+    mask = hist | fresh[None]                                 # (B, W, S+W)
+    s = torch.where(mask[:, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = p @ heads(v_all, S + W)                             # (B, H, W, D)
+    return out.transpose(1, 2).reshape(B, W, C).to(q.dtype)
+
+
+def _check(q, k_new, v_new, k_pages, v_pages, tables, pos, n_head):
+    B, W, C = q.shape
+    if C % n_head:
+        raise ValueError(f"C={C} not divisible by n_head={n_head}")
+    if k_new.shape != q.shape or v_new.shape != q.shape:
+        raise ValueError(f"window shapes differ: q {tuple(q.shape)}, "
+                         f"k_new {tuple(k_new.shape)}, v_new "
+                         f"{tuple(v_new.shape)}")
+    if k_pages.dim() != 3 or k_pages.shape != v_pages.shape \
+            or k_pages.shape[2] != C:
+        raise ValueError(f"page pools must be (N, page, {C}); got "
+                         f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
+    if tables.dim() != 2 or tables.shape[0] != B or pos.shape != (B,):
+        raise ValueError(f"tables must be ({B}, max_pages) and pos "
+                         f"({B},); got {tuple(tables.shape)} / "
+                         f"{tuple(pos.shape)}")
+    devs = {t.device for t in (q, k_new, v_new, k_pages, v_pages, tables,
+                               pos)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: "
+                         f"{sorted(map(str, devs))}")
+
+
+def paged_window_attention(q, k_new, v_new, k_pages, v_pages, tables, pos,
+                           *, n_head: int) -> torch.Tensor:
+    """Windowed paged attention (see the module docstring for shapes).
+    CPU tensors run the plain version; CUDA tensors run the kernel,
+    which takes bf16 or f32 contiguous inputs, int32 tables and pos, and
+    shapes inside ``paged_attention_envelope``; anything else raises."""
+    _check(q, k_new, v_new, k_pages, v_pages, tables, pos, n_head)
+    if q.device.type == "cpu":
+        return paged_window_attention_ref(q, k_new, v_new, k_pages, v_pages,
+                                          tables, pos, n_head=n_head)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B, W, C = q.shape
+    psz = k_pages.shape[1]
+    mp = tables.shape[1]
+    D = C // n_head
+    if q.dtype not in _DTYPE_CODE or any(
+            t.dtype != q.dtype for t in (k_new, v_new, k_pages, v_pages)):
+        raise TypeError(f"kernel takes bf16 or f32 q/k/v/pages of one "
+                        f"dtype; got {q.dtype}, {k_new.dtype}, "
+                        f"{v_new.dtype}, {k_pages.dtype}, {v_pages.dtype}")
+    if tables.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise TypeError(f"tables and pos must be int32; got "
+                        f"{tables.dtype} / {pos.dtype}")
+    ts = (q, k_new, v_new, k_pages, v_pages, tables, pos)
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("kernel inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in ts[:5]):
+        raise ValueError("q/k/v/page pointers must be 16-byte aligned")
+    ok, reasons = paged_attention_envelope(
+        n_head, D, psz, itemsize=q.element_size(), window=W, max_pages=mp)
+    if not ok:
+        raise ValueError(f"shapes outside the kernel envelope: {reasons}")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    lib = _lib()
+    err = lib.paged_window_attention_launch(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
+        pos.data_ptr(), out.data_ptr(), B, W, psz, mp, n_head, D,
+        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_window_attention launch failed: CUDA "
+                           f"error {err}")
+    paged_window_attention.launches += 1
+    return out
+
+
+paged_window_attention.launches = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(_KERNEL)
+    fn = lib.paged_window_attention_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return lib

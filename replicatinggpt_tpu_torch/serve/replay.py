@@ -1,0 +1,174 @@
+"""Offline serving-trace replay: a seeded Poisson workload through the
+engine (port of ``replicatinggpt_tpu/serve/replay.py``).
+
+``make_trace`` is numpy only, so the same ``ReplayConfig`` gives the same
+trace, bit for bit, as the JAX package's. ``run_replay`` warms a
+throwaway engine first (which also builds the CUDA kernel) and then
+replays the trace in wall-clock time.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import List, Tuple
+
+import numpy as np
+
+from ..config import ModelConfig
+from ..ops.paged_attention import paged_window_attention
+from .engine import Engine, EngineConfig
+from .requests import Request, RequestResult, SamplingParams
+
+
+@dataclass(frozen=True)
+class ReplayConfig:
+    n_requests: int = 64
+    rate: float = 200.0            # mean arrivals/sec (Poisson)
+    seed: int = 0
+    prompt_len_min: int = 1
+    prompt_len_max: int = 32
+    max_new_tokens: int = 16
+    greedy: bool = False
+    temperature: float = 1.0
+    top_k: int = 20
+    top_p: float = 0.0
+    deadline_s: float = 0.0        # per-request deadline after arrival; 0=off
+    prompt_mode: str = "random"    # 'random' | 'repeat' | 'shared_prefix'
+    shared_prefix_len: int = 0     # 'shared_prefix' common-prefix length;
+                                   # 0 = prompt_len_max // 2
+
+
+def make_trace(mcfg: ModelConfig, rcfg: ReplayConfig
+               ) -> List[Tuple[float, Request]]:
+    """Seeded (arrival_time, request) list: exponential inter-arrivals,
+    uniform prompt lengths (clamped to block_size) and token ids; or
+    tiled <=4-token patterns ('repeat'); or one common random prefix plus
+    a unique random tail per prompt ('shared_prefix')."""
+    rng = np.random.default_rng(rcfg.seed)
+    hi = min(rcfg.prompt_len_max, mcfg.block_size)
+    lo = min(rcfg.prompt_len_min, hi)
+    shared = None
+    if rcfg.prompt_mode == "shared_prefix":
+        n_shared = min(rcfg.shared_prefix_len or max(hi // 2, 1), hi - 1)
+        shared = rng.integers(0, mcfg.vocab_size, (n_shared,),
+                              dtype=np.int64)
+    t = 0.0
+    trace = []
+    sp = SamplingParams(temperature=rcfg.temperature, top_k=rcfg.top_k,
+                        top_p=rcfg.top_p, greedy=rcfg.greedy)
+    for i in range(rcfg.n_requests):
+        t += float(rng.exponential(1.0 / max(rcfg.rate, 1e-9)))
+        if shared is not None:
+            P = int(rng.integers(max(lo, shared.size + 1), hi + 1))
+            prompt = np.concatenate([
+                shared, rng.integers(0, mcfg.vocab_size,
+                                     (P - shared.size,), dtype=np.int64)])
+        elif rcfg.prompt_mode == "repeat":
+            P = int(rng.integers(lo, hi + 1))
+            pat = rng.integers(0, mcfg.vocab_size,
+                               (min(int(rng.integers(1, 5)), P),),
+                               dtype=np.int64)
+            prompt = np.tile(pat, -(-P // pat.size))[:P]
+        else:
+            P = int(rng.integers(lo, hi + 1))
+            prompt = rng.integers(0, mcfg.vocab_size, (P,), dtype=np.int64)
+        trace.append((t, Request(
+            id=f"r{i:04d}", prompt=prompt.astype(np.int32),
+            max_new_tokens=rcfg.max_new_tokens, sampling=sp,
+            rng_seed=rcfg.seed * 100_003 + i)))
+    return trace
+
+
+def run_replay(model, mcfg: ModelConfig, rcfg: ReplayConfig,
+               ecfg: EngineConfig, device=None) -> dict:
+    """Replay the trace in wall-clock time, after one request through a
+    throwaway engine of the same shapes (which also builds the kernel);
+    returns the engine's metrics summary plus replay totals and each
+    request's token stream. ``kernel_launches`` counts the paged
+    attention kernel's launches during the timed replay alone."""
+    w = Engine(model, mcfg, ecfg, device=device)
+    w.submit(Request(id="warmup", prompt=np.zeros((1,), np.int32),
+                     max_new_tokens=1, sampling=SamplingParams(greedy=True)))
+    w.drain()
+    del w
+    engine = Engine(model, mcfg, ecfg, device=device)
+    trace = make_trace(mcfg, rcfg)
+    results: List[RequestResult] = []
+    i = 0
+    launches0 = paged_window_attention.launches
+    t0 = time.monotonic()
+    while len(results) < len(trace):
+        now = time.monotonic() - t0
+        while i < len(trace) and trace[i][0] <= now:
+            req = trace[i][1]
+            if rcfg.deadline_s > 0:
+                req.deadline = time.monotonic() + rcfg.deadline_s
+            rej = engine.submit(req)
+            if rej is not None:
+                results.append(rej)
+            i += 1
+        if engine.idle:
+            if i >= len(trace):
+                break
+            # nothing in flight: sleep to the next arrival
+            time.sleep(min(max(trace[i][0] - now, 0.0), 0.05))
+            continue
+        results.extend(engine.step())
+    wall_s = time.monotonic() - t0
+    ok = [r for r in results if r.ok]
+    gen_tokens = sum(len(r.tokens) for r in results)
+    summary = engine.metrics_summary()
+    summary.update({
+        "device": str(engine.device),
+        "n_requests": len(trace),
+        "n_completed": len(ok),
+        "n_rejected": sum(r.finish_reason.startswith("rejected")
+                          for r in results),
+        "generated_tokens": gen_tokens,
+        "wall_s": round(wall_s, 3),
+        "aggregate_tokens_per_s": round(gen_tokens / wall_s, 1)
+        if wall_s > 0 else 0.0,
+        "kernel_launches": paged_window_attention.launches - launches0,
+        "streams": {r.id: list(r.tokens) for r in results},
+    })
+    return summary
+
+
+def format_summary(s: dict) -> str:
+    """Human-readable metrics block (the serve-replay stdout report)."""
+    h = s["histograms"]
+
+    def pct(name, scale=1.0, unit=""):
+        d = h.get(name, {})
+        return (f"p50 {d.get('p50', 0) * scale:.2f}{unit} / "
+                f"p90 {d.get('p90', 0) * scale:.2f}{unit} / "
+                f"p99 {d.get('p99', 0) * scale:.2f}{unit}")
+
+    sl = s["step_latency"]
+    pg = s["pages"]
+    kr = s["kernel_route"]
+    return "\n".join([
+        f"requests: {s['n_requests']} submitted, {s['n_completed']} "
+        f"completed, {s['n_rejected']} rejected",
+        f"tokens: {s['generated_tokens']} generated in {s['wall_s']}s "
+        f"-> {s['aggregate_tokens_per_s']} tok/s aggregate "
+        f"on {s['device']}",
+        f"pages: {pg['pages_in_use']}/{pg['n_pages']} in use "
+        f"({pg['page_size']} tok/page, util "
+        f"{pg['page_utilization']:.2f}), prefix hits "
+        f"{pg['prefix_hits']}/{pg['prefix_lookups']} "
+        f"({pg['prefix_hit_tokens']} tok, rate "
+        f"{pg['prefix_hit_rate']:.2f}), {pg['evictions']} evictions, "
+        f"{pg['cow_copies']} COW copies",
+        f"TTFT: {pct('ttft_s', 1e3, ' ms')}",
+        f"decode rate/request: {pct('decode_tokens_per_s', 1.0, ' tok/s')}",
+        f"step latency: p50 {sl['p50_s'] * 1e3:.2f} ms / "
+        f"p90 {sl['p90_s'] * 1e3:.2f} ms over {s['n_steps']} steps",
+        f"batch fill: mean {h.get('batch_fill_ratio', {}).get('mean', 0):.2f}"
+        f" (pool), queue wait {pct('queue_wait_s', 1e3, ' ms')}",
+        f"kernel route: decode={kr['decode']}"
+        + (f" (reasons: {','.join(kr['reasons'])})" if kr["reasons"]
+           else "")
+        + f", {s['kernel_launches']} kernel launches",
+    ])

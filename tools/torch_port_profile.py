@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""Where a decode step of the PyTorch port's serving slice spends its
+time, on one NVIDIA card.
+
+    python3 tools/torch_port_profile.py [--steps 20] [--out PATH]
+
+Builds the ``serve-replay`` slice's engine (GPT-2 124M at random init,
+packed pool, 8 slots, pages of 16), fills every slot from one greedy
+shared-prefix trace, and then, for the kernel route and the gather
+route in turns (kernel, gather, gather, kernel), times ``--steps``
+decode steps with the host clock (each step ends in the token fetch, a
+device sync) and traces the same number with ``torch.profiler``. From
+the trace: the device's busy time (the union of kernel intervals), its
+idle share of the traced window, and device time by kernel name. Prints
+one JSON object per measurement, and writes them all to ``--out`` when
+given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+
+from replicatinggpt_tpu_torch.config import get_config  # noqa: E402
+from replicatinggpt_tpu_torch.models.gpt import init_params  # noqa: E402
+from replicatinggpt_tpu_torch.serve import (Engine, EngineConfig,  # noqa: E402
+                                            ReplayConfig, make_trace)
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def filled_engine(model, mcfg, kernel: bool) -> Engine:
+    """An engine whose 8 slots all decode: a 16-request greedy trace
+    submitted at once, stepped until no slot is left to admit and the
+    first decode step is behind it."""
+    eng = Engine(model, mcfg, EngineConfig(pool_size=8, page_size=16,
+                                           paged_kernel=kernel),
+                 device="cuda")
+    trace = make_trace(mcfg, ReplayConfig(
+        n_requests=8, seed=0, prompt_len_max=512,
+        prompt_mode="shared_prefix", max_new_tokens=400, greedy=True))
+    for _, req in trace:
+        assert eng.submit(req) is None
+    eng.step()
+    assert int(eng._active.sum()) == 8
+    return eng
+
+
+def busy_us(events) -> float:
+    """Length of the union of the given kernels' device intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def measure(eng: Engine, steps: int, route: str, cardname: str) -> dict:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = busy_us(kernels) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {
+        "route": route, "card": cardname, "steps": steps,
+        "active_slots": int(eng._active.sum()),
+        "step_wall_ms": round(wall_ms, 4),
+        "traced_step_wall_ms": round(traced_ms / steps, 4),
+        "device_busy_ms_per_step": (round(busy_ms / steps, 4)
+                                    if kernels else "not measured"),
+        "device_idle_share": (round(1.0 - busy_ms / traced_ms, 4)
+                              if kernels else "not measured"),
+        "kernels_per_step": len(kernels) / steps,
+        "device_us_per_step_by_kernel": {
+            n[:80]: round(us / steps, 2) for n, us in top},
+    }
+
+
+def main() -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--out", default=None,
+                   help="also write the rows here as one JSON list")
+    args = p.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    cardname = card()
+    mcfg = dataclasses.replace(get_config("gpt2-small").model,
+                               decode_cache_layout="packed")
+    model = init_params(mcfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    engines = {r: filled_engine(model, mcfg, r == "kernel")
+               for r in ("kernel", "gather")}
+    for eng in engines.values():           # warm both routes
+        eng.step()
+    rows = [measure(engines[r], args.steps, r, cardname)
+            for r in ("kernel", "gather", "gather", "kernel")]
+    for row in rows:
+        print(json.dumps(row))
+    if args.out:
+        out = pathlib.Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(rows, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
