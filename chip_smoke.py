@@ -15,13 +15,27 @@ and fails (non-zero exit) on the first phase that fails:
    order) and f32 (1e-4); then CUDA-event timings of the kernel, the
    plain version and ``F.scaled_dot_product_attention`` over the same
    K/V gathered dense (the library yardstick, used nowhere in the port);
-4. parity phase: one greedy request set through the engine at f32,
-   2 layers of full width, on the kernel route and on the gather route;
-   the token streams must be identical;
-5. slice phase (the main path): ``serve-replay`` of GPT-2 124M at random
+4. flash kernel phase: ``flash_packed_fwd`` / ``flash_packed_bwd``
+   against their plain versions at the training path's shapes (char-GPT:
+   B=64, T=256, C=384, H=6), bf16 (2e-2) and f32 (1e-4), attention
+   dropout off and at 0.2 with one seed (o, lse, d(qkv)); then timings of
+   both kernels, their plain versions and ``scaled_dot_product_attention``
+   on split heads (its forward, and its backward), at the path's dropout;
+5. serving parity phase: one greedy request set through the engine at
+   f32, 2 layers of full width, on the kernel route and on the gather
+   route; the token streams must be identical;
+6. serving slice (a main path): ``serve-replay`` of GPT-2 124M at random
    init through the port's CLI with the kernel route, greedy and then
    sampled; every request completes, every token is in the vocabulary,
-   the prefix cache hits, and the kernel ran 12 times per decode step.
+   the prefix cache hits, and the kernel ran 12 times per decode step;
+7. training parity phase: char-GPT width, 2 layers, f32, 10 steps through
+   the kernels and 10 through the packed plain version with the same
+   seeds and batches, dropout off and on; per-step losses within 1e-4
+   relative;
+8. training slice (a main path): ``train --preset char-gpt`` through the
+   port's CLI for 300 steps; every loss finite, the final val loss under
+   3.0 and under the step-0 estimate, the forward kernel launched 6 times
+   per train step and per eval batch, the backward 6 times per step.
 
 Prints a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -29,28 +43,48 @@ Prints a ``{"kernels": [...]}`` line and, last, the
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import io
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend
 
 from replicatinggpt_tpu_torch import cli
 from replicatinggpt_tpu_torch.config import get_config
+from replicatinggpt_tpu_torch.data.loader import RandomBatcher
 from replicatinggpt_tpu_torch.models.gpt import init_params
 from replicatinggpt_tpu_torch.ops import _build
+from replicatinggpt_tpu_torch.ops import flash_packed as fp
 from replicatinggpt_tpu_torch.ops import paged_attention as pa
+from replicatinggpt_tpu_torch.ops.flash_attention import packed_qkv_attention
 from replicatinggpt_tpu_torch.serve import (Engine, EngineConfig,
                                             ReplayConfig, make_trace)
+from replicatinggpt_tpu_torch.tokenizers import CharTokenizer
+from replicatinggpt_tpu_torch.train.state import create_train_state
+from replicatinggpt_tpu_torch.train.steps import make_train_step
 
 KERNEL_SOURCE = "replicatinggpt_tpu_torch/csrc/paged_window_attention.cu"
 KERNEL_REPLACES = "replicatinggpt_tpu/ops/paged_pallas.py:202"
+FLASH_SOURCE = "replicatinggpt_tpu_torch/csrc/flash_packed.cu"
+FLASH_REPLACES = {"fwd": "replicatinggpt_tpu/ops/flash_pallas.py:1846",
+                  "bwd": "replicatinggpt_tpu/ops/flash_pallas.py:1913"}
+CORPUS = "datasets/shakespeare.txt"
+# char-GPT training shapes (the char-gpt preset)
+FB, FT, FC, FH = 64, 256, 384, 6
+ATTN_RATE = 0.2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # dense tensor-core bf16
 F32_FLOPS = 67e12                  # f32 outside the tensor cores
@@ -178,6 +212,107 @@ def kernel_phase() -> dict:
             "bound_by": b_by, "library_ms": library_ms}
 
 
+def flash_inputs(dtype: torch.dtype, seed: int = 0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((FB, FT, 3 * FC), generator=g, device="cuda")
+    do = torch.randn((FB, FT, FC), generator=g, device="cuda")
+    return qkv.to(dtype), do.to(dtype)
+
+
+def flash_bound_ms(qkv: torch.Tensor, which: str) -> tuple:
+    """Least time of one call: its inputs read once and outputs written
+    once over the memory rate, vs its causal products (2 matrix products
+    forward, 5 backward, over the T(T+1)/2 unmasked pairs) over the peak
+    rate of the input type."""
+    isz, rows, D = qkv.element_size(), FB * FT, FC // FH
+    pairs = FB * FH * FT * (FT + 1) // 2
+    if which == "fwd":   # qkv in; o and lse out
+        nbytes = rows * 3 * FC * isz + rows * FC * isz + rows * FH * 4
+        flops = 2 * 2 * pairs * D
+    else:                # qkv, do, lse, delta in; d(qkv) out
+        nbytes = 2 * rows * 3 * FC * isz + rows * FC * isz + 2 * rows * FH * 4
+        flops = 5 * 2 * pairs * D
+    peak = BF16_FLOPS if qkv.dtype == torch.bfloat16 else F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def flash_kernel_phase() -> list:
+    seed = 1_234_567
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for rate in (0.0, ATTN_RATE):
+            qkv, do = flash_inputs(dtype)
+            o, lse = fp.flash_packed_fwd(qkv, FH, seed=seed, rate=rate)
+            delta = fp.packed_delta(do, o, FH)
+            dqkv = fp.flash_packed_bwd(qkv, do, lse, delta, FH, seed=seed,
+                                       rate=rate)
+            torch.cuda.synchronize()
+            ro, rlse = fp.flash_packed_fwd_ref(qkv, FH, seed=seed, rate=rate)
+            rd = fp.flash_packed_bwd_ref(qkv, do, lse, delta, FH, seed=seed,
+                                         rate=rate)
+            tol = TOL[dtype]
+            err = {}
+            for name, got, ref in (("o", o, ro), ("lse", lse, rlse),
+                                   ("dqkv", dqkv, rd)):
+                err[name] = (got.float() - ref.float()).abs().max().item()
+                torch.testing.assert_close(got.float(), ref.float(),
+                                           atol=tol, rtol=tol)
+            errs[(dtype, rate)] = err
+            print(f"flash check: {str(dtype)[6:]} rate {rate} max_abs_err "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+                  + f" (atol=rtol={tol})")
+    # timings at the training path's setting: bf16, attention dropout 0.2
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    qkv, do = flash_inputs(torch.bfloat16)
+    o, lse = fp.flash_packed_fwd(qkv, FH, seed=seed, rate=ATTN_RATE)
+    delta = fp.packed_delta(do, o, FH)
+    fwd = functools.partial(fp.flash_packed_fwd, qkv, FH, seed=seed,
+                            rate=ATTN_RATE)
+    fwd_ref = functools.partial(fp.flash_packed_fwd_ref, qkv, FH, seed=seed,
+                                rate=ATTN_RATE)
+    bwd = functools.partial(fp.flash_packed_bwd, qkv, do, lse, delta, FH,
+                            seed=seed, rate=ATTN_RATE)
+    bwd_ref = functools.partial(fp.flash_packed_bwd_ref, qkv, do, lse, delta,
+                                FH, seed=seed, rate=ATTN_RATE)
+    D = FC // FH
+
+    def heads(x):
+        return x.reshape(FB, FT, FH, D).transpose(1, 2).contiguous()
+
+    sq, sk, sv = (heads(t).requires_grad_(True) for t in qkv.split(FC, -1))
+    choice = torch._fused_sdp_choice(sq, sk, sv, None, ATTN_RATE, True)
+    backend = SDPBackend(choice).name
+
+    def sdpa():
+        return F.scaled_dot_product_attention(sq, sk, sv, dropout_p=ATTN_RATE,
+                                              is_causal=True)
+
+    out, go = sdpa(), heads(do)
+    ms = {"fwd": time_ms(fwd, flush), "bwd": time_ms(bwd, flush)}
+    plain = {"fwd": time_ms(fwd_ref, flush), "bwd": time_ms(bwd_ref, flush)}
+    library = {"fwd": time_ms(sdpa, flush),
+               "bwd": time_ms(lambda: torch.autograd.grad(
+                   out, (sq, sk, sv), go, retain_graph=True), flush)}
+    rows = []
+    for which, err in (("fwd", "o"), ("bwd", "dqkv")):
+        b_ms, b_by = flash_bound_ms(qkv, which)
+        print(f"flash {which} timing (bf16, B={FB}, T={FT}, C={FC}, H={FH}, "
+              f"attention dropout {ATTN_RATE}): kernel "
+              f"{ms[which] * 1e3:.1f} us, plain {plain[which] * 1e3:.1f} us, "
+              f"sdpa ({backend}) {library[which] * 1e3:.1f} us, bound "
+              f"{b_ms * 1e3:.2f} us ({b_by})")
+        rows.append({
+            "name": f"flash_packed_{which}", "route": "cuda",
+            "source": FLASH_SOURCE, "replaces": FLASH_REPLACES[which],
+            "max_abs_err": errs[(torch.bfloat16, ATTN_RATE)][err],
+            "ms": ms[which], "kernel_ms": ms[which],
+            "plain_ms": plain[which], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library[which], "library": f"sdpa {backend}"})
+    return rows
+
+
 def parity_phase() -> None:
     base = get_config("gpt2-small").model
     mcfg = dataclasses.replace(base, n_layer=2, dtype="float32",
@@ -252,6 +387,85 @@ def slice_phase(card: str) -> int:
     return launches
 
 
+def train_parity_phase(tokens: np.ndarray) -> None:
+    """10 steps of char-GPT width at 2 layers, f32, through the kernels
+    and through the packed plain version, from the same seeds."""
+    base = get_config("char-gpt")
+
+    def plain_core(qkv, n_head, *, seed, rate):
+        return fp.flash_packed_fwd_ref(qkv, n_head, seed=seed, rate=rate)[0]
+
+    plain = functools.partial(packed_qkv_attention, core=plain_core)
+    tcfg = dataclasses.replace(base.train, max_iters=10)
+    for rate in (0.0, ATTN_RATE):
+        mcfg = dataclasses.replace(base.model, n_layer=2, dtype="float32",
+                                   dropout=rate, attn_dropout=rate)
+        curves = []
+        for attention_fn in (None, plain):
+            state = create_train_state(mcfg, tcfg, "cuda")
+            step = make_train_step(mcfg, tcfg, attention_fn)
+            batcher = RandomBatcher(tokens, tcfg.batch_size, mcfg.block_size,
+                                    seed=tcfg.seed)
+            losses = []
+            for _ in range(tcfg.max_iters):
+                batch = (torch.from_numpy(a).cuda()
+                         for a in batcher.next_batch())
+                losses.append(step(state, tuple(batch)))
+            curves.append([float(x) for x in losses])
+        rel = max(abs(a - b) / abs(b) for a, b in zip(*curves))
+        if not rel <= 1e-4:
+            raise AssertionError(f"train parity (dropout {rate}): kernel "
+                                 f"{curves[0]} vs plain {curves[1]}")
+        print(f"train parity (f32, 2 layers, C={FC}, dropout {rate}): 10 "
+              f"losses {curves[0][0]:.6f} -> {curves[0][-1]:.6f}, max "
+              f"relative difference kernel vs plain {rel:.2e} (limit 1e-4)")
+
+
+def train_slice_phase(card: str) -> tuple:
+    """The training main path through the port's CLI, in process."""
+    n_layer = get_config("char-gpt").model.n_layer
+    steps, eval_iters, n_evals = 300, 20, 4   # evals at 0, 100, 200, end
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "train.jsonl")
+        fp.flash_packed_fwd.launches = fp.flash_packed_bwd.launches = 0
+        with contextlib.redirect_stdout(out):
+            assert cli.main(["train", "--preset", "char-gpt", "--max-iters",
+                             str(steps), "--eval-interval", "100",
+                             "--eval-iters", str(eval_iters), "--log-jsonl",
+                             log]) == 0
+        fwd, bwd = fp.flash_packed_fwd.launches, fp.flash_packed_bwd.launches
+        with open(log) as f:
+            events = [json.loads(line) for line in f]
+    print(out.getvalue(), end="")
+    evals = [e for e in events if e["event"] == "eval"]
+    losses = [e["loss"] for e in events if e["event"] == "step"]
+    losses += [e[k] for e in evals for k in ("train_loss", "val_loss")]
+    assert losses and all(math.isfinite(x) for x in losses), losses
+    assert [e["step"] for e in evals] == [0, 100, 200, steps], evals
+    first, last = evals[0]["val_loss"], evals[-1]["val_loss"]
+    assert last < 3.0 and last < first, (first, last)
+    assert fwd == n_layer * (steps + n_evals * 2 * eval_iters), fwd
+    assert bwd == n_layer * steps, bwd
+    info = {k: v for e in events if e["event"] == "info" for k, v in e.items()}
+    print(f"train slice (char-gpt, {steps} steps, B=64, T=256) on {card}: "
+          f"{info['tokens_per_sec']:.0f} tok/s, train step p50 "
+          f"{info['p50_ms']:.3f} ms (mean {info['mean_ms']:.3f}), val loss "
+          f"{last:.4f} at step {steps} (step 0: {first:.4f}), {fwd} forward / "
+          f"{bwd} backward kernel launches")
+    return fwd, bwd
+
+
+def build_kernels() -> None:
+    """One nvcc per kernel source, all started together."""
+    t0 = time.perf_counter()
+    names = ("paged_window_attention", "flash_packed")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
+        for f in [ex.submit(_build.build, n, verbose=True) for n in names]:
+            f.result()
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -261,13 +475,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"card: {card}")
-    t0 = time.perf_counter()
-    _build.build("paged_window_attention", verbose=True)
-    print(f"build: {time.perf_counter() - t0:.1f} s")
+    build_kernels()
     row = kernel_phase()
+    flash_rows = flash_kernel_phase()
     parity_phase()
     row["launches"] = slice_phase(card)
-    print(json.dumps({"kernels": [row]}))
+    text = open(CORPUS, encoding="utf-8").read()
+    train_parity_phase(CharTokenizer.from_text(text).encode_np(text))
+    flash_rows[0]["launches"], flash_rows[1]["launches"] = \
+        train_slice_phase(card)
+    print(json.dumps({"kernels": [row, *flash_rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

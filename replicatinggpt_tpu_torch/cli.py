@@ -1,12 +1,14 @@
 """Command-line interface of the PyTorch/CUDA port.
 
+    python -m replicatinggpt_tpu_torch train --preset char-gpt
     python -m replicatinggpt_tpu_torch serve-replay --preset gpt2-small \\
         --decode-cache-layout packed --paged-kernel --n-requests 16
 
-``serve-replay`` takes the JAX subcommand's flags. Those this port does
-not implement yet are still accepted by the parser, so that a command
-written for the JAX package fails with the ROADMAP item that will bring
-the feature, instead of being half-run or silently ignored.
+Both subcommands run on the card unless given ``--device cpu``, and take
+the JAX subcommands' flags. Those this port does not implement yet are
+still accepted by the parser, so that a command written for the JAX
+package fails with the ROADMAP item that will bring the feature, instead
+of being half-run or silently ignored.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import sys
 
 import torch
 
-from .config import add_config_flags, config_from_args
+from .config import add_config_flags, add_train_flags, config_from_args
 
 #: (flag, dest, value that means "off", ROADMAP.md item that brings it)
 UNPORTED_FLAGS = (
@@ -54,8 +56,30 @@ UNPORTED_FLAGS = (
 )
 
 
-def _add_unported_flags(p: argparse.ArgumentParser) -> None:
-    for flag, dest, off, _ in UNPORTED_FLAGS:
+#: the train subcommand's unported flags, in the same form
+TRAIN_UNPORTED_FLAGS = (
+    ("--checkpoint-dir", "checkpoint_dir", None,
+     "queue A item 4 (checkpoints)"),
+    ("--resume", "resume", False, "queue A item 4 (checkpoints)"),
+    ("--sample-after", "sample_after", False,
+     "queue A item 5 (generation)"),
+    ("--mesh-shape", "mesh_shape", "1x1", "queue A item 11 (meshes)"),
+    ("--trace-out", "trace_out", None, "queue A item 12 (telemetry)"),
+    ("--profile-dir", "profile_dir", None, "queue A item 12 (telemetry)"),
+    ("--profile-start", "profile_start", None,
+     "queue A item 12 (telemetry)"),
+    ("--profile-steps", "profile_steps", None,
+     "queue A item 12 (telemetry)"),
+    ("--profile-port", "profile_port", None, "queue A item 12 (telemetry)"),
+    ("--steps-per-dispatch", "steps_per_dispatch", 1,
+     "ground rules (the K-step dispatch scan is TPU scaffolding; each "
+     "step is one dispatch here)"),
+)
+
+
+def _add_unported_flags(p: argparse.ArgumentParser,
+                        flags=UNPORTED_FLAGS) -> None:
+    for flag, dest, off, _ in flags:
         if isinstance(off, bool):
             p.add_argument(flag, dest=dest, action="store_true")
         else:
@@ -64,9 +88,9 @@ def _add_unported_flags(p: argparse.ArgumentParser) -> None:
                            help="not in this port yet (see ROADMAP.md)")
 
 
-def check_unported(args: argparse.Namespace) -> None:
+def check_unported(args: argparse.Namespace, flags=UNPORTED_FLAGS) -> None:
     """Raise for any unported flag set away from its off value."""
-    for flag, dest, off, item in UNPORTED_FLAGS:
+    for flag, dest, off, item in flags:
         if getattr(args, dest) != off:
             raise SystemExit(
                 f"{flag} is not implemented in replicatinggpt_tpu_torch "
@@ -142,9 +166,33 @@ def cmd_serve_replay(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    """Train a preset on the corpus and print the reference's log lines."""
+    check_unported(args, TRAIN_UNPORTED_FLAGS)
+    from .train.runner import train
+    from .utils.logging import StepLogger
+    cfg = config_from_args(args)
+    logger = StepLogger(jsonl_path=args.log_jsonl)
+    try:
+        train(cfg, device=args.device, logger=logger)
+    finally:
+        logger.close()
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="replicatinggpt_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    pt = sub.add_parser("train", help="train a model")
+    add_config_flags(pt)
+    add_train_flags(pt)
+    pt.add_argument("--device", default=None,
+                    help="'cuda' (default; fails without a card) or 'cpu'")
+    pt.add_argument("--log-jsonl", default=None,
+                    help="also append the step/eval/info events here as "
+                         "JSON lines")
+    _add_unported_flags(pt, TRAIN_UNPORTED_FLAGS)
+    pt.set_defaults(fn=cmd_train)
     ps = sub.add_parser("serve-replay",
                         help="replay a synthetic Poisson request trace "
                              "through the paged serving engine and report "

@@ -1,11 +1,12 @@
-"""Model configuration for the PyTorch/CUDA port.
+"""Model and training configuration for the PyTorch/CUDA port.
 
-A copy of the subset of ``replicatinggpt_tpu/config.py`` that the
-serving path needs: the ``ModelConfig`` architecture record, the presets
-``serve-replay`` runs (``gpt2-small``, ``char-gpt``, ``test-tiny``) and
-the model-shape CLI overlay. TPU dispatch knobs (``use_layer_scan``,
-``scan_layers``, remat, attention routing) have no counterpart here:
-PyTorch runs the layer loop eagerly and the port picks its own kernels.
+A copy of the subset of ``replicatinggpt_tpu/config.py`` that the ported
+paths need: the ``ModelConfig`` architecture record, the ``TrainConfig``
+optimization schedule, the presets (``gpt2-small``, ``char-gpt``,
+``test-tiny``) and the CLI overlay. TPU dispatch knobs
+(``use_layer_scan``, ``scan_layers``, remat, ``attention_impl``,
+``steps_per_dispatch``) have no counterpart here: PyTorch runs the layer
+loop eagerly and the port picks its own kernels.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
@@ -27,11 +29,15 @@ class ModelConfig:
     n_layer: int = 6
     n_head: int = 6
     n_embd: int = 384
+    dropout: float = 0.2          # residual + MLP dropout
+    attn_dropout: float = 0.2     # dropout on attention weights
     tied_head: bool = True        # wte doubles as the output head
     activation: str = "gelu"      # 'gelu' (tanh approximation) | 'relu'
     layernorm_eps: float = 1e-5
     init_std: float = 0.02        # residual projections: std/sqrt(2L)
     dtype: str = "bfloat16"       # compute dtype; master params stay f32
+    loss_chunk: int = 0           # rows of (B*T, V) logits per training CE
+                                  # chunk; 0 = the one-shot head
     decode_cache_layout: str = "heads"   # 'heads' (L,N,H,page,D) |
                                          # 'packed' (L,N,page,C)
 
@@ -61,13 +67,43 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """Optimization and loop schedule (the JAX ``TrainConfig`` without
+    its TPU dispatch and checkpoint fields)."""
+
+    batch_size: int = 64
+    lr: float = 2e-4
+    betas: Tuple[float, float] = (0.9, 0.999)
+    weight_decay: float = 0.01
+    grad_clip: float = 0.0           # 0 = off
+    max_iters: int = 3000
+    warmup_iters: int = 0
+    lr_schedule: str = "constant"    # 'constant' | 'cosine'
+    min_lr: float = 0.0
+    eval_interval: int = 200
+    eval_iters: int = 200
+    log_interval: int = 10
+    grad_accum_steps: int = 1        # microbatches averaged per step
+    seed: int = 1337
+    sampling: str = "random"         # 'random' | 'sequential'
+    val_fraction: float = 0.1        # 90/10 split
+
+
+@dataclass(frozen=True)
 class Config:
-    """A preset: the model plus the seed ``serve-replay`` initializes
-    random weights from (the JAX preset's ``train.seed``)."""
+    """A preset: the model, its training schedule, tokenizer and corpus.
+    ``seed`` (the training seed) also seeds ``serve-replay``'s random
+    weights."""
 
     name: str
     model: ModelConfig
-    seed: int = 1337
+    train: TrainConfig = TrainConfig()
+    tokenizer: str = "char"
+    dataset: str = "datasets/shakespeare.txt"
+
+    @property
+    def seed(self) -> int:
+        return self.train.seed
 
 
 PRESETS = {
@@ -76,20 +112,34 @@ PRESETS = {
     "gpt2-small": Config(
         name="gpt2-small",
         model=ModelConfig(vocab_size=50257, block_size=1024, n_layer=12,
-                          n_head=12, n_embd=768, tied_head=True,
-                          activation="gelu")),
-    # canonical char-GPT: untied head, ReLU
+                          n_head=12, n_embd=768, dropout=0.0,
+                          attn_dropout=0.0, tied_head=True,
+                          activation="gelu"),
+        train=TrainConfig(batch_size=32, lr=3e-4, max_iters=1000,
+                          sampling="sequential", lr_schedule="cosine",
+                          warmup_iters=100, grad_clip=1.0),
+        tokenizer="bpe"),
+    # canonical char-GPT: untied head, ReLU, dropout 0.2
     "char-gpt": Config(
         name="char-gpt",
         model=ModelConfig(vocab_size=65, block_size=256, n_layer=6,
-                          n_head=6, n_embd=384, tied_head=False,
-                          activation="relu")),
+                          n_head=6, n_embd=384, dropout=0.2,
+                          attn_dropout=0.2, tied_head=False,
+                          activation="relu"),
+        train=TrainConfig(batch_size=64, lr=2e-4, max_iters=3000,
+                          eval_interval=200, eval_iters=200, seed=1337,
+                          sampling="random"),
+        tokenizer="char"),
     # tiny config for tests and smoke runs
     "test-tiny": Config(
         name="test-tiny",
         model=ModelConfig(vocab_size=65, block_size=32, n_layer=2,
-                          n_head=2, n_embd=32, tied_head=True,
-                          activation="gelu", dtype="float32")),
+                          n_head=2, n_embd=32, dropout=0.0,
+                          attn_dropout=0.0, tied_head=True,
+                          activation="gelu", dtype="float32"),
+        train=TrainConfig(batch_size=8, lr=1e-3, max_iters=50,
+                          eval_interval=25, eval_iters=4, log_interval=10),
+        tokenizer="char"),
 }
 
 
@@ -107,6 +157,18 @@ MODEL_OVERRIDE_FLAGS = (
     ("decode_cache_layout", "--decode-cache-layout"),
 )
 
+#: (dest, flag, type) training overrides registered by add_train_flags
+TRAIN_OVERRIDE_FLAGS = (
+    ("batch_size", "--batch-size", int), ("lr", "--lr", float),
+    ("max_iters", "--max-iters", int),
+    ("eval_interval", "--eval-interval", int),
+    ("eval_iters", "--eval-iters", int),
+    ("grad_accum_steps", "--grad-accum-steps", int),
+    ("warmup_iters", "--warmup-iters", int), ("min_lr", "--min-lr", float),
+    ("grad_clip", "--grad-clip", float),
+    ("log_interval", "--log-interval", int),
+)
+
 
 def add_config_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--preset", default="char-gpt", choices=sorted(PRESETS))
@@ -119,13 +181,42 @@ def add_config_flags(p: argparse.ArgumentParser) -> None:
                         "or 'packed' (L,N,page,C); the CUDA paged "
                         "attention kernel needs 'packed'")
     p.add_argument("--seed", type=int, default=None,
-                   help="seed of the random weights and the replay trace")
+                   help="training seed (also seeds serve-replay's random "
+                        "weights and trace)")
+
+
+def add_train_flags(p: argparse.ArgumentParser) -> None:
+    """The ``train`` subcommand's overrides (the JAX flags of the same
+    names)."""
+    p.add_argument("--dropout", type=float, default=None,
+                   help="residual and attention dropout rate")
+    p.add_argument("--loss-chunk", dest="loss_chunk", type=int,
+                   default=None,
+                   help="chunked training CE head: rows per chunk "
+                        "(0 = one-shot logits)")
+    for dest, flag, kind in TRAIN_OVERRIDE_FLAGS:
+        p.add_argument(flag, dest=dest, type=kind, default=None)
+    p.add_argument("--lr-schedule", dest="lr_schedule", default=None,
+                   choices=["constant", "cosine"])
+    p.add_argument("--tokenizer", default=None)
+    p.add_argument("--dataset", default=None)
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
     cfg = get_config(args.preset)
     mk = {dest: getattr(args, dest) for dest, _ in MODEL_OVERRIDE_FLAGS
           if getattr(args, dest, None) is not None}
-    model = dataclasses.replace(cfg.model, **mk).validate()
-    seed = cfg.seed if args.seed is None else args.seed
-    return dataclasses.replace(cfg, model=model, seed=seed)
+    if getattr(args, "dropout", None) is not None:
+        mk["dropout"] = mk["attn_dropout"] = args.dropout
+    if getattr(args, "loss_chunk", None) is not None:
+        mk["loss_chunk"] = args.loss_chunk
+    tk = {dest: getattr(args, dest) for dest, _, _ in TRAIN_OVERRIDE_FLAGS
+          if getattr(args, dest, None) is not None}
+    for dest in ("seed", "lr_schedule"):
+        if getattr(args, dest, None) is not None:
+            tk[dest] = getattr(args, dest)
+    ck = {dest: getattr(args, dest) for dest in ("tokenizer", "dataset")
+          if getattr(args, dest, None) is not None}
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, **mk).validate(),
+        train=dataclasses.replace(cfg.train, **tk), **ck)

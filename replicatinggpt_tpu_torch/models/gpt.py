@@ -1,15 +1,20 @@
-"""GPT for the paged serving path, in PyTorch.
+"""GPT in PyTorch: the training forward and the paged serving steps.
 
-The cached/paged half of ``replicatinggpt_tpu/models/gpt.py``:
+A port of ``replicatinggpt_tpu/models/gpt.py``:
 
-- ``GPT``: an ``nn.Module`` holding the f32 master weights in the JAX
-  package's layout (per-layer tensors stacked on a leading L axis, each
-  matrix (in, out) so the code computes ``h @ W`` as JAX does);
-  ``init_params`` draws them from a ``torch.Generator`` and
+- ``GPT``: an ``nn.Module`` holding the f32 master weights (trainable
+  parameters) in the JAX package's layout (per-layer tensors stacked on
+  a leading L axis, each matrix (in, out) so the code computes ``h @ W``
+  as JAX does); ``init_params`` draws them from a ``torch.Generator`` and
   ``params_from_numpy`` carries the JAX ``init_params`` tree across;
-- ``compute_params``: the tensors the steps read, cast once to the
-  compute dtype (layernorm scales and biases stay f32, as JAX reads
-  them);
+- ``forward``: the full-sequence training forward and its loss. It casts
+  the masters to the compute dtype inside every call (JAX's
+  ``.astype(cd)``), so autograd leaves f32 gradients on the masters;
+  attention goes through the packed flash kernel inside its envelope and
+  the split-heads core outside it (``ops/flash_attention.py``);
+- ``compute_params``: the serving steps' detached view of the weights,
+  cast once to the compute dtype (layernorm scales and biases stay f32,
+  as JAX reads them);
 - the paged pool (``init_paged_kv_pool``, ``_gather_pages``,
   ``_scatter_kv``) and the two serving steps, ``decode_step_paged`` and
   ``prefill_chunk_paged``.
@@ -21,15 +26,19 @@ symmetry with the JAX signatures.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
-from ..ops.attention import cached_attention, windowed_cached_attention
+from ..ops.attention import (cached_attention, full_causal_attention,
+                             uint8_inverted_dropout,
+                             windowed_cached_attention)
+from ..ops.flash_attention import packed_envelope, packed_qkv_attention
 from ..ops.paged_attention import paged_window_attention
 
 Params = Dict[str, Any]
@@ -56,7 +65,7 @@ class GPT(nn.Module):
         kw = {"device": device, "dtype": dtype}
 
         def empty(*shape):
-            return nn.Parameter(torch.empty(shape, **kw), requires_grad=False)
+            return nn.Parameter(torch.empty(shape, **kw))
 
         self.wte = empty(V, C)
         self.wpe = empty(cfg.block_size, C)
@@ -129,19 +138,30 @@ def _copy_leaf(dst: torch.Tensor, src, name: str) -> None:
     dst.copy_(torch.from_numpy(arr))
 
 
-def compute_params(model: GPT, device=None) -> Params:
-    """The step functions' view of the weights on ``device``: matrices,
-    biases and embeddings cast ONCE to the compute dtype (JAX casts on
-    every use, which gives the same values); layernorm parameters stay
-    in the master dtype, as JAX's ``_layer_norm`` reads them in f32."""
-    cd = model.cfg.compute_dtype
+def param_count(model: GPT) -> int:
+    return sum(p.numel() for p in model.parameters())
 
+
+def _cast_tree(tree: Params, cd: torch.dtype, device=None) -> Params:
+    """Matrices, biases and embeddings in ``cd``; layernorm parameters
+    stay in the master dtype, as JAX's ``_layer_norm`` reads them in
+    f32. Differentiable: the casts carry gradients back to ``tree``."""
     def cast(name, t):
-        return t.detach().to(device, None if "ln" in name else cd)
+        return t.to(device, None if "ln" in name else cd)
 
-    out = {n: cast(n, t) for n, t in model.tree().items() if n != "blocks"}
-    out["blocks"] = {n: cast(n, t) for n, t in model.blocks.items()}
+    out = {n: cast(n, t) for n, t in tree.items() if n != "blocks"}
+    out["blocks"] = {n: cast(n, t) for n, t in tree["blocks"].items()}
     return out
+
+
+def compute_params(model: GPT, device=None) -> Params:
+    """The serving steps' view of the weights on ``device``, detached and
+    cast ONCE to the compute dtype (JAX casts on every use, which gives
+    the same values)."""
+    tree = model.tree()
+    detached = {n: t.detach() for n, t in tree.items() if n != "blocks"}
+    detached["blocks"] = {n: t.detach() for n, t in tree["blocks"].items()}
+    return _cast_tree(detached, model.cfg.compute_dtype, device)
 
 
 # ---------------------------------------------------------------------------
@@ -181,22 +201,133 @@ def _layer(params: Params, i: int) -> Dict[str, torch.Tensor]:
     return {n: t[i] for n, t in params["blocks"].items()}
 
 
+def _qkv(h_in, lp, cfg: ModelConfig):
+    """ln1 + fused QKV projection: the packed (B, T, 3C) rows."""
+    h = _layer_norm(h_in, lp["ln1_scale"], lp["ln1_bias"], cfg.layernorm_eps)
+    return _wmm(h, lp, "qkv_kernel") + lp["qkv_bias"]
+
+
 def _cached_qkv_merged(h_in, lp, cfg: ModelConfig):
     """ln1 + fused QKV projection, heads still merged: (B, T, C) q/k/v."""
-    h = _layer_norm(h_in, lp["ln1_scale"], lp["ln1_bias"], cfg.layernorm_eps)
-    qkv = _wmm(h, lp, "qkv_kernel") + lp["qkv_bias"]
-    return qkv.split(cfg.n_embd, dim=-1)
+    return _qkv(h_in, lp, cfg).split(cfg.n_embd, dim=-1)
 
 
-def _cached_block_tail(h_in, attn_merged, lp, cfg: ModelConfig):
-    """Output projection + residual + ln2 + MLP + residual."""
+def _block_tail(h_in, attn_merged, lp, cfg: ModelConfig,
+                drop: Callable = lambda t: t):
+    """Output projection + residual + ln2 + MLP + residual, with ``drop``
+    (residual dropout when training) on both branches."""
     attn = _wmm(attn_merged, lp, "attn_out_kernel") + lp["attn_out_bias"]
-    h_mid = h_in + attn
+    h_mid = h_in + drop(attn)
     h = _layer_norm(h_mid, lp["ln2_scale"], lp["ln2_bias"], cfg.layernorm_eps)
     h = _activation(_wmm(h, lp, "mlp_up_kernel") + lp["mlp_up_bias"],
                     cfg.activation)
     h = _wmm(h, lp, "mlp_down_kernel") + lp["mlp_down_bias"]
-    return h_mid + h
+    return h_mid + drop(h)
+
+
+# ---------------------------------------------------------------------------
+# training forward (full sequence)
+# ---------------------------------------------------------------------------
+
+class DropoutRNG:
+    """The random streams of one training run's dropout: ``bits``, a
+    generator on the device, draws the residual masks (and the
+    split-heads route's attention masks); ``seeds``, a CPU generator,
+    draws the packed kernel's int32 seed per layer and step, so no draw
+    waits on the card."""
+
+    def __init__(self, seed: int, device=None):
+        dev = torch.device("cpu" if device is None else device)
+        self.bits = torch.Generator(device=dev).manual_seed(seed)
+        self.seeds = torch.Generator().manual_seed(seed)
+
+    def kernel_seed(self) -> int:
+        return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.seeds))
+
+
+AttentionFn = Callable[..., torch.Tensor]
+
+
+def split_attention(qkv, cfg: ModelConfig, rng: Optional[DropoutRNG],
+                    train: bool):
+    """The split-heads route (shapes outside the packed envelope)."""
+    q, k, v = (_split_heads(t, cfg.n_head)
+               for t in qkv.split(cfg.n_embd, dim=-1))
+    return _merge_heads(full_causal_attention(
+        q, k, v, dropout_rate=cfg.attn_dropout,
+        generator=None if rng is None else rng.bits, train=train))
+
+
+def attention_for(cfg: ModelConfig, seq_len: int) -> AttentionFn:
+    return (packed_qkv_attention if packed_envelope(cfg, seq_len)[0]
+            else split_attention)
+
+
+def _dropout(x, rate: float, rng: Optional[DropoutRNG], train: bool):
+    if not train or rate <= 0.0 or rng is None:
+        return x
+    return uint8_inverted_dropout(x, rate, rng.bits)
+
+
+def _block(x, lp, cfg: ModelConfig, *, rng: Optional[DropoutRNG],
+           train: bool, attention_fn: AttentionFn):
+    """One pre-LN block over a full (B, T, C) sequence."""
+    attn = attention_fn(_qkv(x, lp, cfg), cfg, rng, train)
+    return _block_tail(x, attn, lp, cfg,
+                       lambda t: _dropout(t, cfg.dropout, rng, train))
+
+
+def forward(params: Params, idx: torch.Tensor, cfg: ModelConfig, *,
+            targets: Optional[torch.Tensor] = None,
+            rng: Optional[DropoutRNG] = None, train: bool = False,
+            attention_fn: Optional[AttentionFn] = None
+            ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Full-sequence forward over the master weights ``params`` (the
+    ``GPT.tree()`` dict). idx: (B, T) token ids of any integer dtype.
+
+    Returns ``(logits, loss)``: (B, T, V) f32 logits (the compute-dtype
+    product, cast) and the mean f32 cross-entropy, or None without
+    targets. With ``cfg.loss_chunk`` and targets the chunked head returns
+    ``(None, loss)``. ``attention_fn(qkv, cfg, rng, train)`` replaces the
+    attention core (default: the packed route inside its envelope, the
+    split-heads route outside)."""
+    B, T = idx.shape
+    p = _cast_tree(params, cfg.compute_dtype)
+    attend = attention_fn or attention_for(cfg, T)
+    x = p["wte"][idx.long()] + p["wpe"][:T]
+    for i in range(cfg.n_layer):
+        x = _block(x, _layer(p, i), cfg, rng=rng, train=train,
+                   attention_fn=attend)
+    x = _layer_norm(x, p["ln_f_scale"], p["ln_f_bias"], cfg.layernorm_eps)
+    head = p["wte"].T if cfg.tied_head else p["lm_head"]
+    if targets is not None and cfg.loss_chunk:
+        if (B * T) % cfg.loss_chunk:
+            raise ValueError(f"loss_chunk={cfg.loss_chunk} must divide "
+                             f"B*T={B * T}; pick a divisor or set "
+                             f"loss_chunk=0")
+        return None, _chunked_ce_loss(x, head, targets, cfg.loss_chunk)
+    logits = (x @ head).float()
+    if targets is None:
+        return logits, None
+    return logits, F.cross_entropy(logits.reshape(B * T, -1),
+                                   targets.reshape(B * T).long())
+
+
+def _chunk_ce_sum(xc, head, tc):
+    return F.cross_entropy((xc @ head).float(), tc, reduction="sum")
+
+
+def _chunked_ce_loss(x, head, targets, chunk: int) -> torch.Tensor:
+    """Cross-entropy without the full (B*T, V) f32 logits: ``chunk`` rows
+    at a time, each chunk recomputed in the backward (activation
+    checkpointing, as JAX's ``jax.checkpoint`` body) instead of stored."""
+    N, C = x.shape[0] * x.shape[1], x.shape[-1]
+    xf, tf = x.reshape(N, C), targets.reshape(N).long()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, N, chunk):
+        total = total + checkpoint(_chunk_ce_sum, xf[i:i + chunk], head,
+                                   tf[i:i + chunk], use_reentrant=False)
+    return total / N
 
 
 def _decode_head(x, params: Params, cfg: ModelConfig):
@@ -322,7 +453,7 @@ def decode_step_paged(params: Params, idx_t, pos, active, tables, cache,
             k_all, v_all = _gather_kv(cache, i, tables, packed, H)
             attn = _merge_heads(cached_attention(
                 _split_heads(q_m, H), k_all, v_all, pos_eff))
-        x = _cached_block_tail(x, attn, lp, cfg)
+        x = _block_tail(x, attn, lp, cfg)
     return _decode_head(x, params, cfg), cache
 
 
@@ -362,5 +493,5 @@ def prefill_chunk_paged(params: Params, idx, offset: int, limit: int,
         k_all, v_all = _gather_kv(cache, i, tables, packed, H)
         attn = windowed_cached_attention(_split_heads(q_m, H), k_all, v_all,
                                          base)
-        x = _cached_block_tail(x, _merge_heads(attn), lp, cfg)
+        x = _block_tail(x, _merge_heads(attn), lp, cfg)
     return cache

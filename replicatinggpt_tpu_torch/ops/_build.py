@@ -48,7 +48,8 @@ def library_path(name: str) -> Path:
 def build(name: str, verbose: bool = False) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built;
     returns the library path. ``verbose`` adds ``-Xptxas -v`` and prints
-    the compiler's report (registers, shared memory, spills)."""
+    the compiler's report (registers, shared memory, spills) per kernel
+    function."""
     out = library_path(name)
     if out.exists():
         return out
@@ -65,7 +66,8 @@ def build(name: str, verbose: bool = False) -> Path:
             raise RuntimeError(f"nvcc failed for {name}.cu "
                                f"(exit {proc.returncode}):\n{proc.stderr}")
         if verbose:
-            print(proc.stderr, end="")
+            print("".join(line for line in proc.stderr.splitlines(True)
+                          if "Compiling entry function" not in line), end="")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):

@@ -1,24 +1,71 @@
-"""Attention cores over a gathered KV view, as plain tensor code.
+"""Attention cores and dropout, as plain tensor code.
 
-Ports of ``replicatinggpt_tpu/ops/attention.py`` ``cached_attention``
-and ``windowed_cached_attention``: the paged engine's gather route and
-its prefill attention. Conventions: q, k, v are (B, H, T, D); scores
-and softmax in f32 whatever the compute dtype; the weights are cast to
-v's dtype before the value product, as the JAX cores do.
+Ports of ``replicatinggpt_tpu/ops/attention.py``: ``cached_attention``
+and ``windowed_cached_attention`` (the paged engine's gather route and
+its prefill attention), ``full_causal_attention`` (the training block's
+split-heads route, for shapes outside the packed flash kernel's
+envelope) and the dropout helpers every dropout site shares.
+Conventions: q, k, v are (B, H, T, D); scores and softmax in f32
+whatever the compute dtype; the weights are cast to v's dtype before the
+value product, as the JAX cores do. Random bits come from an explicit
+``torch.Generator`` on the tensors' device.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 NEG_INF = -1e30   # large-negative instead of -inf: NaN-free masked rows
 
 
-def _masked_softmax_pv(q, k, v, keep, scale):
+def quantize_dropout_rate(rate: float) -> float:
+    """A dropout rate quantized to 1/256 (clamped to [1/256, 255/256]):
+    every dropout site, the flash kernel's in-kernel mask included, uses
+    this effective rate."""
+    return min(max(int(round(rate * 256)), 1), 255) / 256.0
+
+
+def uint8_inverted_dropout(x: torch.Tensor, rate: float,
+                           generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout from 8-bit random draws: drop iff bits < 256*q;
+    kept entries scale by 1/(1-q), so E[out] == x."""
+    q = quantize_dropout_rate(rate)
+    bits = torch.randint(0, 256, x.shape, dtype=torch.uint8,
+                         generator=generator, device=x.device)
+    return torch.where(bits >= int(q * 256), x / (1.0 - q),
+                       torch.zeros_like(x))
+
+
+def _softmax_dropout(weights: torch.Tensor, rate: float,
+                     generator: Optional[torch.Generator],
+                     train: bool) -> torch.Tensor:
+    if not train or rate <= 0.0 or generator is None:
+        return weights
+    return uint8_inverted_dropout(weights, rate, generator)
+
+
+def _masked_softmax_pv(q, k, v, keep, scale, *, rate: float = 0.0,
+                       generator: Optional[torch.Generator] = None,
+                       train: bool = False):
     s = (q.float() @ k.float().transpose(-1, -2)) * scale
     s = torch.where(keep, s, torch.full_like(s, NEG_INF))
-    w = torch.softmax(s, dim=-1)
+    w = _softmax_dropout(torch.softmax(s, dim=-1), rate, generator, train)
     return w.to(v.dtype) @ v
+
+
+def full_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, dropout_rate: float = 0.0,
+                          generator: Optional[torch.Generator] = None,
+                          train: bool = False) -> torch.Tensor:
+    """Causal self-attention over a full sequence, q/k/v (B, H, T, D),
+    with dropout on the attention weights when training."""
+    T, D = q.shape[-2:]
+    pos = torch.arange(T, device=q.device)
+    return _masked_softmax_pv(q, k, v, pos[None, :] <= pos[:, None],
+                              D ** -0.5, rate=dropout_rate,
+                              generator=generator, train=train)
 
 
 def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,0 +1,311 @@
+"""Packed causal flash attention off the fused (B, T, 3C) QKV output.
+
+The port of ``replicatinggpt_tpu/ops/flash_pallas.py``'s packed resident
+family (``pallas_flash_attention_packed(family="resident")``, custom VJP
+``_flash_packed``): head h's q, k and v are the column strips
+``[h*D, (h+1)*D)``, ``C + ...`` and ``2C + ...`` of each row. The forward
+gives the merged (B, T, C) output in qkv's dtype and the f32 lse
+(B, T, H); the backward gives the packed d(qkv) from lse and delta =
+rowsum(dO * O) per head. Causal, scale D**-0.5, f32 softmax; with a rate
+the attention weights get the JAX kernels' hashed dropout mask (the
+normalizer sees no dropout), bit for bit for the same int32 seed.
+
+- ``fmix32`` / ``dropout_mult``: the mask (``_fmix32``, ``_dropout_mult``)
+  in int64 tensor arithmetic;
+- ``flash_packed_fwd_ref`` / ``flash_packed_bwd_ref``: the plain PyTorch
+  versions (the CPU path and the card's yardstick of correctness);
+- ``flash_packed_fwd`` / ``flash_packed_bwd``: the wrappers. A CPU tensor
+  takes the plain version; a CUDA tensor launches
+  ``csrc/flash_packed.cu`` or raises. Each has a ``.launches`` counter;
+- ``FlashPacked``: the ``torch.autograd.Function`` over the two;
+- ``flash_packed_envelope``: the shapes the kernels take.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+from .attention import NEG_INF, quantize_dropout_rate
+
+_KERNEL = "flash_packed"
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128)   # csrc/flash_packed.cu instantiations
+TILE = 64                   # csrc/flash_packed.cu kTile
+MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 x in [0, 2**32): the product is split
+    in 16-bit halves so no intermediate leaves int64's range."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & MASK32
+
+
+def fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finalizer on int64 tensors holding uint32 values
+    (the CPU has no ``>>`` for ``torch.uint32``)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def dropout_params(rate: float) -> Tuple[int, float]:
+    """(threshold, keep): keep a weight iff its hash > threshold and
+    scale it by keep = (float32)(1/(1-q)), q the quantized rate."""
+    q = quantize_dropout_rate(rate)
+    return int(q * 256) * 2 ** 24, float(np.float32(1.0 / (1.0 - q)))
+
+
+def dropout_mult(seed: int, bh: torch.Tensor, q_pos: torch.Tensor,
+                 k_pos: torch.Tensor, rate: float) -> torch.Tensor:
+    """(N, Tq, Tk) f32 tile of {0, 1/(1-q)} for the N (batch*head) ids
+    ``bh`` at absolute positions ``q_pos`` x ``k_pos``."""
+    threshold, keep = dropout_params(rate)
+    h = fmix32((seed & MASK32) ^ _mul32(bh.long(), 0x9E3779B9))
+    a = fmix32(h[:, None] ^ q_pos.long()[None, :])
+    y = fmix32(a[:, :, None] ^ k_pos.long()[None, None, :])
+    return torch.where(y > threshold, keep, 0.0).float()
+
+
+def flash_packed_envelope(seq_len: int, n_embd: int, n_head: int,
+                          itemsize: int) -> Tuple[bool, Tuple[str, ...]]:
+    """``(ok, reasons)`` for the CUDA kernels at these shapes."""
+    reasons = []
+    if n_embd % n_head or n_embd // n_head not in HEAD_DIMS:
+        reasons.append("head_dim")
+    if seq_len <= 0 or seq_len % TILE:
+        reasons.append("seq_len")
+    if itemsize not in (2, 4):
+        reasons.append("dtype")
+    return (not reasons), tuple(reasons)
+
+
+def _heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
+    """(B, T, C) -> (B, H, T, D) in f32."""
+    B, T, C = x.shape
+    return x.float().reshape(B, T, n_head, C // n_head).transpose(1, 2)
+
+
+def _split(qkv: torch.Tensor, n_head: int):
+    C = qkv.shape[-1] // 3
+    return tuple(_heads(qkv[..., i * C:(i + 1) * C], n_head)
+                 for i in range(3))
+
+
+def _mult(B: int, H: int, T: int, seed: int, rate: float,
+          device) -> torch.Tensor:
+    pos = torch.arange(T, device=device)
+    bh = torch.arange(B * H, device=device)
+    return dropout_mult(seed, bh, pos, pos, rate).reshape(B, H, T, T)
+
+
+def _causal(T: int, device) -> torch.Tensor:
+    pos = torch.arange(T, device=device)
+    return pos[None, :] <= pos[:, None]
+
+
+def flash_packed_fwd_ref(qkv: torch.Tensor, n_head: int, *, seed: int = 0,
+                         rate: float = 0.0
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain forward. qkv: (B, T, 3C). Returns (o (B, T, C) in qkv's
+    dtype, lse (B, T, H) f32)."""
+    B, T, C3 = qkv.shape
+    D = C3 // 3 // n_head
+    q, k, v = _split(qkv, n_head)
+    s = (q @ k.transpose(-1, -2)) * D ** -0.5
+    s = torch.where(_causal(T, qkv.device), s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    if rate > 0.0:
+        p = p * _mult(B, n_head, T, seed, rate, qkv.device)
+    o = (p @ v) / l
+    lse = (m + torch.log(l)).squeeze(-1)
+    return (o.transpose(1, 2).reshape(B, T, C3 // 3).to(qkv.dtype),
+            lse.transpose(1, 2).contiguous())
+
+
+def packed_delta(do: torch.Tensor, o: torch.Tensor,
+                 n_head: int) -> torch.Tensor:
+    """delta = rowsum(dO * O) per head: (B, T, H) f32 (dropout's mask is
+    already inside O)."""
+    B, T, C = o.shape
+    return (do.float() * o.float()).reshape(B, T, n_head, C // n_head).sum(-1)
+
+
+def flash_packed_bwd_ref(qkv: torch.Tensor, do: torch.Tensor,
+                         lse: torch.Tensor, delta: torch.Tensor,
+                         n_head: int, *, seed: int = 0,
+                         rate: float = 0.0) -> torch.Tensor:
+    """Plain backward in the lse/delta form: p = exp(s - lse), dp =
+    (dO V^T) z, ds = p (dp - delta) scale, dV = (p z)^T dO, dK = ds^T Q,
+    dQ = ds K. Returns d(qkv) (B, T, 3C) in qkv's dtype."""
+    B, T, C3 = qkv.shape
+    D = C3 // 3 // n_head
+    scale = D ** -0.5
+    q, k, v = _split(qkv, n_head)
+    g = _heads(do, n_head)
+    s = (q @ k.transpose(-1, -2)) * scale
+    s = torch.where(_causal(T, qkv.device), s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - lse.transpose(1, 2)[..., None])
+    dp = g @ v.transpose(-1, -2)
+    pz = p
+    if rate > 0.0:
+        z = _mult(B, n_head, T, seed, rate, qkv.device)
+        dp = dp * z
+        pz = p * z
+    ds = p * (dp - delta.transpose(1, 2)[..., None]) * scale
+    parts = (ds @ k, ds.transpose(-1, -2) @ q, pz.transpose(-1, -2) @ g)
+    return torch.cat([t.transpose(1, 2).reshape(B, T, C3 // 3)
+                      for t in parts], dim=-1).to(qkv.dtype)
+
+
+def _check_kernel_inputs(qkv: torch.Tensor, n_head: int, *extra) -> None:
+    if qkv.device.type != "cuda":
+        raise ValueError(f"unsupported device {qkv.device}")
+    if qkv.dtype not in _DTYPE_CODE:
+        raise TypeError(f"kernel takes bf16 or f32 qkv; got {qkv.dtype}")
+    B, T, C3 = qkv.shape
+    ok, reasons = flash_packed_envelope(T, C3 // 3, n_head,
+                                        qkv.element_size())
+    if not ok:
+        raise ValueError(f"shapes outside the kernel envelope: {reasons}")
+    for t in (qkv, *extra):
+        if t.device != qkv.device:
+            raise ValueError(f"inputs on several devices: {t.device}, "
+                             f"{qkv.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("kernel inputs must be contiguous and 16-byte "
+                             "aligned")
+
+
+def _check_packed(qkv: torch.Tensor, n_head: int) -> None:
+    if qkv.dim() != 3 or qkv.shape[-1] % 3 or (qkv.shape[-1] // 3) % n_head:
+        raise ValueError(f"qkv must be (B, T, 3C) with C divisible by "
+                         f"n_head={n_head}; got {tuple(qkv.shape)}")
+
+
+def _dropout_args(seed: int, rate: float):
+    if rate <= 0.0:
+        return 0, 0, 0.0, 0
+    if not 0 <= seed < 2 ** 31:
+        raise ValueError(f"seed {seed} is not a non-negative int32")
+    threshold, keep = dropout_params(rate)
+    return seed, threshold, keep, 1
+
+
+def flash_packed_fwd(qkv: torch.Tensor, n_head: int, *, seed: int = 0,
+                     rate: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward (shapes as ``flash_packed_fwd_ref``). CPU tensors run the
+    plain version; CUDA tensors run the kernel, which takes contiguous
+    bf16 or f32 qkv inside ``flash_packed_envelope``; anything else
+    raises."""
+    _check_packed(qkv, n_head)
+    if qkv.device.type == "cpu":
+        return flash_packed_fwd_ref(qkv, n_head, seed=seed, rate=rate)
+    _check_kernel_inputs(qkv, n_head)
+    B, T, C3 = qkv.shape
+    C = C3 // 3
+    o = torch.empty((B, T, C), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((B, T, n_head), dtype=torch.float32,
+                      device=qkv.device)
+    if B == 0:
+        return o, lse
+    D = C // n_head
+    err = _lib().flash_packed_fwd_launch(
+        qkv.data_ptr(), o.data_ptr(), lse.data_ptr(), B, T, n_head, D,
+        D ** -0.5, *_dropout_args(seed, rate), _DTYPE_CODE[qkv.dtype],
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_packed_fwd launch failed: CUDA error "
+                           f"{err}")
+    flash_packed_fwd.launches += 1
+    return o, lse
+
+
+def flash_packed_bwd(qkv: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                     delta: torch.Tensor, n_head: int, *, seed: int = 0,
+                     rate: float = 0.0) -> torch.Tensor:
+    """Backward (shapes as ``flash_packed_bwd_ref``; ``do`` in qkv's
+    dtype, lse and delta f32). CPU tensors run the plain version; CUDA
+    tensors run the two backward kernels or raise."""
+    _check_packed(qkv, n_head)
+    B, T, C3 = qkv.shape
+    if do.shape != (B, T, C3 // 3) or lse.shape != (B, T, n_head) \
+            or delta.shape != lse.shape:
+        raise ValueError(f"do/lse/delta shapes {tuple(do.shape)}, "
+                         f"{tuple(lse.shape)}, {tuple(delta.shape)} do not "
+                         f"fit qkv {tuple(qkv.shape)}")
+    if qkv.device.type == "cpu":
+        return flash_packed_bwd_ref(qkv, do, lse, delta, n_head, seed=seed,
+                                    rate=rate)
+    _check_kernel_inputs(qkv, n_head, do, lse, delta)
+    if do.dtype != qkv.dtype or lse.dtype != torch.float32 \
+            or delta.dtype != torch.float32:
+        raise TypeError(f"do must be {qkv.dtype} and lse/delta f32; got "
+                        f"{do.dtype}, {lse.dtype}, {delta.dtype}")
+    dqkv = torch.empty_like(qkv)
+    if B == 0:
+        return dqkv
+    D = C3 // 3 // n_head
+    err = _lib().flash_packed_bwd_launch(
+        qkv.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dqkv.data_ptr(), B, T, n_head, D, D ** -0.5,
+        *_dropout_args(seed, rate), _DTYPE_CODE[qkv.dtype],
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_packed_bwd launch failed: CUDA error "
+                           f"{err}")
+    flash_packed_bwd.launches += 1
+    return dqkv
+
+
+flash_packed_fwd.launches = 0
+flash_packed_bwd.launches = 0
+
+
+class FlashPacked(torch.autograd.Function):
+    """o = attention(qkv); saves qkv, o, lse and the seed, and its
+    backward runs ``flash_packed_bwd`` (the kernel on CUDA tensors, the
+    plain version on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, qkv, n_head: int, seed: int, rate: float):
+        o, lse = flash_packed_fwd(qkv, n_head, seed=seed, rate=rate)
+        ctx.save_for_backward(qkv, o, lse)
+        ctx.n_head, ctx.seed, ctx.rate = n_head, seed, rate
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, o, lse = ctx.saved_tensors
+        do = do.to(qkv.dtype).contiguous()
+        delta = packed_delta(do, o, ctx.n_head)
+        dqkv = flash_packed_bwd(qkv, do, lse, delta, ctx.n_head,
+                                seed=ctx.seed, rate=ctx.rate)
+        return dqkv, None, None, None
+
+
+def flash_packed_attention(qkv: torch.Tensor, n_head: int, *, seed: int = 0,
+                           rate: float = 0.0) -> torch.Tensor:
+    """Differentiable packed attention: merged (B, T, C) output."""
+    return FlashPacked.apply(qkv.contiguous(), n_head, seed, rate)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(_KERNEL)
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    for name, ptrs in (("flash_packed_fwd_launch", 3),
+                       ("flash_packed_bwd_launch", 5)):
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = [p] * ptrs + [i, i, i, i, f, u, u, f, i, i, p]
+            fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,159 @@
+"""End-to-end training (a port of ``replicatinggpt_tpu/train/runner.py``).
+
+Corpus -> char tokenizer -> 90/10 split -> random-window batches
+prefetched to the device -> the train loop with the periodic train/val
+estimate and the reference's log lines -> a final estimate and the
+tokens/s. Mesh sharding, fault supervision, the profiler, telemetry and
+checkpoints are not in this port yet (ROADMAP.md queue A items 4, 11
+and 12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..data.dataset import TokenDataset, load_corpus
+from ..data.loader import make_batcher, prefetch
+from ..device import resolve_device
+from ..models.gpt import param_count
+from ..ops.flash_attention import describe_route
+from ..tokenizers import get_tokenizer
+from ..utils.logging import StepLogger
+from ..utils.profiling import StepTimes
+from .state import TrainState, create_train_state
+from .steps import estimate_loss, make_eval_step, make_train_step
+
+
+@dataclass
+class TrainResult:
+    state: TrainState
+    history: list          # [(step, train_loss, val_loss)]
+    final_eval: Dict[str, float]
+    tokenizer: Any
+    tokens_per_sec: float
+    step_times: Dict[str, float]   # StepTimes.summary() of the train steps
+
+
+def _resolve_vocab(cfg: Config, tokenizer) -> Config:
+    """Grow the model's vocabulary to the tokenizer's (a configured vocab
+    at least as large is kept)."""
+    if cfg.model.vocab_size < tokenizer.vocab_size:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, vocab_size=tokenizer.vocab_size))
+    return cfg
+
+
+def _wire_dtype(vocab_size: int):
+    """The narrowest dtype that carries the token ids host -> device."""
+    return (np.uint8 if vocab_size <= 0xff
+            else np.int16 if vocab_size <= 0x7fff else np.int32)
+
+
+def train(cfg: Config, *, device=None,
+          logger: Optional[StepLogger] = None) -> TrainResult:
+    """Train ``cfg`` on ``device`` (None = the card; raises without one)."""
+    dev = resolve_device(device)
+    logger = logger or StepLogger()
+    text = load_corpus(cfg.dataset)
+    tokenizer = get_tokenizer(cfg.tokenizer, corpus_text=text)
+    cfg = _resolve_vocab(cfg, tokenizer)
+    mcfg, tcfg = cfg.model, cfg.train
+    B, T = tcfg.batch_size, mcfg.block_size
+
+    ds = TokenDataset.from_text(text, tokenizer, tcfg.val_fraction)
+    logger.log(f"dataset: {len(ds.train):,} train / {len(ds.val):,} val "
+               f"tokens, vocab {tokenizer.vocab_size}")
+    train_batcher = make_batcher(tcfg.sampling, ds.train, B, T,
+                                 seed=tcfg.seed)
+    eval_batchers = {
+        "train": make_batcher("random", ds.train, B, T, seed=tcfg.seed + 1),
+        "val": make_batcher("random", ds.val, B, T, seed=tcfg.seed + 2),
+    }
+    state = create_train_state(mcfg, tcfg, dev)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    logger.log(f"model: {param_count(state.model):,} params "
+               f"({mcfg.n_layer}L/{mcfg.n_head}H/{mcfg.n_embd}C, "
+               f"dtype={mcfg.dtype}) on {dev} ({name})")
+    logger.log(f"attention: {describe_route(mcfg, T)}")
+    train_step = make_train_step(mcfg, tcfg)
+    eval_step = make_eval_step(mcfg)
+
+    accum = max(tcfg.grad_accum_steps, 1)
+    if accum > 1:
+        logger.log(f"gradient accumulation: {accum} x {B} rows/optimizer "
+                   f"step (effective batch {accum * B})")
+    tokens_per_batch = B * T * accum
+    wire = _wire_dtype(mcfg.vocab_size)
+
+    def feed():
+        for _ in range(tcfg.max_iters):
+            if accum == 1:
+                x, y = train_batcher.next_batch()
+            else:
+                x, y = (np.stack(a) for a in zip(
+                    *(train_batcher.next_batch() for _ in range(accum))))
+            yield x.astype(wire), y.astype(wire)
+
+    schedule = state.optimizer.schedule
+    lr_at = schedule if callable(schedule) else (lambda step: None)
+    params = state.model.tree()
+    history = []
+    times = StepTimes(dev)
+    tokens_seen = tokens_since_log = 0
+    batches = prefetch(feed(), dev)
+    t0 = time.perf_counter()
+    logger.reset_timer()
+    try:
+        it = 0
+        while it < tcfg.max_iters:
+            if tcfg.eval_interval and it % tcfg.eval_interval == 0:
+                losses = estimate_loss(params, eval_batchers, eval_step,
+                                       tcfg.eval_iters, dev)
+                logger.log_eval(it, losses["train"], losses["val"])
+                history.append((it, losses["train"], losses["val"]))
+                logger.reset_timer()
+            batch = next(batches)
+            times.start()
+            loss = train_step(state, batch)
+            times.stop()
+            it += 1
+            tokens_seen += tokens_per_batch
+            tokens_since_log += tokens_per_batch
+            if tcfg.log_interval and it % tcfg.log_interval == 0:
+                loss_val = float(loss)   # one sync per log boundary
+                if not np.isfinite(loss_val):
+                    raise FloatingPointError(
+                        f"non-finite train loss {loss_val} at step {it - 1}")
+                logger.log_step(it - 1, loss_val, tokens_since_log,
+                                lr=lr_at(it - 1))
+                tokens_since_log = 0
+    finally:
+        batches.close()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    final_eval = estimate_loss(params, eval_batchers, eval_step,
+                               tcfg.eval_iters, dev)
+    logger.log_eval(state.step, final_eval["train"], final_eval["val"])
+    history.append((state.step, final_eval["train"], final_eval["val"]))
+    tps = tokens_seen / wall if wall > 0 else 0.0
+    # the first step pays the kernels' build and first-launch costs
+    step_times = times.summary(skip=1 if len(times.pairs) > 1 else 0)
+    clock = "device events" if dev.type == "cuda" else "host clock"
+    logger.log(f"trained {tokens_seen:,} tokens in {wall:.1f}s "
+               f"({tps:,.0f} tok/s/chip)", tokens=tokens_seen, wall_s=wall,
+               tokens_per_sec=tps)
+    logger.log(f"train step p50 {step_times['p50_ms']:.3f} ms, mean "
+               f"{step_times['mean_ms']:.3f} ms over {step_times['n']} "
+               f"steps ({clock})",
+               **step_times)
+    return TrainResult(state=state, history=history, final_eval=final_eval,
+                       tokenizer=tokenizer, tokens_per_sec=tps,
+                       step_times=step_times)

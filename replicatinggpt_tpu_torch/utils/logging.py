@@ -1,9 +1,71 @@
-"""Process-local serving metrics (a copy of ``Metrics`` from
-``replicatinggpt_tpu/utils/logging.py``; host-side code)."""
+"""Step logging and serving metrics (copies of ``StepLogger`` and
+``Metrics`` from ``replicatinggpt_tpu/utils/logging.py``; host-side
+code).
+
+``StepLogger`` keeps the reference's two line formats, ``Step {i},
+Loss: L`` per logged step and ``step {i} : train loss X, val loss = Y``
+per eval, and adds a JSONL stream of the same events.
+"""
 
 from __future__ import annotations
 
-from typing import Dict, List
+import json
+import sys
+import time
+from typing import Dict, List, Optional, TextIO
+
+
+class StepLogger:
+    """``stream`` None means the ``sys.stdout`` of each call, so a caller's
+    ``contextlib.redirect_stdout`` takes the lines."""
+
+    def __init__(self, jsonl_path: Optional[str] = None,
+                 stream: Optional[TextIO] = None):
+        self._stream = stream
+        self.jsonl = open(jsonl_path, "a") if jsonl_path else None
+        self.t_last = time.perf_counter()
+
+    @property
+    def stream(self) -> TextIO:
+        return self._stream or sys.stdout
+
+    def log_step(self, step: int, loss: float, tokens: int,
+                 n_chips: int = 1, lr: Optional[float] = None) -> None:
+        now = time.perf_counter()
+        dt = max(now - self.t_last, 1e-9)
+        self.t_last = now
+        tps = tokens / dt / max(n_chips, 1)
+        print(f"Step {step}, Loss: {loss:.6f} | {tps:,.0f} tok/s/chip",
+              file=self.stream)
+        self._jsonl({"event": "step", "step": step, "loss": float(loss),
+                     "tokens_per_sec_per_chip": tps, "lr": lr,
+                     "time": time.time()})
+
+    def log_eval(self, step: int, train_loss: float, val_loss: float) -> None:
+        print(f"step {step} : train loss {train_loss:.4f}, "
+              f"val loss = {val_loss:.4f}", file=self.stream)
+        self._jsonl({"event": "eval", "step": step,
+                     "train_loss": float(train_loss),
+                     "val_loss": float(val_loss), "time": time.time()})
+
+    def log(self, msg: str, **fields) -> None:
+        print(msg, file=self.stream)
+        if fields:
+            self._jsonl({"event": "info", "msg": msg, **fields,
+                         "time": time.time()})
+
+    def _jsonl(self, obj: dict) -> None:
+        if self.jsonl:
+            self.jsonl.write(json.dumps(obj) + "\n")
+            self.jsonl.flush()
+
+    def reset_timer(self) -> None:
+        self.t_last = time.perf_counter()
+
+    def close(self) -> None:
+        if self.jsonl:
+            self.jsonl.close()
+            self.jsonl = None
 
 
 class Metrics:

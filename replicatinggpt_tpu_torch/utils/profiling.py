@@ -58,3 +58,44 @@ class StepTimer:
         return {"n": float(len(laps)), "mean_s": sum(laps) / len(laps),
                 "p50_s": self._pct(s, 0.50), "p90_s": self._pct(s, 0.90),
                 "p99_s": self._pct(s, 0.99)}
+
+
+class StepTimes:
+    """Per-step times read after a run, without a sync inside it: on a
+    CUDA device a pair of events brackets each step on the current
+    stream, so a step's time is the device clock from the start of its
+    first kernel's slot to the end of its last (host-induced idle gaps
+    inside the step included); on the CPU, the host clock."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.cuda = torch.device(device).type == "cuda"
+        self.pairs: List[tuple] = []
+        self._open = None
+
+    def _mark(self):
+        if not self.cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def start(self) -> None:
+        self._open = self._mark()
+
+    def stop(self) -> None:
+        self.pairs.append((self._open, self._mark()))
+        self._open = None
+
+    def summary(self, skip: int = 0) -> Dict[str, float]:
+        """n, p50 and mean in ms over the steps after the first ``skip``
+        (synchronizes the device once)."""
+        pairs = self.pairs[skip:]
+        if self.cuda and pairs:
+            torch.cuda.synchronize()
+            ms = [a.elapsed_time(b) for a, b in pairs]
+        else:
+            ms = [(b - a) * 1e3 for a, b in pairs]
+        if not ms:
+            return {"n": 0, "p50_ms": 0.0, "mean_ms": 0.0}
+        return {"n": len(ms), "p50_ms": StepTimer._pct(sorted(ms), 0.5),
+                "mean_ms": sum(ms) / len(ms)}

@@ -62,6 +62,24 @@ def filled_engine(model, mcfg, kernel: bool) -> Engine:
     return eng
 
 
+def device_kernels(prof) -> list:
+    """The trace's device activity, without the GPU-side spans of user
+    annotations (``Optimizer.step#...``), which cover kernels and are not
+    kernels themselves."""
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def us_by_name(kernels, width: int = 80) -> dict:
+    """Device time by kernel name, names cut to ``width`` characters
+    (kernels whose cut names agree are summed)."""
+    out: dict = {}
+    for e in kernels:
+        key = e.name[:width]
+        out[key] = out.get(key, 0.0) + e.time_range.elapsed_us()
+    return out
+
+
 def busy_us(events) -> float:
     """Length of the union of the given kernels' device intervals."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -92,10 +110,8 @@ def measure(eng: Engine, steps: int, route: str, cardname: str) -> dict:
             eng.step()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name: dict = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    kernels = device_kernels(prof)
+    by_name = us_by_name(kernels)
     busy_ms = busy_us(kernels) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
@@ -109,7 +125,7 @@ def measure(eng: Engine, steps: int, route: str, cardname: str) -> dict:
                               if kernels else "not measured"),
         "kernels_per_step": len(kernels) / steps,
         "device_us_per_step_by_kernel": {
-            n[:80]: round(us / steps, 2) for n, us in top},
+            n: round(us / steps, 2) for n, us in top},
     }
 
 
