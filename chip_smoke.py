@@ -32,10 +32,30 @@ and fails (non-zero exit) on the first phase that fails:
    the kernels and 10 through the packed plain version with the same
    seeds and batches, dropout off and on; per-step losses within 1e-4
    relative;
-8. training slice (a main path): ``train --preset char-gpt`` through the
-   port's CLI for 300 steps; every loss finite, the final val loss under
-   3.0 and under the step-0 estimate, the forward kernel launched 6 times
-   per train step and per eval batch, the backward 6 times per step.
+8. decode kernel phase: ``fused_decode_layers`` against its plain
+   version at the generation path's shapes (char-GPT: L=6, C=384, H=6,
+   S=256) and at GPT-2 124M B=1 (L=12, C=768, H=12, S=1024), both cache
+   layouts, and ``packed_decode_attention`` at GPT-2 124M (B=8, S=1024,
+   C=768, H=12); bf16 (2e-2) and f32 (1e-4), pos at 0, inside and at
+   S-1, NaN in every cache row >= pos; then timings of the kernels, their
+   plain versions and (packed attention) ``scaled_dot_product_attention``
+   over the split-heads cache after the write;
+9. generation parity phase: f32 greedy streams through ``generate()`` on
+   the kernel routes and the plain route must be identical: char-GPT
+   width, 2 layers, B=1, 300 tokens (one window refresh; fused kernel);
+   GPT-2 width, 2 layers, packed cache, B=4, 64 tokens (packed kernel);
+10. training slice (a main path): ``train --preset char-gpt
+   --sample-after --sample-tokens 1000`` through the port's CLI for 300
+   steps; every loss finite, the final val loss under 3.0 and under the
+   step-0 estimate, the forward kernel launched 6 times per train step
+   and per eval batch, the backward 6 times per step; the sample is 1000
+   characters of the corpus's vocabulary and ran the fused decode kernel
+   exactly 1030 times (256 first-segment steps + 6 x 129 refresh steps);
+11. generation slice (a main path): five more 1000-token char-GPT
+   samples through ``generate()`` (p50 tokens/s, the BASELINE config 5
+   metric; random weights, as speed does not depend on them), then GPT-2
+   124M, packed cache, bf16, B=8, 64-token random prompts, 256 new
+   tokens: the packed kernel runs exactly 12 x 256 = 3072 times.
 
 Prints a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -65,13 +85,19 @@ from torch.nn.attention import SDPBackend
 from replicatinggpt_tpu_torch import cli
 from replicatinggpt_tpu_torch.config import get_config
 from replicatinggpt_tpu_torch.data.loader import RandomBatcher
-from replicatinggpt_tpu_torch.models.gpt import init_params
+from replicatinggpt_tpu_torch.models import gpt
+from replicatinggpt_tpu_torch.models.gpt import (BLOCK_SHAPES,
+                                                compute_params, decode_step,
+                                                init_kv_cache, init_params)
 from replicatinggpt_tpu_torch.ops import _build
+from replicatinggpt_tpu_torch.ops import decode as dec
 from replicatinggpt_tpu_torch.ops import flash_packed as fp
 from replicatinggpt_tpu_torch.ops import paged_attention as pa
 from replicatinggpt_tpu_torch.ops.flash_attention import packed_qkv_attention
 from replicatinggpt_tpu_torch.serve import (Engine, EngineConfig,
                                             ReplayConfig, make_trace)
+from replicatinggpt_tpu_torch.sample.generate import (GenerateConfig,
+                                                     generate)
 from replicatinggpt_tpu_torch.tokenizers import CharTokenizer
 from replicatinggpt_tpu_torch.train.state import create_train_state
 from replicatinggpt_tpu_torch.train.steps import make_train_step
@@ -81,6 +107,11 @@ KERNEL_REPLACES = "replicatinggpt_tpu/ops/paged_pallas.py:202"
 FLASH_SOURCE = "replicatinggpt_tpu_torch/csrc/flash_packed.cu"
 FLASH_REPLACES = {"fwd": "replicatinggpt_tpu/ops/flash_pallas.py:1846",
                   "bwd": "replicatinggpt_tpu/ops/flash_pallas.py:1913"}
+DECODE_SOURCE = {
+    "fused": "replicatinggpt_tpu_torch/csrc/fused_decode_layers.cu",
+    "packed": "replicatinggpt_tpu_torch/csrc/packed_decode_attention.cu"}
+DECODE_REPLACES = {"fused": "replicatinggpt_tpu/ops/decode_pallas.py:194",
+                   "packed": "replicatinggpt_tpu/ops/decode_pallas.py:102"}
 CORPUS = "datasets/shakespeare.txt"
 # char-GPT training shapes (the char-gpt preset)
 FB, FT, FC, FH = 64, 256, 384, 6
@@ -421,23 +452,32 @@ def train_parity_phase(tokens: np.ndarray) -> None:
               f"relative difference kernel vs plain {rel:.2e} (limit 1e-4)")
 
 
-def train_slice_phase(card: str) -> tuple:
-    """The training main path through the port's CLI, in process."""
+def train_slice_phase(card: str, vocab: set) -> tuple:
+    """The training main path through the port's CLI, in process, ending
+    in a 1000-token sample of the trained weights."""
     n_layer = get_config("char-gpt").model.n_layer
     steps, eval_iters, n_evals = 300, 20, 4   # evals at 0, 100, 200, end
     out = io.StringIO()
     with tempfile.TemporaryDirectory() as tmp:
         log = os.path.join(tmp, "train.jsonl")
         fp.flash_packed_fwd.launches = fp.flash_packed_bwd.launches = 0
+        dec.fused_decode_layers.launches = 0
         with contextlib.redirect_stdout(out):
             assert cli.main(["train", "--preset", "char-gpt", "--max-iters",
                              str(steps), "--eval-interval", "100",
                              "--eval-iters", str(eval_iters), "--log-jsonl",
-                             log]) == 0
+                             log, "--sample-after", "--sample-tokens",
+                             "1000"]) == 0
         fwd, bwd = fp.flash_packed_fwd.launches, fp.flash_packed_bwd.launches
+        fused = dec.fused_decode_layers.launches
         with open(log) as f:
             events = [json.loads(line) for line in f]
     print(out.getvalue(), end="")
+    text = out.getvalue()
+    sample = text[-1001:-1]
+    assert text.endswith("\n") and len(sample) == 1000 \
+        and set(sample) <= vocab, sample
+    assert fused == 1030, fused
     evals = [e for e in events if e["event"] == "eval"]
     losses = [e["loss"] for e in events if e["event"] == "step"]
     losses += [e[k] for e in evals for k in ("train_loss", "val_loss")]
@@ -452,14 +492,300 @@ def train_slice_phase(card: str) -> tuple:
           f"{info['tokens_per_sec']:.0f} tok/s, train step p50 "
           f"{info['p50_ms']:.3f} ms (mean {info['mean_ms']:.3f}), val loss "
           f"{last:.4f} at step {steps} (step 0: {first:.4f}), {fwd} forward / "
-          f"{bwd} backward kernel launches")
-    return fwd, bwd
+          f"{bwd} backward kernel launches; the 1000-character sample ran "
+          f"the fused decode kernel {fused} times")
+    return fwd, bwd, fused
+
+
+def _bound(nbytes: float, flops: float, dtype: torch.dtype) -> tuple:
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _nan_past(cache: torch.Tensor, pos: int, seq_axis: int) -> torch.Tensor:
+    idx = [slice(None)] * cache.dim()
+    idx[seq_axis] = slice(pos, None)
+    cache[tuple(idx)] = float("nan")
+    return cache
+
+
+def fused_inputs(mcfg, dtype: torch.dtype, pos: int, seed: int = 0):
+    """The fused kernel's inputs at one model's widths, at the scales of
+    the path: weights drawn as ``init_params`` draws them (residual
+    projections at 0.02 / sqrt(2L)) with layernorm parameters and biases
+    perturbed so their casts show; an embedding-sized input row; a warm
+    cache of projection-sized K/V rows with NaN in every row >= pos.
+    (Unit-scale rows and weights make bf16 rounding flips cascade
+    through 12 layers to several ulps of the residual.)"""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    L, C = mcfg.n_layer, mcfg.n_embd
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    resid = 0.02 * (2 * L) ** -0.5
+    blocks = {}
+    for name, shape in BLOCK_SHAPES.items():
+        if name.endswith("_scale"):
+            blocks[name] = 1 + rnd(L, *shape(C), scale=0.1)
+        elif name.endswith("_kernel"):
+            blocks[name] = rnd(L, *shape(C), scale=resid if name in (
+                "attn_out_kernel", "mlp_down_kernel") else 0.02)
+        else:
+            blocks[name] = rnd(L, *shape(C), scale=0.02)
+    blocks = dec.fused_weights(blocks, dtype)
+    packed = mcfg.decode_cache_layout == "packed"
+    cache = init_kv_cache(mcfg, 1, dtype=dtype, device="cuda")
+    for k in ("k", "v"):
+        cache[k].copy_(rnd(*cache[k].shape, scale=0.5))
+        _nan_past(cache[k], pos, 2 if packed else 3)
+    return rnd(1, C, scale=0.03).to(dtype), blocks, cache
+
+
+def fused_bound_ms(mcfg, dtype: torch.dtype, pos: int) -> tuple:
+    """Every layer's weights read once, the cache rows < pos read once,
+    the row in and the row and fresh K/V out; ~2 flops per weight and 4
+    per cache element read."""
+    L, C = mcfg.n_layer, mcfg.n_embd
+    isz = torch.empty((), dtype=dtype).element_size()
+    weights = L * (12 * C * C + 13 * C)
+    cache = 2 * L * pos * C
+    nbytes = (weights + cache + C + C + 2 * L * C) * isz
+    return _bound(nbytes, 2 * weights + 2 * cache, dtype)
+
+
+def fused_kernel_phase(flush: torch.Tensor) -> dict:
+    char = dataclasses.replace(get_config("char-gpt").model)
+    small = dataclasses.replace(get_config("gpt2-small").model)
+    errs = {}
+    for mcfg, label in ((char, "char-gpt"), (small, "gpt2-small B=1")):
+        S = mcfg.block_size
+        for layout in ("heads", "packed"):
+            cfg = dataclasses.replace(mcfg, decode_cache_layout=layout)
+            for dtype in (torch.float32, torch.bfloat16):
+                pairs = []
+                for pos in (0, S // 4, S - 1):
+                    x0, blocks, cache = fused_inputs(cfg, dtype, pos)
+                    got = dec.fused_decode_layers(x0, blocks, pos, cache, cfg)
+                    torch.cuda.synchronize()
+                    ref = dec.fused_decode_layers_ref(x0, blocks, pos, cache,
+                                                      cfg)
+                    pairs += [(pos, a.float(), b.float())
+                              for a, b in zip(got, ref)]
+                err = max((a - b).abs().max().item() for _, a, b in pairs)
+                errs[(label, layout, dtype)] = err
+                print(f"fused check: {label} {layout} {str(dtype)[6:]} pos "
+                      f"0/{S // 4}/{S - 1} max_abs_err {err:.3e} "
+                      f"(atol=rtol={TOL[dtype]})")
+                for pos, a, b in pairs:
+                    if not torch.isfinite(a).all():
+                        raise AssertionError(f"fused: non-finite output at "
+                                             f"pos {pos}")
+                    torch.testing.assert_close(a, b, atol=TOL[dtype],
+                                               rtol=TOL[dtype])
+    timings = {}
+    for mcfg, label in ((char, "char-gpt"), (small, "gpt2-small B=1")):
+        pos = mcfg.block_size - 1
+        x0, blocks, cache = fused_inputs(mcfg, torch.bfloat16, pos)
+        args = (x0, blocks, pos, cache, mcfg)
+        ms = time_ms(lambda: dec.fused_decode_layers(*args), flush)
+        plain_ms = time_ms(lambda: dec.fused_decode_layers_ref(*args), flush)
+        b_ms, b_by = fused_bound_ms(mcfg, torch.bfloat16, pos)
+        timings[label] = (ms, plain_ms, b_ms, b_by)
+        print(f"fused timing ({label}, bf16, heads cache, pos {pos}): kernel "
+              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+              f"{b_ms * 1e3:.2f} us ({b_by})")
+    # the routing note: the step the route rule picks at 124M B=1 (plain)
+    model = init_params(small, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    cp = compute_params(model, "cuda")
+    cache = init_kv_cache(small, 1, device="cuda")
+    tok = torch.zeros(1, dtype=torch.int32, device="cuda")
+    step_ms = time_ms(lambda: decode_step(cp, tok, 511, cache, small), flush)
+    print(f"route note (gpt2-small B=1, bf16, pos 511): the rule's plain "
+          f"decode_step {step_ms * 1e3:.1f} us of device time (events) vs "
+          f"the fused kernel {timings['gpt2-small B=1'][0] * 1e3:.1f} us "
+          f"at pos 1023")
+    ms, plain_ms, b_ms, b_by = timings["char-gpt"]
+    return {"name": "fused_decode_layers", "route": "cuda",
+            "source": DECODE_SOURCE["fused"],
+            "replaces": DECODE_REPLACES["fused"],
+            "max_abs_err": errs[("char-gpt", "heads", torch.bfloat16)],
+            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "library": "none: no single PyTorch call computes every layer "
+                       "of a decode step",
+            "gpt2_small_b1": {"ms": timings["gpt2-small B=1"][0],
+                              "plain_ms": timings["gpt2-small B=1"][1],
+                              "bound_ms": timings["gpt2-small B=1"][2],
+                              "plain_route_step_ms": step_ms}}
+
+
+PB, PS = 8, 1024        # GPT-2 124M generate slice: batch, cache length
+
+
+def packed_inputs(dtype: torch.dtype, pos: int, seed: int = 0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    qkv = rnd(PB, 3 * C)            # the fused projection's row slices
+    q, kn, vn = qkv.split(C, dim=-1)
+    return (q, kn, vn, _nan_past(rnd(PB, PS, C), pos, 1),
+            _nan_past(rnd(PB, PS, C), pos, 1), pos)
+
+
+def packed_kernel_phase(flush: torch.Tensor) -> dict:
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        err = 0.0
+        for pos in (0, 64, 318, PS - 1):
+            args = packed_inputs(dtype, pos)
+            got = dec.packed_decode_attention(*args, n_head=H)
+            torch.cuda.synchronize()
+            ref = dec.packed_decode_attention_ref(*args, n_head=H)
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"packed: non-finite output at {pos}")
+            torch.testing.assert_close(got.float(), ref.float(),
+                                       atol=TOL[dtype], rtol=TOL[dtype])
+            err = max(err, (got.float() - ref.float()).abs().max().item())
+        errs[dtype] = err
+        print(f"packed check: {str(dtype)[6:]} B={PB} S={PS} pos "
+              f"0/64/318/{PS - 1} max_abs_err {err:.3e} "
+              f"(atol=rtol={TOL[dtype]})")
+    pos = 318                       # the slice's last step: 63 + 255
+    args = packed_inputs(torch.bfloat16, pos)
+    q, kn, vn, kc, vc, _ = args
+    D = C // H
+
+    def heads(x):                   # (B, T, C) -> (B, H, T, D)
+        return x.reshape(PB, -1, H, D).transpose(1, 2).contiguous()
+
+    kw, vw = kc.clone(), vc.clone()
+    kw[:, pos], vw[:, pos] = kn, vn
+    kw[:, pos + 1:] = vw[:, pos + 1:] = 0
+    sq, sk, sv = heads(q[:, None]), heads(kw), heads(vw)
+    mask = (torch.arange(PS, device="cuda") <= pos)[None, None, None]
+    ms = time_ms(lambda: dec.packed_decode_attention(*args, n_head=H), flush)
+    plain_ms = time_ms(lambda: dec.packed_decode_attention_ref(
+        *args, n_head=H), flush)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        sq, sk, sv, attn_mask=mask), flush)
+    isz = 2
+    b_ms, b_by = _bound(2 * PB * pos * C * isz + 4 * PB * C * isz,
+                        4 * PB * (pos + 1) * C, torch.bfloat16)
+    print(f"packed timing (bf16, B={PB}, S={PS}, pos {pos}): kernel "
+          f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, sdpa "
+          f"{library_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by})")
+    return {"name": "packed_decode_attention", "route": "cuda",
+            "source": DECODE_SOURCE["packed"],
+            "replaces": DECODE_REPLACES["packed"],
+            "max_abs_err": errs[torch.bfloat16], "ms": ms, "kernel_ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms, "library": "sdpa, split-heads cache"}
+
+
+@contextlib.contextmanager
+def forced_route(route: str):
+    """decode_step takes ``route`` wherever kernels are allowed: the JAX
+    envelopes keep char-GPT's f32 weights (7 MB a layer) off the fused
+    route, and the parity phase needs f32 to ask for identical streams."""
+    rule = gpt.decode_route
+    gpt.decode_route = lambda cfg, b, dt, s, allow=True: (route if allow
+                                                          else "plain")
+    try:
+        yield
+    finally:
+        gpt.decode_route = rule
+
+
+def generate_parity_phase() -> None:
+    """f32 greedy streams on the kernel routes and the plain route."""
+    char = dataclasses.replace(get_config("char-gpt").model, n_layer=2,
+                               dtype="float32")
+    small = dataclasses.replace(get_config("gpt2-small").model, n_layer=2,
+                                dtype="float32", decode_cache_layout="packed")
+    prompts = np.random.default_rng(3).integers(0, small.vocab_size, (4, 16))
+    for mcfg, prompt, n, counter, route in (
+            (char, [[0]], 300, dec.fused_decode_layers, "fused"),
+            (small, prompts, 64, dec.packed_decode_attention, "packed")):
+        model = init_params(mcfg, torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+        gcfg = GenerateConfig(max_new_tokens=n, greedy=True)
+        counter.launches = 0
+        with forced_route(route):
+            got = generate(model, prompt, mcfg, gcfg).cpu()
+        launched = counter.launches
+        want = generate(model, prompt, mcfg, gcfg, allow_kernels=False).cpu()
+        if launched == 0 or counter.launches != launched:
+            raise AssertionError(f"parity: kernel launches {launched} / "
+                                 f"{counter.launches}")
+        if not torch.equal(got, want):
+            b, i = (got != want).nonzero()[0].tolist()
+            raise AssertionError(f"generate parity: row {b} differs at "
+                                 f"token {i}: kernel {got[b, i]} vs plain "
+                                 f"{want[b, i]}")
+        print(f"generate parity: {mcfg.n_embd}C {mcfg.decode_cache_layout} "
+              f"B={got.shape[0]}, {n} greedy tokens identical on the kernel "
+              f"route ({launched} {counter.__name__} launches) and the "
+              f"plain route (f32, 2 layers)")
+
+
+def generate_slice_phase(card: str) -> tuple:
+    """The generation main path through generate(): char-GPT B=1 samples
+    (p50 tokens/s) and GPT-2 124M packed B=8."""
+    char = get_config("char-gpt").model
+    model = init_params(char, torch.Generator(device="cuda").manual_seed(1337),
+                        device="cuda")
+    walls = []
+    dec.fused_decode_layers.launches = 0
+    for i in range(5):
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(model, [[0]], char,
+                        GenerateConfig(max_new_tokens=1000), gen).cpu()
+        walls.append(time.perf_counter() - t0)
+        assert toks.shape == (1, 1000) and 0 <= toks.min() \
+            and toks.max() < char.vocab_size
+    fused = dec.fused_decode_layers.launches
+    assert fused == 5 * 1030, fused
+    tps = sorted(1000 / w for w in walls)
+    print(f"generate slice (char-gpt, B=1, 1000 tokens, bf16, 5 samples) on "
+          f"{card}: p50 {statistics.median(tps):.1f} tok/s (min {tps[0]:.1f}, "
+          f"max {tps[-1]:.1f}), {fused} fused kernel launches")
+    small = dataclasses.replace(get_config("gpt2-small").model,
+                                decode_cache_layout="packed")
+    model = init_params(small, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    prompts = np.random.default_rng(0).integers(0, small.vocab_size, (PB, 64))
+    gcfg = GenerateConfig(max_new_tokens=256, top_k=50, temperature=0.8)
+    generate(model, prompts[:, :8], small,
+             GenerateConfig(max_new_tokens=4))          # warm the allocator
+    dec.packed_decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = generate(model, prompts, small, gcfg).cpu()
+    wall = time.perf_counter() - t0
+    packed = dec.packed_decode_attention.launches
+    assert packed == small.n_layer * 256, packed
+    assert toks.shape == (PB, 256) and 0 <= toks.min() \
+        and toks.max() < small.vocab_size
+    print(f"generate slice (gpt2-small, packed, B={PB}, 64-token prompts, "
+          f"256 new, bf16, top-k 50) on {card}: {PB * 256 / wall:.1f} tok/s "
+          f"aggregate, {wall / 256 * 1e3:.3f} ms per step (host clock, "
+          f"prefill included), {packed} packed kernel launches")
+    return fused, packed
 
 
 def build_kernels() -> None:
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
-    names = ("paged_window_attention", "flash_packed")
+    names = ("paged_window_attention", "flash_packed", "fused_decode_layers",
+             "packed_decode_attention")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
         for f in [ex.submit(_build.build, n, verbose=True) for n in names]:
             f.result()
@@ -482,9 +808,15 @@ def main() -> int:
     row["launches"] = slice_phase(card)
     text = open(CORPUS, encoding="utf-8").read()
     train_parity_phase(CharTokenizer.from_text(text).encode_np(text))
-    flash_rows[0]["launches"], flash_rows[1]["launches"] = \
-        train_slice_phase(card)
-    print(json.dumps({"kernels": [row, *flash_rows]}))
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    fused_row = fused_kernel_phase(flush)
+    packed_row = packed_kernel_phase(flush)
+    del flush
+    generate_parity_phase()
+    (flash_rows[0]["launches"], flash_rows[1]["launches"],
+     fused_row["launches"]) = train_slice_phase(card, set(text))
+    _, packed_row["launches"] = generate_slice_phase(card)
+    print(json.dumps({"kernels": [row, *flash_rows, fused_row, packed_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,12 @@
 """Command-line interface of the PyTorch/CUDA port.
 
     python -m replicatinggpt_tpu_torch train --preset char-gpt
+    python -m replicatinggpt_tpu_torch generate --preset char-gpt \\
+        --prompt "ROMEO:" --sample-tokens 500 --top-k 20
     python -m replicatinggpt_tpu_torch serve-replay --preset gpt2-small \\
         --decode-cache-layout packed --paged-kernel --n-requests 16
 
-Both subcommands run on the card unless given ``--device cpu``, and take
+Every subcommand runs on the card unless given ``--device cpu``, and takes
 the JAX subcommands' flags. Those this port does not implement yet are
 still accepted by the parser, so that a command written for the JAX
 package fails with the ROADMAP item that will bring the feature, instead
@@ -61,8 +63,6 @@ TRAIN_UNPORTED_FLAGS = (
     ("--checkpoint-dir", "checkpoint_dir", None,
      "queue A item 4 (checkpoints)"),
     ("--resume", "resume", False, "queue A item 4 (checkpoints)"),
-    ("--sample-after", "sample_after", False,
-     "queue A item 5 (generation)"),
     ("--mesh-shape", "mesh_shape", "1x1", "queue A item 11 (meshes)"),
     ("--trace-out", "trace_out", None, "queue A item 12 (telemetry)"),
     ("--profile-dir", "profile_dir", None, "queue A item 12 (telemetry)"),
@@ -167,16 +167,67 @@ def cmd_serve_replay(args) -> int:
 
 
 def cmd_train(args) -> int:
-    """Train a preset on the corpus and print the reference's log lines."""
+    """Train a preset on the corpus and print the reference's log lines
+    (and, with ``--sample-after``, a sample from the trained weights)."""
     check_unported(args, TRAIN_UNPORTED_FLAGS)
     from .train.runner import train
     from .utils.logging import StepLogger
     cfg = config_from_args(args)
     logger = StepLogger(jsonl_path=args.log_jsonl)
     try:
-        train(cfg, device=args.device, logger=logger)
+        res = train(cfg, device=args.device, logger=logger)
     finally:
         logger.close()
+    if args.sample_after:
+        model = res.state.model
+        _sample(model, model.cfg, res.tokenizer, args.sample_tokens,
+                device=args.device)
+    return 0
+
+
+#: the generate subcommand's unported flags
+GENERATE_UNPORTED_FLAGS = (
+    ("--checkpoint-dir", "checkpoint_dir", None,
+     "queue A item 4 (checkpoints)"),
+    ("--mesh-shape", "mesh_shape", "1x1", "queue A item 11 (meshes)"),
+)
+
+
+def _sample(model, mcfg, tokenizer, n_tokens: int, prompt_text=None,
+            top_k: int = 0, top_p: float = 0.0, temperature: float = 1.0,
+            device=None) -> None:
+    """Print ``n_tokens`` sampled after ``prompt_text`` (default: the
+    reference's zero-context start, one 0 token, GPT1.py:235)."""
+    from .sample.generate import GenerateConfig, generate
+    ids = tokenizer.encode(prompt_text) if prompt_text else [0]
+    toks = generate(model, [ids], mcfg,
+                    GenerateConfig(max_new_tokens=n_tokens, top_k=top_k,
+                                   top_p=top_p, temperature=temperature),
+                    device=device)
+    print(tokenizer.decode(toks[0].tolist()))
+
+
+def cmd_generate(args) -> int:
+    """Sample from a preset's model. Checkpoints are not ported yet, so
+    the weights are the random init from the preset's seed."""
+    check_unported(args, GENERATE_UNPORTED_FLAGS)
+    from .data.dataset import load_corpus
+    from .device import resolve_device
+    from .models.gpt import init_params
+    from .tokenizers import get_tokenizer
+    from .train.runner import _resolve_vocab
+    cfg = config_from_args(args)
+    dev = resolve_device(args.device)
+    tokenizer = get_tokenizer(cfg.tokenizer,
+                              corpus_text=load_corpus(cfg.dataset))
+    cfg = _resolve_vocab(cfg, tokenizer)
+    model = init_params(cfg.model,
+                        torch.Generator(device=dev).manual_seed(cfg.seed),
+                        device=dev)
+    print("no checkpoint found; sampling from random init", file=sys.stderr)
+    _sample(model, cfg.model, tokenizer, args.sample_tokens,
+            prompt_text=args.prompt, top_k=args.top_k, top_p=args.top_p,
+            temperature=args.temperature, device=dev)
     return 0
 
 
@@ -191,8 +242,26 @@ def main(argv=None) -> int:
     pt.add_argument("--log-jsonl", default=None,
                     help="also append the step/eval/info events here as "
                          "JSON lines")
+    pt.add_argument("--sample-after", action="store_true",
+                    help="print a sample after training (GPT1.py:235-236)")
+    pt.add_argument("--sample-tokens", type=int, default=500)
     _add_unported_flags(pt, TRAIN_UNPORTED_FLAGS)
     pt.set_defaults(fn=cmd_train)
+    pg = sub.add_parser("generate", help="sample from a model")
+    add_config_flags(pg)
+    pg.add_argument("--tokenizer", default=None)
+    pg.add_argument("--dataset", default=None,
+                    help="corpus whose characters make the vocabulary")
+    pg.add_argument("--device", default=None,
+                    help="'cuda' (default; fails without a card) or 'cpu'")
+    pg.add_argument("--prompt", default=None)
+    pg.add_argument("--sample-tokens", type=int, default=500)
+    pg.add_argument("--top-k", type=int, default=0)
+    pg.add_argument("--top-p", type=float, default=0.0,
+                    help="nucleus sampling mass; 0 = off")
+    pg.add_argument("--temperature", type=float, default=1.0)
+    _add_unported_flags(pg, GENERATE_UNPORTED_FLAGS)
+    pg.set_defaults(fn=cmd_generate)
     ps = sub.add_parser("serve-replay",
                         help="replay a synthetic Poisson request trace "
                              "through the paged serving engine and report "

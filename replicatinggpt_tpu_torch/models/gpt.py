@@ -17,11 +17,15 @@ A port of ``replicatinggpt_tpu/models/gpt.py``:
   as JAX reads them);
 - the paged pool (``init_paged_kv_pool``, ``_gather_pages``,
   ``_scatter_kv``) and the two serving steps, ``decode_step_paged`` and
-  ``prefill_chunk_paged``.
+  ``prefill_chunk_paged``;
+- the contiguous cache of ``generate()`` (``init_kv_cache``,
+  ``cache_seq_axis``), ``decode_step`` with its three routes (the fused
+  all-layers kernel at B=1, the packed decode attention kernel, the
+  plain heads route) and ``prefill``.
 
-JAX's pool updates are functional; here the pool is updated IN PLACE
-(one allocation for the engine's lifetime) and the steps return it for
-symmetry with the JAX signatures.
+JAX's cache and pool updates are functional; here they are updated IN
+PLACE (one allocation per pool or generation segment) and the steps
+return them for symmetry with the JAX signatures.
 """
 
 from __future__ import annotations
@@ -38,6 +42,9 @@ from ..config import ModelConfig
 from ..ops.attention import (cached_attention, full_causal_attention,
                              uint8_inverted_dropout,
                              windowed_cached_attention)
+from ..ops.decode import (fused_decode_layers, fused_decode_supported,
+                          fused_weights, packed_decode_attention,
+                          packed_decode_supported)
 from ..ops.flash_attention import packed_envelope, packed_qkv_attention
 from ..ops.paged_attention import paged_window_attention
 
@@ -493,5 +500,150 @@ def prefill_chunk_paged(params: Params, idx, offset: int, limit: int,
         k_all, v_all = _gather_kv(cache, i, tables, packed, H)
         attn = windowed_cached_attention(_split_heads(q_m, H), k_all, v_all,
                                          base)
+        x = _block_tail(x, _merge_heads(attn), lp, cfg)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# contiguous KV cache: generate()'s decode and prefill
+# ---------------------------------------------------------------------------
+
+def cache_seq_axis(cfg: ModelConfig) -> int:
+    """Axis of the sequence dimension in the stacked KV cache."""
+    return 2 if cfg.decode_cache_layout == "packed" else 3
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: Optional[int] = None,
+                  dtype: Optional[torch.dtype] = None, device=None
+                  ) -> Dict[str, torch.Tensor]:
+    """(L, B, H, S, D) for the 'heads' layout or (L, B, S, C) for
+    'packed', zero-filled, for K and V."""
+    S = max_len or cfg.block_size
+    dt = dtype or cfg.compute_dtype
+    if cfg.decode_cache_layout == "packed":
+        shape = (cfg.n_layer, batch, S, cfg.n_embd)
+    else:
+        shape = (cfg.n_layer, batch, cfg.n_head, S, cfg.head_dim)
+    return {"k": torch.zeros(shape, device=device, dtype=dt),
+            "v": torch.zeros(shape, device=device, dtype=dt)}
+
+
+def decode_route(cfg: ModelConfig, batch: int, cache_dtype: torch.dtype,
+                 seq_len: int, allow_kernels: bool = True) -> str:
+    """Which route ``decode_step`` takes: 'fused' (all layers in one
+    kernel, B=1), 'packed' (the packed decode attention kernel per
+    layer) or 'plain'. The JAX envelopes decide, as in JAX's
+    ``decode_step`` with its kernel gate open; the kernels need the cache
+    in the compute dtype."""
+    cd = cfg.compute_dtype
+    if not allow_kernels or cache_dtype != cd:
+        return "plain"
+    isz = torch.empty((), dtype=cd).element_size()
+    if fused_decode_supported(cfg, batch, isz, seq_len=seq_len):
+        return "fused"
+    if cfg.decode_cache_layout == "packed" and packed_decode_supported(
+            cfg, isz, seq_len=seq_len):
+        return "packed"
+    return "plain"
+
+
+def write_fresh_kv(cache: Dict[str, torch.Tensor], newk, newv, pos: int,
+                   cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Write every layer's fresh (L, B, C) K/V rows into the cache at
+    ``pos``, in place (the fused route's one write per array)."""
+    L, B, C = newk.shape
+    if cfg.decode_cache_layout == "packed":
+        cache["k"][:, :, pos] = newk.to(cache["k"].dtype)
+        cache["v"][:, :, pos] = newv.to(cache["v"].dtype)
+    else:
+        shp = (L, B, cfg.n_head, C // cfg.n_head)
+        cache["k"][:, :, :, pos] = newk.reshape(shp).to(cache["k"].dtype)
+        cache["v"][:, :, :, pos] = newv.reshape(shp).to(cache["v"].dtype)
+    return cache
+
+
+def decode_step(params: Params, idx_t: torch.Tensor, pos: int,
+                cache: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+                allow_kernels: bool = True,
+                fused_blocks: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One autoregressive step of B rows at the shared host position
+    ``pos``. params: the ``compute_params`` view; idx_t: (B,) current
+    tokens. Returns ((B, V) f32 logits, the cache, updated in place).
+
+    Routes (``decode_route``): 'fused' runs ``fused_decode_layers`` and
+    then writes every layer's fresh K/V at pos; 'packed' attends the
+    stale layer cache plus the fresh column through
+    ``packed_decode_attention`` and writes afterwards; 'plain' writes
+    and then attends through ``cached_attention``. ``allow_kernels``
+    False forces 'plain' (JAX's ``allow_pallas``). ``fused_blocks``:
+    the blocks as ``fused_weights`` casts them, made once by callers
+    that step many times (else cast here)."""
+    pos = int(pos)
+    B = idx_t.shape[0]
+    S = cache["k"].shape[cache_seq_axis(cfg)]
+    _check_in_bounds(pos, pos + 1, S, "decode_step cache write")
+    x = params["wte"][idx_t.long()] + params["wpe"][pos]         # (B, C)
+    route = decode_route(cfg, B, cache["k"].dtype, S, allow_kernels)
+    if route == "fused":
+        blocks = fused_blocks or fused_weights(params["blocks"],
+                                               x.dtype)
+        x_row, newk, newv = fused_decode_layers(x, blocks, pos, cache, cfg)
+        write_fresh_kv(cache, newk, newv, pos, cfg)
+        return _decode_head(x_row[:, None, :], params, cfg), cache
+    x = x[:, None, :]                                           # (B, 1, C)
+    H = cfg.n_head
+    packed = cfg.decode_cache_layout == "packed"
+    for i in range(cfg.n_layer):
+        lp = _layer(params, i)
+        q_m, k_m, v_m = _cached_qkv_merged(x, lp, cfg)          # (B, 1, C)
+        ck, cv = cache["k"][i], cache["v"][i]
+        if route == "packed":
+            attn = packed_decode_attention(
+                q_m[:, 0], k_m[:, 0], v_m[:, 0], ck, cv, pos,
+                n_head=H)[:, None]
+            ck[:, pos] = k_m[:, 0].to(ck.dtype)
+            cv[:, pos] = v_m[:, 0].to(cv.dtype)
+        elif packed:
+            ck[:, pos] = k_m[:, 0].to(ck.dtype)
+            cv[:, pos] = v_m[:, 0].to(cv.dtype)
+            attn = _merge_heads(cached_attention(
+                _split_heads(q_m, H), _split_heads(ck, H),
+                _split_heads(cv, H), pos))
+        else:
+            k, v = _split_heads(k_m, H), _split_heads(v_m, H)  # (B, H, 1, D)
+            ck[:, :, pos] = k[:, :, 0].to(ck.dtype)
+            cv[:, :, pos] = v[:, :, 0].to(cv.dtype)
+            attn = _merge_heads(cached_attention(_split_heads(q_m, H), ck,
+                                                 cv, pos))
+        x = _block_tail(x, attn, lp, cfg)
+    return _decode_head(x, params, cfg), cache
+
+
+def prefill(params: Params, idx: torch.Tensor, cache: Dict[str, torch.Tensor],
+            cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Fill cache positions [0, P) from the (B, P) prompt in one
+    full-sequence causal forward (JAX ``prefill``). Positions at or past
+    the true prompt length may hold padding-derived values; each decode
+    step overwrites its position before attending it. Returns the cache,
+    updated in place."""
+    B, P = idx.shape
+    _check_in_bounds(0, P, cache["k"].shape[cache_seq_axis(cfg)],
+                     "prefill prompt write")
+    H = cfg.n_head
+    packed = cfg.decode_cache_layout == "packed"
+    x = params["wte"][idx.long()] + params["wpe"][:P]
+    for i in range(cfg.n_layer):
+        lp = _layer(params, i)
+        q_m, k_m, v_m = _cached_qkv_merged(x, lp, cfg)           # (B, P, C)
+        q, k, v = (_split_heads(t, H) for t in (q_m, k_m, v_m))
+        ck, cv = cache["k"][i], cache["v"][i]
+        if packed:
+            ck[:, :P] = k_m.to(ck.dtype)
+            cv[:, :P] = v_m.to(cv.dtype)
+        else:
+            ck[:, :, :P] = k.to(ck.dtype)
+            cv[:, :, :P] = v.to(cv.dtype)
+        attn = full_causal_attention(q, k, v)
         x = _block_tail(x, _merge_heads(attn), lp, cfg)
     return cache

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
+Each ``csrc/<name>.cu`` (with the shared ``csrc/*.cuh`` headers it
+includes) has a plain C interface and is compiled by
 ``nvcc`` into its own shared library under ``build/kernels/`` at the
 repository root (listed in ``.gitignore``), then loaded with ``ctypes``.
 The library's file name carries a hash of the source and the flags, so
@@ -40,7 +41,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path; its name hashes the source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

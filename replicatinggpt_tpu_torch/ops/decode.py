@@ -1,0 +1,401 @@
+"""The decode kernels of ``generate()``, with their plain versions.
+
+Ports of ``replicatinggpt_tpu/ops/decode_pallas.py``:
+
+- ``fused_decode_supported`` / ``packed_decode_supported``: the JAX
+  envelopes, kept as this port's route rule for ``models.gpt.
+  decode_step`` (which shapes take which kernel);
+- ``packed_decode_attention``: decode attention over a packed (B, S, C)
+  STALE cache plus the fresh column, at one shared ``pos``; a CPU tensor
+  takes ``packed_decode_attention_ref``, a CUDA tensor launches
+  ``csrc/packed_decode_attention.cu`` or raises;
+- ``fused_decode_layers``: every layer of one B=1 decode token, from the
+  embedded row to the last residual, with every layer's fresh K/V row;
+  a CPU tensor takes ``fused_decode_layers_ref`` (which mirrors
+  ``_decode_kernel``, ``_ln_row`` and ``_row_matmul`` step by step), a
+  CUDA tensor launches ``csrc/fused_decode_layers.cu`` or raises.
+
+Both kernels read only the cache rows at positions < ``pos`` and leave
+the cache untouched; the caller writes the fresh rows at ``pos``
+afterwards (attend-stale-then-write == write-then-attend). ``pos`` is a
+host int. Each wrapper counts its kernel launches in ``.launches``.
+
+Numerics, as the TPU kernels: scores and softmax in f32, the
+probabilities rounded to the cache dtype before the value product; the
+fused kernel casts EVERY block tensor to the compute dtype (layernorm
+scales and biases included), and adds each product's bias in f32 before
+one rounding (the unfused ``h @ W + b`` rounds twice in bf16), so in
+bf16 the fused and unfused routes differ by design.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import operator
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+#: the JAX envelopes' budgets (decode_pallas.py FUSED_LAYER_BYTES,
+#: PACKED_DECODE_BYTES): TPU VMEM sizes, kept only as the route rule
+FUSED_LAYER_BYTES = 6 * 1024 * 1024
+PACKED_DECODE_BYTES = 8 * 1024 * 1024
+
+#: kernel constants (csrc/decode_attention.cuh kThreads; the fused
+#: kernel's kTileVecs and kRowGroups; the card's shared-memory limit)
+_THREADS = 256
+_TILE_VECS = 8
+_MAX_SMEM = 232_448
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+BLOCK_NAMES = ("ln1_scale", "ln1_bias", "qkv_kernel", "qkv_bias",
+               "attn_out_kernel", "attn_out_bias", "ln2_scale", "ln2_bias",
+               "mlp_up_kernel", "mlp_up_bias", "mlp_down_kernel",
+               "mlp_down_bias")
+
+
+def fused_decode_supported(cfg, batch: int, itemsize: int = 2,
+                           seq_len: int = 0) -> bool:
+    """The JAX envelope: single stream, head dim in {32, 64, 128, 256},
+    S a multiple of 8, one layer's weights + cache within
+    FUSED_LAYER_BYTES. ``seq_len`` 0 means cfg.block_size."""
+    C, H = cfg.n_embd, cfg.n_head
+    S = seq_len or cfg.block_size
+    if batch != 1 or C % H != 0:
+        return False
+    D = C // H
+    if D not in (32, 64, 128, 256) or S % 8 != 0:
+        return False
+    weights = (C * 3 * C + C * C + 2 * C * 4 * C) * itemsize
+    cache = 2 * H * S * D * itemsize
+    return weights + cache <= FUSED_LAYER_BYTES
+
+
+def packed_decode_supported(cfg, itemsize: int = 2, seq_len: int = 0) -> bool:
+    """The JAX envelope of the packed decode attention: head dim in {32,
+    64, 128, 256}, S a multiple of 8, both (S, C) cache blocks within
+    PACKED_DECODE_BYTES."""
+    C, H = cfg.n_embd, cfg.n_head
+    S = seq_len or cfg.block_size
+    if C % H != 0:
+        return False
+    D = C // H
+    if D not in (32, 64, 128, 256) or S % 8 != 0:
+        return False
+    return 2 * S * C * itemsize <= PACKED_DECODE_BYTES
+
+
+def attend_smem_bytes(seq_len: int, head_dim: int) -> int:
+    """Shared memory of the attention of one head (mirrors
+    ``attend_smem_floats`` in csrc/decode_attention.cuh)."""
+    return 4 * (head_dim + seq_len + _THREADS + _THREADS // 32 + 1)
+
+
+def fused_smem_bytes(n_embd: int, seq_len: int, head_dim: int,
+                     itemsize: int) -> int:
+    """Shared memory of one fused-kernel block (mirrors ``smem_floats``
+    in csrc/fused_decode_layers.cu)."""
+    tile_cols = _TILE_VECS * (16 // itemsize)
+    row_groups = _THREADS // _TILE_VECS
+    return (4 * (4 * n_embd + row_groups * tile_cols + _THREADS // 32 + 1)
+            + attend_smem_bytes(seq_len, head_dim))
+
+
+def kernel_envelope(head_dim: int, itemsize: int, smem: int) -> tuple:
+    """``(ok, reasons)`` for either kernel: bf16 or f32, a head dim of
+    whole 16-byte vectors that divides the block's 256 threads, and the
+    block's shared memory within the card's limit."""
+    reasons = []
+    if itemsize not in (2, 4):
+        reasons.append("dtype")
+    if head_dim % (16 // max(itemsize, 1)) or _THREADS % head_dim \
+            or head_dim > _THREADS:
+        reasons.append("head_dim")
+    if smem > _MAX_SMEM:
+        reasons.append("smem_budget")
+    return (not reasons), tuple(reasons)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _attend_stale(q, k_new, v_new, kc, vc, n_head: int) -> torch.Tensor:
+    """One decode row per batch entry against its stale rows and the
+    fresh column. q/k_new/v_new: (B, C); kc/vc: (B, H, pos, D) (only the
+    rows < pos). Returns (B, C) f32, before the caller's cast."""
+    B, C = q.shape
+    H, D = n_head, C // n_head
+    scale = D ** -0.5
+    qh = q.float().reshape(B, H, D)
+    s = (kc.float() @ qh[..., None])[..., 0] * scale          # (B, H, pos)
+    s_new = (k_new.float().reshape(B, H, D) * qh).sum(-1) * scale
+    m = torch.maximum(s.amax(-1), s_new) if s.shape[-1] else s_new
+    p = torch.exp(s - m[..., None])
+    p_new = torch.exp(s_new - m)
+    denom = p.sum(-1) + p_new
+    w = (p / denom[..., None]).to(vc.dtype).float()
+    pv = (w[..., None, :] @ vc.float())[..., 0, :]             # (B, H, D)
+    w_new = (p_new / denom).to(v_new.dtype).float()
+    out = pv + w_new[..., None] * v_new.float().reshape(B, H, D)
+    return out.reshape(B, C)
+
+
+def packed_decode_attention_ref(q, k_new, v_new, k_cache, v_cache, pos: int,
+                                *, n_head: int) -> torch.Tensor:
+    """Plain version. q/k_new/v_new: (B, C); caches (B, S, C), stale at
+    ``pos``; only rows < pos are read. Returns (B, C) in q's dtype."""
+    B, _, C = k_cache.shape
+    H, D = n_head, C // n_head
+
+    def heads(c):
+        return c[:, :pos].reshape(B, pos, H, D).transpose(1, 2)
+
+    return _attend_stale(q, k_new, v_new, heads(k_cache), heads(v_cache),
+                         H).to(q.dtype)
+
+
+def _ln_row(x, scale, bias, eps: float):
+    """(1, C) layernorm, f32 statistics, result in x's dtype (``_ln_row``)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def _row_matmul(h, w, b):
+    """``h @ w + b`` accumulated in f32 with the bias added before the
+    one rounding to h's dtype (``_row_matmul``)."""
+    return (h.float() @ w.float() + b.float()).to(h.dtype)
+
+
+def _stale_layer(c_layer, pos: int, packed: bool, n_head: int):
+    """One layer's cache, (1, S, C) packed or (1, H, S, D) heads, as its
+    (1, H, pos, D) stale rows."""
+    if packed:
+        B, _, C = c_layer.shape
+        return c_layer[:, :pos].reshape(B, pos, n_head,
+                                        C // n_head).transpose(1, 2)
+    return c_layer[:, :, :pos]
+
+
+def fused_decode_layers_ref(x0, blocks: Dict[str, torch.Tensor], pos: int,
+                            cache: Dict[str, torch.Tensor], cfg
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Plain version of the fused kernel. x0: (1, C) embedded row in the
+    compute dtype; blocks: the layer-stacked block tensors (cast to
+    x0's dtype here, layernorm parameters included); cache: (L, 1, H,
+    S, D) heads or (L, 1, S, C) packed, per ``cfg.decode_cache_layout``,
+    read only at rows < pos. Returns (x (1, C), newk (L, 1, C), newv (L,
+    1, C)), all in x0's dtype."""
+    cd = x0.dtype
+    w = {n: blocks[n].to(cd) for n in BLOCK_NAMES}
+    packed = cfg.decode_cache_layout == "packed"
+    L = w["qkv_kernel"].shape[0]
+    C = x0.shape[-1]
+    H = cfg.n_head
+    eps = cfg.layernorm_eps
+    x = x0
+    newk, newv = [], []
+    for i in range(L):
+        h = _ln_row(x, w["ln1_scale"][i], w["ln1_bias"][i], eps)
+        qkv = _row_matmul(h, w["qkv_kernel"][i], w["qkv_bias"][i])
+        q, k_new, v_new = qkv.split(C, dim=-1)
+        kc = _stale_layer(cache["k"][i], pos, packed, H)
+        vc = _stale_layer(cache["v"][i], pos, packed, H)
+        attn = _attend_stale(q, k_new, v_new, kc, vc, H).to(cd)
+        newk.append(k_new)
+        newv.append(v_new)
+        attn = _row_matmul(attn, w["attn_out_kernel"][i],
+                           w["attn_out_bias"][i])
+        x_mid = x + attn
+        h = _ln_row(x_mid, w["ln2_scale"][i], w["ln2_bias"][i], eps)
+        h = _row_matmul(h, w["mlp_up_kernel"][i], w["mlp_up_bias"][i])
+        h = (F.gelu(h.float(), approximate="tanh") if cfg.activation == "gelu"
+             else F.relu(h.float())).to(cd)
+        h = _row_matmul(h, w["mlp_down_kernel"][i], w["mlp_down_bias"][i])
+        x = x_mid + h
+    return x, torch.stack(newk), torch.stack(newv)
+
+
+def fused_weights(blocks: Dict[str, torch.Tensor], dtype: torch.dtype
+                  ) -> Dict[str, torch.Tensor]:
+    """The block tensors as the fused kernel takes them: every one in
+    ``dtype`` (the TPU kernel's cast, layernorm parameters included) and
+    contiguous. Callers make this once per set of weights."""
+    return {n: blocks[n].to(dtype).contiguous() for n in BLOCK_NAMES}
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _check_dtype(what: str, ref: torch.dtype, *ts) -> None:
+    if ref not in _DTYPE_CODE or any(t.dtype != ref for t in ts):
+        raise TypeError(f"{what} takes bf16 or f32 tensors of one dtype; "
+                        f"got {sorted({str(t.dtype) for t in ts})}")
+
+
+def _check_aligned(what: str, *ts) -> None:
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{what}: tensor pointers must be 16-byte aligned")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def packed_decode_attention(q, k_new, v_new, k_cache, v_cache, pos: int,
+                            *, n_head: int) -> torch.Tensor:
+    """Decode attention for the packed cache (see the module docstring).
+    q/k_new/v_new: (B, C) rows with unit column stride sharing one row
+    stride (slices of the (B, 3C) fused projection are taken as they
+    are); caches: contiguous (B, S, C); 0 <= pos < S. CPU tensors run the
+    plain version; CUDA tensors run the kernel or raise."""
+    pos = operator.index(pos)
+    if q.dim() != 2 or k_new.shape != q.shape or v_new.shape != q.shape:
+        raise ValueError(f"q/k_new/v_new must be one (B, C) shape; got "
+                         f"{tuple(q.shape)}, {tuple(k_new.shape)}, "
+                         f"{tuple(v_new.shape)}")
+    B, C = q.shape
+    if C % n_head:
+        raise ValueError(f"C={C} not divisible by n_head={n_head}")
+    if k_cache.dim() != 3 or k_cache.shape != v_cache.shape \
+            or k_cache.shape[0] != B or k_cache.shape[2] != C:
+        raise ValueError(f"caches must be ({B}, S, {C}); got "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
+    S = k_cache.shape[1]
+    if not 0 <= pos < S:
+        raise IndexError(f"pos {pos} outside [0, {S})")
+    if len({t.device for t in (q, k_new, v_new, k_cache, v_cache)}) != 1:
+        raise ValueError("inputs on several devices")
+    if q.device.type == "cpu":
+        return packed_decode_attention_ref(q, k_new, v_new, k_cache, v_cache,
+                                           pos, n_head=n_head)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_dtype("packed_decode_attention", q.dtype, q, k_new, v_new,
+                 k_cache, v_cache)
+    rows = (q, k_new, v_new)
+    ld = q.stride(0)
+    if any(t.stride(1) != 1 or t.stride(0) != ld for t in rows) \
+            or (ld * q.element_size()) % 16 \
+            or not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError("packed_decode_attention takes q/k_new/v_new with "
+                         "unit column stride and one 16-byte-multiple row "
+                         "stride, and contiguous caches")
+    _check_aligned("packed_decode_attention", *rows, k_cache, v_cache)
+    D = C // n_head
+    ok, reasons = kernel_envelope(D, q.element_size(),
+                                  attend_smem_bytes(S, D))
+    if not ok:
+        raise ValueError(f"shapes outside the kernel envelope: {reasons}")
+    out = torch.empty((B, C), dtype=q.dtype, device=q.device)
+    if B == 0:
+        return out
+    lib = _lib("packed_decode_attention")
+    err = lib.packed_decode_attention_launch(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), out.data_ptr(), B, ld, S, n_head, D, pos,
+        _DTYPE_CODE[q.dtype], _stream(q))
+    if err != 0:
+        raise RuntimeError(f"packed_decode_attention launch failed: CUDA "
+                           f"error {err}")
+    packed_decode_attention.launches += 1
+    return out
+
+
+packed_decode_attention.launches = 0
+
+
+def fused_decode_layers(x0, blocks: Dict[str, torch.Tensor], pos: int,
+                        cache: Dict[str, torch.Tensor], cfg
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """All layers of one B=1 decode token (see the module docstring):
+    returns (x (1, C), newk (L, 1, C), newv (L, 1, C)); the cache is
+    read at rows < pos and not written. CPU tensors run the plain
+    version. On CUDA tensors every block tensor and the cache must
+    already be contiguous in x0's dtype (``fused_weights`` makes them
+    so); the kernel launches or the call raises."""
+    pos = operator.index(pos)
+    packed = cfg.decode_cache_layout == "packed"
+    H = cfg.n_head
+    if x0.dim() != 2 or x0.shape[0] != 1:
+        raise ValueError(f"x0 must be (1, C); got {tuple(x0.shape)}")
+    C = x0.shape[1]
+    if C % H:
+        raise ValueError(f"C={C} not divisible by n_head={H}")
+    D = C // H
+    L = blocks["qkv_kernel"].shape[0]
+    S = cache["k"].shape[2 if packed else 3]
+    want = (L, 1, S, C) if packed else (L, 1, H, S, D)
+    if tuple(cache["k"].shape) != want or tuple(cache["v"].shape) != want:
+        raise ValueError(f"cache must be {want} ({cfg.decode_cache_layout} "
+                         f"layout); got {tuple(cache['k'].shape)} / "
+                         f"{tuple(cache['v'].shape)}")
+    if not 0 <= pos < S:
+        raise IndexError(f"pos {pos} outside [0, {S})")
+    if x0.device.type == "cpu":
+        return fused_decode_layers_ref(x0, blocks, pos, cache, cfg)
+    if x0.device.type != "cuda":
+        raise ValueError(f"unsupported device {x0.device}")
+    ws = [blocks[n] for n in BLOCK_NAMES]
+    shapes = {"ln1_scale": (L, C), "ln1_bias": (L, C),
+              "qkv_kernel": (L, C, 3 * C), "qkv_bias": (L, 3 * C),
+              "attn_out_kernel": (L, C, C), "attn_out_bias": (L, C),
+              "ln2_scale": (L, C), "ln2_bias": (L, C),
+              "mlp_up_kernel": (L, C, 4 * C), "mlp_up_bias": (L, 4 * C),
+              "mlp_down_kernel": (L, 4 * C, C), "mlp_down_bias": (L, C)}
+    bad = [n for n in BLOCK_NAMES if tuple(blocks[n].shape) != shapes[n]]
+    if bad:
+        raise ValueError(f"block tensors of the wrong shape: {bad}")
+    ts = [x0, *ws, cache["k"], cache["v"]]
+    _check_dtype("fused_decode_layers", x0.dtype, *ts)
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("fused_decode_layers takes contiguous tensors "
+                         "(see fused_weights)")
+    if len({t.device for t in ts}) != 1:
+        raise ValueError("inputs on several devices")
+    _check_aligned("fused_decode_layers", *ts)
+    isz = x0.element_size()
+    ok, reasons = kernel_envelope(D, isz, fused_smem_bytes(C, S, D, isz))
+    if not ok:
+        raise ValueError(f"shapes outside the kernel envelope: {reasons}")
+    dev, dt = x0.device, x0.dtype
+    xout = torch.empty((1, C), dtype=dt, device=dev)
+    newk = torch.empty((L, 1, C), dtype=dt, device=dev)
+    newv = torch.empty((L, 1, C), dtype=dt, device=dev)
+    scratch = torch.empty(9 * C, dtype=dt, device=dev)
+    ptrs = (ctypes.c_void_p * 19)(*(t.data_ptr() for t in (
+        *ts, xout, newk, newv, scratch)))
+    lib = _lib("fused_decode_layers")
+    err = lib.fused_decode_layers_launch(
+        ptrs, L, C, H, S, pos, int(packed), int(cfg.activation == "gelu"),
+        cfg.layernorm_eps, _DTYPE_CODE[dt], _stream(x0))
+    if err != 0:
+        raise RuntimeError(f"fused_decode_layers launch failed: CUDA error "
+                           f"{err}")
+    fused_decode_layers.launches += 1
+    return xout, newk, newv
+
+
+fused_decode_layers.launches = 0
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
+    fn = getattr(lib, f"{name}_launch")
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        if name == "packed_decode_attention":
+            fn.argtypes = [p, p, p, p, p, p, i, ctypes.c_long, i, i, i, i, i,
+                           p]
+        else:
+            fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), i, i, i, i, i, i,
+                           i, ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,18 +1,38 @@
-"""Batched per-row sampling for the serving engine.
+"""Autoregressive generation and the serving engine's sampler.
 
-Ports of ``replicatinggpt_tpu/sample/generate.py``'s batched sampler:
-every row is a pool slot with its own temperature, top-k, top-p and
-greedy switch, and its own random stream — here one ``torch.Generator``
-per row (torch and JAX give different numbers from the same seed, so
-only the kept sets and greedy picks are comparable across the two).
+Ports of ``replicatinggpt_tpu/sample/generate.py``:
+
+- the batched per-row sampler of the serving engine: every row is a
+  pool slot with its own temperature, top-k, top-p and greedy switch,
+  and its own random stream — here one ``torch.Generator`` per row;
+- ``generate()``: a prefill, then one sampled token per
+  ``models.gpt.decode_step`` against the KV cache, with the JAX
+  package's prompt bucketing and window refresh (when the cache fills,
+  the last ``block_size // 2`` tokens are prefilled again and decoding
+  goes on). The sampled token stays on the device between steps and the
+  position is a host int, so a step waits on nothing. The TPU dispatch
+  scaffolding is not ported: there is no power-of-two grouping of
+  refresh segments (each segment is one host loop) and no cache growth
+  by chunks (the kernels read only rows < pos, so a whole-``block_size``
+  buffer costs nothing extra). Greedy tokens are the JAX package's.
+
+torch and JAX give different numbers from the same seed, so only the
+kept sets and greedy picks are comparable across the two.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
+
+from ..config import ModelConfig
+from ..device import resolve_device
+from ..models.gpt import (GPT, Params, compute_params, decode_step,
+                          init_kv_cache, prefill)
+from ..ops.decode import fused_weights
 
 
 @dataclass(frozen=True)
@@ -91,3 +111,112 @@ def sample_tokens_batched(generators: Sequence[Optional[torch.Generator]],
         sampled[b] = torch.multinomial(probs[b], 1,
                                        generator=generators[b])[0]
     return torch.where(greedy, out, sampled)
+
+
+def _sample_token(generator: Optional[torch.Generator], logits: torch.Tensor,
+                  gcfg: GenerateConfig) -> torch.Tensor:
+    """(B, V) f32 logits -> (B,) int32: greedy argmax, or temperature ->
+    top-k -> top-p -> one draw per row from ``generator``."""
+    if gcfg.greedy:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    B, V = logits.shape
+    logits = logits / max(gcfg.temperature, 1e-6)
+    if gcfg.top_k and gcfg.top_k > 0:
+        k = torch.full((B,), min(gcfg.top_k, V), dtype=torch.long,
+                       device=logits.device)
+        logits = batched_top_k_filter(logits, k)
+    if gcfg.top_p and gcfg.top_p > 0.0:
+        p = torch.full((B,), gcfg.top_p, dtype=torch.float32,
+                       device=logits.device)
+        logits = batched_top_p_filter(logits, p)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+        torch.int32)
+
+
+def _segment_core(params: Params, prompt: torch.Tensor, prompt_len: int,
+                  n_new: int, cfg: ModelConfig, gcfg: GenerateConfig,
+                  generator: Optional[torch.Generator],
+                  allow_kernels: bool,
+                  blocks: Optional[Dict[str, torch.Tensor]]) -> torch.Tensor:
+    """One prefill of the (B, P_pad) prompt, then exactly ``n_new``
+    decode steps from position ``prompt_len - 1``. Requires P_pad +
+    n_new <= block_size + 1. Returns (B, n_new) int32."""
+    B = prompt.shape[0]
+    cache = init_kv_cache(cfg, B, device=prompt.device)
+    prefill(params, prompt, cache, cfg)
+    start = prompt_len - 1
+    tok = prompt[:, start]
+    out = torch.empty((B, n_new), dtype=torch.int32, device=prompt.device)
+    for i in range(n_new):
+        logits, cache = decode_step(params, tok, start + i, cache, cfg,
+                                    allow_kernels=allow_kernels,
+                                    fused_blocks=blocks)
+        tok = _sample_token(generator, logits, gcfg)
+        out[:, i] = tok
+    return out
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length() if n > 1 else 1
+
+
+def generate(model: GPT, prompt, cfg: ModelConfig,
+             gcfg: GenerateConfig = GenerateConfig(),
+             generator: Optional[torch.Generator] = None, *, device=None,
+             allow_kernels: bool = True) -> torch.Tensor:
+    """Generate ``gcfg.max_new_tokens`` continuations of ``prompt``.
+
+    model: the master weights (cast once per call with
+    ``compute_params``). prompt: (B, P) token ids, 1 <= P <= block_size
+    (the reference's zero-context start is one 0 token). device: None means the card (raises without one).
+    generator: the sampling stream, on the device (default: seed 0).
+    allow_kernels False forces ``decode_step``'s plain route. Returns
+    (B, max_new_tokens) int32 on the device.
+
+    Segments as in JAX: the prompt is padded to a power of two (true
+    length kept); the first segment runs min(pow2(n), S - P_pad + 1)
+    steps; every refresh segment prefills the last S // 2 tokens and
+    runs S // 2 + 1 steps; surplus tokens of the last are dropped."""
+    dev = resolve_device(device)
+    params = compute_params(model, dev)
+    prompt = (prompt if isinstance(prompt, torch.Tensor)
+              else torch.as_tensor(np.asarray(prompt))).to(dev, torch.int32)
+    if prompt.dim() != 2 or prompt.shape[1] < 1:
+        raise ValueError(f"prompt must be (B, P) with P >= 1; got "
+                         f"{tuple(prompt.shape)}")
+    S = cfg.block_size
+    B, P0 = prompt.shape
+    if P0 > S:
+        raise ValueError(f"prompt of {P0} tokens is longer than "
+                         f"block_size={S}")
+    remaining = gcfg.max_new_tokens
+    if remaining <= 0:
+        return torch.zeros((B, 0), dtype=torch.int32, device=dev)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    # the fused route's weights, cast once (a no-op for all but the
+    # layernorm parameters); decode_step decides whether it runs
+    blocks = (fused_weights(params["blocks"], cfg.compute_dtype)
+              if allow_kernels and B == 1 else None)
+
+    def segment(p, plen, n):
+        return _segment_core(params, p, plen, n, cfg, gcfg, generator,
+                             allow_kernels, blocks)
+
+    P_pad = min(_pow2_at_least(P0), S)
+    padded = torch.nn.functional.pad(prompt, (0, P_pad - P0))
+    n1 = min(_pow2_at_least(remaining), S - P_pad + 1)
+    toks = segment(padded, P0, n1)
+    take = min(n1, remaining)
+    chunks = [toks[:, :take]]
+    remaining -= take
+    Pw, n_mid = S // 2, S // 2 + 1
+    window = torch.cat([prompt, toks[:, :take]], dim=1)[:, -Pw:]
+    while remaining > 0:
+        toks = segment(window, Pw, n_mid)
+        take = min(n_mid, remaining)
+        chunks.append(toks[:, :take])
+        remaining -= take
+        window = torch.cat([window, toks], dim=1)[:, -Pw:]
+    return torch.cat(chunks, dim=1)

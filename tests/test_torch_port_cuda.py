@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from replicatinggpt_tpu_torch.ops import decode as dec
 from replicatinggpt_tpu_torch.ops import flash_packed as fp
 from replicatinggpt_tpu_torch.ops import paged_attention as pa
 
@@ -132,3 +133,107 @@ def test_flash_packed_kernel_rejects_what_it_does_not_take(card):
     qkv, _ = _flash_inputs(64, 2, torch.float16)
     with pytest.raises(TypeError):
         fp.flash_packed_fwd(qkv, 2)
+
+
+def _nan_past(cache, pos, seq_axis):
+    """Rows at positions >= pos hold NaN: the kernels must not read them."""
+    idx = [slice(None)] * cache.dim()
+    idx[seq_axis] = slice(pos, None)
+    cache[tuple(idx)] = float("nan")
+    return cache
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_packed_decode_attention_kernel_matches_ref(card, D, dtype, tol):
+    B, S, C = 3, 80, 256
+    H = C // D
+    rng = np.random.default_rng(D)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).cuda().to(dtype)
+    qkv = mk(B, 3 * C)            # q/k_new/v_new as slices, row stride 3C
+    q, kn, vn = qkv.split(C, dim=-1)
+    for pos in (0, 32, S - 1):
+        kc = _nan_past(mk(B, S, C), pos, 1)
+        vc = _nan_past(mk(B, S, C), pos, 1)
+        before = dec.packed_decode_attention.launches
+        got = dec.packed_decode_attention(q, kn, vn, kc, vc, pos, n_head=H)
+        torch.cuda.synchronize()
+        assert dec.packed_decode_attention.launches == before + 1
+        ref = dec.packed_decode_attention_ref(q, kn, vn, kc, vc, pos,
+                                              n_head=H)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+def _fused_inputs(layout, D, dtype, pos, S=64, C=256, L=2, seed=0):
+    from replicatinggpt_tpu_torch.config import ModelConfig
+    from replicatinggpt_tpu_torch.models.gpt import BLOCK_SHAPES
+    H = C // D
+    cfg = ModelConfig(vocab_size=64, block_size=S, n_layer=L, n_head=H,
+                      n_embd=C, dtype="float32" if dtype == torch.float32
+                      else "bfloat16", activation="gelu",
+                      decode_cache_layout=layout)
+    rng = np.random.default_rng(seed)
+    blocks = {}
+    for name, shape in BLOCK_SHAPES.items():
+        a = rng.standard_normal((L, *shape(C))).astype(np.float32)
+        a = 1 + 0.1 * a if name.endswith("_scale") else (
+            0.02 * a if name.endswith("_kernel") else 0.1 * a)
+        blocks[name] = torch.from_numpy(a).cuda()
+    blocks = dec.fused_weights(blocks, dtype)
+    shape = (L, 1, S, C) if layout == "packed" else (L, 1, H, S, D)
+    seq = 2 if layout == "packed" else 3
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).cuda().to(dtype)
+    cache = {"k": _nan_past(mk(*shape), pos, seq),
+             "v": _nan_past(mk(*shape), pos, seq)}
+    return mk(1, C), blocks, cache, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["heads", "packed"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_fused_decode_layers_kernel_matches_ref(card, layout, D, dtype, tol):
+    for pos in (0, 32, 63):
+        x0, blocks, cache, cfg = _fused_inputs(layout, D, dtype, pos)
+        before = dec.fused_decode_layers.launches
+        got = dec.fused_decode_layers(x0, blocks, pos, cache, cfg)
+        torch.cuda.synchronize()
+        assert dec.fused_decode_layers.launches == before + 1
+        ref = dec.fused_decode_layers_ref(x0, blocks, pos, cache, cfg)
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape and g.dtype == r.dtype
+            assert torch.isfinite(g).all()
+            torch.testing.assert_close(g.float(), r.float(), atol=tol,
+                                       rtol=tol)
+
+
+@pytest.mark.cuda
+def test_decode_kernels_reject_what_they_do_not_take(card):
+    x0, blocks, cache, cfg = _fused_inputs("packed", 64, torch.bfloat16, 5)
+    with pytest.raises(TypeError):    # f32 weights beside a bf16 row
+        dec.fused_decode_layers(x0, {**blocks, "qkv_bias":
+                                     blocks["qkv_bias"].float()}, 5, cache,
+                                cfg)
+    strided = {"k": cache["k"].transpose(2, 3).contiguous().transpose(2, 3),
+               "v": cache["v"]}
+    assert not strided["k"].is_contiguous()
+    with pytest.raises(ValueError):
+        dec.fused_decode_layers(x0, blocks, 5, strided, cfg)
+    with pytest.raises(IndexError):
+        dec.fused_decode_layers(x0, blocks, 64, cache, cfg)
+    q = torch.randn(2, 256, device="cuda")
+    kc = torch.randn(2, 16, 256, device="cuda")
+    with pytest.raises(TypeError):
+        dec.packed_decode_attention(q.half(), q.half(), q.half(), kc.half(),
+                                    kc.half(), 3, n_head=4)
+    wide = torch.randn(2, 512, device="cuda")[:, ::2]
+    assert wide.stride(1) != 1
+    with pytest.raises(ValueError):
+        dec.packed_decode_attention(wide, q, q, kc, kc, 3, n_head=4)

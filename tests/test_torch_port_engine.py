@@ -207,3 +207,10 @@ def test_entry_points_without_device_need_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["serve-replay", "--preset", "test-tiny",
                   "--n-requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["generate", "--preset", "test-tiny",
+                  "--sample-tokens", "4"])
+    from replicatinggpt_tpu_torch.sample.generate import (GenerateConfig,
+                                                          generate)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate(model, [[1, 2]], TCFG, GenerateConfig(max_new_tokens=4))
