@@ -55,7 +55,27 @@ and fails (non-zero exit) on the first phase that fails:
    samples through ``generate()`` (p50 tokens/s, the BASELINE config 5
    metric; random weights, as speed does not depend on them), then GPT-2
    124M, packed cache, bf16, B=8, 64-token random prompts, 256 new
-   tokens: the packed kernel runs exactly 12 x 256 = 3072 times.
+   tokens: the packed kernel runs exactly 12 x 256 = 3072 times;
+12. paged fused kernel phase: ``fused_paged_decode_layers`` against its
+   plain version at the char-GPT serving path's shapes (L=6, C=384, H=6,
+   pages of 16, 16 pages per slot, 8 slots at ragged positions, one of
+   them inactive at 0), f32 (1e-4) then bf16 (2e-2), in every pool (none,
+   int8 and fp8, page and head scales), NaN in every pool row (quantized:
+   every scale) at or past a slot's position; then timings of the kernel
+   and its plain version in every pool (bf16), against the bound. No
+   single PyTorch call computes every layer of a step: no library time;
+13. quantized paged kernel phase: ``paged_window_attention`` with int8
+   and fp8 pages, page and head scales, at the GPT-2 124M serving shapes
+   (B=8, W=1), bf16 and f32, against its plain version, with timings;
+14. fused serving parity phase: f32 greedy streams through the engine at
+   char-GPT width, 2 layers, on the fused route and on the gather route,
+   with unquantized (fused route forced: the JAX envelope keeps f32
+   char-GPT layers off it), int8 and fp8 pools; identical streams;
+15. serving slice, char-GPT (a main path): ``serve-replay --preset
+   char-gpt`` (bf16, random init, fused route) with 24 shared-prefix
+   requests of prompts up to 128 and 64 new tokens: one fused launch per
+   decode step exactly; then a 4-layer ``gpt2-small --kv-quant int8``
+   replay on the per-layer route (its kernel 4 times per step).
 
 Prints a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -94,6 +114,8 @@ from replicatinggpt_tpu_torch.ops import decode as dec
 from replicatinggpt_tpu_torch.ops import flash_packed as fp
 from replicatinggpt_tpu_torch.ops import paged_attention as pa
 from replicatinggpt_tpu_torch.ops.flash_attention import packed_qkv_attention
+from replicatinggpt_tpu_torch.quant.kv import fake_quantize_rows, quantize_rows
+from replicatinggpt_tpu_torch.serve import engine as engine_mod
 from replicatinggpt_tpu_torch.serve import (Engine, EngineConfig,
                                             ReplayConfig, make_trace)
 from replicatinggpt_tpu_torch.sample.generate import (GenerateConfig,
@@ -112,6 +134,17 @@ DECODE_SOURCE = {
     "packed": "replicatinggpt_tpu_torch/csrc/packed_decode_attention.cu"}
 DECODE_REPLACES = {"fused": "replicatinggpt_tpu/ops/decode_pallas.py:194",
                    "packed": "replicatinggpt_tpu/ops/decode_pallas.py:102"}
+FUSED_PAGED_SOURCE = ("replicatinggpt_tpu_torch/csrc/"
+                      "fused_paged_decode_layers.cu")
+FUSED_PAGED_REPLACES = "replicatinggpt_tpu/ops/decode_pallas.py:394"
+POOLS = (("none", "page"), ("int8", "page"), ("int8", "head"),
+         ("fp8", "page"), ("fp8", "head"))
+# bf16 through an fp8 pool: the kernel and the plain version round k/v
+# to bf16 after products summed in different orders, and a one-ulp bf16
+# difference that crosses an e4m3 rounding boundary of the fake-quantized
+# fresh column moves that element by one fp8 ulp (2^-3 relative), which
+# six layers carry on; int8's grid (amax / 127) is as fine as bf16's
+FP8_BF16_TOL = 5e-2
 CORPUS = "datasets/shakespeare.txt"
 # char-GPT training shapes (the char-gpt preset)
 FB, FT, FC, FH = 64, 256, 384, 6
@@ -374,7 +407,7 @@ def parity_phase() -> None:
           f"kernel and gather routes (f32, 2 layers, C=768)")
 
 
-def replay(extra) -> dict:
+def replay(extra, n_layer: int = 0) -> dict:
     argv = ["serve-replay", "--preset", "gpt2-small",
             "--decode-cache-layout", "packed", "--paged-kernel",
             "--rate", "1000", "--pool-size", "8", "--page-size", "16",
@@ -386,7 +419,7 @@ def replay(extra) -> dict:
     lines = out.getvalue().strip().splitlines()
     print("\n".join(lines[:-1]))
     s = json.loads(lines[-1])
-    n_layer = get_config("gpt2-small").model.n_layer
+    n_layer = n_layer or get_config("gpt2-small").model.n_layer
     V = get_config("gpt2-small").model.vocab_size
     assert s["n_completed"] == s["n_requests"], s["n_completed"]
     assert s["kernel_route"]["decode"] == "kernel", s["kernel_route"]
@@ -781,11 +814,283 @@ def generate_slice_phase(card: str) -> tuple:
     return fused, packed
 
 
+# char-GPT serving: 8 slots (one inactive), pages of 16, 16 pages a slot
+FPB, FPSZ, FPMP = 8, 16, 16
+FPOS = [0, 1, 64, 100, 129, 170, 230, 255]
+
+
+def pool_label(kv: str, gran: str) -> str:
+    return "none" if kv == "none" else f"{kv}-{gran}"
+
+
+def fused_paged_inputs(dtype: torch.dtype, kv: str, gran: str,
+                       seed: int = 0):
+    """The paged fused kernel's inputs at the char-GPT serving path's
+    shapes: init-sized weights (layernorm parameters and biases
+    perturbed so their casts show), embedding-sized rows, projection-
+    sized pool rows on a permuted table whose entries past each live
+    frontier point past the pool, and NaN in every pool row (quantized:
+    every scale) at or past a slot's position."""
+    mcfg = dataclasses.replace(get_config("char-gpt").model, dtype={
+        torch.bfloat16: "bfloat16", torch.float32: "float32"}[dtype],
+        decode_cache_layout="packed")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    L, C, H = mcfg.n_layer, mcfg.n_embd, mcfg.n_head
+    N = FPB * FPMP
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    resid = 0.02 * (2 * L) ** -0.5
+    blocks = {}
+    for name, shape in BLOCK_SHAPES.items():
+        if name.endswith("_scale"):
+            blocks[name] = 1 + rnd(L, *shape(C), scale=0.1)
+        elif name.endswith("_kernel"):
+            blocks[name] = rnd(L, *shape(C), scale=resid if name in (
+                "attn_out_kernel", "mlp_down_kernel") else 0.02)
+        else:
+            blocks[name] = rnd(L, *shape(C), scale=0.02)
+    blocks = dec.fused_weights(blocks, dtype)
+    kv_rows = [rnd(L, N, FPSZ, C, scale=0.5) for _ in range(2)]
+    if kv == "none":
+        cache = {"k": kv_rows[0].to(dtype), "v": kv_rows[1].to(dtype)}
+        dirty = ("k", "v")
+    else:
+        (kq, ks), (vq, vs) = (quantize_rows(t, kv, H, gran) for t in kv_rows)
+        cache = {"k": kq, "v": vq, "ks": ks, "vs": vs}
+        dirty = ("ks", "vs")
+    perm = torch.randperm(N, generator=g, device="cuda")
+    tables = perm.reshape(FPB, FPMP).to(torch.int32)
+    pos = torch.tensor(FPOS, dtype=torch.int32, device="cuda")
+    for b, p in enumerate(FPOS):
+        live = (p + FPSZ - 1) // FPSZ
+        for r in range(p, live * FPSZ):
+            for n in dirty:
+                cache[n][:, int(tables[b, r // FPSZ]), r % FPSZ] = float("nan")
+        tables[b, live:] = N + 9
+    x0 = rnd(FPB, C, scale=0.03).to(dtype)
+    return (x0, blocks, pos, tables.contiguous(), cache, mcfg)
+
+
+def fused_paged_bound_ms(args) -> tuple:
+    """Every layer's weights read once for all slots, each slot's live
+    K/V rows (and scales) read once, the rows in and the rows and fresh
+    K/V out; ~2 flops per weight element and slot, 4 per history element
+    (scores and values)."""
+    x0, _, pos, tables, cache, mcfg = args
+    L, C, H = mcfg.n_layer, mcfg.n_embd, mcfg.n_head
+    isz = x0.element_size()
+    hist = int(pos.long().sum())
+    sw = (0 if "ks" not in cache else cache["ks"].shape[-1]
+          if cache["ks"].dim() == 4 else 1)
+    weights = L * (12 * C * C + 13 * C)
+    nbytes = (weights * isz + 2 * L * hist * (C * cache["k"].element_size()
+                                              + 4 * sw)
+              + FPB * C * isz * (2 + 2 * L) + tables.numel() * 4 + FPB * 4)
+    return _bound(nbytes, 2 * FPB * weights + 4 * L * hist * C, x0.dtype)
+
+
+def fused_paged_kernel_phase(flush: torch.Tensor) -> dict:
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for kv, gran in POOLS:
+            args = fused_paged_inputs(dtype, kv, gran)
+            got = dec.fused_paged_decode_layers(*args)
+            torch.cuda.synchronize()
+            ref = dec.fused_paged_decode_layers_ref(*args)
+            tol = (FP8_BF16_TOL if kv == "fp8" and dtype == torch.bfloat16
+                   else TOL[dtype])
+            err = 0.0
+            for a, b in zip(got, ref):
+                if not torch.isfinite(a).all():
+                    raise AssertionError(f"fused paged: non-finite output "
+                                         f"({dtype}, {kv}-{gran})")
+                torch.testing.assert_close(a.float(), b.float(), atol=tol,
+                                           rtol=tol)
+                err = max(err, (a.float() - b.float()).abs().max().item())
+            errs[(dtype, pool_label(kv, gran))] = err
+            print(f"fused paged check: {str(dtype)[6:]} pool "
+                  f"{pool_label(kv, gran)} B={FPB} pos {FPOS} max_abs_err "
+                  f"{err:.3e} (atol=rtol={tol})")
+    by_pool = {}
+    for kv, gran in POOLS:
+        args = fused_paged_inputs(torch.bfloat16, kv, gran)
+        ms = time_ms(lambda: dec.fused_paged_decode_layers(*args), flush)
+        plain_ms = time_ms(lambda: dec.fused_paged_decode_layers_ref(*args),
+                           flush, n=10, warm=2)
+        b_ms, b_by = fused_paged_bound_ms(args)
+        by_pool[pool_label(kv, gran)] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by,
+            "max_abs_err": errs[(torch.bfloat16, pool_label(kv, gran))]}
+        print(f"fused paged timing (char-gpt, bf16, pool "
+              f"{pool_label(kv, gran)}, B={FPB}, pos sum {sum(FPOS)}): "
+              f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+              f"bound {b_ms * 1e3:.2f} us ({b_by})")
+    main = by_pool["none"]
+    return {"name": "fused_paged_decode_layers", "route": "cuda",
+            "source": FUSED_PAGED_SOURCE, "replaces": FUSED_PAGED_REPLACES,
+            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "kernel_ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes every layer "
+                       "of a paged decode step",
+            "by_pool": by_pool}
+
+
+def quantized_paged_phase(flush: torch.Tensor) -> dict:
+    """Row #1's quantized pools at the GPT-2 124M serving shapes (W=1)."""
+    out = {}
+    for kv, gran in POOLS[1:]:
+        label = pool_label(kv, gran)
+        err = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kn, vn, kp, vp, tables, pos = paged_inputs(1, torch.float32)
+            kq, ks = quantize_rows(kp, kv, H, gran)
+            vq, vs = quantize_rows(vp, kv, H, gran)
+            kn, vn = (fake_quantize_rows(t, kv, H, gran) for t in (kn, vn))
+            args = (q.to(dtype), kn.to(dtype), vn.to(dtype), kq, vq, tables,
+                    pos)
+            kw = {"n_head": H, "k_scales": ks, "v_scales": vs}
+            got = pa.paged_window_attention(*args, **kw)
+            torch.cuda.synchronize()
+            ref = pa.paged_window_attention_ref(*args, **kw)
+            torch.testing.assert_close(got.float(), ref.float(),
+                                       atol=TOL[dtype], rtol=TOL[dtype])
+            err[dtype] = (got.float() - ref.float()).abs().max().item()
+        ms = time_ms(lambda: pa.paged_window_attention(*args, **kw), flush)
+        plain_ms = time_ms(lambda: pa.paged_window_attention_ref(*args, **kw),
+                           flush)
+        live = int(((pos.long() + PSZ - 1) // PSZ).sum())
+        sw = H if gran == "head" else 1
+        b_ms, b_by = _bound(4 * B * C * 2 + 2 * live * PSZ * (C + 4 * sw)
+                            + live * 4 + B * 4,
+                            4 * C * (int(pos.long().sum()) + B),
+                            torch.bfloat16)
+        out[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "max_abs_err": err[torch.bfloat16]}
+        print(f"quantized paged check + timing ({label}, B={B}, W=1): "
+              f"max_abs_err f32 {err[torch.float32]:.3e} (1e-4), bf16 "
+              f"{err[torch.bfloat16]:.3e} (2e-2); bf16 kernel "
+              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+              f"{b_ms * 1e3:.2f} us ({b_by})")
+    return out
+
+
+@contextlib.contextmanager
+def forced_fused_route():
+    """The engine's route rule takes the fused kernel wherever the
+    per-layer kernel is allowed: the JAX envelope keeps char-GPT's f32
+    layers (7 MB each) off it unless the pool is quantized."""
+    rule = engine_mod.fused_paged_decode_supported
+    engine_mod.fused_paged_decode_supported = lambda *a, **kw: True
+    try:
+        yield
+    finally:
+        engine_mod.fused_paged_decode_supported = rule
+
+
+def fused_parity_phase() -> None:
+    """f32 greedy streams through the engine on the fused and gather
+    routes, at char-GPT width, 2 layers, with each pool."""
+    mcfg = dataclasses.replace(get_config("char-gpt").model, n_layer=2,
+                               dtype="float32", decode_cache_layout="packed")
+    model = init_params(mcfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    trace = make_trace(mcfg, ReplayConfig(
+        n_requests=8, seed=2, prompt_len_max=120, prompt_mode="shared_prefix",
+        max_new_tokens=48, greedy=True))
+    for kv in ("none", "int8", "fp8"):
+        streams = {}
+        for fused in (True, False):
+            ecfg = EngineConfig(pool_size=8, page_size=16, paged_kernel=fused,
+                                kv_quant=kv)
+            with forced_fused_route() if fused and kv == "none" \
+                    else contextlib.nullcontext():
+                eng = Engine(model, mcfg, ecfg, device="cuda")
+            assert eng.kernel_route.decode == ("fused" if fused
+                                               else "gather")
+            dec.fused_paged_decode_layers.launches = 0
+            for _, req in trace:
+                assert eng.submit(req) is None
+            streams[fused] = {r.id: r.tokens for r in eng.drain()}
+            launched = dec.fused_paged_decode_layers.launches
+            assert (launched == eng.n_steps) if fused else launched == 0
+        a, b = streams[True], streams[False]
+        for rid in sorted(b):
+            if a[rid] != b[rid]:
+                i = next(j for j, (x, y) in enumerate(zip(a[rid], b[rid]))
+                         if x != y)
+                raise AssertionError(f"fused parity ({kv}): {rid} differs at "
+                                     f"token {i}: fused {a[rid][i]} vs "
+                                     f"gather {b[rid][i]}")
+        n = sum(len(s) for s in a.values())
+        print(f"fused parity ({kv} pool): {len(a)} greedy streams, {n} "
+              f"tokens identical on the fused and gather routes (f32, 2 "
+              f"layers, C=384)")
+
+
+def char_replay(extra) -> dict:
+    argv = ["serve-replay", "--preset", "char-gpt", "--decode-cache-layout",
+            "packed", "--paged-kernel", "--rate", "1000", "--pool-size", "8",
+            "--page-size", "16", "--prompt-mode", "shared_prefix",
+            "--prompt-len-max", "128", "--request-max-new-tokens", "64",
+            "--json", *extra]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli.main(argv) == 0
+    lines = out.getvalue().strip().splitlines()
+    print("\n".join(lines[:-1]))
+    return json.loads(lines[-1])
+
+
+def fused_slice_phase(card: str) -> tuple:
+    """The char-GPT serving main path through the port's CLI (fused
+    route), then a reduced-depth GPT-2 124M replay on an int8 pool (the
+    per-layer route: the fused envelope says no at 124M)."""
+    V = get_config("char-gpt").model.vocab_size
+    dec.fused_paged_decode_layers.launches = 0
+    pa.paged_window_attention.launches = 0
+    s = char_replay(["--n-requests", "24", "--greedy"])
+    fused = dec.fused_paged_decode_layers.launches
+    assert fused > 0 and pa.paged_window_attention.launches == 0
+    assert s["n_completed"] == s["n_requests"] == 24, s["n_completed"]
+    assert s["kernel_route"]["decode"] == "fused", s["kernel_route"]
+    assert s["fused_launches"] == s["n_steps"] > 0, (s["fused_launches"],
+                                                     s["n_steps"])
+    assert s["kernel_launches"] == 0
+    assert s["pages"]["prefix_hits"] > 0, s["pages"]
+    toks = [t for st in s["streams"].values() for t in st]
+    assert len(toks) == 24 * 64 and all(0 <= t < V for t in toks)
+    h = s["histograms"]
+    print(f"char slice (fused route, bf16, 24 greedy requests) on {card}: "
+          f"{s['aggregate_tokens_per_s']} tok/s, TTFT p50 "
+          f"{h['ttft_s']['p50'] * 1e3:.2f} ms / p99 "
+          f"{h['ttft_s']['p99'] * 1e3:.2f} ms, step p50 "
+          f"{s['step_latency']['p50_s'] * 1e3:.3f} ms over {s['n_steps']} "
+          f"steps, {s['fused_launches']} fused launches (one per step)")
+    n_layer = 4
+    pa.paged_window_attention.launches = 0
+    q = replay(["--n-requests", "8", "--greedy", "--n-layer", str(n_layer),
+                "--kv-quant", "int8"], n_layer=n_layer)
+    qlaunches = pa.paged_window_attention.launches
+    assert q["kernel_route"]["kv_quant"] == "int8", q["kernel_route"]
+    assert q["pages"]["kv_quant"] == "int8" and q["fused_launches"] == 0
+    print(f"gpt2-small int8 slice ({n_layer} layers, kernel route, 8 greedy "
+          f"requests) on {card}: {q['aggregate_tokens_per_s']} tok/s, step "
+          f"p50 {q['step_latency']['p50_s'] * 1e3:.3f} ms over "
+          f"{q['n_steps']} steps, {q['kernel_launches']} kernel launches, "
+          f"{q['pages']['bytes_per_page']} bytes/page")
+    return fused, qlaunches, s
+
+
 def build_kernels() -> None:
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
     names = ("paged_window_attention", "flash_packed", "fused_decode_layers",
-             "packed_decode_attention")
+             "packed_decode_attention", "fused_paged_decode_layers")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
         for f in [ex.submit(_build.build, n, verbose=True) for n in names]:
             f.result()
@@ -806,6 +1111,13 @@ def main() -> int:
     flash_rows = flash_kernel_phase()
     parity_phase()
     row["launches"] = slice_phase(card)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    fused_paged_row = fused_paged_kernel_phase(flush)
+    row["quantized"] = quantized_paged_phase(flush)
+    del flush
+    fused_parity_phase()
+    (fused_paged_row["launches"], row["quantized_launches"],
+     _) = fused_slice_phase(card)
     text = open(CORPUS, encoding="utf-8").read()
     train_parity_phase(CharTokenizer.from_text(text).encode_np(text))
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -816,7 +1128,8 @@ def main() -> int:
     (flash_rows[0]["launches"], flash_rows[1]["launches"],
      fused_row["launches"]) = train_slice_phase(card, set(text))
     _, packed_row["launches"] = generate_slice_phase(card)
-    print(json.dumps({"kernels": [row, *flash_rows, fused_row, packed_row]}))
+    print(json.dumps({"kernels": [row, *flash_rows, fused_row, packed_row,
+                                  fused_paged_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

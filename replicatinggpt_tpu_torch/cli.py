@@ -36,12 +36,10 @@ UNPORTED_FLAGS = (
     ("--draft-model", "draft_model", None,
      "queue A item 9 (speculative verify)"),
     ("--mesh-shape", "mesh_shape", "1x1", "queue A item 11 (meshes)"),
-    ("--kv-quant", "kv_quant", "none", "queue A item 8 (quantization)"),
     ("--weight-quant", "weight_quant", "none",
-     "queue A item 8 (quantization)"),
-    ("--act-quant", "act_quant", "none", "queue A item 8 (quantization)"),
-    ("--quant-granularity", "quant_granularity", "page",
-     "queue A item 8 (quantization)"),
+     "queue A item 8 (weight quantization)"),
+    ("--act-quant", "act_quant", "none",
+     "queue A item 8 (weight quantization)"),
     ("--trace-out", "trace_out", None, "queue A item 12 (telemetry)"),
     ("--metrics-timeline", "metrics_timeline", None,
      "queue A item 12 (telemetry)"),
@@ -116,11 +114,21 @@ def add_engine_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--no-prefix-cache", action="store_true",
                    help="disable radix prefix reuse (pages only)")
     p.add_argument("--paged-kernel", action="store_true",
-                   help="decode attention through the paged attention "
-                        "kernel (packed layout; CUDA on the card, its "
-                        "plain version on the CPU); the route and any "
-                        "failed gate are reported in the summary's "
-                        "kernel_route")
+                   help="decode through the paged kernels (packed layout; "
+                        "CUDA on the card, their plain versions on the "
+                        "CPU): all layers in one fused launch where its "
+                        "envelope holds, else the per-layer attention "
+                        "kernel; the route and any failed gate are "
+                        "reported in the summary's kernel_route")
+    p.add_argument("--kv-quant", default="none",
+                   choices=["none", "int8", "fp8"],
+                   help="paged KV page storage: int8 or fp8 e4m3 pages "
+                        "with f32 scales (about half the bytes of a bf16 "
+                        "page)")
+    p.add_argument("--quant-granularity", default="page",
+                   choices=["page", "head"],
+                   help="KV scales per written row ('page') or per row "
+                        "and head ('head')")
 
 
 def engine_config_from_args(args: argparse.Namespace):
@@ -130,7 +138,9 @@ def engine_config_from_args(args: argparse.Namespace):
                         page_size=args.page_size, max_pages=args.max_pages,
                         n_pages=args.n_pages,
                         prefix_cache=not args.no_prefix_cache,
-                        paged_kernel=args.paged_kernel)
+                        paged_kernel=args.paged_kernel,
+                        kv_quant=args.kv_quant,
+                        quant_granularity=args.quant_granularity)
 
 
 def cmd_serve_replay(args) -> int:

@@ -8,8 +8,7 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "kv_quant.cuh"
 
 namespace decode {
 
@@ -42,25 +41,7 @@ __device__ __forceinline__ float round_to(float v) {
 }
 
 // 16 bytes of T at src (16-byte aligned) as floats
-__device__ __forceinline__ void load_vec(const float* src, float* dst) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  dst[0] = v.x;
-  dst[1] = v.y;
-  dst[2] = v.z;
-  dst[3] = v.w;
-}
-
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* src,
-                                         float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
+using kvq::load_vec;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

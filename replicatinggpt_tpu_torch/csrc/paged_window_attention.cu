@@ -1,15 +1,20 @@
 // Windowed paged attention for one layer of a packed KV page pool.
 //
 // Replaces replicatinggpt_tpu/ops/paged_pallas.py:_paged_window_kernel
-// (the quantized=False, fold=True case). For every slot b a window of W
+// (fold=True, quantized or not). For every slot b a window of W
 // fresh query rows (row j at logical position pos[b] + j) attends the
 // STALE pool rows at positions < pos[b], addressed through the slot's
 // page table, and then the fresh (W, W) K/V block causally. Scores,
 // running max, denominator and accumulator are f32; the output is
-// written in the input dtype (bf16 or f32).
+// written in the input dtype (bf16 or f32). A quantized pool (int8 or
+// fp8 e4m3 pages with f32 scales per row, or per row and head) is
+// dequantized in f32 as its rows are loaded, f32(q) * scale, never
+// rounded to the compute dtype; the caller hands the fresh window
+// already fake-quantized (quant/kv.py).
 //
 // Bound on this card: bytes. One call reads sum_b live_b * psz * C * 2 *
-// itemsize bytes of K+V pages (live_b = ceil(pos[b] / psz)) and does
+// itemsize bytes of K+V pages (live_b = ceil(pos[b] / psz); plus 8 or
+// 8 * H scale bytes per row when quantized) and does
 // about 4 flops per page element read, far below the H100's ~295
 // flops/byte ridge, so its floor is those bytes at 3.35 TB/s.
 //
@@ -28,8 +33,7 @@
 //
 // Plain C interface (ctypes); the launch returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "kv_quant.cuh"
 
 namespace {
 
@@ -40,26 +44,6 @@ constexpr int kGroup = 8;     // threads per dot product
 constexpr int kPad = 8;       // K row padding (floats): conflict-free reads
 constexpr size_t kMaxSmem = 232448;
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ void load_vec(const float* src, float* dst) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  dst[0] = v.x;
-  dst[1] = v.y;
-  dst[2] = v.z;
-  dst[3] = v.w;
-}
-
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* src,
-                                         float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
 
 __device__ __forceinline__ void store(float* dst, float v) { *dst = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* dst, float v) {
@@ -119,16 +103,23 @@ __device__ __forceinline__ void scores(const float* q_s, const float* keys,
   }
 }
 
-template <typename T>
+// T: the window rows' and output's dtype; P: the pool's (T, int8 or fp8).
+// k_scales/v_scales: null for an unquantized pool, else (N, psz) f32 per
+// row (head_gran 0) or (N, psz, H) per row and head (head_gran 1).
+template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads)
 paged_window_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                     const T* __restrict__ v_new,
-                    const T* __restrict__ k_pages,
-                    const T* __restrict__ v_pages,
+                    const P* __restrict__ k_pages,
+                    const P* __restrict__ v_pages,
+                    const float* __restrict__ k_scales,
+                    const float* __restrict__ v_scales, int head_gran,
                     const int* __restrict__ tables,
                     const int* __restrict__ pos_arr, T* __restrict__ out,
                     int W, int psz, int mp, int H, int D, float scale) {
-  constexpr int VEC = 16 / sizeof(T);
+  using kvq::load_vec;
+  constexpr int VEC = kvq::vec_elems<T>();
+  constexpr int PVEC = kvq::vec_elems<P>();
   const int b = blockIdx.x;
   const int h = blockIdx.y;
   const int tid = threadIdx.x;
@@ -137,7 +128,8 @@ paged_window_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   const int C = H * D;
   const int ks = D + kPad;
   const int ps = W > kTile ? W : kTile;
-  const int vpr = D / VEC;  // 16-byte vectors per head row
+  const int vpr = D / VEC;     // 16-byte vectors per window head row
+  const int pvpr = D / PVEC;   // 16-byte vectors per page head row
 
   extern __shared__ float smem[];
   float* q_s = smem;                 // W x D
@@ -175,13 +167,24 @@ paged_window_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
 
   for (int t0 = 0; t0 < n_hist; t0 += kTile) {
     const int rows = min(kTile, n_hist - t0);
-    for (int e = tid; e < rows * vpr; e += kThreads) {
-      const int r = e / vpr, c = (e % vpr) * VEC;
+    for (int e = tid; e < rows * pvpr; e += kThreads) {
+      const int r = e / pvpr, c = (e % pvpr) * PVEC;
       const int g = t0 + r;
-      const size_t src =
-          ((size_t)tab_s[g / psz] * psz + g % psz) * C + (size_t)h * D + c;
-      load_vec(k_pages + src, k_s + r * ks + c);
-      load_vec(v_pages + src, v_s + r * D + c);
+      const size_t prow = (size_t)tab_s[g / psz] * psz + g % psz;
+      const size_t src = prow * C + (size_t)h * D + c;
+      float* kd = k_s + r * ks + c;
+      float* vd = v_s + r * D + c;
+      load_vec(k_pages + src, kd);
+      load_vec(v_pages + src, vd);
+      if (k_scales != nullptr) {
+        const size_t si = head_gran ? prow * H + h : prow;
+        const float sk = k_scales[si], sv = v_scales[si];
+#pragma unroll
+        for (int j = 0; j < PVEC; ++j) {
+          kd[j] *= sk;
+          vd[j] *= sv;
+        }
+      }
     }
     __syncthreads();
     scores(q_s, k_s, ks, p_s, ps, W, rows, D, scale);
@@ -251,15 +254,18 @@ paged_window_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   }
 }
 
-template <typename T>
+template <typename T, typename P>
 int launch(const void* q, const void* k_new, const void* v_new,
-           const void* k_pages, const void* v_pages, const int* tables,
+           const void* k_pages, const void* v_pages, const float* k_scales,
+           const float* v_scales, int head_gran, const int* tables,
            const int* pos, void* out, int B, int W, int psz, int mp, int H,
            int D, cudaStream_t stream) {
   const size_t smem = smem_floats(W, D, mp) * sizeof(float);
-  if (smem > kMaxSmem || D % (16 / sizeof(T)) != 0 || H > 65535)
+  if (smem > kMaxSmem || D % kvq::vec_elems<T>() != 0 ||
+      D % kvq::vec_elems<P>() != 0 || H > 65535 ||
+      (k_scales == nullptr) != (v_scales == nullptr))
     return (int)cudaErrorInvalidValue;
-  auto kernel = paged_window_kernel<T>;
+  auto kernel = paged_window_kernel<T, P>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -267,29 +273,56 @@ int launch(const void* q, const void* k_new, const void* v_new,
   }
   kernel<<<dim3(B, H), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new),
-      static_cast<const T*>(v_new), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), tables, pos, static_cast<T*>(out), W,
-      psz, mp, H, D, 1.0f / sqrtf((float)D));
+      static_cast<const T*>(v_new), static_cast<const P*>(k_pages),
+      static_cast<const P*>(v_pages), k_scales, v_scales, head_gran, tables,
+      pos, static_cast<T*>(out), W, psz, mp, H, D, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_pool(int pool, const void* q, const void* k_new, const void* v_new,
+                const void* k_pages, const void* v_pages, const float* ks,
+                const float* vs, int head_gran, const int* tab, const int* p,
+                void* out, int B, int W, int psz, int mp, int H, int D,
+                cudaStream_t s) {
+  if (pool == 0 && ks == nullptr)
+    return launch<T, T>(q, k_new, v_new, k_pages, v_pages, ks, vs, head_gran,
+                        tab, p, out, B, W, psz, mp, H, D, s);
+  if (pool == 1 && ks != nullptr)
+    return launch<T, int8_t>(q, k_new, v_new, k_pages, v_pages, ks, vs,
+                             head_gran, tab, p, out, B, W, psz, mp, H, D, s);
+  if (pool == 2 && ks != nullptr)
+    return launch<T, __nv_fp8_e4m3>(q, k_new, v_new, k_pages, v_pages, ks,
+                                    vs, head_gran, tab, p, out, B, W, psz,
+                                    mp, H, D, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. The kernel trusts the live prefix of
-// each table row to hold page ids inside the pool (the allocator's
-// invariant); entries past it are never read.
+// dtype (window rows and output): 0 = float32, 1 = bfloat16. pool: 0 =
+// the pages in that dtype (k_scales and v_scales null), 1 = int8, 2 = fp8
+// e4m3, with f32 scales (N, psz) (head_gran 0) or (N, psz, H) (head_gran
+// 1). The kernel trusts the live prefix of each table row to hold page
+// ids inside the pool (the allocator's invariant); entries past it are
+// never read.
 extern "C" int paged_window_attention_launch(
     const void* q, const void* k_new, const void* v_new, const void* k_pages,
-    const void* v_pages, const void* tables, const void* pos, void* out,
-    int B, int W, int psz, int mp, int H, int D, int dtype, void* stream) {
+    const void* v_pages, const void* k_scales, const void* v_scales,
+    int head_gran, const void* tables, const void* pos, void* out, int B,
+    int W, int psz, int mp, int H, int D, int dtype, int pool, void* stream) {
   const int* tab = static_cast<const int*>(tables);
   const int* p = static_cast<const int*>(pos);
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k_new, v_new, k_pages, v_pages, tab, p, out, B,
-                         W, psz, mp, H, D, s);
+    return launch_pool<float>(pool, q, k_new, v_new, k_pages, v_pages, ks,
+                              vs, head_gran, tab, p, out, B, W, psz, mp, H,
+                              D, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_new, v_new, k_pages, v_pages, tab, p,
-                                 out, B, W, psz, mp, H, D, s);
+    return launch_pool<__nv_bfloat16>(pool, q, k_new, v_new, k_pages,
+                                      v_pages, ks, vs, head_gran, tab, p,
+                                      out, B, W, psz, mp, H, D, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -16,8 +16,10 @@ A port of ``replicatinggpt_tpu/models/gpt.py``:
   cast once to the compute dtype (layernorm scales and biases stay f32,
   as JAX reads them);
 - the paged pool (``init_paged_kv_pool``, ``_gather_pages``,
-  ``_scatter_kv``) and the two serving steps, ``decode_step_paged`` and
-  ``prefill_chunk_paged``;
+  ``_scatter_kv``; unquantized, or int8/fp8 pages with f32 scales that
+  are quantized on write and dequantized on gather) and the two serving
+  steps, ``decode_step_paged`` (fused, per-layer kernel and gather
+  routes) and ``prefill_chunk_paged``;
 - the contiguous cache of ``generate()`` (``init_kv_cache``,
   ``cache_seq_axis``), ``decode_step`` with its three routes (the fused
   all-layers kernel at B=1, the packed decode attention kernel, the
@@ -43,10 +45,12 @@ from ..ops.attention import (cached_attention, full_causal_attention,
                              uint8_inverted_dropout,
                              windowed_cached_attention)
 from ..ops.decode import (fused_decode_layers, fused_decode_supported,
-                          fused_weights, packed_decode_attention,
-                          packed_decode_supported)
+                          fused_paged_decode_layers, fused_weights,
+                          packed_decode_attention, packed_decode_supported)
 from ..ops.flash_attention import packed_envelope, packed_qkv_attention
 from ..ops.paged_attention import paged_window_attention
+from ..quant.kv import (dequant_gathered, fake_quantize_rows, init_scales,
+                        kv_store_dtype, pool_quant_mode, quantize_rows)
 
 Params = Dict[str, Any]
 
@@ -351,17 +355,27 @@ def _decode_head(x, params: Params, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def init_paged_kv_pool(cfg: ModelConfig, n_pages: int, page_size: int,
-                       device=None, dtype: Optional[torch.dtype] = None
-                       ) -> Dict[str, torch.Tensor]:
+                       device=None, dtype: Optional[torch.dtype] = None,
+                       quant=None) -> Dict[str, torch.Tensor]:
     """(L, n_pages, page, C) packed or (L, n_pages, H, page, D) heads,
-    zero-filled, for K and V."""
-    dt = dtype or cfg.compute_dtype
+    zero-filled, for K and V. ``quant`` (a ``quant.QuantConfig`` with
+    ``kv_dtype`` set) stores the pages in int8/fp8 and adds the ``ks``/
+    ``vs`` f32 scale tensors, indexed by the same (layer, page, offset)
+    coordinates; the paged steps read the mode off the dict
+    (``quant.kv.pool_quant_mode``)."""
     if cfg.decode_cache_layout == "packed":
         shape = (cfg.n_layer, n_pages, page_size, cfg.n_embd)
     else:
         shape = (cfg.n_layer, n_pages, cfg.n_head, page_size, cfg.head_dim)
-    return {"k": torch.zeros(shape, device=device, dtype=dt),
+    quantized = quant is not None and quant.kv_enabled
+    dt = (kv_store_dtype(quant.kv_dtype) if quantized
+          else dtype or cfg.compute_dtype)
+    pool = {"k": torch.zeros(shape, device=device, dtype=dt),
             "v": torch.zeros(shape, device=device, dtype=dt)}
+    if quantized:
+        pool.update(init_scales(cfg, n_pages, page_size, quant.granularity,
+                                device=device))
+    return pool
 
 
 def paged_page_size(cfg: ModelConfig, cache: Dict[str, torch.Tensor]) -> int:
@@ -369,11 +383,16 @@ def paged_page_size(cfg: ModelConfig, cache: Dict[str, torch.Tensor]) -> int:
         2 if cfg.decode_cache_layout == "packed" else 3])
 
 
-def _gather_pages(c_layer, tables, packed: bool, n_head: int):
+def _gather_pages(c_layer, tables, packed: bool, n_head: int,
+                  s_layer=None, cd: Optional[torch.dtype] = None):
     """One layer's logical (B, H, max_pages*page, D) view through the page
     tables (unmapped entries hold page 0; the positions they cover are
-    masked by every caller)."""
-    g = c_layer[tables.long()]
+    masked by every caller). ``s_layer`` (one layer of a quantized pool's
+    scales) dequantizes the gathered view to ``cd``."""
+    tl = tables.long()
+    g = c_layer[tl]
+    if s_layer is not None:
+        g = dequant_gathered(g, s_layer[tl], packed, n_head, cd)
     if packed:
         B, mp, psz, C = g.shape
         return _split_heads(g.reshape(B, mp * psz, C), n_head)
@@ -381,9 +400,13 @@ def _gather_pages(c_layer, tables, packed: bool, n_head: int):
     return g.transpose(1, 2).reshape(B, H, mp * psz, D)
 
 
-def _gather_kv(cc, layer_idx: int, tables, packed: bool, n_head: int):
-    return (_gather_pages(cc["k"][layer_idx], tables, packed, n_head),
-            _gather_pages(cc["v"][layer_idx], tables, packed, n_head))
+def _gather_kv(cc, layer_idx: int, tables, packed: bool, n_head: int,
+               cd: Optional[torch.dtype] = None):
+    quantized = "ks" in cc
+    return tuple(
+        _gather_pages(cc[n][layer_idx], tables, packed, n_head,
+                      s_layer=cc[n + "s"][layer_idx] if quantized else None,
+                      cd=cd) for n in ("k", "v"))
 
 
 def _scatter_kv(cc, layer_idx: int, phys, woff, k_m, v_m, packed: bool,
@@ -392,16 +415,25 @@ def _scatter_kv(cc, layer_idx: int, phys, woff, k_m, v_m, packed: bool,
     of the pool at (phys, woff), in place. Callers pass only the rows
     that land: JAX's ``mode='drop'`` rows (inactive slots, padding past
     ``limit``) are filtered out before this call, since an out-of-range
-    index raises here."""
-    ck, cv = cc["k"][layer_idx], cc["v"][layer_idx]
+    index raises here. On a quantized pool the rows are quantized on
+    write and their scales land at the same coordinates of ``ks``/``vs``.
+    """
+    kv_dtype, gran = pool_quant_mode(cc)
     phys, woff = phys.long(), woff.long()
-    if packed:
-        ck[phys, woff] = k_m.to(ck.dtype)
-        cv[phys, woff] = v_m.to(cv.dtype)
-    else:
-        shp = phys.shape + (n_head, k_m.shape[-1] // n_head)
-        ck[phys, :, woff] = k_m.reshape(shp).to(ck.dtype)
-        cv[phys, :, woff] = v_m.reshape(shp).to(cv.dtype)
+    for name, rows in (("k", k_m), ("v", v_m)):
+        c = cc[name][layer_idx]
+        if kv_dtype is not None:
+            rows, sc = quantize_rows(rows, kv_dtype, n_head, gran)
+            s = cc[name + "s"][layer_idx]
+            if gran == "head" and not packed:
+                s[phys, :, woff] = sc
+            else:
+                s[phys, woff] = sc
+        if packed:
+            c[phys, woff] = rows.to(c.dtype)
+        else:
+            shp = phys.shape + (n_head, rows.shape[-1] // n_head)
+            c[phys, :, woff] = rows.reshape(shp).to(c.dtype)
     return cc
 
 
@@ -412,26 +444,40 @@ def _check_in_bounds(lo: int, hi_plus_len: int, size: int, what: str):
 
 
 def decode_step_paged(params: Params, idx_t, pos, active, tables, cache,
-                      cfg: ModelConfig, *, use_kernel: bool = False
+                      cfg: ModelConfig, *, use_kernel: bool = False,
+                      use_fused: bool = False,
+                      fused_blocks: Optional[Dict[str, torch.Tensor]] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One multi-slot decode step over the paged pool.
 
     idx_t/pos: (B,) tokens and logical positions; active: (B,) bool;
     tables: (B, max_pages) int32. The fresh K/V row of an active slot
     lands at page ``tables[b, pos // page]``, offset ``pos % page``;
-    inactive slots run at position 0 and write nothing. ``use_kernel``
-    attends through ``paged_window_attention`` (stale pool + fresh row,
-    packed layout only) and writes afterwards; otherwise the row is
-    written first and the gathered view attends it (the gather route).
+    inactive slots run at position 0 and write nothing. Three routes
+    (packed layout for the two kernel routes):
+
+    - ``use_fused``: ``fused_paged_decode_layers`` runs every layer in
+      one call on the STALE pool plus the fresh column, and then every
+      layer's fresh K/V row is written (quantized on write for a
+      quantized pool). ``fused_blocks``: the blocks as ``fused_weights``
+      casts them, made once by callers that step many times;
+    - ``use_kernel``: per layer, ``paged_window_attention`` on the stale
+      pool plus the fresh row, written afterwards; a quantized pool hands
+      the kernel its scales and a fresh row fake-quantized to exactly
+      what the write stores;
+    - otherwise the gather route: write the row, gather the logical view
+      (dequantized for a quantized pool) and attend.
+
     Returns ((B, V) f32 logits, the pool)."""
     B = idx_t.shape[0]
     packed = cfg.decode_cache_layout == "packed"
-    if use_kernel and not packed:
-        raise ValueError("the paged attention kernel needs the packed "
+    if (use_kernel or use_fused) and not packed:
+        raise ValueError("the paged attention kernels need the packed "
                          "cache layout")
     psz = paged_page_size(cfg, cache)
     mp = tables.shape[1]
     H = cfg.n_head
+    kv_dtype, gran = pool_quant_mode(cache)
     pos_eff = torch.where(active, pos, torch.zeros_like(pos))
     # one host read per step: the bounds check and the rows that write
     pe_host = pos_eff.cpu()
@@ -439,25 +485,43 @@ def decode_step_paged(params: Params, idx_t, pos, active, tables, cache,
                      "paged decode write")
     rows = torch.nonzero(active.cpu()).squeeze(1).to(idx_t.device)
     x = params["wte"][idx_t.long()] + params["wpe"][pos_eff.long()]
-    x = x[:, None, :]                                           # (B, 1, C)
+    cd = x.dtype
     lpage = torch.clamp(pos_eff // psz, max=mp - 1).long()
-    phys = tables[torch.arange(B, device=tables.device), lpage][rows]
-    woff = (pos_eff % psz)[rows]
+    phys = tables[torch.arange(B, device=tables.device), lpage][rows].long()
+    woff = (pos_eff % psz)[rows].long()
     pos32 = pos_eff.to(torch.int32)
+    if use_fused:
+        blocks = fused_blocks or fused_weights(params["blocks"], cd)
+        x_row, newk, newv = fused_paged_decode_layers(x, blocks, pos32,
+                                                      tables, cache, cfg)
+        for name, new in (("k", newk), ("v", newv)):
+            new = new[:, rows]                                 # (L, R, C)
+            if kv_dtype is not None:
+                new, sc = quantize_rows(new, kv_dtype, H, gran)
+                cache[name + "s"][:, phys, woff] = sc
+            cache[name][:, phys, woff] = new.to(cache[name].dtype)
+        return _decode_head(x_row[:, None, :], params, cfg), cache
+    x = x[:, None, :]                                           # (B, 1, C)
     for i in range(cfg.n_layer):
         lp = _layer(params, i)
         q_m, k_m, v_m = _cached_qkv_merged(x, lp, cfg)
         if use_kernel:
-            q_m, k_m, v_m = (t.contiguous() for t in (q_m, k_m, v_m))
+            q_m, k_new, v_new = (t.contiguous() for t in (q_m, k_m, v_m))
+            scales = {}
+            if kv_dtype is not None:
+                k_new, v_new = (fake_quantize_rows(t, kv_dtype, H, gran)
+                                .to(cd) for t in (k_new, v_new))
+                scales = {"k_scales": cache["ks"][i],
+                          "v_scales": cache["vs"][i]}
             attn = paged_window_attention(
-                q_m, k_m, v_m, cache["k"][i], cache["v"][i], tables, pos32,
-                n_head=H)
+                q_m, k_new, v_new, cache["k"][i], cache["v"][i], tables,
+                pos32, n_head=H, **scales)
             _scatter_kv(cache, i, phys, woff, k_m[rows, 0], v_m[rows, 0],
                         packed, H)
         else:
             _scatter_kv(cache, i, phys, woff, k_m[rows, 0], v_m[rows, 0],
                         packed, H)
-            k_all, v_all = _gather_kv(cache, i, tables, packed, H)
+            k_all, v_all = _gather_kv(cache, i, tables, packed, H, cd)
             attn = _merge_heads(cached_attention(
                 _split_heads(q_m, H), k_all, v_all, pos_eff))
         x = _block_tail(x, attn, lp, cfg)
@@ -497,7 +561,7 @@ def prefill_chunk_paged(params: Params, idx, offset: int, limit: int,
         q_m, k_m, v_m = _cached_qkv_merged(x, lp, cfg)           # (1, Pc, C)
         _scatter_kv(cache, i, phys, woff, k_m[0, :n_write], v_m[0, :n_write],
                     packed, H)
-        k_all, v_all = _gather_kv(cache, i, tables, packed, H)
+        k_all, v_all = _gather_kv(cache, i, tables, packed, H, q_m.dtype)
         attn = windowed_cached_attention(_split_heads(q_m, H), k_all, v_all,
                                          base)
         x = _block_tail(x, _merge_heads(attn), lp, cfg)

@@ -1,4 +1,5 @@
-"""The decode kernels of ``generate()``, with their plain versions.
+"""The decode kernels of ``generate()`` and of the serving engine, with
+their plain versions.
 
 Ports of ``replicatinggpt_tpu/ops/decode_pallas.py``:
 
@@ -13,19 +14,29 @@ Ports of ``replicatinggpt_tpu/ops/decode_pallas.py``:
   embedded row to the last residual, with every layer's fresh K/V row;
   a CPU tensor takes ``fused_decode_layers_ref`` (which mirrors
   ``_decode_kernel``, ``_ln_row`` and ``_row_matmul`` step by step), a
-  CUDA tensor launches ``csrc/fused_decode_layers.cu`` or raises.
+  CUDA tensor launches ``csrc/fused_decode_layers.cu`` or raises;
+- ``fused_paged_decode_supported``: the JAX envelope of the paged
+  kernel, the serving engine's route rule;
+- ``fused_paged_decode_layers``: every layer of one multi-slot PAGED
+  decode step (B slots, per-slot positions, page tables, a pool in the
+  compute dtype or int8/fp8 with scales); a CPU tensor takes
+  ``fused_paged_decode_layers_ref`` (which mirrors ``_paged_fused_kernel``),
+  a CUDA tensor launches ``csrc/fused_paged_decode_layers.cu`` or raises.
 
-Both kernels read only the cache rows at positions < ``pos`` and leave
+The kernels read only the cache rows at positions < ``pos`` and leave
 the cache untouched; the caller writes the fresh rows at ``pos``
 afterwards (attend-stale-then-write == write-then-attend). ``pos`` is a
-host int. Each wrapper counts its kernel launches in ``.launches``.
+host int for the contiguous-cache kernels and a (B,) int32 tensor for
+the paged one. Each wrapper counts its kernel launches in ``.launches``.
 
 Numerics, as the TPU kernels: scores and softmax in f32, the
 probabilities rounded to the cache dtype before the value product; the
 fused kernel casts EVERY block tensor to the compute dtype (layernorm
 scales and biases included), and adds each product's bias in f32 before
 one rounding (the unfused ``h @ W + b`` rounds twice in bf16), so in
-bf16 the fused and unfused routes differ by design.
+bf16 the fused and unfused routes differ by design. The paged fused
+kernel keeps its probabilities in f32 (``_paged_fused_kernel`` does not
+round them).
 """
 
 from __future__ import annotations
@@ -37,12 +48,19 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..quant import GRANULARITIES, QUANT_DTYPES
+from ..quant.kv import fake_quantize_row_body, pool_quant_mode
 from . import _build
+from .paged_attention import NEG_INF, POOL_CODE, gather_history
 
 #: the JAX envelopes' budgets (decode_pallas.py FUSED_LAYER_BYTES,
 #: PACKED_DECODE_BYTES): TPU VMEM sizes, kept only as the route rule
 FUSED_LAYER_BYTES = 6 * 1024 * 1024
 PACKED_DECODE_BYTES = 8 * 1024 * 1024
+#: the JAX paged kernels' (page, C) K+V block budget and lane count
+#: (paged_pallas.py PAGED_DECODE_BYTES, flash_pallas.py LANES)
+PAGED_DECODE_BYTES = 4 * 1024 * 1024
+_LANES = 128
 
 #: kernel constants (csrc/decode_attention.cuh kThreads; the fused
 #: kernel's kTileVecs and kRowGroups; the card's shared-memory limit)
@@ -50,6 +68,9 @@ _THREADS = 256
 _TILE_VECS = 8
 _MAX_SMEM = 232_448
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the paged fused kernel's slots per weight pass, attention tile rows
+#: and K row padding (csrc/fused_paged_decode_layers.cu kRB, kTile, kPad)
+_RB, _TILE, _PAD = 8, 64, 8
 BLOCK_NAMES = ("ln1_scale", "ln1_bias", "qkv_kernel", "qkv_bias",
                "attn_out_kernel", "attn_out_bias", "ln2_scale", "ln2_bias",
                "mlp_up_kernel", "mlp_up_bias", "mlp_down_kernel",
@@ -85,6 +106,53 @@ def packed_decode_supported(cfg, itemsize: int = 2, seq_len: int = 0) -> bool:
     if D not in (32, 64, 128, 256) or S % 8 != 0:
         return False
     return 2 * S * C * itemsize <= PACKED_DECODE_BYTES
+
+
+def fused_paged_smem_bytes(n_embd: int, head_dim: int, max_pages: int,
+                           itemsize: int) -> int:
+    """Shared memory of one paged fused-kernel block (mirrors
+    ``smem_floats`` in csrc/fused_paged_decode_layers.cu)."""
+    C, D = n_embd, head_dim
+    rows = _RB * 4 * C + (_THREADS // 32) * _RB * _TILE_VECS * (16 // itemsize)
+    att = (3 * D + _TILE * (D + _PAD) + _TILE * D + _TILE + _THREADS + 4
+           + max_pages)
+    return 4 * (_THREADS // 32 + 1 + max(rows, att))
+
+
+def fused_paged_decode_supported(cfg, n_slots: int, page_size: int,
+                                 itemsize: int = 2, kv_quant: str = "none",
+                                 granularity: str = "page",
+                                 max_pages: int = 0) -> bool:
+    """The JAX envelope (``decode_pallas.fused_paged_decode_supported``
+    with the shared ``paged_attention_envelope`` checks it calls), kept as
+    the serving engine's route rule: packed layout, a known quant mode,
+    head dim in {32, 64, 128, 256}, at most 128 heads, pages a multiple
+    of 8 rows within the 4 MiB block budget, and one layer's weights + a
+    page pair + the (n_slots, C) scratch within FUSED_LAYER_BYTES.
+    ``itemsize`` is the POOL's element size (1 for int8/fp8), as the JAX
+    engine passes it. On top, the CUDA kernel's own envelope at the
+    compute dtype (``max_pages`` 0 means ceil(block_size / page))."""
+    if cfg.decode_cache_layout != "packed":
+        return False
+    C, H = cfg.n_embd, cfg.n_head
+    if C % H != 0:
+        return False
+    D = C // H
+    if kv_quant not in QUANT_DTYPES or granularity not in GRANULARITIES:
+        return False
+    if D not in (32, 64, 128, 256) or H > _LANES or page_size % 8:
+        return False
+    pages = 2 * page_size * C * itemsize
+    if pages > PAGED_DECODE_BYTES:
+        return False
+    weights = (C * 3 * C + C * C + 2 * C * 4 * C) * itemsize
+    scratch = (n_slots + 3) * C * itemsize + C * 4 + 2 * _LANES * 4
+    if weights + pages + scratch > FUSED_LAYER_BYTES:
+        return False
+    cd = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    mp = max_pages or -(-cfg.block_size // page_size)
+    ok, _ = kernel_envelope(D, cd, fused_paged_smem_bytes(C, D, mp, cd))
+    return ok
 
 
 def attend_smem_bytes(seq_len: int, head_dim: int) -> int:
@@ -222,6 +290,74 @@ def fused_decode_layers_ref(x0, blocks: Dict[str, torch.Tensor], pos: int,
     return x, torch.stack(newk), torch.stack(newv)
 
 
+def fused_paged_decode_layers_ref(x0, blocks: Dict[str, torch.Tensor],
+                                  pos, tables,
+                                  cache: Dict[str, torch.Tensor], cfg
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Plain version of the paged fused kernel. x0: (B, C) embedded rows
+    in the compute dtype; blocks: the layer-stacked block tensors (cast
+    to x0's dtype here); pos: (B,) positions (inactive slots at 0);
+    tables: (B, max_pages); cache: a packed pool (L, N, page, C), with
+    ``ks``/``vs`` scales when quantized, read only at rows < pos of each
+    slot. Returns (x (B, C), newk (L, B, C), newv (L, B, C)), the raw
+    fresh rows, all in x0's dtype."""
+    cd = x0.dtype
+    dev = x0.device
+    w = {n: blocks[n].to(cd) for n in BLOCK_NAMES}
+    kv_dtype, gran = pool_quant_mode(cache)
+    L, N, psz, C = cache["k"].shape
+    B, mp = tables.shape
+    H = cfg.n_head
+    D = C // H
+    S = mp * psz
+    eps = cfg.layernorm_eps
+    scale = D ** -0.5
+    pos = pos.to(dev, torch.int64)
+    live = (pos + psz - 1) // psz
+    owned = torch.arange(mp, device=dev)[None, :] < live[:, None]
+    tab = torch.where(owned, tables.to(dev, torch.int64), 0)
+    valid = torch.arange(S, device=dev)[None, :] < pos[:, None]   # (B, S)
+
+    def history(name, i):   # (B, S, H, D) f32; rows >= pos never read
+        sc = cache[name + "s"][i] if kv_dtype is not None else None
+        g = gather_history(cache[name][i], sc, tab, H).reshape(B, S, C)
+        return torch.where(valid[..., None], g, 0.0).reshape(B, S, H, D)
+
+    x = x0
+    newk, newv = [], []
+    for i in range(L):
+        h = _ln_row(x, w["ln1_scale"][i], w["ln1_bias"][i], eps)
+        qkv = _row_matmul(h, w["qkv_kernel"][i], w["qkv_bias"][i])
+        q, k_row, v_row = qkv.split(C, dim=-1)
+        newk.append(k_row)
+        newv.append(v_row)
+        if kv_dtype is not None:    # attend what the write will store
+            k_row, v_row = (fake_quantize_row_body(t, kv_dtype, H, gran)
+                            .to(cd) for t in (k_row, v_row))
+        qh = q.float().reshape(B, H, D)
+        s = torch.einsum("bhd,bshd->bhs", qh, history("k", i)) * scale
+        s = torch.where(valid[:, None, :], s, NEG_INF)
+        s_new = (k_row.float().reshape(B, H, D) * qh).sum(-1) * scale
+        m = torch.maximum(s.amax(-1), s_new)
+        p = torch.where(valid[:, None, :], torch.exp(s - m[..., None]), 0.0)
+        p_new = torch.exp(s_new - m)
+        denom = p.sum(-1) + p_new
+        out = (torch.einsum("bhs,bshd->bhd", p, history("v", i))
+               + p_new[..., None] * v_row.float().reshape(B, H, D))
+        attn = (out / denom[..., None]).reshape(B, C).to(cd)
+        attn = _row_matmul(attn, w["attn_out_kernel"][i],
+                           w["attn_out_bias"][i])
+        x_mid = x + attn
+        h = _ln_row(x_mid, w["ln2_scale"][i], w["ln2_bias"][i], eps)
+        h = _row_matmul(h, w["mlp_up_kernel"][i], w["mlp_up_bias"][i])
+        h = (F.gelu(h.float(), approximate="tanh") if cfg.activation == "gelu"
+             else F.relu(h.float())).to(cd)
+        h = _row_matmul(h, w["mlp_down_kernel"][i], w["mlp_down_bias"][i])
+        x = x_mid + h
+    return x, torch.stack(newk), torch.stack(newv)
+
+
 def fused_weights(blocks: Dict[str, torch.Tensor], dtype: torch.dtype
                   ) -> Dict[str, torch.Tensor]:
     """The block tensors as the fused kernel takes them: every one in
@@ -344,12 +480,7 @@ def fused_decode_layers(x0, blocks: Dict[str, torch.Tensor], pos: int,
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
     ws = [blocks[n] for n in BLOCK_NAMES]
-    shapes = {"ln1_scale": (L, C), "ln1_bias": (L, C),
-              "qkv_kernel": (L, C, 3 * C), "qkv_bias": (L, 3 * C),
-              "attn_out_kernel": (L, C, C), "attn_out_bias": (L, C),
-              "ln2_scale": (L, C), "ln2_bias": (L, C),
-              "mlp_up_kernel": (L, C, 4 * C), "mlp_up_bias": (L, 4 * C),
-              "mlp_down_kernel": (L, 4 * C, C), "mlp_down_bias": (L, C)}
+    shapes = _block_shapes(L, C)
     bad = [n for n in BLOCK_NAMES if tuple(blocks[n].shape) != shapes[n]]
     if bad:
         raise ValueError(f"block tensors of the wrong shape: {bad}")
@@ -386,6 +517,114 @@ def fused_decode_layers(x0, blocks: Dict[str, torch.Tensor], pos: int,
 fused_decode_layers.launches = 0
 
 
+def _block_shapes(L: int, C: int) -> Dict[str, tuple]:
+    return {"ln1_scale": (L, C), "ln1_bias": (L, C),
+            "qkv_kernel": (L, C, 3 * C), "qkv_bias": (L, 3 * C),
+            "attn_out_kernel": (L, C, C), "attn_out_bias": (L, C),
+            "ln2_scale": (L, C), "ln2_bias": (L, C),
+            "mlp_up_kernel": (L, C, 4 * C), "mlp_up_bias": (L, 4 * C),
+            "mlp_down_kernel": (L, 4 * C, C), "mlp_down_bias": (L, C)}
+
+
+def fused_paged_decode_layers(x0, blocks: Dict[str, torch.Tensor], pos,
+                              tables, cache: Dict[str, torch.Tensor], cfg
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """All layers of one multi-slot paged decode step (see the module
+    docstring and ``fused_paged_decode_layers_ref`` for shapes): returns
+    (x (B, C), newk (L, B, C), newv (L, B, C)); the pool is read at each
+    slot's rows < pos and not written. CPU tensors run the plain
+    version. On CUDA tensors every block tensor must already be
+    contiguous in x0's dtype (``fused_weights``), the pool contiguous in
+    that dtype or int8 / fp8 e4m3 with contiguous f32 scales, tables and
+    pos int32; the kernel launches or the call raises."""
+    H = cfg.n_head
+    if x0.dim() != 2:
+        raise ValueError(f"x0 must be (B, C); got {tuple(x0.shape)}")
+    B, C = x0.shape
+    if C % H:
+        raise ValueError(f"C={C} not divisible by n_head={H}")
+    D = C // H
+    L = blocks["qkv_kernel"].shape[0]
+    kc, vc = cache["k"], cache["v"]
+    if kc.dim() != 4 or kc.shape != vc.shape or kc.shape[0] != L \
+            or kc.shape[3] != C:
+        raise ValueError(f"pool must be packed ({L}, N, page, {C}); got "
+                         f"{tuple(kc.shape)} / {tuple(vc.shape)}")
+    _, N, psz, _ = kc.shape
+    if tables.dim() != 2 or tables.shape[0] != B or tuple(pos.shape) != (B,):
+        raise ValueError(f"tables must be ({B}, max_pages) and pos ({B},); "
+                         f"got {tuple(tables.shape)} / {tuple(pos.shape)}")
+    kv_dtype, gran = pool_quant_mode(cache)
+    scales = ()
+    if kv_dtype is not None:
+        want = (L, N, psz, H) if gran == "head" else (L, N, psz)
+        scales = (cache["ks"], cache["vs"])
+        if any(tuple(t.shape) != want for t in scales):
+            raise ValueError(f"scales must be {want}; got "
+                             f"{[tuple(t.shape) for t in scales]}")
+    if x0.device.type == "cpu":
+        return fused_paged_decode_layers_ref(x0, blocks, pos, tables, cache,
+                                             cfg)
+    if x0.device.type != "cuda":
+        raise ValueError(f"unsupported device {x0.device}")
+    shapes = _block_shapes(L, C)
+    bad = [n for n in BLOCK_NAMES if tuple(blocks[n].shape) != shapes[n]]
+    if bad:
+        raise ValueError(f"block tensors of the wrong shape: {bad}")
+    ws = [blocks[n] for n in BLOCK_NAMES]
+    _check_dtype("fused_paged_decode_layers", x0.dtype, x0, *ws)
+    if kv_dtype is None:
+        _check_dtype("fused_paged_decode_layers", x0.dtype, kc, vc)
+    elif kc.dtype not in POOL_CODE or vc.dtype != kc.dtype \
+            or any(t.dtype != torch.float32 for t in scales):
+        raise TypeError(f"a quantized pool takes int8 or fp8 pages and f32 "
+                        f"scales; got {kc.dtype}, {vc.dtype}, "
+                        f"{[t.dtype for t in scales]}")
+    if tables.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise TypeError(f"tables and pos must be int32; got {tables.dtype} "
+                        f"/ {pos.dtype}")
+    ts = [x0, *ws, kc, vc, *scales, tables, pos]
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("fused_paged_decode_layers takes contiguous tensors "
+                         "(see fused_weights)")
+    if len({t.device for t in ts}) != 1:
+        raise ValueError("inputs on several devices")
+    _check_aligned("fused_paged_decode_layers", x0, *ws, kc, vc)
+    isz = x0.element_size()
+    mp = tables.shape[1]
+    ok, reasons = kernel_envelope(D, isz, fused_paged_smem_bytes(C, D, mp,
+                                                                 isz))
+    if D % 16 and kv_dtype is not None:
+        reasons, ok = reasons + ("head_dim",), False
+    if not ok:
+        raise ValueError(f"shapes outside the kernel envelope: {reasons}")
+    dev, dt = x0.device, x0.dtype
+    xout = torch.empty((B, C), dtype=dt, device=dev)
+    newk = torch.empty((L, B, C), dtype=dt, device=dev)
+    newv = torch.empty((L, B, C), dtype=dt, device=dev)
+    if B == 0:
+        return xout, newk, newv
+    scratch = torch.empty(9 * B * C, dtype=dt, device=dev)
+    sp = [t.data_ptr() for t in scales] or [None, None]
+    ptrs = (ctypes.c_void_p * 23)(
+        *(t.data_ptr() for t in (x0, *ws, kc, vc)), *sp, tables.data_ptr(),
+        pos.data_ptr(), *(t.data_ptr() for t in (xout, newk, newv, scratch)))
+    lib = _lib("fused_paged_decode_layers")
+    err = lib.fused_paged_decode_layers_launch(
+        ptrs, L, B, C, H, N, psz, mp, int(cfg.activation == "gelu"),
+        int(gran == "head"), cfg.layernorm_eps, _DTYPE_CODE[dt],
+        POOL_CODE.get(kc.dtype, 0), _stream(x0))
+    if err != 0:
+        raise RuntimeError(f"fused_paged_decode_layers launch failed: CUDA "
+                           f"error {err}")
+    fused_paged_decode_layers.launches += 1
+    return xout, newk, newv
+
+
+fused_paged_decode_layers.launches = 0
+
+
 def _lib(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
     fn = getattr(lib, f"{name}_launch")
@@ -394,6 +633,9 @@ def _lib(name: str) -> ctypes.CDLL:
         if name == "packed_decode_attention":
             fn.argtypes = [p, p, p, p, p, p, i, ctypes.c_long, i, i, i, i, i,
                            p]
+        elif name == "fused_paged_decode_layers":
+            fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), i, i, i, i, i, i,
+                           i, i, i, ctypes.c_float, i, i, p]
         else:
             fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), i, i, i, i, i, i,
                            i, ctypes.c_float, i, p]

@@ -1,12 +1,15 @@
 """Windowed paged attention for one layer of a packed page pool.
 
 The port of ``replicatinggpt_tpu/ops/paged_pallas.py``
-``paged_window_attention`` (``quantized=False, fold=True``): per slot, a
+``paged_window_attention`` (``fold=True``, quantized or not): per slot, a
 (W, C) window of fresh query rows attends the STALE pool pages its page
 table maps, masked to positions < ``pos``, and then the fresh (W, W)
 K/V block causally. Row j of slot b sits at logical position
 ``pos[b] + j``; the caller scatters the fresh rows into the pool
-afterwards (attend-stale-then-write == write-then-attend).
+afterwards (attend-stale-then-write == write-then-attend). A quantized
+pool (int8 or fp8 pages, ``k_scales``/``v_scales`` f32 per row or per
+row and head) is dequantized in f32, ``f32(q) * scale``; the caller
+hands the fresh rows already fake-quantized (``quant.kv``).
 
 - ``paged_window_attention_ref``: the plain PyTorch version (the CPU
   path and the card's yardstick of correctness);
@@ -23,6 +26,7 @@ import ctypes
 
 import torch
 
+from ..quant.kv import dequant_gathered
 from . import _build
 
 NEG_INF = -1e30   # large-negative instead of -inf: NaN-free masked rows
@@ -32,6 +36,9 @@ _TILE = 64
 _MAX_SMEM = 232_448
 _KERNEL = "paged_window_attention"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: pool element codes beside a compute dtype: the same dtype (0), int8,
+#: fp8 (csrc/paged_window_attention.cu, csrc/fused_paged_decode_layers.cu)
+POOL_CODE = {torch.int8: 1, torch.float8_e4m3fn: 2}
 
 
 def smem_bytes(window: int, head_dim: int, max_pages: int) -> int:
@@ -46,23 +53,41 @@ def smem_bytes(window: int, head_dim: int, max_pages: int) -> int:
 
 def paged_attention_envelope(n_head: int, head_dim: int, page_size: int,
                              *, itemsize: int = 2, window: int = 1,
-                             max_pages: int = 64) -> tuple:
-    """``(ok, reasons)`` for the CUDA kernel at these shapes; the reasons
+                             max_pages: int = 64, kv_quant: str = "none",
+                             granularity: str = "page") -> tuple:
+    """``(ok, reasons)`` for the CUDA kernel at these shapes; ``itemsize``
+    is the pool's element size (1 for an int8 or fp8 pool). The reasons
     use the JAX envelope's vocabulary where a check has a counterpart."""
     reasons = []
-    if itemsize not in (2, 4):
+    if kv_quant not in ("none", "int8", "fp8"):
+        reasons.append("kv_quant_unknown")
+    if granularity not in ("page", "head"):
+        reasons.append("granularity_unknown")
+    if itemsize not in ((2, 4) if kv_quant == "none" else (1,)):
         reasons.append("dtype")
-    if head_dim % 8 or not 8 <= head_dim <= 256:
+    vec = 8 if kv_quant == "none" else 16   # elements of a 16-byte load
+    if head_dim % vec or not vec <= head_dim <= 256:
         reasons.append("head_dim")
     if smem_bytes(window, head_dim, max_pages) > _MAX_SMEM:
         reasons.append("smem_budget")
     return (not reasons), tuple(reasons)
 
 
+def gather_history(pages, scales, tab, n_head: int) -> torch.Tensor:
+    """The (B, max_pages, page, C) pages of each slot's table as f32,
+    dequantized (``f32(q) * scale``) for a quantized pool."""
+    g = pages[tab]
+    if scales is None:
+        return g.float()
+    return dequant_gathered(g, scales[tab], True, n_head, torch.float32)
+
+
 def paged_window_attention_ref(q, k_new, v_new, k_pages, v_pages, tables,
-                               pos, *, n_head: int) -> torch.Tensor:
+                               pos, *, n_head: int, k_scales=None,
+                               v_scales=None) -> torch.Tensor:
     """Plain version. q/k_new/v_new: (B, W, C); k_pages/v_pages:
-    (N, page, C); tables: (B, max_pages) int32; pos: (B,) int32.
+    (N, page, C); tables: (B, max_pages) int32; pos: (B,) int32; a
+    quantized pool's k_scales/v_scales: (N, page) or (N, page, H) f32.
     Returns (B, W, C) in q's dtype; softmax in f32.
 
     Table entries past a slot's live frontier (page index >= ceil(pos /
@@ -80,12 +105,16 @@ def paged_window_attention_ref(q, k_new, v_new, k_pages, v_pages, tables,
     tab = torch.where(owned, tables, torch.zeros_like(tables))
     S = mp * psz
 
-    def heads(x, T):  # (B, T, C) -> (B, H, T, D) in f32
-        return x.float().reshape(B, T, H, D).transpose(1, 2)
+    def heads(x, T):  # (B, T, C) f32 -> (B, H, T, D)
+        return x.reshape(B, T, H, D).transpose(1, 2)
 
-    k_all = torch.cat([k_pages[tab].reshape(B, S, C), k_new], dim=1)
-    v_all = torch.cat([v_pages[tab].reshape(B, S, C), v_new], dim=1)
-    s = (heads(q, W) @ heads(k_all, S + W).transpose(-1, -2)) * D ** -0.5
+    def history(pages, scales):
+        return gather_history(pages, scales, tab, H).reshape(B, S, C)
+
+    k_all = torch.cat([history(k_pages, k_scales), k_new.float()], dim=1)
+    v_all = torch.cat([history(v_pages, v_scales), v_new.float()], dim=1)
+    s = (heads(q.float(), W) @ heads(k_all, S + W).transpose(-1, -2)) \
+        * D ** -0.5
     kpos = torch.arange(S + W, device=dev)
     hist = (kpos[None, None, :] < pos[:, None, None]) & (kpos < S)
     fresh = (kpos[None, :] - S) <= torch.arange(W, device=dev)[:, None]
@@ -97,7 +126,8 @@ def paged_window_attention_ref(q, k_new, v_new, k_pages, v_pages, tables,
     return out.transpose(1, 2).reshape(B, W, C).to(q.dtype)
 
 
-def _check(q, k_new, v_new, k_pages, v_pages, tables, pos, n_head):
+def _check(q, k_new, v_new, k_pages, v_pages, tables, pos, n_head,
+           k_scales, v_scales):
     B, W, C = q.shape
     if C % n_head:
         raise ValueError(f"C={C} not divisible by n_head={n_head}")
@@ -113,44 +143,71 @@ def _check(q, k_new, v_new, k_pages, v_pages, tables, pos, n_head):
         raise ValueError(f"tables must be ({B}, max_pages) and pos "
                          f"({B},); got {tuple(tables.shape)} / "
                          f"{tuple(pos.shape)}")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("pass both k_scales and v_scales, or neither")
+    if k_scales is not None:
+        N, psz = k_pages.shape[:2]
+        if k_scales.shape != v_scales.shape or tuple(k_scales.shape) not in (
+                (N, psz), (N, psz, n_head)):
+            raise ValueError(f"scales must be ({N}, {psz}) or ({N}, {psz}, "
+                             f"{n_head}); got {tuple(k_scales.shape)} / "
+                             f"{tuple(v_scales.shape)}")
+    scales = () if k_scales is None else (k_scales, v_scales)
     devs = {t.device for t in (q, k_new, v_new, k_pages, v_pages, tables,
-                               pos)}
+                               pos, *scales)}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: "
                          f"{sorted(map(str, devs))}")
 
 
 def paged_window_attention(q, k_new, v_new, k_pages, v_pages, tables, pos,
-                           *, n_head: int) -> torch.Tensor:
+                           *, n_head: int, k_scales=None,
+                           v_scales=None) -> torch.Tensor:
     """Windowed paged attention (see the module docstring for shapes).
     CPU tensors run the plain version; CUDA tensors run the kernel,
-    which takes bf16 or f32 contiguous inputs, int32 tables and pos, and
-    shapes inside ``paged_attention_envelope``; anything else raises."""
-    _check(q, k_new, v_new, k_pages, v_pages, tables, pos, n_head)
+    which takes bf16 or f32 contiguous window rows, pages in that dtype
+    or (with contiguous f32 scales) int8 / fp8 e4m3, int32 tables and
+    pos, and shapes inside ``paged_attention_envelope``; anything else
+    raises."""
+    _check(q, k_new, v_new, k_pages, v_pages, tables, pos, n_head, k_scales,
+           v_scales)
     if q.device.type == "cpu":
         return paged_window_attention_ref(q, k_new, v_new, k_pages, v_pages,
-                                          tables, pos, n_head=n_head)
+                                          tables, pos, n_head=n_head,
+                                          k_scales=k_scales,
+                                          v_scales=v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     B, W, C = q.shape
     psz = k_pages.shape[1]
     mp = tables.shape[1]
     D = C // n_head
-    if q.dtype not in _DTYPE_CODE or any(
-            t.dtype != q.dtype for t in (k_new, v_new, k_pages, v_pages)):
-        raise TypeError(f"kernel takes bf16 or f32 q/k/v/pages of one "
-                        f"dtype; got {q.dtype}, {k_new.dtype}, "
+    quantized = k_scales is not None
+    pages_ok = (k_pages.dtype in POOL_CODE if quantized
+                else k_pages.dtype == q.dtype)
+    if q.dtype not in _DTYPE_CODE or k_new.dtype != q.dtype \
+            or v_new.dtype != q.dtype or v_pages.dtype != k_pages.dtype \
+            or not pages_ok:
+        raise TypeError(f"kernel takes bf16 or f32 window rows of one dtype "
+                        f"and pages in that dtype, or int8/fp8 pages with "
+                        f"scales; got {q.dtype}, {k_new.dtype}, "
                         f"{v_new.dtype}, {k_pages.dtype}, {v_pages.dtype}")
     if tables.dtype != torch.int32 or pos.dtype != torch.int32:
         raise TypeError(f"tables and pos must be int32; got "
                         f"{tables.dtype} / {pos.dtype}")
-    ts = (q, k_new, v_new, k_pages, v_pages, tables, pos)
+    scales = (k_scales, v_scales) if quantized else ()
+    if any(s.dtype != torch.float32 for s in scales):
+        raise TypeError("scales must be float32")
+    ts = (q, k_new, v_new, k_pages, v_pages, tables, pos, *scales)
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("kernel inputs must be contiguous")
     if any(t.data_ptr() % 16 for t in ts[:5]):
         raise ValueError("q/k/v/page pointers must be 16-byte aligned")
     ok, reasons = paged_attention_envelope(
-        n_head, D, psz, itemsize=q.element_size(), window=W, max_pages=mp)
+        n_head, D, psz, itemsize=k_pages.element_size(), window=W,
+        max_pages=mp, kv_quant=("none" if not quantized else
+                                "int8" if k_pages.dtype == torch.int8
+                                else "fp8"))
     if not ok:
         raise ValueError(f"shapes outside the kernel envelope: {reasons}")
     out = torch.empty_like(q)
@@ -159,9 +216,13 @@ def paged_window_attention(q, k_new, v_new, k_pages, v_pages, tables, pos,
     lib = _lib()
     err = lib.paged_window_attention_launch(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
+        k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scales.data_ptr() if quantized else None,
+        v_scales.data_ptr() if quantized else None,
+        int(quantized and k_scales.dim() == 3), tables.data_ptr(),
         pos.data_ptr(), out.data_ptr(), B, W, psz, mp, n_head, D,
-        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPE_CODE[q.dtype], POOL_CODE.get(k_pages.dtype, 0),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_window_attention launch failed: CUDA "
                            f"error {err}")
@@ -177,6 +238,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.paged_window_attention_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, p, p, p, i, i, i, i, i, i, i,
+                       i, p]
         fn.restype = ctypes.c_int
     return lib

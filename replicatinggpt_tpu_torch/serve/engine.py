@@ -16,11 +16,14 @@ step per engine step. Per step the engine
    and does the host bookkeeping: commit, eos / budget finishes, radix
    registration of pages the decode frontier passed.
 
-The decode step attends through ``paged_window_attention`` (the CUDA
-kernel on the card) when the route allows it (``decide_kernel_route``),
-else through the gather route. Decode windows > 1, mixed prefill+decode
-steps, speculative verify, meshes, quantized pools and telemetry are
-not ported yet (see ROADMAP.md).
+The decode step runs all layers in one ``fused_paged_decode_layers``
+launch, or attends per layer through ``paged_window_attention`` (the
+CUDA kernels on the card), when the route allows it
+(``decide_kernel_route``), else through the gather route. The pool may
+hold int8/fp8 pages with f32 scales (``kv_quant``, ``quant_granularity``).
+Decode windows > 1, mixed prefill+decode steps, speculative verify,
+meshes, weight quantization and telemetry are not ported yet (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -37,7 +40,9 @@ from ..config import ModelConfig
 from ..device import resolve_device
 from ..models.gpt import (GPT, Params, compute_params, decode_step_paged,
                           prefill_chunk_paged)
+from ..ops.decode import fused_paged_decode_supported, fused_weights
 from ..ops.paged_attention import paged_attention_envelope
+from ..quant import QuantConfig
 from ..sample.generate import sample_tokens_batched
 from ..utils.logging import Metrics
 from ..utils.profiling import StepTimer
@@ -63,8 +68,19 @@ class EngineConfig:
     max_pages: int = 0        # logical pages per slot; 0 = ceil(block/page)
     n_pages: int = 0          # physical pool pages; 0 = pool_size*max_pages
     prefix_cache: bool = True  # radix prefix reuse (False: pages only)
-    paged_kernel: bool = False  # decode attention through the paged
-                                # attention kernel (packed layout only)
+    paged_kernel: bool = False  # decode through the paged kernels
+                                # (packed layout only): the fused
+                                # all-layers kernel where its envelope
+                                # holds, else the per-layer attention
+    kv_quant: str = "none"      # paged KV page storage: none|int8|fp8
+                                # (f32 scales beside the pages)
+    quant_granularity: str = "page"   # one scale per row ('page') or per
+                                      # row and head ('head')
+
+    def quant(self) -> QuantConfig:
+        """The validated KV quantization this engine runs under."""
+        return QuantConfig(kv_dtype=self.kv_quant,
+                           granularity=self.quant_granularity).validate()
 
     def chunk(self, block_size: int) -> int:
         return prefill_chunk_size(self.prefill_chunk, block_size)
@@ -74,38 +90,53 @@ class EngineConfig:
 class KernelRoute:
     """The engine's kernel-route decision, made once at construction and
     exported by ``metrics_summary()['kernel_route']`` with the JAX
-    engine's schema. ``decode`` is "kernel" (attention through
-    ``paged_window_attention``: the CUDA kernel on the card, its plain
-    version on the CPU) or "gather" (scatter, gather the logical view,
-    attend); ``window`` is "none" because this engine runs no windowed
-    step; ``reasons`` names every failed gate."""
+    engine's schema. ``decode`` is "fused" (every layer of a step in one
+    ``fused_paged_decode_layers`` call), "kernel" (attention per layer
+    through ``paged_window_attention``) or "gather" (scatter, gather the
+    logical view, attend); on the card the first two are the CUDA
+    kernels, on the CPU their plain versions. ``window`` is "none"
+    because this engine runs no windowed step; ``reasons`` names every
+    failed gate."""
 
     decode: str
     window: str
     reasons: tuple
+    kv_quant: str = "none"
+    granularity: str = "page"
 
     def summary(self) -> dict:
         return {"route": self.decode, "decode": self.decode,
                 "window": self.window, "sharded": False, "mesh": [1, 1],
-                "kv_quant": "none", "weight_quant": "none",
-                "granularity": "page", "act_quant": "none",
+                "kv_quant": self.kv_quant, "weight_quant": "none",
+                "granularity": self.granularity, "act_quant": "none",
                 "reasons": list(self.reasons)}
 
 
 def decide_kernel_route(cfg: ModelConfig, ecfg: EngineConfig,
-                        page_size: int, max_pages: int,
-                        itemsize: int) -> KernelRoute:
+                        page_size: int, max_pages: int, itemsize: int,
+                        n_slots: int) -> KernelRoute:
+    """The JAX engine's rule: the fused all-layers kernel whenever
+    ``fused_paged_decode_supported`` holds, else the per-layer kernel
+    inside its envelope, else the gather route. ``itemsize`` is the
+    POOL's element size (1 for int8/fp8), as the JAX engine passes it,
+    so an int8 pool can admit the f32 fused route that an f32 pool
+    misses."""
+    q = ecfg.quant()
     reasons = []
     if not ecfg.paged_kernel:
         reasons.append("paged_kernel_off")
     if cfg.decode_cache_layout != "packed":
         reasons.append("cache_layout")
-    _, env = paged_attention_envelope(cfg.n_head, cfg.head_dim, page_size,
-                                      itemsize=itemsize, window=1,
-                                      max_pages=max_pages)
+    _, env = paged_attention_envelope(
+        cfg.n_head, cfg.head_dim, page_size, itemsize=itemsize, window=1,
+        max_pages=max_pages, kv_quant=q.kv_dtype, granularity=q.granularity)
     reasons.extend(env)
-    decode = "gather" if reasons else "kernel"
-    return KernelRoute(decode=decode, window="none", reasons=tuple(reasons))
+    fused = not reasons and fused_paged_decode_supported(
+        cfg, n_slots, page_size, itemsize, kv_quant=q.kv_dtype,
+        granularity=q.granularity, max_pages=max_pages)
+    decode = "fused" if fused else "gather" if reasons else "kernel"
+    return KernelRoute(decode=decode, window="none", reasons=tuple(reasons),
+                       kv_quant=q.kv_dtype, granularity=q.granularity)
 
 
 @dataclass
@@ -147,7 +178,7 @@ class Engine:
         self.pool = PagedCachePool(
             cfg, ecfg.pool_size, page_size=ecfg.page_size,
             max_pages=ecfg.max_pages, n_pages=ecfg.n_pages,
-            prefix_cache=ecfg.prefix_cache, device=dev)
+            prefix_cache=ecfg.prefix_cache, device=dev, quant=ecfg.quant())
         self.scheduler = Scheduler(ecfg.max_queue, cfg.block_size,
                                    clock=clock)
         self.metrics = Metrics()
@@ -156,8 +187,13 @@ class Engine:
         self._chunk = ecfg.chunk(cfg.block_size)
         self.kernel_route = decide_kernel_route(
             cfg, ecfg, self.pool.page_size, self.pool.max_pages,
-            self.pool.cache["k"].element_size())
+            self.pool.cache["k"].element_size(), P)
         self._use_kernel = self.kernel_route.decode == "kernel"
+        self._use_fused = self.kernel_route.decode == "fused"
+        # the fused kernel's blocks, every one in the compute dtype
+        self._fused_blocks = (fused_weights(self.params["blocks"],
+                                            cfg.compute_dtype)
+                              if self._use_fused else None)
         log.info("kernel route: %s%s", self.kernel_route.decode,
                  (" reasons=" + ",".join(self.kernel_route.reasons)
                   if self.kernel_route.reasons else ""))
@@ -361,7 +397,9 @@ class Engine:
         tok, pos, active = state[0], state[1], state[2].bool()
         logits, _ = decode_step_paged(self.params, tok, pos, active, tables,
                                       self.pool.cache, self.cfg,
-                                      use_kernel=self._use_kernel)
+                                      use_kernel=self._use_kernel,
+                                      use_fused=self._use_fused,
+                                      fused_blocks=self._fused_blocks)
         gens = [g if a and not gr else None
                 for g, a, gr in zip(self._gens, self._active, self._greedy)]
         nxt = sample_tokens_batched(gens, logits, temp, top_k, top_p, greedy)

@@ -45,6 +45,7 @@ import torch
 
 from ..config import ModelConfig
 from ..models.gpt import init_paged_kv_pool
+from ..quant.kv import kv_itemsize, scale_bytes_per_token
 
 
 def default_page_size(requested: int, block_size: int) -> int:
@@ -66,11 +67,24 @@ def pool_geometry(cfg: ModelConfig, n_slots: int, page_size: int = 0,
     return psz, mp, (n_pages or n_slots * mp)
 
 
-def page_bytes(cfg: ModelConfig, page_size: int) -> int:
+def page_bytes(cfg: ModelConfig, page_size: int, kv_quant: str = "none",
+               granularity: str = "page") -> int:
     """Device bytes ONE physical page occupies across all layers: K + V
-    rows at the compute dtype."""
-    itemsize = torch.empty((), dtype=cfg.compute_dtype).element_size()
-    return cfg.n_layer * page_size * 2 * cfg.n_embd * itemsize
+    rows at the storage dtype, plus the f32 scales a quantized pool keeps
+    per row (quant/kv.py). At a fixed memory budget page count is the
+    admission currency, so int8/fp8 storage roughly doubles the pool."""
+    per_tok = (2 * cfg.n_embd * kv_itemsize(kv_quant, cfg)
+               + scale_bytes_per_token(kv_quant, granularity, cfg.n_head))
+    return cfg.n_layer * page_size * per_tok
+
+
+def n_pages_for_hbm(hbm_bytes: int, cfg: ModelConfig, page_size: int,
+                    kv_quant: str = "none",
+                    granularity: str = "page") -> int:
+    """Physical pages a fixed device-memory budget holds at the given KV
+    storage mode (at least 1)."""
+    return max(int(hbm_bytes) // page_bytes(cfg, page_size, kv_quant,
+                                            granularity), 1)
 
 
 class _RadixNode:
@@ -354,9 +368,12 @@ class PagedCachePool:
 
     def __init__(self, cfg: ModelConfig, n_slots: int, *,
                  page_size: int = 0, max_pages: int = 0, n_pages: int = 0,
-                 prefix_cache: bool = True, device=None):
+                 prefix_cache: bool = True, device=None, quant=None):
+        """``quant`` (a ``quant.QuantConfig`` with ``kv_dtype`` set)
+        stores the pages in int8/fp8 with f32 scales beside them."""
         assert n_slots >= 1, n_slots
         self.cfg = cfg
+        self.quant = quant
         self.n_slots = n_slots
         self.page_size, self.max_pages, self.n_pages = pool_geometry(
             cfg, n_slots, page_size, max_pages, n_pages)
@@ -368,7 +385,7 @@ class PagedCachePool:
         self.alloc = PageAllocator(self.n_pages, self.page_size,
                                    prefix_cache=prefix_cache)
         self.cache: Dict[str, torch.Tensor] = init_paged_kv_pool(
-            cfg, self.n_pages, self.page_size, device=device)
+            cfg, self.n_pages, self.page_size, device=device, quant=quant)
         # host-mirrored page tables, uploaded by the engine on change
         self.tables = np.zeros((n_slots, self.max_pages), np.int32)
         self.positions = np.zeros((n_slots,), np.int32)
@@ -423,7 +440,8 @@ class PagedCachePool:
 
     def copy_page(self, src: int, dst: int) -> None:
         """Copy-on-write split on the device: physical page ``src`` into
-        ``dst`` across all layers of K and V, in place."""
+        ``dst`` across all layers of every pool tensor (K, V and, for a
+        quantized pool, their scales), in place."""
         for arr in self.cache.values():
             arr[:, dst].copy_(arr[:, src])
 
@@ -457,14 +475,22 @@ class PagedCachePool:
     # ----------------------------------------------------------- metrics
 
     def stats(self) -> dict:
-        """The JAX pool's ``stats()`` keys that a single-device,
-        unquantized pool has."""
+        """The JAX pool's ``stats()`` keys that a single-device pool has,
+        with its quantization gauges."""
         a = self.alloc
+        kv_quant = (self.quant.kv_dtype
+                    if self.quant is not None and self.quant.kv_enabled
+                    else "none")
+        gran = self.quant.granularity if kv_quant != "none" else "page"
         return {
             "page_size": self.page_size,
             "max_pages_per_slot": self.max_pages,
             "n_pages": self.n_pages,
-            "bytes_per_page": page_bytes(self.cfg, self.page_size),
+            "kv_quant": kv_quant,
+            "quant_granularity": gran,
+            "bytes_per_page": page_bytes(self.cfg, self.page_size, kv_quant,
+                                         gran),
+            "kv_quant_bits": 8 * self.cache["k"].element_size(),
             "pages_in_use": a.pages_in_use,
             "pages_free": a.pages_free,
             "page_utilization": round(a.pages_in_use / self.n_pages, 4),

@@ -16,6 +16,7 @@ from typing import List, Tuple
 import numpy as np
 
 from ..config import ModelConfig
+from ..ops.decode import fused_paged_decode_layers
 from ..ops.paged_attention import paged_window_attention
 from .engine import Engine, EngineConfig
 from .requests import Request, RequestResult, SamplingParams
@@ -85,8 +86,9 @@ def run_replay(model, mcfg: ModelConfig, rcfg: ReplayConfig,
     """Replay the trace in wall-clock time, after one request through a
     throwaway engine of the same shapes (which also builds the kernel);
     returns the engine's metrics summary plus replay totals and each
-    request's token stream. ``kernel_launches`` counts the paged
-    attention kernel's launches during the timed replay alone."""
+    request's token stream. ``kernel_launches`` counts the per-layer
+    paged attention kernel's launches during the timed replay alone,
+    ``fused_launches`` the fused all-layers kernel's."""
     w = Engine(model, mcfg, ecfg, device=device)
     w.submit(Request(id="warmup", prompt=np.zeros((1,), np.int32),
                      max_new_tokens=1, sampling=SamplingParams(greedy=True)))
@@ -97,6 +99,7 @@ def run_replay(model, mcfg: ModelConfig, rcfg: ReplayConfig,
     results: List[RequestResult] = []
     i = 0
     launches0 = paged_window_attention.launches
+    fused0 = fused_paged_decode_layers.launches
     t0 = time.monotonic()
     while len(results) < len(trace):
         now = time.monotonic() - t0
@@ -130,6 +133,7 @@ def run_replay(model, mcfg: ModelConfig, rcfg: ReplayConfig,
         "aggregate_tokens_per_s": round(gen_tokens / wall_s, 1)
         if wall_s > 0 else 0.0,
         "kernel_launches": paged_window_attention.launches - launches0,
+        "fused_launches": fused_paged_decode_layers.launches - fused0,
         "streams": {r.id: list(r.tokens) for r in results},
     })
     return summary
@@ -161,6 +165,10 @@ def format_summary(s: dict) -> str:
         f"({pg['prefix_hit_tokens']} tok, rate "
         f"{pg['prefix_hit_rate']:.2f}), {pg['evictions']} evictions, "
         f"{pg['cow_copies']} COW copies",
+        f"quant: KV {pg['kv_quant']}"
+        + (f" ({pg['quant_granularity']}-granularity scales)"
+           if pg["kv_quant"] != "none" else "")
+        + f", {pg['bytes_per_page']} bytes/page",
         f"TTFT: {pct('ttft_s', 1e3, ' ms')}",
         f"decode rate/request: {pct('decode_tokens_per_s', 1.0, ' tok/s')}",
         f"step latency: p50 {sl['p50_s'] * 1e3:.2f} ms / "
@@ -170,5 +178,6 @@ def format_summary(s: dict) -> str:
         f"kernel route: decode={kr['decode']}"
         + (f" (reasons: {','.join(kr['reasons'])})" if kr["reasons"]
            else "")
-        + f", {s['kernel_launches']} kernel launches",
+        + f", {s['kernel_launches']} per-layer and {s['fused_launches']} "
+        f"fused kernel launches",
     ])

@@ -237,3 +237,121 @@ def test_decode_kernels_reject_what_they_do_not_take(card):
     assert wide.stride(1) != 1
     with pytest.raises(ValueError):
         dec.packed_decode_attention(wide, q, q, kc, kc, 3, n_head=4)
+
+
+def _fused_paged_inputs(dtype, kv_dtype, gran, D=64, C=256, L=2, psz=8,
+                        N=40, seed=0):
+    """Ragged positions (two slots at 0, one of them inactive), a
+    permuted table with ids past the pool beyond each live frontier, and
+    NaN in every pool row (or, quantized, every scale) at or past a
+    slot's position: the kernel must not read them."""
+    from replicatinggpt_tpu_torch.config import ModelConfig
+    from replicatinggpt_tpu_torch.models.gpt import BLOCK_SHAPES
+    from replicatinggpt_tpu_torch.quant.kv import quantize_rows
+    H = C // D
+    mp = 6
+    cfg = ModelConfig(vocab_size=64, block_size=mp * psz, n_layer=L,
+                      n_head=H, n_embd=C, activation="gelu",
+                      dtype="float32" if dtype == torch.float32
+                      else "bfloat16", decode_cache_layout="packed")
+    rng = np.random.default_rng(seed)
+    pos = np.array([5, 0, 17, 47, 8, 0], np.int32)
+    B = pos.size
+    tables = rng.permutation(N)[:B * mp].reshape(B, mp).astype(np.int32)
+    live = (pos + psz - 1) // psz
+    tables[np.arange(mp)[None, :] >= live[:, None]] = N + 3
+    blocks = {}
+    for name, shape in BLOCK_SHAPES.items():
+        a = rng.standard_normal((L, *shape(C))).astype(np.float32)
+        a = 1 + 0.1 * a if name.endswith("_scale") else (
+            0.02 * a if name.endswith("_kernel") else 0.1 * a)
+        blocks[name] = torch.from_numpy(a).cuda()
+    blocks = dec.fused_weights(blocks, dtype)
+    kv = [torch.from_numpy(rng.standard_normal((L, N, psz, C)).astype(
+        np.float32)).cuda() for _ in range(2)]
+    if kv_dtype == "none":
+        cache = {"k": kv[0].to(dtype), "v": kv[1].to(dtype)}
+        dirty = ("k", "v")
+    else:
+        (kq, ks), (vq, vs) = (quantize_rows(t, kv_dtype, H, gran) for t in kv)
+        cache = {"k": kq, "v": vq, "ks": ks, "vs": vs}
+        dirty = ("ks", "vs")
+    for b, p in enumerate(pos):
+        for g in range(p, live[b] * psz):
+            for n in dirty:
+                cache[n][:, tables[b, g // psz], g % psz] = float("nan")
+    x0 = torch.from_numpy(0.5 * rng.standard_normal((B, C)).astype(
+        np.float32)).cuda().to(dtype)
+    return (x0, blocks, torch.from_numpy(pos).cuda(),
+            torch.from_numpy(tables).cuda(), cache, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("kv_dtype,gran", [("none", "page"), ("int8", "page"),
+                                           ("int8", "head"), ("fp8", "page"),
+                                           ("fp8", "head")])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_fused_paged_decode_kernel_matches_ref(card, D, kv_dtype, gran,
+                                               dtype, tol):
+    args = _fused_paged_inputs(dtype, kv_dtype, gran, D=D)
+    before = dec.fused_paged_decode_layers.launches
+    got = dec.fused_paged_decode_layers(*args)
+    torch.cuda.synchronize()
+    assert dec.fused_paged_decode_layers.launches == before + 1
+    ref = dec.fused_paged_decode_layers_ref(*args)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_fused_paged_decode_kernel_rejects_what_it_does_not_take(card):
+    x0, blocks, pos, tables, cache, cfg = _fused_paged_inputs(
+        torch.bfloat16, "int8", "page")
+    with pytest.raises(TypeError):          # int64 tables
+        dec.fused_paged_decode_layers(x0, blocks, pos, tables.long(), cache,
+                                      cfg)
+    with pytest.raises(TypeError):          # f32 scales expected
+        dec.fused_paged_decode_layers(x0, blocks, pos, tables, {
+            **cache, "ks": cache["ks"].double()}, cfg)
+    with pytest.raises(TypeError):          # f32 row beside bf16 weights
+        dec.fused_paged_decode_layers(x0.float(), blocks, pos, tables, cache,
+                                      cfg)
+    with pytest.raises(ValueError):         # head scales on a page pool
+        dec.fused_paged_decode_layers(x0, blocks, pos, tables, {
+            **cache, "ks": cache["ks"][..., None]}, cfg)
+    strided = cache["k"].transpose(2, 3).contiguous().transpose(2, 3)
+    assert not strided.is_contiguous()
+    with pytest.raises(ValueError):
+        dec.fused_paged_decode_layers(x0, blocks, pos, tables,
+                                      {**cache, "k": strided}, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 4])
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("gran", ["page", "head"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_quantized_paged_attention_kernel_matches_ref(card, W, kv_dtype, gran,
+                                                      dtype, tol):
+    from replicatinggpt_tpu_torch.quant.kv import (fake_quantize_rows,
+                                                   quantize_rows)
+    q, kn, vn, kp, vp, tables, pos = _inputs(W, torch.float32)
+    kq, ks = quantize_rows(kp, kv_dtype, H, gran)
+    vq, vs = quantize_rows(vp, kv_dtype, H, gran)
+    kn, vn = (fake_quantize_rows(t, kv_dtype, H, gran) for t in (kn, vn))
+    args = (q.to(dtype), kn.to(dtype), vn.to(dtype), kq, vq, tables, pos)
+    before = pa.paged_window_attention.launches
+    got = pa.paged_window_attention(*args, n_head=H, k_scales=ks,
+                                    v_scales=vs)
+    torch.cuda.synchronize()
+    assert pa.paged_window_attention.launches == before + 1
+    ref = pa.paged_window_attention_ref(*args, n_head=H, k_scales=ks,
+                                        v_scales=vs)
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    with pytest.raises(TypeError):          # int8 pages without scales
+        pa.paged_window_attention(*args, n_head=H)

@@ -1,9 +1,9 @@
 """The port's serving engine against the JAX engine, its CLI, and the
 port's import hygiene — on the CPU.
 
-The JAX engine runs its default (gather) route; the port runs both of
-its routes (the kernel route takes the paged attention wrapper's plain
-version on CPU tensors). Greedy streams must be identical through a
+The JAX engine runs its default (gather) route; the port runs all three
+of its routes (the kernel routes take the wrappers' plain versions on
+CPU tensors). Greedy streams must be identical through a
 prefix hit, a copy-on-write split and an LRU eviction.
 """
 
@@ -81,22 +81,28 @@ def jax_run():
 @pytest.mark.parametrize("paged_kernel", [True, False])
 def test_engine_greedy_streams_match_jax(jax_run, paged_kernel):
     """(d) identical greedy streams through a prefix hit, a COW split and
-    an eviction, with the same page accounting."""
+    an eviction, with the same page accounting. With ``paged_kernel`` the
+    route rule takes the fused all-layers kernel at these widths (as the
+    JAX rule does), and the per-layer kernel route, forced, gives the
+    same streams."""
     tree, want, jpages = jax_run
     model = params_from_numpy(tree, TCFG, device="cpu")
-    eng = Engine(model, TCFG, EngineConfig(paged_kernel=paged_kernel, **POOL),
-                 device="cpu")
-    assert eng.kernel_route.decode == ("kernel" if paged_kernel
-                                       else "gather")
-    got, pages = _drive(eng, lambda rid, p, n: Request(
-        id=rid, prompt=p, max_new_tokens=n,
-        sampling=SamplingParams(greedy=True)))
-    assert got == want
-    assert pages["prefix_hits"] >= 2 and pages["cow_copies"] >= 1
-    assert pages["evictions"] >= 1
-    for key in ("prefix_hits", "prefix_hit_tokens", "cow_copies",
-                "evictions", "pages_in_use", "radix_pages"):
-        assert pages[key] == jpages[key], key
+    routes = ("fused", "kernel") if paged_kernel else ("gather",)
+    for route in routes:
+        eng = Engine(model, TCFG, EngineConfig(paged_kernel=paged_kernel,
+                                               **POOL), device="cpu")
+        assert eng.kernel_route.decode == routes[0]
+        if route == "kernel":
+            eng._use_fused, eng._use_kernel = False, True
+        got, pages = _drive(eng, lambda rid, p, n: Request(
+            id=rid, prompt=p, max_new_tokens=n,
+            sampling=SamplingParams(greedy=True)))
+        assert got == want, route
+        assert pages["prefix_hits"] >= 2 and pages["cow_copies"] >= 1
+        assert pages["evictions"] >= 1
+        for key in ("prefix_hits", "prefix_hit_tokens", "cow_copies",
+                    "evictions", "pages_in_use", "radix_pages"):
+            assert pages[key] == jpages[key], key
 
 
 def test_engine_cancel_deadline_eos_and_rejects():

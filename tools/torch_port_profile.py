@@ -2,18 +2,20 @@
 """Where a decode step of the PyTorch port's serving slice spends its
 time, on one NVIDIA card.
 
-    python3 tools/torch_port_profile.py [--steps 20] [--out PATH]
+    python3 tools/torch_port_profile.py [--preset gpt2-small|char-gpt]
+        [--kv-quant none|int8|fp8] [--steps 20] [--out PATH]
 
-Builds the ``serve-replay`` slice's engine (GPT-2 124M at random init,
-packed pool, 8 slots, pages of 16), fills every slot from one greedy
-shared-prefix trace, and then, for the kernel route and the gather
-route in turns (kernel, gather, gather, kernel), times ``--steps``
-decode steps with the host clock (each step ends in the token fetch, a
-device sync) and traces the same number with ``torch.profiler``. From
-the trace: the device's busy time (the union of kernel intervals), its
-idle share of the traced window, and device time by kernel name. Prints
-one JSON object per measurement, and writes them all to ``--out`` when
-given.
+Builds a ``serve-replay`` slice's engine (random init, bf16, packed pool,
+8 slots, pages of 16; ``gpt2-small`` takes the per-layer kernel route,
+``char-gpt`` the fused all-layers kernel route), fills every slot from
+one greedy shared-prefix trace, and then, for the paged-kernel route and
+the gather route in turns (kernel, gather, gather, kernel), times
+``--steps`` decode steps with the host clock (each step ends in the
+token fetch, a device sync) and traces the same number with
+``torch.profiler``. From the trace: the device's busy time (the union of
+kernel intervals), its idle share of the traced window, kernels per
+step and device time by kernel name. Prints one JSON object per
+measurement, and writes them all to ``--out`` when given.
 """
 
 from __future__ import annotations
@@ -45,15 +47,15 @@ def card() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def filled_engine(model, mcfg, kernel: bool) -> Engine:
-    """An engine whose 8 slots all decode: a 16-request greedy trace
+def filled_engine(model, mcfg, kernel: bool, kv_quant: str) -> Engine:
+    """An engine whose 8 slots all decode: an 8-request greedy trace
     submitted at once, stepped until no slot is left to admit and the
     first decode step is behind it."""
-    eng = Engine(model, mcfg, EngineConfig(pool_size=8, page_size=16,
-                                           paged_kernel=kernel),
-                 device="cuda")
+    eng = Engine(model, mcfg, EngineConfig(
+        pool_size=8, page_size=16, paged_kernel=kernel, kv_quant=kv_quant),
+        device="cuda")
     trace = make_trace(mcfg, ReplayConfig(
-        n_requests=8, seed=0, prompt_len_max=512,
+        n_requests=8, seed=0, prompt_len_max=min(512, mcfg.block_size // 2),
         prompt_mode="shared_prefix", max_new_tokens=400, greedy=True))
     for _, req in trace:
         assert eng.submit(req) is None
@@ -96,7 +98,7 @@ def busy_us(events) -> float:
     return total
 
 
-def measure(eng: Engine, steps: int, route: str, cardname: str) -> dict:
+def measure(eng: Engine, steps: int, cardname: str) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -115,7 +117,9 @@ def measure(eng: Engine, steps: int, route: str, cardname: str) -> dict:
     busy_ms = busy_us(kernels) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
-        "route": route, "card": cardname, "steps": steps,
+        "route": eng.kernel_route.decode, "card": cardname, "steps": steps,
+        "kv_quant": eng.kernel_route.kv_quant,
+        "granularity": eng.kernel_route.granularity,
         "active_slots": int(eng._active.sum()),
         "step_wall_ms": round(wall_ms, 4),
         "traced_step_wall_ms": round(traced_ms / steps, 4),
@@ -131,6 +135,10 @@ def measure(eng: Engine, steps: int, route: str, cardname: str) -> dict:
 
 def main() -> int:
     p = argparse.ArgumentParser()
+    p.add_argument("--preset", default="gpt2-small",
+                   choices=["gpt2-small", "char-gpt"])
+    p.add_argument("--kv-quant", default="none",
+                   choices=["none", "int8", "fp8"])
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--out", default=None,
                    help="also write the rows here as one JSON list")
@@ -139,15 +147,15 @@ def main() -> int:
         print("needs a CUDA card", file=sys.stderr)
         return 1
     cardname = card()
-    mcfg = dataclasses.replace(get_config("gpt2-small").model,
+    mcfg = dataclasses.replace(get_config(args.preset).model,
                                decode_cache_layout="packed")
     model = init_params(mcfg, torch.Generator(device="cuda").manual_seed(0),
                         device="cuda")
-    engines = {r: filled_engine(model, mcfg, r == "kernel")
+    engines = {r: filled_engine(model, mcfg, r == "kernel", args.kv_quant)
                for r in ("kernel", "gather")}
     for eng in engines.values():           # warm both routes
         eng.step()
-    rows = [measure(engines[r], args.steps, r, cardname)
+    rows = [measure(engines[r], args.steps, cardname)
             for r in ("kernel", "gather", "gather", "kernel")]
     for row in rows:
         print(json.dumps(row))
