@@ -17,8 +17,9 @@ and fails (non-zero exit) on the first phase that fails:
    K/V gathered dense (the library yardstick, used nowhere in the port);
 4. flash kernel phase: ``flash_packed_fwd`` / ``flash_packed_bwd``
    against their plain versions at the training path's shapes (char-GPT:
-   B=64, T=256, C=384, H=6), bf16 (2e-2) and f32 (1e-4), attention
-   dropout off and at 0.2 with one seed (o, lse, d(qkv)); then timings of
+   B=64, T=256, C=384, H=6), bf16 and f32 (``FLASH_TOL``: one bf16 ulp,
+   else 1e-4), attention dropout off and at 0.2 with one seed (o, lse,
+   d(qkv)); then timings of
    both kernels, their plain versions and ``scaled_dot_product_attention``
    on split heads (its forward, and its backward), at the path's dropout;
 5. serving parity phase: one greedy request set through the engine at
@@ -75,7 +76,25 @@ and fails (non-zero exit) on the first phase that fails:
    char-gpt`` (bf16, random init, fused route) with 24 shared-prefix
    requests of prompts up to 128 and 64 new tokens: one fused launch per
    decode step exactly; then a 4-layer ``gpt2-small --kv-quant int8``
-   replay on the per-layer route (its kernel 4 times per step).
+   replay on the per-layer route (its kernel 4 times per step);
+16. flash kernel phase at GPT-2 124M (TPU rows #7-#12, which the JAX
+   package's head-group families compute): B=32, T=1024, C=768, H=12,
+   bf16 and f32 (``FLASH_TOL``), attention dropout 0 and 0.1, then B=1,
+   T=8192 in f32 and bf16, q/k/v at the path's scale; o, lse and d(qkv)
+   against the plain versions, then timings (dropout 0, the path's) of the
+   kernels, the plain versions and ``scaled_dot_product_attention``;
+17. GPT-2 training parity phase: 124M width, 2 layers, T=1024, B=2, f32,
+   5 steps through the kernels and through the plain version; per-step
+   losses within 1e-4 relative;
+18. GPT-2 training slice (a main path): ``train --preset gpt2-small``
+   through the port's CLI, 200 steps at B=32, T=1024, evals at 0, 100 and
+   200 over 20 batches of each split, the byte-level BPE trained at first
+   use; every loss finite, the last val loss under ln(1024) (a uniform
+   guess over the BPE's tokens) and under step 0's, the forward kernel
+   launched 12 times per train step and eval batch, the backward 12 times
+   per step;
+19. ``train --preset gpt2-shakespeare`` (the reference's GPT-2.py run):
+   50 steps, a ``Step {i}, Loss: ...`` line each, 6 + 6 launches a step.
 
 Prints a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -91,6 +110,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -129,6 +149,24 @@ KERNEL_REPLACES = "replicatinggpt_tpu/ops/paged_pallas.py:202"
 FLASH_SOURCE = "replicatinggpt_tpu_torch/csrc/flash_packed.cu"
 FLASH_REPLACES = {"fwd": "replicatinggpt_tpu/ops/flash_pallas.py:1846",
                   "bwd": "replicatinggpt_tpu/ops/flash_pallas.py:1913"}
+# the head-group kernels the JAX package runs at GPT-2 124M (T=1024), and
+# their streamed and triangular variants (long T), which compute the
+# same function (TPU rows #7-#12)
+GROUP_REPLACES = {"fwd": "replicatinggpt_tpu/ops/flash_pallas.py:2092",
+                  "bwd": "replicatinggpt_tpu/ops/flash_pallas.py:2181"}
+GROUP_ALSO_REPLACES = {
+    "fwd": ["replicatinggpt_tpu/ops/flash_pallas.py:2341",
+            "replicatinggpt_tpu/ops/flash_pallas.py:2574"],
+    "bwd": ["replicatinggpt_tpu/ops/flash_pallas.py:2432",
+            "replicatinggpt_tpu/ops/flash_pallas.py:2470",
+            "replicatinggpt_tpu/ops/flash_pallas.py:2661",
+            "replicatinggpt_tpu/ops/flash_pallas.py:2690"]}
+# GPT-2 124M training shapes (the gpt2-small preset), and the long-T case
+GB, GT, GC, GH, LT = 32, 1024, 768, 12, 8192
+# q, k and v as the path feeds the kernel: unit-variance layernorm output
+# through 0.02-std weights at C=768
+QKV_SCALE = 0.5
+GROUP_RATE = 0.1
 DECODE_SOURCE = {
     "fused": "replicatinggpt_tpu_torch/csrc/fused_decode_layers.cu",
     "packed": "replicatinggpt_tpu_torch/csrc/packed_decode_attention.cu"}
@@ -146,6 +184,7 @@ POOLS = (("none", "page"), ("int8", "page"), ("int8", "head"),
 # six layers carry on; int8's grid (amax / 127) is as fine as bf16's
 FP8_BF16_TOL = 5e-2
 CORPUS = "datasets/shakespeare.txt"
+BPE_CACHE = "datasets/bpe_1024.json"      # get_tokenizer('bpe')'s cache
 # char-GPT training shapes (the char-gpt preset)
 FB, FT, FC, FH = 64, 256, 384, 6
 ATTN_RATE = 0.2
@@ -155,6 +194,12 @@ F32_FLOPS = 67e12                  # f32 outside the tensor cores
 C, H, PSZ, MP, N, B = 768, 12, 16, 64, 512, 8
 POS = [0, 1, 15, 16, 17, 333, 777, 1000]
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# the flash kernels and their plain versions sum in f32 in different
+# orders and round once to the output's type: bf16 o and d(qkv) agree to
+# one bf16 ulp (at most 2^-7 of the value, under rtol) plus an f32
+# difference far under atol; lse is f32 on both sides whatever the input
+# type. (atol, rtol) by output dtype
+FLASH_TOL = {torch.bfloat16: (1e-4, 1e-2), torch.float32: (1e-4, 1e-4)}
 
 
 def card_line() -> str:
@@ -276,30 +321,107 @@ def kernel_phase() -> dict:
             "bound_by": b_by, "library_ms": library_ms}
 
 
-def flash_inputs(dtype: torch.dtype, seed: int = 0):
+def flash_inputs(dtype: torch.dtype, seed: int = 0, shape=(FB, FT, FC),
+                 scale: float = 1.0):
+    """qkv (B, T, 3C) at ``scale`` and a unit-scale upstream gradient
+    (B, T, C): d(qkv) is linear in it, so unit scale keeps the absolute
+    tolerance a real test of the backward."""
+    B, T, C = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = torch.randn((FB, FT, 3 * FC), generator=g, device="cuda")
-    do = torch.randn((FB, FT, FC), generator=g, device="cuda")
+    qkv = torch.randn((B, T, 3 * C), generator=g, device="cuda") * scale
+    do = torch.randn((B, T, C), generator=g, device="cuda")
     return qkv.to(dtype), do.to(dtype)
 
 
-def flash_bound_ms(qkv: torch.Tensor, which: str) -> tuple:
+def flash_bound_ms(qkv: torch.Tensor, n_head: int, which: str) -> tuple:
     """Least time of one call: its inputs read once and outputs written
     once over the memory rate, vs its causal products (2 matrix products
     forward, 5 backward, over the T(T+1)/2 unmasked pairs) over the peak
     rate of the input type."""
-    isz, rows, D = qkv.element_size(), FB * FT, FC // FH
-    pairs = FB * FH * FT * (FT + 1) // 2
+    B, T, C3 = qkv.shape
+    C, isz = C3 // 3, qkv.element_size()
+    rows, D = B * T, C // n_head
+    pairs = B * n_head * T * (T + 1) // 2
     if which == "fwd":   # qkv in; o and lse out
-        nbytes = rows * 3 * FC * isz + rows * FC * isz + rows * FH * 4
+        nbytes = rows * 3 * C * isz + rows * C * isz + rows * n_head * 4
         flops = 2 * 2 * pairs * D
     else:                # qkv, do, lse, delta in; d(qkv) out
-        nbytes = 2 * rows * 3 * FC * isz + rows * FC * isz + 2 * rows * FH * 4
+        nbytes = (2 * rows * 3 * C * isz + rows * C * isz
+                  + 2 * rows * n_head * 4)
         flops = 5 * 2 * pairs * D
-    peak = BF16_FLOPS if qkv.dtype == torch.bfloat16 else F32_FLOPS
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return _bound(nbytes, flops, qkv.dtype)
+
+
+def flash_tol_text(dtype: torch.dtype) -> str:
+    atol, rtol = FLASH_TOL[dtype]
+    return (f"o, d(qkv) atol {atol:g} rtol {rtol:g}; lse atol/rtol "
+            f"{FLASH_TOL[torch.float32][0]:g}")
+
+
+def check_flash(qkv, do, n_head: int, seed: int, rate: float) -> dict:
+    """Forward (o, lse) and backward (d(qkv)) of the kernels against the
+    plain versions on the same inputs, at ``FLASH_TOL``; the max abs
+    errors."""
+    o, lse = fp.flash_packed_fwd(qkv, n_head, seed=seed, rate=rate)
+    delta = fp.packed_delta(do, o, n_head)
+    dqkv = fp.flash_packed_bwd(qkv, do, lse, delta, n_head, seed=seed,
+                               rate=rate)
+    torch.cuda.synchronize()
+    ro, rlse = fp.flash_packed_fwd_ref(qkv, n_head, seed=seed, rate=rate)
+    rd = fp.flash_packed_bwd_ref(qkv, do, lse, delta, n_head, seed=seed,
+                                 rate=rate)
+    err = {}
+    for name, got, ref in (("o", o, ro), ("lse", lse, rlse),
+                           ("dqkv", dqkv, rd)):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"flash: non-finite {name}")
+        err[name] = (got.float() - ref.float()).abs().max().item()
+        atol, rtol = FLASH_TOL[got.dtype]
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+    return err
+
+
+def time_flash(qkv, do, n_head: int, seed: int, rate: float,
+               flush: torch.Tensor, n: int = 30) -> tuple:
+    """CUDA-event times (ms) of both kernels, their plain versions and
+    ``scaled_dot_product_attention`` on split heads with the same causal
+    mask and dropout rate (its forward, and its backward), and the SDPA
+    backend PyTorch picks."""
+    B, T, C3 = qkv.shape
+    C = C3 // 3
+    D = C // n_head
+    o, lse = fp.flash_packed_fwd(qkv, n_head, seed=seed, rate=rate)
+    delta = fp.packed_delta(do, o, n_head)
+    fwd = functools.partial(fp.flash_packed_fwd, qkv, n_head, seed=seed,
+                            rate=rate)
+    fwd_ref = functools.partial(fp.flash_packed_fwd_ref, qkv, n_head,
+                                seed=seed, rate=rate)
+    bwd = functools.partial(fp.flash_packed_bwd, qkv, do, lse, delta,
+                            n_head, seed=seed, rate=rate)
+    bwd_ref = functools.partial(fp.flash_packed_bwd_ref, qkv, do, lse, delta,
+                                n_head, seed=seed, rate=rate)
+
+    def heads(x):
+        return x.reshape(B, T, n_head, D).transpose(1, 2).contiguous()
+
+    sq, sk, sv = (heads(t).requires_grad_(True) for t in qkv.split(C, -1))
+    choice = torch._fused_sdp_choice(sq, sk, sv, None, rate, True)
+    backend = SDPBackend(choice).name
+
+    def sdpa():
+        return F.scaled_dot_product_attention(sq, sk, sv, dropout_p=rate,
+                                              is_causal=True)
+
+    out, go = sdpa(), heads(do)
+    plain_n = max(3, n // 3)
+    ms = {"fwd": time_ms(fwd, flush, n), "bwd": time_ms(bwd, flush, n)}
+    plain = {"fwd": time_ms(fwd_ref, flush, plain_n, 2),
+             "bwd": time_ms(bwd_ref, flush, plain_n, 2)}
+    library = {"fwd": time_ms(sdpa, flush, n),
+               "bwd": time_ms(lambda: torch.autograd.grad(
+                   out, (sq, sk, sv), go, retain_graph=True), flush, n)}
+    return ms, plain, library, backend
 
 
 def flash_kernel_phase() -> list:
@@ -308,60 +430,18 @@ def flash_kernel_phase() -> list:
     for dtype in (torch.bfloat16, torch.float32):
         for rate in (0.0, ATTN_RATE):
             qkv, do = flash_inputs(dtype)
-            o, lse = fp.flash_packed_fwd(qkv, FH, seed=seed, rate=rate)
-            delta = fp.packed_delta(do, o, FH)
-            dqkv = fp.flash_packed_bwd(qkv, do, lse, delta, FH, seed=seed,
-                                       rate=rate)
-            torch.cuda.synchronize()
-            ro, rlse = fp.flash_packed_fwd_ref(qkv, FH, seed=seed, rate=rate)
-            rd = fp.flash_packed_bwd_ref(qkv, do, lse, delta, FH, seed=seed,
-                                         rate=rate)
-            tol = TOL[dtype]
-            err = {}
-            for name, got, ref in (("o", o, ro), ("lse", lse, rlse),
-                                   ("dqkv", dqkv, rd)):
-                err[name] = (got.float() - ref.float()).abs().max().item()
-                torch.testing.assert_close(got.float(), ref.float(),
-                                           atol=tol, rtol=tol)
-            errs[(dtype, rate)] = err
+            err = errs[(dtype, rate)] = check_flash(qkv, do, FH, seed, rate)
             print(f"flash check: {str(dtype)[6:]} rate {rate} max_abs_err "
                   + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
-                  + f" (atol=rtol={tol})")
+                  + f" ({flash_tol_text(dtype)})")
     # timings at the training path's setting: bf16, attention dropout 0.2
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     qkv, do = flash_inputs(torch.bfloat16)
-    o, lse = fp.flash_packed_fwd(qkv, FH, seed=seed, rate=ATTN_RATE)
-    delta = fp.packed_delta(do, o, FH)
-    fwd = functools.partial(fp.flash_packed_fwd, qkv, FH, seed=seed,
-                            rate=ATTN_RATE)
-    fwd_ref = functools.partial(fp.flash_packed_fwd_ref, qkv, FH, seed=seed,
-                                rate=ATTN_RATE)
-    bwd = functools.partial(fp.flash_packed_bwd, qkv, do, lse, delta, FH,
-                            seed=seed, rate=ATTN_RATE)
-    bwd_ref = functools.partial(fp.flash_packed_bwd_ref, qkv, do, lse, delta,
-                                FH, seed=seed, rate=ATTN_RATE)
-    D = FC // FH
-
-    def heads(x):
-        return x.reshape(FB, FT, FH, D).transpose(1, 2).contiguous()
-
-    sq, sk, sv = (heads(t).requires_grad_(True) for t in qkv.split(FC, -1))
-    choice = torch._fused_sdp_choice(sq, sk, sv, None, ATTN_RATE, True)
-    backend = SDPBackend(choice).name
-
-    def sdpa():
-        return F.scaled_dot_product_attention(sq, sk, sv, dropout_p=ATTN_RATE,
-                                              is_causal=True)
-
-    out, go = sdpa(), heads(do)
-    ms = {"fwd": time_ms(fwd, flush), "bwd": time_ms(bwd, flush)}
-    plain = {"fwd": time_ms(fwd_ref, flush), "bwd": time_ms(bwd_ref, flush)}
-    library = {"fwd": time_ms(sdpa, flush),
-               "bwd": time_ms(lambda: torch.autograd.grad(
-                   out, (sq, sk, sv), go, retain_graph=True), flush)}
+    ms, plain, library, backend = time_flash(qkv, do, FH, seed, ATTN_RATE,
+                                             flush)
     rows = []
     for which, err in (("fwd", "o"), ("bwd", "dqkv")):
-        b_ms, b_by = flash_bound_ms(qkv, which)
+        b_ms, b_by = flash_bound_ms(qkv, FH, which)
         print(f"flash {which} timing (bf16, B={FB}, T={FT}, C={FC}, H={FH}, "
               f"attention dropout {ATTN_RATE}): kernel "
               f"{ms[which] * 1e3:.1f} us, plain {plain[which] * 1e3:.1f} us, "
@@ -1086,6 +1166,170 @@ def fused_slice_phase(card: str) -> tuple:
     return fused, qlaunches, s
 
 
+def group_flash_phase(flush: torch.Tensor) -> list:
+    """The flash kernels at the GPT-2 124M training shapes (bf16 and f32,
+    attention dropout 0 and 0.1) and at T=8192 (f32 and bf16), against
+    their plain versions; then timings at the path's setting (bf16, dropout 0)
+    beside the bound and ``scaled_dot_product_attention``."""
+    seed = 7_654_321
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for rate in (0.0, GROUP_RATE):
+            qkv, do = flash_inputs(dtype, shape=(GB, GT, GC),
+                                   scale=QKV_SCALE)
+            err = errs[(dtype, rate)] = check_flash(qkv, do, GH, seed, rate)
+            print(f"flash check (gpt2-small, B={GB}, T={GT}, C={GC}, H={GH}):"
+                  f" {str(dtype)[6:]} rate {rate} max_abs_err "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+                  + f" ({flash_tol_text(dtype)})")
+            del qkv, do
+    long_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv, do = flash_inputs(dtype, shape=(1, LT, GC), scale=QKV_SCALE)
+        err = long_err[dtype] = check_flash(qkv, do, GH, seed, 0.0)
+        print(f"flash check (B=1, T={LT}, C={GC}, H={GH}): {str(dtype)[6:]} "
+              f"rate 0.0 max_abs_err " + ", ".join(f"{k} {v:.3e}"
+                                                   for k, v in err.items())
+              + f" ({flash_tol_text(dtype)})")
+    long_t = time_flash(qkv, do, GH, seed, 0.0, flush, n=10)
+    long_bound = {w: flash_bound_ms(qkv, GH, w) for w in ("fwd", "bwd")}
+    del qkv, do
+    qkv, do = flash_inputs(torch.bfloat16, shape=(GB, GT, GC),
+                           scale=QKV_SCALE)
+    ms, plain, library, backend = time_flash(qkv, do, GH, seed, 0.0, flush,
+                                             n=10)
+    rows = []
+    for which, err in (("fwd", "o"), ("bwd", "dqkv")):
+        b_ms, b_by = flash_bound_ms(qkv, GH, which)
+        lb_ms, lb_by = long_bound[which]
+        for label, t, p, lib, bm, bb in (
+                (f"B={GB}, T={GT}", ms, plain, library, b_ms, b_by),
+                (f"B=1, T={LT}", *long_t[:3], lb_ms, lb_by)):
+            print(f"flash {which} timing (bf16, {label}, C={GC}, H={GH}, "
+                  f"dropout 0): kernel {t[which]:.3f} ms, plain "
+                  f"{p[which]:.3f} ms, sdpa ({backend}) {lib[which]:.3f} ms, "
+                  f"bound {bm:.4f} ms ({bb})")
+        rows.append({
+            "name": f"flash_packed_{which}@gpt2-small", "route": "cuda",
+            "source": FLASH_SOURCE, "replaces": GROUP_REPLACES[which],
+            "also_replaces": GROUP_ALSO_REPLACES[which],
+            "shapes": f"B={GB}, T={GT}, C={GC}, H={GH}, bf16, dropout 0",
+            "max_abs_err": errs[(torch.bfloat16, 0.0)][err],
+            "ms": ms[which], "kernel_ms": ms[which],
+            "plain_ms": plain[which], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library[which], "library": f"sdpa {backend}",
+            "long_t": {"shapes": f"B=1, T={LT}, C={GC}, H={GH}, bf16",
+                       "max_abs_err": long_err[torch.bfloat16][err],
+                       "ms": long_t[0][which],
+                       "plain_ms": long_t[1][which],
+                       "library_ms": long_t[2][which],
+                       "library": f"sdpa {long_t[3]}", "bound_ms": lb_ms,
+                       "bound_by": lb_by}})
+    return rows
+
+
+def gpt2_parity_phase() -> None:
+    """5 steps at GPT-2 124M width (2 layers, T=1024, B=2, f32) through
+    the kernels and through the packed plain version, from the same
+    seeds and batches (warmup cut to one step so the weights move)."""
+    base = get_config("gpt2-small")
+
+    def plain_core(qkv, n_head, *, seed, rate):
+        return fp.flash_packed_fwd_ref(qkv, n_head, seed=seed, rate=rate)[0]
+
+    plain = functools.partial(packed_qkv_attention, core=plain_core)
+    mcfg = dataclasses.replace(base.model, n_layer=2, dtype="float32")
+    tcfg = dataclasses.replace(base.train, batch_size=2, max_iters=5,
+                               warmup_iters=1)
+    tokens = np.random.default_rng(5).integers(0, 1024, 64 * GT)
+    curves = []
+    for attention_fn in (None, plain):
+        fp.flash_packed_fwd.launches = 0
+        state = create_train_state(mcfg, tcfg, "cuda")
+        step = make_train_step(mcfg, tcfg, attention_fn)
+        batcher = RandomBatcher(tokens, tcfg.batch_size, GT, seed=tcfg.seed)
+        losses = [step(state, tuple(torch.from_numpy(a).cuda()
+                                    for a in batcher.next_batch()))
+                  for _ in range(tcfg.max_iters)]
+        curves.append([float(x) for x in losses])
+        if (fp.flash_packed_fwd.launches > 0) != (attention_fn is None):
+            raise AssertionError(f"gpt2 parity: {fp.flash_packed_fwd.launches}"
+                                 f" kernel launches")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*curves))
+    if not rel <= 1e-4:
+        raise AssertionError(f"gpt2 parity: kernel {curves[0]} vs plain "
+                             f"{curves[1]}")
+    print(f"gpt2 parity (f32, 2 layers, C={GC}, H={GH}, T={GT}, B=2): 5 "
+          f"losses {curves[0][0]:.6f} -> {curves[0][-1]:.6f}, max relative "
+          f"difference kernel vs plain {rel:.2e} (limit 1e-4)")
+
+
+def run_train_cli(argv) -> tuple:
+    """``train`` through the port's CLI, in process: (stdout, JSONL
+    events, forward and backward flash launches)."""
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "train.jsonl")
+        fp.flash_packed_fwd.launches = fp.flash_packed_bwd.launches = 0
+        with contextlib.redirect_stdout(out):
+            assert cli.main(["train", *argv, "--log-jsonl", log]) == 0
+        launches = fp.flash_packed_fwd.launches, fp.flash_packed_bwd.launches
+        with open(log) as f:
+            events = [json.loads(line) for line in f]
+    return out.getvalue(), events, launches
+
+
+def gpt2_slice_phase(card: str) -> tuple:
+    """The GPT-2 124M training main path: ``train --preset gpt2-small``
+    through the CLI for 200 steps (B=32, T=1024), evals at 0, 100 and 200
+    over 20 batches each of train and val, the BPE trained at first use."""
+    L = get_config("gpt2-small").model.n_layer
+    steps, eval_iters, n_evals = 200, 20, 3
+    had_bpe = os.path.exists(BPE_CACHE)
+    text, events, (fwd, bwd) = run_train_cli(
+        ["--preset", "gpt2-small", "--max-iters", str(steps),
+         "--eval-interval", "100", "--eval-iters", str(eval_iters)])
+    print(text, end="")
+    assert os.path.exists(BPE_CACHE)
+    evals = [e for e in events if e["event"] == "eval"]
+    losses = [e["loss"] for e in events if e["event"] == "step"]
+    losses += [e[k] for e in evals for k in ("train_loss", "val_loss")]
+    assert losses and all(math.isfinite(x) for x in losses), losses
+    assert [e["step"] for e in evals] == [0, 100, steps], evals
+    first, last = evals[0]["val_loss"], evals[-1]["val_loss"]
+    if not (last < math.log(1024) and last < first):
+        raise AssertionError(f"gpt2 slice: val loss {first} at step 0, {last}"
+                             f" at step {steps} (limit ln 1024 = "
+                             f"{math.log(1024):.4f})")
+    assert fwd == L * (steps + n_evals * 2 * eval_iters), fwd
+    assert bwd == L * steps, bwd
+    info = {k: v for e in events if e["event"] == "info" for k, v in e.items()}
+    print(f"gpt2 slice (gpt2-small, {steps} steps, B={GB}, T={GT}, bf16, BPE "
+          f"{'loaded' if had_bpe else 'trained at first use'}) on {card}: "
+          f"{info['tokens_per_sec']:.0f} tok/s, train step p50 "
+          f"{info['p50_ms']:.3f} ms (mean {info['mean_ms']:.3f}), val loss "
+          f"{last:.4f} at step {steps} (step 0: {first:.4f}), {fwd} forward / "
+          f"{bwd} backward kernel launches ({L} per step and eval batch)")
+    return fwd, bwd
+
+
+def gpt2_shakespeare_phase(card: str) -> None:
+    """The reference's GPT-2.py run: ``train --preset gpt2-shakespeare``,
+    50 steps with a ``Step {i}, Loss: ...`` line each."""
+    cfg = get_config("gpt2-shakespeare")
+    L, steps = cfg.model.n_layer, cfg.train.max_iters
+    text, events, (fwd, bwd) = run_train_cli(["--preset", "gpt2-shakespeare"])
+    print(text, end="")
+    lines = re.findall(r"^Step (\d+), Loss: (\S+) \|", text, re.M)
+    assert [int(i) for i, _ in lines] == list(range(steps)), lines
+    assert all(math.isfinite(float(x)) for _, x in lines)
+    assert fwd == L * (steps + 2 * cfg.train.eval_iters), fwd
+    assert bwd == L * steps, bwd
+    print(f"gpt2-shakespeare (the reference's GPT-2.py run) on {card}: "
+          f"{steps} steps, loss {lines[0][1]} -> {lines[-1][1]}, {fwd} "
+          f"forward / {bwd} backward kernel launches")
+
+
 def build_kernels() -> None:
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
@@ -1102,6 +1346,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 1
+    t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -1128,8 +1373,16 @@ def main() -> int:
     (flash_rows[0]["launches"], flash_rows[1]["launches"],
      fused_row["launches"]) = train_slice_phase(card, set(text))
     _, packed_row["launches"] = generate_slice_phase(card)
-    print(json.dumps({"kernels": [row, *flash_rows, fused_row, packed_row,
-                                  fused_paged_row]}))
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    group_rows = group_flash_phase(flush)
+    del flush
+    gpt2_parity_phase()
+    group_rows[0]["launches"], group_rows[1]["launches"] = \
+        gpt2_slice_phase(card)
+    gpt2_shakespeare_phase(card)
+    print(f"smoke: {time.perf_counter() - t0:.1f} s, the builds included")
+    print(json.dumps({"kernels": [row, *flash_rows, *group_rows, fused_row,
+                                  packed_row, fused_paged_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

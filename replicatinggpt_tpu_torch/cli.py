@@ -1,6 +1,7 @@
 """Command-line interface of the PyTorch/CUDA port.
 
     python -m replicatinggpt_tpu_torch train --preset char-gpt
+    python -m replicatinggpt_tpu_torch train --preset gpt2-small
     python -m replicatinggpt_tpu_torch generate --preset char-gpt \\
         --prompt "ROMEO:" --sample-tokens 500 --top-k 20
     python -m replicatinggpt_tpu_torch serve-replay --preset gpt2-small \\
@@ -261,7 +262,7 @@ def main(argv=None) -> int:
     add_config_flags(pg)
     pg.add_argument("--tokenizer", default=None)
     pg.add_argument("--dataset", default=None,
-                    help="corpus whose characters make the vocabulary")
+                    help="corpus the tokenizer's vocabulary comes from")
     pg.add_argument("--device", default=None,
                     help="'cuda' (default; fails without a card) or 'cpu'")
     pg.add_argument("--prompt", default=None)

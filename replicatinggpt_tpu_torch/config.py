@@ -2,8 +2,8 @@
 
 A copy of the subset of ``replicatinggpt_tpu/config.py`` that the ported
 paths need: the ``ModelConfig`` architecture record, the ``TrainConfig``
-optimization schedule, the presets (``gpt2-small``, ``char-gpt``,
-``test-tiny``) and the CLI overlay. TPU dispatch knobs
+optimization schedule, the presets (``gpt2-small``, ``gpt2-shakespeare``,
+``char-gpt``, ``test-tiny``) and the CLI overlay. TPU dispatch knobs
 (``use_layer_scan``, ``scan_layers``, remat, ``attention_impl``,
 ``steps_per_dispatch``) have no counterpart here: PyTorch runs the layer
 loop eagerly and the port picks its own kernels.
@@ -108,7 +108,8 @@ class Config:
 
 PRESETS = {
     # GPT-2 124M (vocab 50257, context 1024), the JAX preset of the
-    # same name.
+    # same name; its 8-way data mesh waits for ROADMAP.md queue A item
+    # 11, so the global batch of 32 runs on one card.
     "gpt2-small": Config(
         name="gpt2-small",
         model=ModelConfig(vocab_size=50257, block_size=1024, n_layer=12,
@@ -118,6 +119,20 @@ PRESETS = {
         train=TrainConfig(batch_size=32, lr=3e-4, max_iters=1000,
                           sampling="sequential", lr_schedule="cosine",
                           warmup_iters=100, grad_clip=1.0),
+        tokenizer="bpe"),
+    # the reference's GPT-2.py training run (B=4, lr 3e-4, 50 steps,
+    # sequential batches, a loss line every step, no periodic eval), at
+    # T=256 and the BPE's vocabulary padded to 50304: the JAX preset of
+    # the same name
+    "gpt2-shakespeare": Config(
+        name="gpt2-shakespeare",
+        model=ModelConfig(vocab_size=50304, block_size=256, n_layer=6,
+                          n_head=6, n_embd=384, dropout=0.0,
+                          attn_dropout=0.0, tied_head=True,
+                          activation="gelu"),
+        train=TrainConfig(batch_size=4, lr=3e-4, max_iters=50,
+                          eval_interval=0, eval_iters=20, seed=1337,
+                          sampling="sequential", log_interval=1),
         tokenizer="bpe"),
     # canonical char-GPT: untied head, ReLU, dropout 0.2
     "char-gpt": Config(

@@ -3,15 +3,18 @@
 //
 // Replaces replicatinggpt_tpu/ops/flash_pallas.py:_fwd_kernel_packed
 // (forward, via _packed_fwd) and :_bwd_kernel_packed (backward, via
-// _packed_bwd): head h reads q, k and v as the column strips
-// [h*D, (h+1)*D), C + ... and 2C + ... of each packed row (row stride
-// 3C elements), so no head transpose happens on either pass. The
-// forward writes the merged (B, T, C) output and the f32 log-sum-exp
-// (B, T, H); the backward takes dO (B, T, C), lse and delta =
-// rowsum(dO * O) per head (B, T, H, f32, from the caller) and writes the
-// packed d(qkv) (B, T, 3C). Scores, softmax statistics and every
-// accumulator are f32; loads of bf16 inputs convert to f32 in shared
-// memory.
+// _packed_bwd), and the head-group families that compute the same
+// function on (T, 128)-column strips: _group_fwd / _group_bwd, their
+// streamed (_group_fwd_stream / _group_bwd_stream) and triangular
+// (_group_fwd_tri / _group_bwd_tri) variants. Head h reads q, k and v
+// as the column strips [h*D, (h+1)*D), C + ... and 2C + ... of each
+// packed row (row stride 3C elements), so no head transpose happens on
+// either pass. The forward writes the merged (B, T, C) output and the
+// f32 log-sum-exp (B, T, H); the backward takes dO (B, T, C), lse and
+// delta = rowsum(dO * O) per head (B, T, H, f32, from the caller) and
+// writes the packed d(qkv) (B, T, 3C). Scores, softmax statistics and
+// every accumulator are f32; loads of bf16 inputs convert to f32 in
+// shared memory.
 //
 // Attention dropout is the JAX kernels' counter hash (_dropout_mult):
 // h = fmix32(seed ^ bh * 0x9E3779B9), y = fmix32(fmix32(h ^ qpos) ^

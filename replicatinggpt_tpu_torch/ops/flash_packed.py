@@ -19,6 +19,18 @@ normalizer sees no dropout), bit for bit for the same int32 seed.
   ``csrc/flash_packed.cu`` or raises. Each has a ``.launches`` counter;
 - ``FlashPacked``: the ``torch.autograd.Function`` over the two;
 - ``flash_packed_envelope``: the shapes the kernels take.
+
+One kernel stands for all of the JAX packed families: the resident one
+(``_packed_fwd`` / ``_packed_bwd``, the char-GPT shapes), the head-group
+one (``_group_fwd`` / ``_group_bwd``, which the JAX package takes at
+GPT-2 124M, T=1024) and its streamed and triangular variants
+(``_group_fwd_stream``, ``_group_bwd_stream``, ``_group_fwd_tri``,
+``_group_bwd_tri``, long T). They compute the same function and differ
+only in what the TPU keeps resident in VMEM; the kernels here walk K/V
+tiles through shared memory at any T that is a multiple of 64. What
+the JAX families take and these kernels do not: D=256 (the backward's
+64-row f32 tiles need ~297 KB of shared memory, over the 227 KB a block
+may have) and ``causal=False``; no preset uses either.
 """
 
 from __future__ import annotations

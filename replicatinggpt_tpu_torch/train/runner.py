@@ -1,6 +1,7 @@
 """End-to-end training (a port of ``replicatinggpt_tpu/train/runner.py``).
 
-Corpus -> char tokenizer -> 90/10 split -> random-window batches
+Corpus -> the preset's tokenizer (char, or the byte-level BPE trained at
+first use and cached) -> 90/10 split -> random or sequential windows
 prefetched to the device -> the train loop with the periodic train/val
 estimate and the reference's log lines -> a final estimate and the
 tokens/s. Mesh sharding, fault supervision, the profiler, telemetry and
@@ -62,7 +63,10 @@ def train(cfg: Config, *, device=None,
     dev = resolve_device(device)
     logger = logger or StepLogger()
     text = load_corpus(cfg.dataset)
+    t0 = time.perf_counter()
     tokenizer = get_tokenizer(cfg.tokenizer, corpus_text=text)
+    logger.log(f"tokenizer: {cfg.tokenizer}, {tokenizer.vocab_size} tokens, "
+               f"ready in {time.perf_counter() - t0:.1f}s")
     cfg = _resolve_vocab(cfg, tokenizer)
     mcfg, tcfg = cfg.model, cfg.train
     B, T = tcfg.batch_size, mcfg.block_size

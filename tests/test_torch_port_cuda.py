@@ -76,13 +76,26 @@ def _flash_inputs(T, H, dtype, D=64, B=2, seed=0):
     return mk(B, T, 3 * H * D), mk(B, T, H * D)
 
 
+# the kernels and their plain versions sum in f32 in different orders and
+# round once to the output's type: bf16 o and d(qkv) agree to one bf16 ulp
+# (at most 2^-7 of the value, under rtol) plus an f32 difference far under
+# atol; lse is f32 on both sides
+FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-4, 1e-2)}
+
+
+def _hold_flash(got, want):
+    for g, w in zip(got, want):
+        atol, rtol = FLASH_TOL[g.dtype]
+        torch.testing.assert_close(g.float(), w.float(), atol=atol,
+                                   rtol=rtol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", [64, 256])
 @pytest.mark.parametrize("H", [1, 6])
 @pytest.mark.parametrize("rate", [0.0, 0.2])
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
-def test_flash_packed_kernels_match_ref(card, T, H, rate, dtype, tol):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_packed_kernels_match_ref(card, T, H, rate, dtype):
     """Forward (o, lse) and backward (d(qkv), from the same lse and
     delta) of the CUDA kernels against the plain versions, with the
     same dropout seed."""
@@ -98,9 +111,25 @@ def test_flash_packed_kernels_match_ref(card, T, H, rate, dtype, tol):
     ro, rlse = fp.flash_packed_fwd_ref(qkv, H, seed=seed, rate=rate)
     rd = fp.flash_packed_bwd_ref(qkv, do, lse, delta, H, seed=seed,
                                  rate=rate)
-    torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=tol)
-    torch.testing.assert_close(lse, rlse, atol=tol, rtol=tol)
-    torch.testing.assert_close(dqkv.float(), rd.float(), atol=tol, rtol=tol)
+    _hold_flash((o, lse, dqkv), (ro, rlse, rd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,rate,dtype", [
+    (4, 1024, 0.0, torch.float32), (4, 1024, 0.1, torch.float32),
+    (4, 1024, 0.0, torch.bfloat16), (4, 1024, 0.1, torch.bfloat16),
+    (1, 8192, 0.0, torch.float32), (1, 8192, 0.0, torch.bfloat16)])
+def test_flash_packed_kernels_at_gpt2_shapes(card, B, T, rate, dtype):
+    """GPT-2 124M's heads (H=12, D=64) at its T=1024, and at T=8192:
+    the shapes of the JAX head-group families (TPU rows #7-#12)."""
+    qkv, do = _flash_inputs(T, 12, dtype, B=B, seed=2)
+    o, lse = fp.flash_packed_fwd(qkv, 12, seed=11, rate=rate)
+    delta = fp.packed_delta(do, o, 12)
+    dqkv = fp.flash_packed_bwd(qkv, do, lse, delta, 12, seed=11, rate=rate)
+    torch.cuda.synchronize()
+    ro, rlse = fp.flash_packed_fwd_ref(qkv, 12, seed=11, rate=rate)
+    rd = fp.flash_packed_bwd_ref(qkv, do, lse, delta, 12, seed=11, rate=rate)
+    _hold_flash((o, lse, dqkv), (ro, rlse, rd))
 
 
 @pytest.mark.cuda

@@ -340,7 +340,7 @@ def test_tokenizer_dataset_and_batchers_match_jax(tiny_corpus):
                                   np.asarray(jtok.encode(tiny_corpus)))
     assert tok.decode(tok.encode("ROMEO:")) == "ROMEO:"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_tokenizer("bpe", corpus_text=tiny_corpus)
+        get_tokenizer("tiktoken:gpt2", corpus_text=tiny_corpus)
     ds = TokenDataset.from_text(tiny_corpus, tok)
     jds = JTokenDataset.from_text(tiny_corpus, jtok)
     np.testing.assert_array_equal(ds.train, jds.train)

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Where a train step of the PyTorch port's char-GPT training slice spends
-its time, on one NVIDIA card.
+"""Where a train step of the PyTorch port's training slices spends its
+time, on one NVIDIA card.
 
-    python3 tools/torch_port_train_profile.py [--steps 10] [--out PATH]
+    python3 tools/torch_port_train_profile.py [--preset gpt2-small] \
+        [--steps 10] [--out PATH]
 
-Builds the ``train --preset char-gpt`` step (6 layers, C=384, H=6,
-T=256, B=64, bf16 compute, dropout 0.2, random init), warms it up, then
+Builds the ``train --preset <preset>`` step (char-gpt, the default: 6
+layers, C=384, H=6, T=256, B=64, bf16 compute, dropout 0.2; gpt2-small:
+12 layers, C=768, H=12, T=1024, B=32, vocab 50257, dropout 0) at random
+init on batches of the preset's tokens (the BPE is trained at first use
+and cached, as ``train`` does), warms it up, then
 times ``--steps`` steps with the host clock (ending in a device sync) and
 traces the same number with ``torch.profiler``. From the trace: the
 device's busy time (the union of kernel intervals), its idle share of
 the traced window (which the profiler's own overhead stretches) and of
 the untraced steps' wall time, the share of the flash attention kernels
-(``csrc/flash_packed.cu``), and device time by kernel name. Prints one
-JSON object, and writes it to ``--out`` when given.
+(``csrc/flash_packed.cu``), and device time by kernel family and by
+kernel name. Prints one JSON object, and writes it to ``--out`` when given.
 """
 
 from __future__ import annotations
@@ -23,7 +27,6 @@ import pathlib
 import sys
 import time
 
-import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -35,33 +38,58 @@ from torch_port_profile import (busy_us, card, device_kernels,  # noqa: E402
 
 from replicatinggpt_tpu_torch.config import get_config  # noqa: E402
 from replicatinggpt_tpu_torch.data.loader import RandomBatcher  # noqa: E402
-from replicatinggpt_tpu_torch.tokenizers import CharTokenizer  # noqa: E402
+from replicatinggpt_tpu_torch.tokenizers import get_tokenizer  # noqa: E402
+from replicatinggpt_tpu_torch.train.runner import _wire_dtype  # noqa: E402
 from replicatinggpt_tpu_torch.train.state import \
     create_train_state  # noqa: E402
 from replicatinggpt_tpu_torch.train.steps import make_train_step  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
+# device time by family: the first family whose pattern a name contains
+FAMILIES = (
+    ("flash attention", ("namespace)::fwd_kernel<", "namespace)::dkv_kernel<",
+                         "namespace)::dq_kernel<")),
+    ("matrix products", ("nvjet", "sm90_xmma", "gemm")),
+    ("softmax and cross-entropy", ("SoftMax", "nll_loss", "log_softmax")),
+    ("layernorm", ("layer_norm", "LayerNorm")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("reductions", ("reduce_kernel", "Reduce")),
+    ("elementwise and copies", ("elementwise", "copy", "fill")),
+)
+
+
+def family(name: str) -> str:
+    """A kernel's family. The cuBLAS products picked for an odd width
+    (the vocabulary of 50257) are the ``align1`` ones, kept apart."""
+    if "align1" in name:
+        return "matrix products, align1"
+    return next((fam for fam, keys in FAMILIES
+                 if any(k in name for k in keys)), "other")
 
 
 def main() -> int:
     p = argparse.ArgumentParser()
+    p.add_argument("--preset", default="char-gpt",
+                   choices=["char-gpt", "gpt2-small"])
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--out", default=None)
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
-    cfg = get_config("char-gpt")
+    cfg = get_config(args.preset)
     mcfg, tcfg = cfg.model, cfg.train
     text = (REPO / cfg.dataset).read_text(encoding="utf-8")
-    tokens = CharTokenizer.from_text(text).encode_np(text)
+    tokens = get_tokenizer(cfg.tokenizer, corpus_text=text,
+                           cache_dir=str(REPO / "datasets")).encode_np(text)
+    wire = _wire_dtype(mcfg.vocab_size)
     batcher = RandomBatcher(tokens, tcfg.batch_size, mcfg.block_size,
                             seed=tcfg.seed)
     state = create_train_state(mcfg, tcfg, "cuda")
     step = make_train_step(mcfg, tcfg)
 
     def batch():
-        return tuple(torch.from_numpy(a.astype(np.uint8)).cuda()
+        return tuple(torch.from_numpy(a.astype(wire)).cuda()
                      for a in batcher.next_batch())
 
     batches = [batch() for _ in range(5 + 2 * args.steps)]
@@ -84,12 +112,17 @@ def main() -> int:
     kernels = device_kernels(prof)
     by_name = us_by_name(kernels)
     busy_ms = busy_us(kernels) / 1e3
+    by_family: dict = {}
+    for e in kernels:
+        fam = family(e.name)
+        by_family[fam] = by_family.get(fam, 0.0) + e.time_range.elapsed_us()
     flash = {k: sum(us for n, us in by_name.items()
                     if f"namespace)::{k}<" in n)
              for k in ("fwd_kernel", "dkv_kernel", "dq_kernel")}
     n = args.steps
     row = {
-        "card": card(), "steps": n, "batch": tcfg.batch_size,
+        "card": card(), "preset": args.preset, "steps": n,
+        "batch": tcfg.batch_size,
         "step_wall_ms": round(wall_ms, 4),
         "traced_step_wall_ms": round(traced_ms / n, 4),
         "device_busy_ms_per_step": (round(busy_ms / n, 4) if kernels
@@ -103,6 +136,9 @@ def main() -> int:
         "flash_us_per_step": {k: round(v / n, 2) for k, v in flash.items()},
         "flash_share_of_busy": (round(sum(flash.values()) / 1e3 / busy_ms, 4)
                                 if kernels else "not measured"),
+        "device_us_per_step_by_family": {
+            k: round(v / n, 2) for k, v in sorted(
+                by_family.items(), key=lambda kv: -kv[1])},
         "device_us_per_step_by_kernel": {
             k: round(us / n, 2)
             for k, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]},
