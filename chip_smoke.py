@@ -94,7 +94,34 @@ and fails (non-zero exit) on the first phase that fails:
    launched 12 times per train step and eval batch, the backward 12 times
    per step;
 19. ``train --preset gpt2-shakespeare`` (the reference's GPT-2.py run):
-   50 steps, a ``Step {i}, Loss: ...`` line each, 6 + 6 launches a step.
+   50 steps, a ``Step {i}, Loss: ...`` line each, 6 + 6 launches a step;
+20. heads flash kernel phase (TPU rows #13-#20, ``pallas_flash_attention``
+   on (B, H, T, D)): ``flash_heads_fwd`` / ``flash_heads_bwd`` against
+   their plain versions at GPT-2 XL's attention shapes (B=16, the slice's
+   micro-batch, H=25, T=1024, D=64), bf16 and f32 (``FLASH_TOL``),
+   dropout 0 and 0.1, causal; ``causal=False`` at B=2, H=4, T=512; D=256
+   at B=2, H=4, T=2048 (the backward on 32-row tiles), bf16 and f32; then
+   timings at the path's setting (bf16, dropout 0) of the kernels, their
+   plain versions and ``scaled_dot_product_attention(is_causal=True)``
+   beside the bound, and of both routes at those shapes: the packed
+   kernel on the equivalent (B, T, 3C) input against the heads kernel
+   with its split and merge transposes;
+21. GPT-2 XL parity phase: C=1600, H=25, T=1024, 2 layers, B=2, f32: 5
+   steps through the split-heads kernel route and through the plain
+   route (split heads, plain core), per-step losses within 1e-4
+   relative; then one step's loss and every gradient with remat on and
+   off, identical (deterministic algorithms on);
+22. GPT-2 XL training slice (a main path): ``train --preset gpt2-xl``
+   through the CLI at the published widths (V=50257, T=1024, L=48, H=25,
+   C=1600, remat full) and the JAX preset's optimizer (lr 2e-4,
+   constant, no clip, random windows, global batch 64 as 4 accumulated
+   micro-batches of 16), cut to ``XL_STEPS`` steps and ``XL_EVAL_ITERS``
+   eval batches a split at steps 0 and the end; every loss finite, the
+   last val loss under step 0's, the heads kernel's forward launched 48
+   x (2 x steps x 4 + eval batches) times (full remat runs each block's
+   forward twice a micro-batch), its backward 48 x steps x 4, the packed
+   kernel never; the peak of ``torch.cuda.max_memory_allocated()``
+   under the card's 80 GB.
 
 Prints a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -131,8 +158,10 @@ from replicatinggpt_tpu_torch.models.gpt import (BLOCK_SHAPES,
                                                 init_kv_cache, init_params)
 from replicatinggpt_tpu_torch.ops import _build
 from replicatinggpt_tpu_torch.ops import decode as dec
+from replicatinggpt_tpu_torch.ops import flash_heads as fh
 from replicatinggpt_tpu_torch.ops import flash_packed as fp
 from replicatinggpt_tpu_torch.ops import paged_attention as pa
+from replicatinggpt_tpu_torch.ops.attention import full_causal_attention
 from replicatinggpt_tpu_torch.ops.flash_attention import packed_qkv_attention
 from replicatinggpt_tpu_torch.quant.kv import fake_quantize_rows, quantize_rows
 from replicatinggpt_tpu_torch.serve import engine as engine_mod
@@ -161,6 +190,22 @@ GROUP_ALSO_REPLACES = {
             "replicatinggpt_tpu/ops/flash_pallas.py:2470",
             "replicatinggpt_tpu/ops/flash_pallas.py:2661",
             "replicatinggpt_tpu/ops/flash_pallas.py:2690"]}
+# the (B, H, T, D) family that the JAX package runs at gpt2-xl (TPU rows
+# #13-#20): the resident forward and the kv-major fused backward, and the
+# rows that compute the same function
+HEADS_REPLACES = {"fwd": "replicatinggpt_tpu/ops/flash_pallas.py:259",
+                  "bwd": "replicatinggpt_tpu/ops/flash_pallas.py:413"}
+HEADS_ALSO_REPLACES = {
+    "fwd": ["replicatinggpt_tpu/ops/flash_pallas.py:608",
+            "replicatinggpt_tpu/ops/flash_pallas.py:838"],
+    "bwd": ["replicatinggpt_tpu/ops/flash_pallas.py:449",
+            "replicatinggpt_tpu/ops/flash_pallas.py:386",
+            "replicatinggpt_tpu/ops/flash_pallas.py:712",
+            "replicatinggpt_tpu/ops/flash_pallas.py:933"]}
+# GPT-2 XL: the slice's micro-batch (4 of them make the preset's global
+# batch of 64), heads, width; the slice's steps and eval batches a split
+XB, XACC, XH, XC = 16, 4, 25, 1600
+XL_STEPS, XL_EVAL_ITERS = 8, 4
 # GPT-2 124M training shapes (the gpt2-small preset), and the long-T case
 GB, GT, GC, GH, LT = 32, 1024, 768, 12, 8192
 # q, k and v as the path feeds the kernel: unit-variance layernorm output
@@ -1264,19 +1309,26 @@ def gpt2_parity_phase() -> None:
           f"difference kernel vs plain {rel:.2e} (limit 1e-4)")
 
 
+FLASH_WRAPPERS = (fp.flash_packed_fwd, fp.flash_packed_bwd,
+                  fh.flash_heads_fwd, fh.flash_heads_bwd)
+
+
 def run_train_cli(argv) -> tuple:
     """``train`` through the port's CLI, in process: (stdout, JSONL
-    events, forward and backward flash launches)."""
+    events, forward and backward packed flash launches, and the heads
+    kernel's forward and backward launches), every count set to 0 just
+    before the run."""
     out = io.StringIO()
     with tempfile.TemporaryDirectory() as tmp:
         log = os.path.join(tmp, "train.jsonl")
-        fp.flash_packed_fwd.launches = fp.flash_packed_bwd.launches = 0
+        for w in FLASH_WRAPPERS:
+            w.launches = 0
         with contextlib.redirect_stdout(out):
             assert cli.main(["train", *argv, "--log-jsonl", log]) == 0
-        launches = fp.flash_packed_fwd.launches, fp.flash_packed_bwd.launches
+        pf, pb, hf, hb = (w.launches for w in FLASH_WRAPPERS)
         with open(log) as f:
             events = [json.loads(line) for line in f]
-    return out.getvalue(), events, launches
+    return out.getvalue(), events, (pf, pb), (hf, hb)
 
 
 def gpt2_slice_phase(card: str) -> tuple:
@@ -1286,7 +1338,7 @@ def gpt2_slice_phase(card: str) -> tuple:
     L = get_config("gpt2-small").model.n_layer
     steps, eval_iters, n_evals = 200, 20, 3
     had_bpe = os.path.exists(BPE_CACHE)
-    text, events, (fwd, bwd) = run_train_cli(
+    text, events, (fwd, bwd), _ = run_train_cli(
         ["--preset", "gpt2-small", "--max-iters", str(steps),
          "--eval-interval", "100", "--eval-iters", str(eval_iters)])
     print(text, end="")
@@ -1318,7 +1370,8 @@ def gpt2_shakespeare_phase(card: str) -> None:
     50 steps with a ``Step {i}, Loss: ...`` line each."""
     cfg = get_config("gpt2-shakespeare")
     L, steps = cfg.model.n_layer, cfg.train.max_iters
-    text, events, (fwd, bwd) = run_train_cli(["--preset", "gpt2-shakespeare"])
+    text, events, (fwd, bwd), _ = run_train_cli(
+        ["--preset", "gpt2-shakespeare"])
     print(text, end="")
     lines = re.findall(r"^Step (\d+), Loss: (\S+) \|", text, re.M)
     assert [int(i) for i, _ in lines] == list(range(steps)), lines
@@ -1328,6 +1381,284 @@ def gpt2_shakespeare_phase(card: str) -> None:
     print(f"gpt2-shakespeare (the reference's GPT-2.py run) on {card}: "
           f"{steps} steps, loss {lines[0][1]} -> {lines[-1][1]}, {fwd} "
           f"forward / {bwd} backward kernel launches")
+
+
+# q, k and v as gpt2-xl's path feeds the kernel: unit-variance layernorm
+# output through 0.02-std weights at C=1600
+XQKV_SCALE = 0.8
+
+
+def heads_inputs(dtype: torch.dtype, shape, seed: int = 0,
+                 scale: float = XQKV_SCALE) -> tuple:
+    """q, k, v (B, H, T, D) at ``scale`` and a unit-scale upstream
+    gradient (the gradients are linear in it)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda") * scale
+               for _ in range(3))
+    do = torch.randn(shape, generator=g, device="cuda")
+    return tuple(t.to(dtype) for t in (q, k, v, do))
+
+
+def heads_bound_ms(q: torch.Tensor, which: str, causal: bool = True) -> tuple:
+    """Least time of one call: q, k, v (and dO, lse, delta) read once,
+    o and lse (dq, dk, dv) written once, over the memory rate, vs the
+    products over the unmasked pairs (2 forward, 5 backward) over the peak
+    rate of the input type."""
+    B, H, T, D = q.shape
+    n = B * H * T * D * q.element_size()
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+    if which == "fwd":
+        return _bound(4 * n + B * H * T * 4, 2 * 2 * pairs * D, q.dtype)
+    return _bound(7 * n + 2 * B * H * T * 4, 5 * 2 * pairs * D, q.dtype)
+
+
+def check_heads(q, k, v, do, seed: int, rate: float,
+                causal: bool = True) -> dict:
+    """Forward (o, lse) and backward (dq, dk, dv) of the heads kernels
+    against the plain versions on the same inputs, at ``FLASH_TOL``; the
+    max abs errors (``d``: the largest of the three gradients')."""
+    kw = dict(causal=causal, seed=seed, rate=rate)
+    o, lse = fh.flash_heads_fwd(q, k, v, **kw)
+    delta = fh.heads_delta(do, o)
+    grads = fh.flash_heads_bwd(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    pairs = list(zip(("o", "lse"), (o, lse),
+                     fh.flash_heads_fwd_ref(q, k, v, **kw)))
+    pairs += zip(("dq", "dk", "dv"), grads,
+                 fh.flash_heads_bwd_ref(q, k, v, do, lse, delta, **kw))
+    err = {}
+    for name, got, ref in pairs:
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"heads flash: non-finite {name}")
+        err[name] = (got.float() - ref.float()).abs().max().item()
+        atol, rtol = FLASH_TOL[got.dtype]
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=rtol, msg=lambda m: f"{name}: {m}")
+    err["d"] = max(err["dq"], err["dk"], err["dv"])
+    return err
+
+
+def time_heads(q, k, v, do, flush: torch.Tensor, n: int = 10) -> tuple:
+    """CUDA-event times (ms) of both heads kernels, their plain versions,
+    ``scaled_dot_product_attention(is_causal=True)`` (its forward and its
+    backward) at dropout 0, and the SDPA backend PyTorch picks."""
+    o, lse = fh.flash_heads_fwd(q, k, v)
+    delta = fh.heads_delta(do, o)
+    sq, sk, sv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    backend = SDPBackend(torch._fused_sdp_choice(sq, sk, sv, None, 0.0,
+                                                 True)).name
+
+    def sdpa():
+        return F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+
+    out = sdpa()
+    plain_n = max(3, n // 3)
+    ms = {"fwd": time_ms(lambda: fh.flash_heads_fwd(q, k, v), flush, n),
+          "bwd": time_ms(lambda: fh.flash_heads_bwd(q, k, v, do, lse, delta),
+                         flush, n)}
+    plain = {"fwd": time_ms(lambda: fh.flash_heads_fwd_ref(q, k, v), flush,
+                            plain_n, 2),
+             "bwd": time_ms(lambda: fh.flash_heads_bwd_ref(
+                 q, k, v, do, lse, delta), flush, plain_n, 2)}
+    library = {"fwd": time_ms(sdpa, flush, n),
+               "bwd": time_ms(lambda: torch.autograd.grad(
+                   out, (sq, sk, sv), do, retain_graph=True), flush, n)}
+    return ms, plain, library, backend
+
+
+def time_routes(q, k, v, do, flush: torch.Tensor, n: int = 10) -> dict:
+    """The two attention routes at the same shapes (bf16, dropout 0), as
+    the block runs them: the packed kernel on the (B, T, 3C) projection
+    output, and the heads kernel with the split transposes of q, k, v
+    (forward) or dO (backward) and the merge of o (forward) or dq, dk, dv
+    (backward); each with its delta. CUDA-event ms."""
+    B, H, T, D = q.shape
+    C = H * D
+    qkv = torch.cat([gpt._merge_heads(t) for t in (q, k, v)], -1)
+    dom = gpt._merge_heads(do).contiguous()
+    po, plse = fp.flash_packed_fwd(qkv, H)
+    ho, hlse = fh.flash_heads_fwd(q, k, v)
+
+    def heads_fwd():
+        parts = (gpt._split_heads(t, H).contiguous()
+                 for t in qkv.split(C, -1))
+        return gpt._merge_heads(fh.flash_heads_fwd(*parts)[0])
+
+    def heads_bwd():
+        g = gpt._split_heads(dom, H).contiguous()
+        grads = fh.flash_heads_bwd(q, k, v, g, hlse, fh.heads_delta(g, ho))
+        return torch.cat([gpt._merge_heads(t) for t in grads], -1)
+
+    return {"packed_fwd": time_ms(lambda: fp.flash_packed_fwd(qkv, H), flush,
+                                  n),
+            "heads_fwd": time_ms(heads_fwd, flush, n),
+            "packed_bwd": time_ms(lambda: fp.flash_packed_bwd(
+                qkv, dom, plse, fp.packed_delta(dom, po, H), H), flush, n),
+            "heads_bwd": time_ms(heads_bwd, flush, n)}
+
+
+def heads_flash_phase(flush: torch.Tensor) -> list:
+    """The (B, H, T, D) kernels at gpt2-xl's attention shapes, causal=False
+    and D=256 against their plain versions; timings beside the bound,
+    the plain versions, SDPA and the packed route."""
+    seed = 2_468_013
+    shape = (XB, XH, GT, XC // XH)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for rate in (0.0, GROUP_RATE):
+            err = errs[(dtype, rate)] = check_heads(
+                *heads_inputs(dtype, shape), seed, rate)
+            print(f"heads flash check (gpt2-xl, B={XB}, H={XH}, T={GT}, "
+                  f"D={shape[-1]}): {str(dtype)[6:]} rate {rate} max_abs_err "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+                  + f" ({flash_tol_text(dtype)}; d(q, k, v) as o)")
+    for label, shp, causal, cases in (
+            ("causal=False", (2, 4, 512, 64), False,
+             ((torch.float32, GROUP_RATE), (torch.bfloat16, GROUP_RATE))),
+            ("D=256", (2, 4, 2048, 256), True,
+             ((torch.float32, GROUP_RATE), (torch.bfloat16, 0.0)))):
+        for dtype, rate in cases:
+            err = check_heads(*heads_inputs(dtype, shp, seed=1, scale=0.5),
+                              seed, rate, causal=causal)
+            print(f"heads flash check ({label}, B, H, T, D = {shp}): "
+                  f"{str(dtype)[6:]} rate {rate} max_abs_err "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in err.items()))
+    q, k, v, do = heads_inputs(torch.bfloat16, shape)
+    ms, plain, library, backend = time_heads(q, k, v, do, flush)
+    routes = time_routes(q, k, v, do, flush)
+    print(f"route timing (gpt2-xl attention, bf16, B={XB}, T={GT}, dropout "
+          f"0): packed kernel on (B, T, 3C) fwd {routes['packed_fwd']:.3f} "
+          f"ms / bwd {routes['packed_bwd']:.3f} ms; heads kernel with its "
+          f"split and merge transposes fwd {routes['heads_fwd']:.3f} ms / "
+          f"bwd {routes['heads_bwd']:.3f} ms")
+    rows = []
+    for which, err in (("fwd", "o"), ("bwd", "d")):
+        b_ms, b_by = heads_bound_ms(q, which)
+        print(f"heads flash {which} timing (bf16, B={XB}, H={XH}, T={GT}, "
+              f"D={shape[-1]}, dropout 0): kernel {ms[which]:.3f} ms, plain "
+              f"{plain[which]:.3f} ms, sdpa ({backend}) "
+              f"{library[which]:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        rows.append({
+            "name": f"flash_heads_{which}", "route": "cuda",
+            "source": FLASH_SOURCE, "replaces": HEADS_REPLACES[which],
+            "also_replaces": HEADS_ALSO_REPLACES[which],
+            "shapes": f"B={XB}, H={XH}, T={GT}, D={shape[-1]}, bf16, "
+                      f"dropout 0",
+            "max_abs_err": errs[(torch.bfloat16, 0.0)][err],
+            "ms": ms[which], "kernel_ms": ms[which],
+            "plain_ms": plain[which], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library[which], "library": f"sdpa {backend}",
+            "routes_ms": {"packed": routes[f"packed_{which}"],
+                          "heads": routes[f"heads_{which}"]}})
+    return rows
+
+
+def xl_plain_route(qkv, cfg, rng, train):
+    """The split-heads route on the plain core (no kernel)."""
+    q, k, v = (gpt._split_heads(t, cfg.n_head)
+               for t in qkv.split(cfg.n_embd, dim=-1))
+    return gpt._merge_heads(full_causal_attention(q, k, v))
+
+
+def xl_parity_phase() -> None:
+    """5 f32 steps at GPT-2 XL width (2 layers, T=1024, B=2, remat on)
+    through the heads kernel and through the plain route, from the same
+    seeds and batches; then one step's loss and gradients with remat on
+    and off, identical."""
+    base = get_config("gpt2-xl")
+    mcfg = dataclasses.replace(base.model, n_layer=2, dtype="float32")
+    tcfg = dataclasses.replace(base.train, batch_size=2, max_iters=5)
+    tokens = np.random.default_rng(6).integers(0, 1024, 64 * GT)
+    curves = []
+    for attention_fn in (None, xl_plain_route):
+        fh.flash_heads_fwd.launches = 0
+        state = create_train_state(mcfg, tcfg, "cuda")
+        step = make_train_step(mcfg, tcfg, attention_fn)
+        batcher = RandomBatcher(tokens, tcfg.batch_size, GT, seed=tcfg.seed)
+        losses = [step(state, tuple(torch.from_numpy(a).cuda()
+                                    for a in batcher.next_batch()))
+                  for _ in range(tcfg.max_iters)]
+        curves.append([float(x) for x in losses])
+        if (fh.flash_heads_fwd.launches > 0) != (attention_fn is None):
+            raise AssertionError(f"xl parity: {fh.flash_heads_fwd.launches} "
+                                 f"kernel launches")
+        del state, step
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*curves))
+    if not rel <= 1e-4:
+        raise AssertionError(f"xl parity: kernel {curves[0]} vs plain "
+                             f"{curves[1]}")
+    print(f"xl parity (f32, 2 layers, C={XC}, H={XH}, T={GT}, B=2, remat "
+          f"full): 5 losses {curves[0][0]:.6f} -> {curves[0][-1]:.6f}, max "
+          f"relative difference kernel vs plain {rel:.2e} (limit 1e-4)")
+    x, y = (torch.from_numpy(a).cuda()
+            for a in RandomBatcher(tokens, 2, GT, seed=1).next_batch())
+    results = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for remat in (True, False):
+            cfg = dataclasses.replace(mcfg, remat=remat)
+            model = init_params(
+                cfg, torch.Generator(device="cuda").manual_seed(0),
+                device="cuda")
+            _, loss = gpt.forward(model.tree(), x, cfg, targets=y)
+            loss.backward()
+            results.append((loss.detach(), {n: p.grad for n, p in
+                                             model.named_parameters()}))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (l1, g1), (l0, g0) = results
+    diff = {n: (g1[n] - g0[n]).abs().max().item() for n in g0}
+    if not torch.equal(l1, l0) or any(diff.values()):
+        raise AssertionError(f"xl remat: loss {l1.item()} vs {l0.item()}, "
+                             f"gradient max differences {diff}")
+    print(f"xl remat (f32, 2 layers, C={XC}): loss {l1.item():.6f} and all "
+          f"{len(g0)} gradients identical with remat full and without")
+
+
+def gpt2_xl_slice_phase(card: str) -> tuple:
+    """The GPT-2 XL training main path: ``train --preset gpt2-xl`` through
+    the CLI at the published widths, remat full, the preset's global
+    batch of 64 as 4 accumulated micro-batches of 16, ``XL_STEPS`` steps,
+    evals at 0 and the end over ``XL_EVAL_ITERS`` batches a split."""
+    mcfg = get_config("gpt2-xl").model
+    L, steps, eval_iters, n_evals = (mcfg.n_layer, XL_STEPS, XL_EVAL_ITERS,
+                                     2)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    text, events, packed, (fwd, bwd) = run_train_cli(
+        ["--preset", "gpt2-xl", "--batch-size", str(XB),
+         "--grad-accum-steps", str(XACC), "--max-iters", str(steps),
+         "--eval-interval", str(steps), "--eval-iters", str(eval_iters),
+         "--log-interval", "1"])
+    peak = torch.cuda.max_memory_allocated()
+    print(text, end="")
+    evals = [e for e in events if e["event"] == "eval"]
+    losses = [e["loss"] for e in events if e["event"] == "step"]
+    losses += [e[k] for e in evals for k in ("train_loss", "val_loss")]
+    assert len(losses) == steps + 2 * n_evals, losses
+    assert all(math.isfinite(x) for x in losses), losses
+    assert [e["step"] for e in evals] == [0, steps], evals
+    first, last = evals[0]["val_loss"], evals[-1]["val_loss"]
+    if not last < first:
+        raise AssertionError(f"xl slice: val loss {first} at step 0, {last} "
+                             f"at step {steps}")
+    want_fwd = L * (2 * steps * XACC + n_evals * 2 * eval_iters)
+    if (fwd, bwd, *packed) != (want_fwd, L * steps * XACC, 0, 0):
+        raise AssertionError(f"xl slice launches: heads {fwd} / {bwd} "
+                             f"(want {want_fwd} / {L * steps * XACC}), "
+                             f"packed {packed} (want 0)")
+    if not peak < 80e9:
+        raise AssertionError(f"xl slice: peak memory {peak} bytes")
+    info = {k: v for e in events if e["event"] == "info" for k, v in e.items()}
+    print(f"gpt2-xl slice ({steps} steps, {XACC} x B={XB}, T={GT}, bf16, "
+          f"remat full) on {card}: {info['tokens_per_sec']:.0f} tok/s, train "
+          f"step p50 {info['p50_ms']:.3f} ms (mean {info['mean_ms']:.3f}), "
+          f"val loss {last:.4f} at step {steps} (step 0: {first:.4f}), peak "
+          f"memory allocated {peak / 1e9:.3f} GB, {fwd} forward / {bwd} "
+          f"backward heads kernel launches ({L} x (2 x {steps} x {XACC} + "
+          f"{n_evals * 2 * eval_iters}) and {L} x {steps} x {XACC}), packed "
+          f"kernel launches {packed[0]} / {packed[1]}")
+    return fwd, bwd
 
 
 def build_kernels() -> None:
@@ -1380,9 +1711,15 @@ def main() -> int:
     group_rows[0]["launches"], group_rows[1]["launches"] = \
         gpt2_slice_phase(card)
     gpt2_shakespeare_phase(card)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    heads_rows = heads_flash_phase(flush)
+    del flush
+    xl_parity_phase()
+    heads_rows[0]["launches"], heads_rows[1]["launches"] = \
+        gpt2_xl_slice_phase(card)
     print(f"smoke: {time.perf_counter() - t0:.1f} s, the builds included")
-    print(json.dumps({"kernels": [row, *flash_rows, *group_rows, fused_row,
-                                  packed_row, fused_paged_row]}))
+    print(json.dumps({"kernels": [row, *flash_rows, *group_rows, *heads_rows,
+                                  fused_row, packed_row, fused_paged_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,12 @@
 
 A copy of the subset of ``replicatinggpt_tpu/config.py`` that the ported
 paths need: the ``ModelConfig`` architecture record, the ``TrainConfig``
-optimization schedule, the presets (``gpt2-small``, ``gpt2-shakespeare``,
-``char-gpt``, ``test-tiny``) and the CLI overlay. TPU dispatch knobs
-(``use_layer_scan``, ``scan_layers``, remat, ``attention_impl``,
+optimization schedule, the presets (the GPT-2 ladder ``gpt2-small``,
+``gpt2-medium``, ``gpt2-large``, ``gpt2-xl``; ``gpt2-shakespeare``,
+``char-gpt``, ``char-gpt1-ref``, ``test-tiny``) and the CLI overlay.
+``remat`` / ``remat_policy`` are the memory trade the larger presets
+need (``torch.utils.checkpoint`` per block, ``models/gpt.py``). TPU
+dispatch knobs (``use_layer_scan``, ``scan_layers``, ``attention_impl``,
 ``steps_per_dispatch``) have no counterpart here: PyTorch runs the layer
 loop eagerly and the port picks its own kernels.
 """
@@ -40,6 +43,11 @@ class ModelConfig:
                                   # chunk; 0 = the one-shot head
     decode_cache_layout: str = "heads"   # 'heads' (L,N,H,page,D) |
                                          # 'packed' (L,N,page,C)
+    remat: bool = False           # recompute each block in the backward
+    remat_policy: str = "full"    # 'full' (save nothing) | 'dots' (save
+                                  # the matrix products' outputs) |
+                                  # 'dots_no_batch' (only those with no
+                                  # batch dimensions)
 
     @property
     def head_dim(self) -> int:
@@ -60,10 +68,14 @@ class ModelConfig:
         if self.decode_cache_layout not in ("heads", "packed"):
             raise ValueError(f"decode_cache_layout "
                              f"{self.decode_cache_layout!r}")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {self.remat_policy!r}; have "
+                             f"{REMAT_POLICIES}")
         return self
 
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+REMAT_POLICIES = ("full", "dots", "dots_no_batch")
 
 
 @dataclass(frozen=True)
@@ -106,19 +118,42 @@ class Config:
         return self.train.seed
 
 
+def _gpt2_ladder(n_layer: int, n_head: int, n_embd: int,
+                 remat: bool = False) -> ModelConfig:
+    """A GPT-2 size (vocab 50257, context 1024, gelu, tied head, no
+    dropout); remat from 350M up, where the JAX package needs it to fit
+    a device's memory."""
+    return ModelConfig(vocab_size=50257, block_size=1024, n_layer=n_layer,
+                       n_head=n_head, n_embd=n_embd, dropout=0.0,
+                       attn_dropout=0.0, tied_head=True, activation="gelu",
+                       remat=remat)
+
+
 PRESETS = {
     # GPT-2 124M (vocab 50257, context 1024), the JAX preset of the
     # same name; its 8-way data mesh waits for ROADMAP.md queue A item
     # 11, so the global batch of 32 runs on one card.
     "gpt2-small": Config(
-        name="gpt2-small",
-        model=ModelConfig(vocab_size=50257, block_size=1024, n_layer=12,
-                          n_head=12, n_embd=768, dropout=0.0,
-                          attn_dropout=0.0, tied_head=True,
-                          activation="gelu"),
+        name="gpt2-small", model=_gpt2_ladder(12, 12, 768),
         train=TrainConfig(batch_size=32, lr=3e-4, max_iters=1000,
                           sampling="sequential", lr_schedule="cosine",
                           warmup_iters=100, grad_clip=1.0),
+        tokenizer="bpe"),
+    # GPT-2 350M (BASELINE config 4), 774M and 1.558B, the JAX presets of
+    # the same names; their 16-way FSDP meshes wait for ROADMAP.md queue
+    # A item 11, so the global batch runs on one card (gradient
+    # accumulation sizes it to the card's memory)
+    "gpt2-medium": Config(
+        name="gpt2-medium", model=_gpt2_ladder(24, 16, 1024, remat=True),
+        train=TrainConfig(batch_size=64, lr=3e-4, max_iters=1000,
+                          sampling="sequential", lr_schedule="cosine",
+                          warmup_iters=100, grad_clip=1.0),
+        tokenizer="bpe"),
+    "gpt2-large": Config(
+        name="gpt2-large", model=_gpt2_ladder(36, 20, 1280, remat=True),
+        tokenizer="bpe"),
+    "gpt2-xl": Config(
+        name="gpt2-xl", model=_gpt2_ladder(48, 25, 1600, remat=True),
         tokenizer="bpe"),
     # the reference's GPT-2.py training run (B=4, lr 3e-4, 50 steps,
     # sequential batches, a loss line every step, no periodic eval), at
@@ -139,6 +174,17 @@ PRESETS = {
         name="char-gpt",
         model=ModelConfig(vocab_size=65, block_size=256, n_layer=6,
                           n_head=6, n_embd=384, dropout=0.2,
+                          attn_dropout=0.2, tied_head=False,
+                          activation="relu"),
+        train=TrainConfig(batch_size=64, lr=2e-4, max_iters=3000,
+                          eval_interval=200, eval_iters=200, seed=1337,
+                          sampling="random"),
+        tokenizer="char"),
+    # the reference's GPT1.py as committed (n_embd=126: D=21)
+    "char-gpt1-ref": Config(
+        name="char-gpt1-ref",
+        model=ModelConfig(vocab_size=65, block_size=256, n_layer=6,
+                          n_head=6, n_embd=126, dropout=0.2,
                           attn_dropout=0.2, tied_head=False,
                           activation="relu"),
         train=TrainConfig(batch_size=64, lr=2e-4, max_iters=3000,
@@ -170,6 +216,7 @@ MODEL_OVERRIDE_FLAGS = (
     ("n_layer", "--n-layer"), ("n_head", "--n-head"),
     ("n_embd", "--n-embd"), ("dtype", "--dtype"),
     ("decode_cache_layout", "--decode-cache-layout"),
+    ("remat_policy", "--remat-policy"),
 )
 
 #: (dest, flag, type) training overrides registered by add_train_flags
@@ -195,6 +242,18 @@ def add_config_flags(p: argparse.ArgumentParser) -> None:
                    help="paged KV pool layout: 'heads' (L,N,H,page,D) "
                         "or 'packed' (L,N,page,C); the CUDA paged "
                         "attention kernel needs 'packed'")
+    p.add_argument("--remat", action="store_true", default=None,
+                   help="recompute each block in the backward "
+                        "(torch.utils.checkpoint; trades operations for "
+                        "memory)")
+    p.add_argument("--no-remat", dest="remat", action="store_false",
+                   help="turn off the preset's remat (the 350M+ presets "
+                        "default it on)")
+    p.add_argument("--remat-policy", dest="remat_policy", default=None,
+                   choices=list(REMAT_POLICIES),
+                   help="what a recomputed block keeps: 'full' nothing, "
+                        "'dots'/'dots_no_batch' the matrix products' "
+                        "outputs")
     p.add_argument("--seed", type=int, default=None,
                    help="training seed (also seeds serve-replay's random "
                         "weights and trace)")
@@ -223,8 +282,9 @@ def config_from_args(args: argparse.Namespace) -> Config:
           if getattr(args, dest, None) is not None}
     if getattr(args, "dropout", None) is not None:
         mk["dropout"] = mk["attn_dropout"] = args.dropout
-    if getattr(args, "loss_chunk", None) is not None:
-        mk["loss_chunk"] = args.loss_chunk
+    for dest in ("loss_chunk", "remat"):
+        if getattr(args, dest, None) is not None:
+            mk[dest] = getattr(args, dest)
     tk = {dest: getattr(args, dest) for dest, _, _ in TRAIN_OVERRIDE_FLAGS
           if getattr(args, dest, None) is not None}
     for dest in ("seed", "lr_schedule"):

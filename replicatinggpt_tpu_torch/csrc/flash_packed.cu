@@ -1,47 +1,67 @@
-// Packed causal flash attention, forward and backward, on the fused
-// (B, T, 3C) QKV projection output.
+// Flash attention, forward and backward, on two layouts with one body:
+// the fused (B, T, 3C) QKV projection output (packed) and separate
+// (B, H, T, D) q, k, v (heads).
 //
-// Replaces replicatinggpt_tpu/ops/flash_pallas.py:_fwd_kernel_packed
-// (forward, via _packed_fwd) and :_bwd_kernel_packed (backward, via
-// _packed_bwd), and the head-group families that compute the same
-// function on (T, 128)-column strips: _group_fwd / _group_bwd, their
-// streamed (_group_fwd_stream / _group_bwd_stream) and triangular
-// (_group_fwd_tri / _group_bwd_tri) variants. Head h reads q, k and v
-// as the column strips [h*D, (h+1)*D), C + ... and 2C + ... of each
-// packed row (row stride 3C elements), so no head transpose happens on
-// either pass. The forward writes the merged (B, T, C) output and the
-// f32 log-sum-exp (B, T, H); the backward takes dO (B, T, C), lse and
-// delta = rowsum(dO * O) per head (B, T, H, f32, from the caller) and
-// writes the packed d(qkv) (B, T, 3C). Scores, softmax statistics and
-// every accumulator are f32; loads of bf16 inputs convert to f32 in
-// shared memory.
+// Replaces, in replicatinggpt_tpu/ops/flash_pallas.py:
+// - packed: _fwd_kernel_packed (forward, via _packed_fwd) and
+//   _bwd_kernel_packed (backward, via _packed_bwd), and the head-group
+//   families that compute the same function on (T, 128)-column strips:
+//   _group_fwd / _group_bwd, their streamed (_group_fwd_stream /
+//   _group_bwd_stream) and triangular (_group_fwd_tri / _group_bwd_tri)
+//   variants;
+// - heads: the (B, H, T, D) family of pallas_flash_attention: _fwd_kernel
+//   (via _flash_fwd), the backward kernels of _flash_bwd (_bwd_dq_kernel,
+//   _bwd_dkv_kernel), _flash_bwd_fused's single-tile kernel, the kv-major
+//   fused backward (_fused_kv_major_bwd), the streamed (_flash_fwd_stream,
+//   _flash_bwd_stream) and the triangular (_flash_fwd_tri, _flash_bwd_tri)
+//   variants.
+// All of them compute one function and differ only in what the TPU keeps
+// resident in VMEM; here a block keeps one q or kv tile and walks the
+// other side's tiles through shared memory, so T is bounded by memory
+// only.
+//
+// Addressing: every tensor is a View, a base pointer and the element
+// strides of (batch, head, row); a row's D elements are contiguous. The
+// packed entry points read head h's q, k and v as the column strips
+// [h*D, (h+1)*D), C + ... and 2C + ... of each packed row (row stride 3C)
+// and write the merged (B, T, C) output, the f32 lse (B, T, H) and the
+// packed d(qkv); the heads entry points take q, k, v, o, dO, dq, dk, dv
+// as (B, H, T, D) and lse, delta as (B, H, T) f32. The backward takes
+// delta = rowsum(dO * O) per row and head from the caller. Scores,
+// softmax statistics and every accumulator are f32; loads of bf16 inputs
+// convert to f32 in shared memory. `causal` masks k > q (both sides have
+// the same T); `scale` multiplies the scores.
 //
 // Attention dropout is the JAX kernels' counter hash (_dropout_mult):
 // h = fmix32(seed ^ bh * 0x9E3779B9), y = fmix32(fmix32(h ^ qpos) ^
 // kpos) at absolute positions, kept iff y > threshold, kept weights
-// scaled by `keep`. The forward's normalizer l sees no dropout; only the
-// V accumulation does. The backward regenerates the same mask.
+// scaled by `keep`; bh = b * H + h in both layouts (the (B*H) grid index
+// of the JAX heads kernels). The forward's normalizer l sees no dropout;
+// only the V accumulation does. The backward regenerates the same mask.
 //
-// Bound on this card: at the char-GPT shapes (B=64, T=256, C=384, H=6,
-// bf16) the forward moves ~51 MB (15 us at 3.35 TB/s) against 3.2 GFLOP
-// (3.3 us at 989 TFLOP/s), the backward ~89 MB (27 us) against 8.1 GFLOP
-// (8 us): bytes bound both. These kernels are far from either: they
+// Bound on this card: at GPT-2 XL's shapes (B=16, H=25, T=1024, D=64,
+// bf16, causal) the forward moves ~210 MB (63 us at 3.35 TB/s) against
+// 5.4e10 FLOP (54 us at 989 TFLOP/s): bytes bound it; the backward is
+// bound by its operations. These kernels are far from either: they
 // multiply in f32 on the CUDA cores (no tensor cores), so operations
 // bound them in practice. wgmma/TMA tiles are later work.
 //
-// Design (first version, correct before fast): 64-row tiles, 256
-// threads, each thread owning a 4 x 4 (score tile) or 4 x D/16 (output
-// tile) micro-tile at rows ty + 16i, columns tx + 16j, so shared-memory
-// reads are conflict-free with a row stride of D + 1 floats.
+// Design (first version, correct before fast): BM-row tiles (64; 32 for
+// the D=256 backward, whose 64-row f32 tiles would need ~297 KB of
+// shared memory where a block may have 227 KB), 256 threads as a 16 x 16
+// grid, each thread owning a BM/16 x BM/16 (score tile) or BM/16 x D/16
+// (output tile) micro-tile at rows ty + 16i, columns tx + 16j, so
+// shared-memory reads are conflict-free with a row stride of D + 1
+// floats.
 // - forward: one block per (q tile, head, batch); K/V tiles walked up to
-//   the diagonal, masked inside it; online softmax with m, l and the
-//   accumulator in f32.
+//   the diagonal (causal) or to the end, masked inside the diagonal;
+//   online softmax with m, l and the accumulator in f32.
 // - backward: two kernels, no atomics, so the result is deterministic.
 //   dkv_kernel: one block per (kv tile, head, batch), q tiles from the
-//   diagonal down, dK and dV accumulated in registers. dq_kernel: one
-//   block per (q tile, head, batch), kv tiles up to the diagonal. Both
-//   recompute p = exp(s - lse) and dP; the pair is the port of the one
-//   fused TPU backward.
+//   diagonal (causal) or the start down, dK and dV accumulated in
+//   registers. dq_kernel: one block per (q tile, head, batch), kv tiles
+//   up to the diagonal or the end. Both recompute p = exp(s - lse) and
+//   dP; the pair is the port of every TPU backward above.
 //
 // Plain C interface (ctypes); each launch returns cudaGetLastError().
 
@@ -53,9 +73,14 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;       // rows of a q or kv tile
-constexpr int kSS = kTile + 1;  // row stride (floats) of a score tile
+constexpr int kTile = 64;  // rows of a forward tile; T is a multiple
 constexpr float kNegInf = -1e30f;
+
+// rows of a backward tile: 32 at D=256 (shared memory), else 64
+template <int D>
+constexpr int bwd_rows() {
+  return D == 256 ? 32 : kTile;
+}
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x ^= x >> 16;
@@ -81,6 +106,38 @@ struct Dropout {
   __device__ __forceinline__ float mult(uint32_t rr, int kpos) const {
     return fmix32(rr ^ (uint32_t)kpos) > threshold ? keep : 0.f;
   }
+};
+
+// A tensor as a base pointer and the element strides of (batch, head,
+// row); the D elements of a row are contiguous.
+template <typename P>
+struct View {
+  P* p;
+  long long sb, sh, sr;
+
+  __device__ __forceinline__ P* at(int b, int h, int r) const {
+    return p + b * sb + h * sh + r * sr;
+  }
+};
+
+template <typename T>
+struct FwdArgs {
+  View<const T> q, k, v;
+  View<T> o;
+  View<float> lse;
+  int Tlen, H, causal;
+  float scale;
+  Dropout dp;
+};
+
+template <typename T>
+struct BwdArgs {
+  View<const T> q, k, v, dout;
+  View<const float> lse, delta;
+  View<T> dq, dk, dv;
+  int Tlen, H, causal;
+  float scale;
+  Dropout dp;
 };
 
 __device__ __forceinline__ void load_vec(const float* src, float* dst) {
@@ -121,14 +178,14 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// kTile rows of D elements, row r at src + r * stride, into dst (f32,
-// row stride D + 1), 16 bytes per thread per load.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* src, size_t stride,
+// BM rows of D elements, row r at src + r * stride, into dst (f32, row
+// stride D + 1), 16 bytes per thread per load.
+template <typename T, int D, int BM>
+__device__ __forceinline__ void load_tile(const T* src, long long stride,
                                           float* dst) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int VPR = D / VEC;
-  for (int e = threadIdx.x; e < kTile * VPR; e += kThreads) {
+  for (int e = threadIdx.x; e < BM * VPR; e += kThreads) {
     const int r = e / VPR, c = (e % VPR) * VEC;
     float f[VEC];
     load_vec(src + r * stride + c, f);
@@ -138,133 +195,142 @@ __device__ __forceinline__ void load_tile(const T* src, size_t stride,
 }
 
 // s[i][j] += A[ty + 16i] . B[tx + 16j] over D (A, B: tiles of row
-// stride D + 1).
-template <int D>
+// stride D + 1), i, j < BM / 16.
+template <int D, int BM>
 __device__ __forceinline__ void dot_tile(const float* A, const float* Bt,
-                                         float s[4][4], int tx, int ty) {
-  constexpr int SD = D + 1;
+                                         float s[BM / 16][BM / 16], int tx,
+                                         int ty) {
+  constexpr int SD = D + 1, R = BM / 16;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
+    float a[R], b[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * SD + d];
+    for (int i = 0; i < R; ++i) a[i] = A[(ty + 16 * i) * SD + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = Bt[(tx + 16 * j) * SD + d];
+    for (int j = 0; j < R; ++j) b[j] = Bt[(tx + 16 * j) * SD + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] += a[i] * b[j];
+      for (int j = 0; j < R; ++j) s[i][j] += a[i] * b[j];
   }
 }
 
 // Scores s = Q K^T (rows of q_s) and dP = dO V^T for one tile pair, then
 // p_s = p * z and ds_s = p (z dP - delta) scale, with p = exp(s scale -
 // lse) and columns past the diagonal zeroed when `diag`.
-template <int D>
+template <int D, int BM>
 __device__ __forceinline__ void bwd_scores(
     const float* q_s, const float* do_s, const float* k_s, const float* v_s,
     const float* lse_s, const float* dl_s, float* p_s, float* ds_s, int q0,
     int k0, bool diag, float scale, const Dropout& dp, uint32_t hh, int tx,
     int ty) {
-  float s[4][4] = {}, g[4][4] = {};
-  dot_tile<D>(q_s, k_s, s, tx, ty);
-  dot_tile<D>(do_s, v_s, g, tx, ty);
+  constexpr int R = BM / 16, SS = BM + 1;
+  float s[R][R] = {}, g[R][R] = {};
+  dot_tile<D, BM>(q_s, k_s, s, tx, ty);
+  dot_tile<D, BM>(do_s, v_s, g, tx, ty);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = ty + 16 * i;
     const uint32_t rr = dp.on ? dp.row(hh, q0 + r) : 0u;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < R; ++j) {
       const int c = tx + 16 * j;
       const float p =
           (diag && c > r) ? 0.f : expf(s[i][j] * scale - lse_s[r]);
       const float z = dp.on ? dp.mult(rr, k0 + c) : 1.f;
-      p_s[r * kSS + c] = p * z;
-      ds_s[r * kSS + c] = p * (g[i][j] * z - dl_s[r]) * scale;
+      p_s[r * SS + c] = p * z;
+      ds_s[r * SS + c] = p * (g[i][j] * z - dl_s[r]) * scale;
     }
   }
 }
 
-template <int D>
+template <int D, int BM>
 constexpr size_t fwd_smem_floats() {
-  return 3 * (size_t)kTile * (D + 1) + (size_t)kTile * kSS + 3 * kTile;
+  return 3 * (size_t)BM * (D + 1) + (size_t)BM * (BM + 1) + 3 * BM;
 }
-template <int D>
+template <int D, int BM>
 constexpr size_t dkv_smem_floats() {
-  return 4 * (size_t)kTile * (D + 1) + 2 * (size_t)kTile * kSS + 2 * kTile;
+  return 4 * (size_t)BM * (D + 1) + 2 * (size_t)BM * (BM + 1) + 2 * BM;
 }
-template <int D>
+template <int D, int BM>
 constexpr size_t dq_smem_floats() {
-  return 4 * (size_t)kTile * (D + 1) + (size_t)kTile * kSS + 2 * kTile;
+  return 4 * (size_t)BM * (D + 1) + (size_t)BM * (BM + 1) + 2 * BM;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
-           float* __restrict__ lse, int Tlen, int H, float scale,
-           Dropout dp) {
-  constexpr int SD = D + 1;
-  constexpr int NJ = D / 16;
+template <typename T, int D, int BM>
+__global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs<T> a) {
+  constexpr int SD = D + 1, SS = BM + 1, R = BM / 16, NJ = D / 16;
+  constexpr int CPL = BM / 32;  // softmax columns per lane
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int C = H * D;
-  const size_t rs = 3 * (size_t)C;
-  const int q0 = qt * kTile;
+  const int q0 = qt * BM;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int lane = tid & 31, warp = tid >> 5;
 
   extern __shared__ float smem[];
-  float* q_s = smem;               // kTile x SD
-  float* k_s = q_s + kTile * SD;   // kTile x SD
-  float* v_s = k_s + kTile * SD;   // kTile x SD
-  float* s_s = v_s + kTile * SD;   // kTile x kSS: scores, then p
-  float* m_s = s_s + kTile * kSS;  // running max
-  float* l_s = m_s + kTile;        // running normalizer (no dropout)
-  float* a_s = l_s + kTile;        // this tile's rescale factor
+  float* q_s = smem;            // BM x SD
+  float* k_s = q_s + BM * SD;   // BM x SD
+  float* v_s = k_s + BM * SD;   // BM x SD
+  float* s_s = v_s + BM * SD;   // BM x SS: scores, then p
+  float* m_s = s_s + BM * SS;   // running max
+  float* l_s = m_s + BM;        // running normalizer (no dropout)
+  float* a_s = l_s + BM;        // this tile's rescale factor
 
-  const T* base = qkv + (size_t)b * Tlen * rs + (size_t)h * D;
-  load_tile<T, D>(base + (size_t)q0 * rs, rs, q_s);
-  for (int r = tid; r < kTile; r += kThreads) {
+  load_tile<T, D, BM>(a.q.at(b, h, q0), a.q.sr, q_s);
+  for (int r = tid; r < BM; r += kThreads) {
     m_s[r] = kNegInf;
     l_s[r] = 0.f;
   }
-  const uint32_t hh = dp.head(b * H + h);
-  float acc[4][NJ];
+  const Dropout& dp = a.dp;
+  const uint32_t hh = dp.head(b * a.H + h);
+  float acc[R][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kTile;
+  const int last = a.causal ? qt : a.Tlen / BM - 1;
+  for (int kt = 0; kt <= last; ++kt) {
+    const int k0 = kt * BM;
+    const bool diag = a.causal && kt == qt;
     __syncthreads();  // the last tile's readers of k_s, v_s, s_s are done
-    load_tile<T, D>(base + (size_t)k0 * rs + C, rs, k_s);
-    load_tile<T, D>(base + (size_t)k0 * rs + 2 * C, rs, v_s);
+    load_tile<T, D, BM>(a.k.at(b, h, k0), a.k.sr, k_s);
+    load_tile<T, D, BM>(a.v.at(b, h, k0), a.v.sr, v_s);
     __syncthreads();
-    float s[4][4] = {};
-    dot_tile<D>(q_s, k_s, s, tx, ty);
+    float s[R][R] = {};
+    dot_tile<D, BM>(q_s, k_s, s, tx, ty);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
-        s_s[r * kSS + c] = (kt == qt && c > r) ? kNegInf : s[i][j] * scale;
+        s_s[r * SS + c] = (diag && c > r) ? kNegInf : s[i][j] * a.scale;
       }
     __syncthreads();
-    // online softmax: one warp per row, two columns per lane
-    for (int r = warp; r < kTile; r += kWarps) {
-      float* sr = s_s + r * kSS;
-      const float x0 = sr[lane], x1 = sr[lane + 32];
+    // online softmax: one warp per row, CPL columns per lane
+    for (int r = warp; r < BM; r += kWarps) {
+      float* sr = s_s + r * SS;
+      float x[CPL], mx = kNegInf;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        x[c] = sr[lane + 32 * c];
+        mx = fmaxf(mx, x[c]);
+      }
       const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(x0, x1)));
-      float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
-      const float sum = warp_sum(p0 + p1);
+      const float m_new = fmaxf(m_prev, warp_max(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        x[c] = expf(x[c] - m_new);
+        sum += x[c];
+      }
+      sum = warp_sum(sum);
       if (dp.on) {
         const uint32_t rr = dp.row(hh, q0 + r);
-        p0 *= dp.mult(rr, k0 + lane);
-        p1 *= dp.mult(rr, k0 + lane + 32);
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) x[c] *= dp.mult(rr, k0 + lane + 32 * c);
       }
-      sr[lane] = p0;
-      sr[lane + 32] = p1;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) sr[lane + 32 * c] = x[c];
       if (lane == 0) {
         const float alpha = expf(m_prev - m_new);
         a_s[r] = alpha;
@@ -274,99 +340,91 @@ fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
     }
     __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       const float alpha = a_s[ty + 16 * i];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
     }
-    for (int c = 0; c < kTile; ++c) {
-      float p[4];
+    for (int c = 0; c < BM; ++c) {
+      float p[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = s_s[(ty + 16 * i) * kSS + c];
+      for (int i = 0; i < R; ++i) p[i] = s_s[(ty + 16 * i) * SS + c];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const float v = v_s[c * SD + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] += p[i] * v;
+        for (int i = 0; i < R; ++i) acc[i][j] += p[i] * v;
       }
     }
   }
-  // the diagonal tile leaves every row a positive normalizer
+  // the first tile leaves every row a positive normalizer (causal: its
+  // column 0 is unmasked)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = ty + 16 * i;
     const float l = l_s[r];
-    T* dst = out + ((size_t)b * Tlen + q0 + r) * C + (size_t)h * D + tx;
+    T* dst = a.o.at(b, h, q0 + r) + tx;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) store(dst + 16 * j, acc[i][j] / l);
   }
-  for (int r = tid; r < kTile; r += kThreads)
-    lse[((size_t)b * Tlen + q0 + r) * H + h] = m_s[r] + logf(l_s[r]);
+  for (int r = tid; r < BM; r += kThreads)
+    *a.lse.at(b, h, q0 + r) = m_s[r] + logf(l_s[r]);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
-           T* __restrict__ dqkv, int Tlen, int H, float scale, Dropout dp) {
-  constexpr int SD = D + 1;
-  constexpr int NJ = D / 16;
+template <typename T, int D, int BM>
+__global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs<T> a) {
+  constexpr int SD = D + 1, SS = BM + 1, R = BM / 16, NJ = D / 16;
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int C = H * D;
-  const size_t rs = 3 * (size_t)C;
-  const int k0 = kt * kTile;
+  const int k0 = kt * BM;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
 
   extern __shared__ float smem[];
-  float* k_s = smem;                // kTile x SD
-  float* v_s = k_s + kTile * SD;    // kTile x SD
-  float* q_s = v_s + kTile * SD;    // kTile x SD
-  float* do_s = q_s + kTile * SD;   // kTile x SD
-  float* p_s = do_s + kTile * SD;   // kTile x kSS: p * z
-  float* ds_s = p_s + kTile * kSS;  // kTile x kSS: ds
-  float* lse_s = ds_s + kTile * kSS;
-  float* dl_s = lse_s + kTile;
+  float* k_s = smem;             // BM x SD
+  float* v_s = k_s + BM * SD;    // BM x SD
+  float* q_s = v_s + BM * SD;    // BM x SD
+  float* do_s = q_s + BM * SD;   // BM x SD
+  float* p_s = do_s + BM * SD;   // BM x SS: p * z
+  float* ds_s = p_s + BM * SS;   // BM x SS: ds
+  float* lse_s = ds_s + BM * SS;
+  float* dl_s = lse_s + BM;
 
-  const T* base = qkv + (size_t)b * Tlen * rs + (size_t)h * D;
-  load_tile<T, D>(base + (size_t)k0 * rs + C, rs, k_s);
-  load_tile<T, D>(base + (size_t)k0 * rs + 2 * C, rs, v_s);
-  const uint32_t hh = dp.head(b * H + h);
-  float dk[4][NJ], dv[4][NJ];
+  load_tile<T, D, BM>(a.k.at(b, h, k0), a.k.sr, k_s);
+  load_tile<T, D, BM>(a.v.at(b, h, k0), a.v.sr, v_s);
+  const uint32_t hh = a.dp.head(b * a.H + h);
+  float dk[R][NJ], dv[R][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.f;
 
-  const int n_q = Tlen / kTile;
-  for (int qt = kt; qt < n_q; ++qt) {
-    const int q0 = qt * kTile;
+  const int n_q = a.Tlen / BM;
+  for (int qt = a.causal ? kt : 0; qt < n_q; ++qt) {
+    const int q0 = qt * BM;
     __syncthreads();  // the last tile's readers are done
-    load_tile<T, D>(base + (size_t)q0 * rs, rs, q_s);
-    load_tile<T, D>(dout + ((size_t)b * Tlen + q0) * C + (size_t)h * D, C,
-                    do_s);
-    for (int r = tid; r < kTile; r += kThreads) {
-      const size_t at = ((size_t)b * Tlen + q0 + r) * H + h;
-      lse_s[r] = lse[at];
-      dl_s[r] = delta[at];
+    load_tile<T, D, BM>(a.q.at(b, h, q0), a.q.sr, q_s);
+    load_tile<T, D, BM>(a.dout.at(b, h, q0), a.dout.sr, do_s);
+    for (int r = tid; r < BM; r += kThreads) {
+      lse_s[r] = *a.lse.at(b, h, q0 + r);
+      dl_s[r] = *a.delta.at(b, h, q0 + r);
     }
     __syncthreads();
-    bwd_scores<D>(q_s, do_s, k_s, v_s, lse_s, dl_s, p_s, ds_s, q0, k0,
-                  qt == kt, scale, dp, hh, tx, ty);
+    bwd_scores<D, BM>(q_s, do_s, k_s, v_s, lse_s, dl_s, p_s, ds_s, q0, k0,
+                      a.causal && qt == kt, a.scale, a.dp, hh, tx, ty);
     __syncthreads();
     // dV += (p z)^T dO, dK += ds^T Q: rows of the kv tile
-    for (int q = 0; q < kTile; ++q) {
-      float pk[4], sk[4];
+    for (int q = 0; q < BM; ++q) {
+      float pk[R], sk[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pk[i] = p_s[q * kSS + ty + 16 * i];
-        sk[i] = ds_s[q * kSS + ty + 16 * i];
+      for (int i = 0; i < R; ++i) {
+        pk[i] = p_s[q * SS + ty + 16 * i];
+        sk[i] = ds_s[q * SS + ty + 16 * i];
       }
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const float g = do_s[q * SD + tx + 16 * j];
         const float x = q_s[q * SD + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < R; ++i) {
           dv[i][j] += pk[i] * g;
           dk[i][j] += sk[i] * x;
         }
@@ -374,83 +432,76 @@ dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = ty + 16 * i;
-    T* dst = dqkv + ((size_t)b * Tlen + k0 + r) * rs + (size_t)h * D + tx;
+    T* dkr = a.dk.at(b, h, k0 + r) + tx;
+    T* dvr = a.dv.at(b, h, k0 + r) + tx;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      store(dst + C + 16 * j, dk[i][j]);
-      store(dst + 2 * C + 16 * j, dv[i][j]);
+      store(dkr + 16 * j, dk[i][j]);
+      store(dvr + 16 * j, dv[i][j]);
     }
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          T* __restrict__ dqkv, int Tlen, int H, float scale, Dropout dp) {
-  constexpr int SD = D + 1;
-  constexpr int NJ = D / 16;
+template <typename T, int D, int BM>
+__global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs<T> a) {
+  constexpr int SD = D + 1, SS = BM + 1, R = BM / 16, NJ = D / 16;
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int C = H * D;
-  const size_t rs = 3 * (size_t)C;
-  const int q0 = qt * kTile;
+  const int q0 = qt * BM;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
 
   extern __shared__ float smem[];
-  float* q_s = smem;                // kTile x SD
-  float* do_s = q_s + kTile * SD;   // kTile x SD
-  float* k_s = do_s + kTile * SD;   // kTile x SD
-  float* v_s = k_s + kTile * SD;    // kTile x SD
-  float* ds_s = v_s + kTile * SD;   // kTile x kSS
-  float* lse_s = ds_s + kTile * kSS;
-  float* dl_s = lse_s + kTile;
+  float* q_s = smem;             // BM x SD
+  float* do_s = q_s + BM * SD;   // BM x SD
+  float* k_s = do_s + BM * SD;   // BM x SD
+  float* v_s = k_s + BM * SD;    // BM x SD
+  float* ds_s = v_s + BM * SD;   // BM x SS
+  float* lse_s = ds_s + BM * SS;
+  float* dl_s = lse_s + BM;
 
-  const T* base = qkv + (size_t)b * Tlen * rs + (size_t)h * D;
-  load_tile<T, D>(base + (size_t)q0 * rs, rs, q_s);
-  load_tile<T, D>(dout + ((size_t)b * Tlen + q0) * C + (size_t)h * D, C,
-                  do_s);
-  for (int r = tid; r < kTile; r += kThreads) {
-    const size_t at = ((size_t)b * Tlen + q0 + r) * H + h;
-    lse_s[r] = lse[at];
-    dl_s[r] = delta[at];
+  load_tile<T, D, BM>(a.q.at(b, h, q0), a.q.sr, q_s);
+  load_tile<T, D, BM>(a.dout.at(b, h, q0), a.dout.sr, do_s);
+  for (int r = tid; r < BM; r += kThreads) {
+    lse_s[r] = *a.lse.at(b, h, q0 + r);
+    dl_s[r] = *a.delta.at(b, h, q0 + r);
   }
-  const uint32_t hh = dp.head(b * H + h);
-  float dq[4][NJ];
+  const uint32_t hh = a.dp.head(b * a.H + h);
+  float dq[R][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dq[i][j] = 0.f;
 
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kTile;
+  const int last = a.causal ? qt : a.Tlen / BM - 1;
+  for (int kt = 0; kt <= last; ++kt) {
+    const int k0 = kt * BM;
     __syncthreads();  // the last tile's readers of k_s, ds_s are done
-    load_tile<T, D>(base + (size_t)k0 * rs + C, rs, k_s);
-    load_tile<T, D>(base + (size_t)k0 * rs + 2 * C, rs, v_s);
+    load_tile<T, D, BM>(a.k.at(b, h, k0), a.k.sr, k_s);
+    load_tile<T, D, BM>(a.v.at(b, h, k0), a.v.sr, v_s);
     __syncthreads();
     // p * z is not needed here: ds_s doubles as the p_s scratch, and is
     // then overwritten by ds in the same call
-    bwd_scores<D>(q_s, do_s, k_s, v_s, lse_s, dl_s, ds_s, ds_s, q0, k0,
-                  kt == qt, scale, dp, hh, tx, ty);
+    bwd_scores<D, BM>(q_s, do_s, k_s, v_s, lse_s, dl_s, ds_s, ds_s, q0, k0,
+                      a.causal && kt == qt, a.scale, a.dp, hh, tx, ty);
     __syncthreads();
     // dQ += ds K
-    for (int c = 0; c < kTile; ++c) {
-      float sq[4];
+    for (int c = 0; c < BM; ++c) {
+      float sq[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sq[i] = ds_s[(ty + 16 * i) * kSS + c];
+      for (int i = 0; i < R; ++i) sq[i] = ds_s[(ty + 16 * i) * SS + c];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const float x = k_s[c * SD + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) dq[i][j] += sq[i] * x;
+        for (int i = 0; i < R; ++i) dq[i][j] += sq[i] * x;
       }
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = ty + 16 * i;
-    T* dst = dqkv + ((size_t)b * Tlen + q0 + r) * rs + (size_t)h * D + tx;
+    T* dst = a.dq.at(b, h, q0 + r) + tx;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) store(dst + 16 * j, dq[i][j]);
   }
@@ -464,40 +515,148 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 template <typename T, int D>
-int fwd_launch(const void* qkv, void* out, float* lse, int B, int Tlen,
-               int H, float scale, Dropout dp, cudaStream_t stream) {
-  const size_t smem = fwd_smem_floats<D>() * sizeof(float);
-  auto kernel = fwd_kernel<T, D>;
+int fwd_launch(const FwdArgs<T>& a, int B, cudaStream_t stream) {
+  constexpr int BM = kTile;
+  const size_t smem = fwd_smem_floats<D, BM>() * sizeof(float);
+  auto kernel = fwd_kernel<T, D, BM>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(Tlen / kTile, H, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), lse, Tlen, H, scale,
-      dp);
+  kernel<<<dim3(a.Tlen / BM, a.H, B), kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-int bwd_launch(const void* qkv, const void* dout, const float* lse,
-               const float* delta, void* dqkv, int B, int Tlen, int H,
-               float scale, Dropout dp, cudaStream_t stream) {
-  const dim3 grid(Tlen / kTile, H, B);
-  const size_t smem_kv = dkv_smem_floats<D>() * sizeof(float);
-  auto kv = dkv_kernel<T, D>;
+int bwd_launch(const BwdArgs<T>& a, int B, cudaStream_t stream) {
+  constexpr int BM = bwd_rows<D>();
+  const dim3 grid(a.Tlen / BM, a.H, B);
+  const size_t smem_kv = dkv_smem_floats<D, BM>() * sizeof(float);
+  auto kv = dkv_kernel<T, D, BM>;
   cudaError_t err = allow_smem(kv, smem_kv);
   if (err != cudaSuccess) return (int)err;
-  kv<<<grid, kThreads, smem_kv, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dqkv), Tlen, H, scale, dp);
+  kv<<<grid, kThreads, smem_kv, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem_q = dq_smem_floats<D>() * sizeof(float);
-  auto q = dq_kernel<T, D>;
+  const size_t smem_q = dq_smem_floats<D, BM>() * sizeof(float);
+  auto q = dq_kernel<T, D, BM>;
   err = allow_smem(q, smem_q);
   if (err != cudaSuccess) return (int)err;
-  q<<<grid, kThreads, smem_q, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dqkv), Tlen, H, scale, dp);
+  q<<<grid, kThreads, smem_q, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int fwd_dispatch(const FwdArgs<T>& a, int B, int D, cudaStream_t s) {
+  switch (D) {
+    case 32: return fwd_launch<T, 32>(a, B, s);
+    case 64: return fwd_launch<T, 64>(a, B, s);
+    case 128: return fwd_launch<T, 128>(a, B, s);
+    case 256: return fwd_launch<T, 256>(a, B, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int bwd_dispatch(const BwdArgs<T>& a, int B, int D, cudaStream_t s) {
+  switch (D) {
+    case 32: return bwd_launch<T, 32>(a, B, s);
+    case 64: return bwd_launch<T, 64>(a, B, s);
+    case 128: return bwd_launch<T, 128>(a, B, s);
+    case 256: return bwd_launch<T, 256>(a, B, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename P>
+View<P> view(P* p, long long sb, long long sh, long long sr) {
+  return View<P>{p, sb, sh, sr};
+}
+
+// (B, T, 3C) packed q/k/v and d(qkv) strips at column `col`, merged
+// (B, T, C) o/dO, (B, T, H) lse/delta
+template <typename P>
+View<P> packed(P* base, long long col, int Tlen, int H, int D) {
+  const long long C = (long long)H * D;
+  return view(base + col, Tlen * 3 * C, (long long)D, 3 * C);
+}
+template <typename P>
+View<P> merged(P* base, int Tlen, int H, int D) {
+  const long long C = (long long)H * D;
+  return view(base, Tlen * C, (long long)D, C);
+}
+template <typename P>
+View<P> packed_stats(P* base, int Tlen, int H) {
+  return view(base, (long long)Tlen * H, 1LL, (long long)H);
+}
+// (B, H, T, D) tensors, (B, H, T) lse/delta
+template <typename P>
+View<P> heads(P* base, int Tlen, int H, int D) {
+  return view(base, (long long)H * Tlen * D, (long long)Tlen * D,
+              (long long)D);
+}
+template <typename P>
+View<P> heads_stats(P* base, int Tlen, int H) {
+  return view(base, (long long)H * Tlen, (long long)Tlen, 1LL);
+}
+
+template <typename T>
+int packed_fwd(const void* qkv, void* out, void* lse, int B, int Tlen,
+               int H, int D, float scale, Dropout dp, cudaStream_t s) {
+  const T* x = static_cast<const T*>(qkv);
+  const long long C = (long long)H * D;
+  FwdArgs<T> a{packed(x, 0, Tlen, H, D), packed(x, C, Tlen, H, D),
+               packed(x, 2 * C, Tlen, H, D),
+               merged(static_cast<T*>(out), Tlen, H, D),
+               packed_stats(static_cast<float*>(lse), Tlen, H),
+               Tlen, H, 1, scale, dp};
+  return fwd_dispatch(a, B, D, s);
+}
+
+template <typename T>
+int packed_bwd(const void* qkv, const void* dout, const void* lse,
+               const void* delta, void* dqkv, int B, int Tlen, int H, int D,
+               float scale, Dropout dp, cudaStream_t s) {
+  const T* x = static_cast<const T*>(qkv);
+  T* dx = static_cast<T*>(dqkv);
+  const long long C = (long long)H * D;
+  BwdArgs<T> a{packed(x, 0, Tlen, H, D), packed(x, C, Tlen, H, D),
+               packed(x, 2 * C, Tlen, H, D),
+               merged(static_cast<const T*>(dout), Tlen, H, D),
+               packed_stats(static_cast<const float*>(lse), Tlen, H),
+               packed_stats(static_cast<const float*>(delta), Tlen, H),
+               packed(dx, 0, Tlen, H, D), packed(dx, C, Tlen, H, D),
+               packed(dx, 2 * C, Tlen, H, D), Tlen, H, 1, scale, dp};
+  return bwd_dispatch(a, B, D, s);
+}
+
+template <typename T>
+int heads_fwd(const void* q, const void* k, const void* v, void* out,
+              void* lse, int B, int Tlen, int H, int D, float scale,
+              int causal, Dropout dp, cudaStream_t s) {
+  FwdArgs<T> a{heads(static_cast<const T*>(q), Tlen, H, D),
+               heads(static_cast<const T*>(k), Tlen, H, D),
+               heads(static_cast<const T*>(v), Tlen, H, D),
+               heads(static_cast<T*>(out), Tlen, H, D),
+               heads_stats(static_cast<float*>(lse), Tlen, H),
+               Tlen, H, causal, scale, dp};
+  return fwd_dispatch(a, B, D, s);
+}
+
+template <typename T>
+int heads_bwd(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, void* dk,
+              void* dv, int B, int Tlen, int H, int D, float scale,
+              int causal, Dropout dp, cudaStream_t s) {
+  BwdArgs<T> a{heads(static_cast<const T*>(q), Tlen, H, D),
+               heads(static_cast<const T*>(k), Tlen, H, D),
+               heads(static_cast<const T*>(v), Tlen, H, D),
+               heads(static_cast<const T*>(dout), Tlen, H, D),
+               heads_stats(static_cast<const float*>(lse), Tlen, H),
+               heads_stats(static_cast<const float*>(delta), Tlen, H),
+               heads(static_cast<T*>(dq), Tlen, H, D),
+               heads(static_cast<T*>(dk), Tlen, H, D),
+               heads(static_cast<T*>(dv), Tlen, H, D), Tlen, H, causal,
+               scale, dp};
+  return bwd_dispatch(a, B, D, s);
 }
 
 bool shape_ok(int B, int Tlen, int H) {
@@ -507,8 +666,9 @@ bool shape_ok(int B, int Tlen, int H) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D in {32, 64, 128}; T a multiple of
-// 64. `dropout` 0 turns the mask off (seed, threshold, keep unused).
+// dtype: 0 = float32, 1 = bfloat16; D in {32, 64, 128, 256}; T a
+// multiple of 64. `dropout` 0 turns the mask off (seed, threshold, keep
+// unused). The packed entry points are causal.
 extern "C" int flash_packed_fwd_launch(const void* qkv, void* out,
                                        void* lse, int B, int Tlen, int H,
                                        int D, float scale, unsigned seed,
@@ -518,19 +678,11 @@ extern "C" int flash_packed_fwd_launch(const void* qkv, void* out,
   if (!shape_ok(B, Tlen, H)) return (int)cudaErrorInvalidValue;
   const Dropout dp{dropout, seed, threshold, keep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-#define FWD(T, DD) \
-  return fwd_launch<T, DD>(qkv, out, l, B, Tlen, H, scale, dp, s)
-  if (dtype == 0) {
-    if (D == 32) FWD(float, 32);
-    if (D == 64) FWD(float, 64);
-    if (D == 128) FWD(float, 128);
-  } else if (dtype == 1) {
-    if (D == 32) FWD(__nv_bfloat16, 32);
-    if (D == 64) FWD(__nv_bfloat16, 64);
-    if (D == 128) FWD(__nv_bfloat16, 128);
-  }
-#undef FWD
+  if (dtype == 0)
+    return packed_fwd<float>(qkv, out, lse, B, Tlen, H, D, scale, dp, s);
+  if (dtype == 1)
+    return packed_fwd<__nv_bfloat16>(qkv, out, lse, B, Tlen, H, D, scale,
+                                     dp, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -544,19 +696,51 @@ extern "C" int flash_packed_bwd_launch(const void* qkv, const void* dout,
   if (!shape_ok(B, Tlen, H)) return (int)cudaErrorInvalidValue;
   const Dropout dp{dropout, seed, threshold, keep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-#define BWD(T, DD) \
-  return bwd_launch<T, DD>(qkv, dout, l, dl, dqkv, B, Tlen, H, scale, dp, s)
-  if (dtype == 0) {
-    if (D == 32) BWD(float, 32);
-    if (D == 64) BWD(float, 64);
-    if (D == 128) BWD(float, 128);
-  } else if (dtype == 1) {
-    if (D == 32) BWD(__nv_bfloat16, 32);
-    if (D == 64) BWD(__nv_bfloat16, 64);
-    if (D == 128) BWD(__nv_bfloat16, 128);
-  }
-#undef BWD
+  if (dtype == 0)
+    return packed_bwd<float>(qkv, dout, lse, delta, dqkv, B, Tlen, H, D,
+                             scale, dp, s);
+  if (dtype == 1)
+    return packed_bwd<__nv_bfloat16>(qkv, dout, lse, delta, dqkv, B, Tlen,
+                                     H, D, scale, dp, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int flash_heads_fwd_launch(const void* q, const void* k,
+                                      const void* v, void* out, void* lse,
+                                      int B, int Tlen, int H, int D,
+                                      float scale, int causal,
+                                      unsigned seed, unsigned threshold,
+                                      float keep, int dropout, int dtype,
+                                      void* stream) {
+  if (!shape_ok(B, Tlen, H)) return (int)cudaErrorInvalidValue;
+  const Dropout dp{dropout, seed, threshold, keep};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return heads_fwd<float>(q, k, v, out, lse, B, Tlen, H, D, scale, causal,
+                            dp, s);
+  if (dtype == 1)
+    return heads_fwd<__nv_bfloat16>(q, k, v, out, lse, B, Tlen, H, D, scale,
+                                    causal, dp, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int flash_heads_bwd_launch(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* delta,
+                                      void* dq, void* dk, void* dv, int B,
+                                      int Tlen, int H, int D, float scale,
+                                      int causal, unsigned seed,
+                                      unsigned threshold, float keep,
+                                      int dropout, int dtype,
+                                      void* stream) {
+  if (!shape_ok(B, Tlen, H)) return (int)cudaErrorInvalidValue;
+  const Dropout dp{dropout, seed, threshold, keep};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return heads_bwd<float>(q, k, v, dout, lse, delta, dq, dk, dv, B, Tlen,
+                            H, D, scale, causal, dp, s);
+  if (dtype == 1)
+    return heads_bwd<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                    B, Tlen, H, D, scale, causal, dp, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -10,8 +10,10 @@ A port of ``replicatinggpt_tpu/models/gpt.py``:
 - ``forward``: the full-sequence training forward and its loss. It casts
   the masters to the compute dtype inside every call (JAX's
   ``.astype(cd)``), so autograd leaves f32 gradients on the masters;
-  attention goes through the packed flash kernel inside its envelope and
-  the split-heads core outside it (``ops/flash_attention.py``);
+  attention takes the packed flash kernel or split heads through the
+  (B, H, T, D) flash kernel or the plain core (``ops/flash_attention.py``
+  states the rule); with ``cfg.remat`` each block is recomputed in the
+  backward (``torch.utils.checkpoint``, JAX's ``jax.checkpoint``);
 - ``compute_params``: the serving steps' detached view of the weights,
   cast once to the compute dtype (layernorm scales and biases stay f32,
   as JAX reads them);
@@ -32,22 +34,25 @@ return them for symmetry with the JAX signatures.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ..config import ModelConfig
-from ..ops.attention import (cached_attention, full_causal_attention,
-                             uint8_inverted_dropout,
+from ..ops.attention import (DropoutRNG, cached_attention,
+                             full_causal_attention, uint8_inverted_dropout,
                              windowed_cached_attention)
 from ..ops.decode import (fused_decode_layers, fused_decode_supported,
                           fused_paged_decode_layers, fused_weights,
                           packed_decode_attention, packed_decode_supported)
-from ..ops.flash_attention import packed_envelope, packed_qkv_attention
+from ..ops.flash_attention import packed_qkv_attention, packed_route
 from ..ops.paged_attention import paged_window_attention
 from ..quant.kv import (dequant_gathered, fake_quantize_rows, init_scales,
                         kv_store_dtype, pool_quant_mode, quantize_rows)
@@ -212,6 +217,16 @@ def _layer(params: Params, i: int) -> Dict[str, torch.Tensor]:
     return {n: t[i] for n, t in params["blocks"].items()}
 
 
+def _layers(params: Params, n_layer: int):
+    """Every layer's weights, split once: unlike L ``select``s, whose
+    backwards each write a zero-filled copy of the whole stacked
+    tensor, ``unbind``'s backward stacks the L gradients once."""
+    names = list(params["blocks"])
+    parts = [params["blocks"][n].unbind(0) for n in names]
+    return [{n: parts[j][i] for j, n in enumerate(names)}
+            for i in range(n_layer)]
+
+
 def _qkv(h_in, lp, cfg: ModelConfig):
     """ln1 + fused QKV projection: the packed (B, T, 3C) rows."""
     h = _layer_norm(h_in, lp["ln1_scale"], lp["ln1_bias"], cfg.layernorm_eps)
@@ -240,37 +255,23 @@ def _block_tail(h_in, attn_merged, lp, cfg: ModelConfig,
 # training forward (full sequence)
 # ---------------------------------------------------------------------------
 
-class DropoutRNG:
-    """The random streams of one training run's dropout: ``bits``, a
-    generator on the device, draws the residual masks (and the
-    split-heads route's attention masks); ``seeds``, a CPU generator,
-    draws the packed kernel's int32 seed per layer and step, so no draw
-    waits on the card."""
-
-    def __init__(self, seed: int, device=None):
-        dev = torch.device("cpu" if device is None else device)
-        self.bits = torch.Generator(device=dev).manual_seed(seed)
-        self.seeds = torch.Generator().manual_seed(seed)
-
-    def kernel_seed(self) -> int:
-        return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.seeds))
-
-
 AttentionFn = Callable[..., torch.Tensor]
 
 
 def split_attention(qkv, cfg: ModelConfig, rng: Optional[DropoutRNG],
                     train: bool):
-    """The split-heads route (shapes outside the packed envelope)."""
+    """The split-heads route: (B, H, T, D) heads through
+    ``full_causal_attention(impl="flash")``, the flash kernel inside its
+    envelope and the plain core outside it."""
     q, k, v = (_split_heads(t, cfg.n_head)
                for t in qkv.split(cfg.n_embd, dim=-1))
     return _merge_heads(full_causal_attention(
-        q, k, v, dropout_rate=cfg.attn_dropout,
-        generator=None if rng is None else rng.bits, train=train))
+        q, k, v, dropout_rate=cfg.attn_dropout, rng=rng, train=train,
+        impl="flash"))
 
 
 def attention_for(cfg: ModelConfig, seq_len: int) -> AttentionFn:
-    return (packed_qkv_attention if packed_envelope(cfg, seq_len)[0]
+    return (packed_qkv_attention if packed_route(cfg, seq_len)[0]
             else split_attention)
 
 
@@ -288,6 +289,65 @@ def _block(x, lp, cfg: ModelConfig, *, rng: Optional[DropoutRNG],
                        lambda t: _dropout(t, cfg.dropout, rng, train))
 
 
+def _seeded_block(x, lp, cfg: ModelConfig, seed: Optional[int],
+                  train: bool, attention_fn: AttentionFn):
+    """``_block`` with its own dropout streams, built from ``seed``: a
+    recompute under checkpointing builds the same streams again, so it
+    draws the forward's masks and kernel seeds."""
+    rng = None if seed is None else DropoutRNG(seed, x.device)
+    return _block(x, lp, cfg, rng=rng, train=train,
+                  attention_fn=attention_fn)
+
+
+# the matrix products a selective policy keeps: 'dots' all of them (JAX's
+# dots_saveable), 'dots_no_batch' those with no batch dimensions
+# (dots_with_no_batch_dims_saveable): the weight products, not the plain
+# attention core's batched ones
+_SAVED_PRODUCTS = {
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default),
+    "dots_no_batch": (torch.ops.aten.mm.default,
+                      torch.ops.aten.addmm.default),
+}
+
+
+def _save_products(saved, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(policy: str):
+    """The ``context_fn`` of ``checkpoint`` for ``cfg.remat_policy``
+    (JAX's ``_remat_policy``): none for 'full' (save nothing, recompute
+    the whole block), else selective checkpointing of the products."""
+    if policy == "full":
+        return noop_context_fn
+    if policy not in _SAVED_PRODUCTS:
+        raise ValueError(f"remat_policy must be 'full', 'dots' or "
+                         f"'dots_no_batch', got {policy!r}")
+    fn = functools.partial(_save_products, _SAVED_PRODUCTS[policy])
+    return functools.partial(create_selective_checkpoint_contexts, fn)
+
+
+def _run_blocks(x, p: Params, cfg: ModelConfig, *,
+                rng: Optional[DropoutRNG], train: bool,
+                attention_fn: AttentionFn):
+    """The L blocks, each recomputed in the backward when ``cfg.remat``.
+    Each block's dropout seed is drawn from ``rng`` before the block runs
+    (JAX's ``fold_in(rng, layer_idx)``), with or without remat, so both
+    give the same masks."""
+    context = _remat_context(cfg.remat_policy) if cfg.remat else None
+    for lp in _layers(p, cfg.n_layer):
+        seed = rng.kernel_seed() if rng is not None else None
+        if cfg.remat:
+            x = checkpoint(_seeded_block, x, lp, cfg, seed, train,
+                           attention_fn, use_reentrant=False,
+                           preserve_rng_state=False, context_fn=context)
+        else:
+            x = _seeded_block(x, lp, cfg, seed, train, attention_fn)
+    return x
+
+
 def forward(params: Params, idx: torch.Tensor, cfg: ModelConfig, *,
             targets: Optional[torch.Tensor] = None,
             rng: Optional[DropoutRNG] = None, train: bool = False,
@@ -300,15 +360,12 @@ def forward(params: Params, idx: torch.Tensor, cfg: ModelConfig, *,
     product, cast) and the mean f32 cross-entropy, or None without
     targets. With ``cfg.loss_chunk`` and targets the chunked head returns
     ``(None, loss)``. ``attention_fn(qkv, cfg, rng, train)`` replaces the
-    attention core (default: the packed route inside its envelope, the
-    split-heads route outside)."""
+    attention core (default: ``attention_for``'s route)."""
     B, T = idx.shape
     p = _cast_tree(params, cfg.compute_dtype)
     attend = attention_fn or attention_for(cfg, T)
     x = p["wte"][idx.long()] + p["wpe"][:T]
-    for i in range(cfg.n_layer):
-        x = _block(x, _layer(p, i), cfg, rng=rng, train=train,
-                   attention_fn=attend)
+    x = _run_blocks(x, p, cfg, rng=rng, train=train, attention_fn=attend)
     x = _layer_norm(x, p["ln_f_scale"], p["ln_f_bias"], cfg.layernorm_eps)
     head = p["wte"].T if cfg.tied_head else p["lm_head"]
     if targets is not None and cfg.loss_chunk:

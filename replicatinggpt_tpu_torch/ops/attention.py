@@ -3,9 +3,10 @@
 Ports of ``replicatinggpt_tpu/ops/attention.py``: ``cached_attention``
 and ``windowed_cached_attention`` (the paged engine's gather route and
 its prefill attention), ``full_causal_attention`` (the training block's
-split-heads route, for shapes outside the packed flash kernel's
-envelope) and the dropout helpers every dropout site shares.
-Conventions: q, k, v are (B, H, T, D); scores and softmax in f32
+split-heads route: ``impl="flash"`` takes the (B, H, T, D) flash kernel
+of ``ops/flash_attention.flash_attention``, ``"einsum"`` the plain core)
+and the dropout helpers every dropout site shares, ``DropoutRNG`` among
+them. Conventions: q, k, v are (B, H, T, D); scores and softmax in f32
 whatever the compute dtype; the weights are cast to v's dtype before the
 value product, as the JAX cores do. Random bits come from an explicit
 ``torch.Generator`` on the tensors' device.
@@ -55,17 +56,49 @@ def _masked_softmax_pv(q, k, v, keep, scale, *, rate: float = 0.0,
     return w.to(v.dtype) @ v
 
 
+class DropoutRNG:
+    """The random streams of one training run's dropout: ``bits``, a
+    generator on the device, draws the residual masks (and the plain
+    core's attention masks); ``seeds``, a CPU generator, draws the flash
+    kernels' int32 seeds and the blocks' own seeds, so no draw waits on
+    the card."""
+
+    def __init__(self, seed: int, device=None):
+        dev = torch.device("cpu" if device is None else device)
+        self.bits = torch.Generator(device=dev).manual_seed(seed)
+        self.seeds = torch.Generator().manual_seed(seed)
+
+    def kernel_seed(self) -> int:
+        return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.seeds))
+
+
 def full_causal_attention(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor, *, dropout_rate: float = 0.0,
-                          generator: Optional[torch.Generator] = None,
-                          train: bool = False) -> torch.Tensor:
+                          v: torch.Tensor, *, scale: Optional[float] = None,
+                          dropout_rate: float = 0.0,
+                          rng: Optional[DropoutRNG] = None,
+                          train: bool = False,
+                          impl: str = "einsum") -> torch.Tensor:
     """Causal self-attention over a full sequence, q/k/v (B, H, T, D),
-    with dropout on the attention weights when training."""
+    with dropout on the attention weights when training.
+    ``impl="flash"`` runs ``flash_attention`` (the kernel inside its
+    envelope, with its hashed mask when training with dropout); with
+    dropout outside the kernel's envelope it takes the plain core and
+    its generator mask, as the JAX fallback does."""
+    if impl == "flash":
+        from .flash_attention import flash_attention, supports_dropout
+        training_dropout = train and dropout_rate > 0.0 and rng is not None
+        if not training_dropout:
+            return flash_attention(q, k, v, scale=scale, causal=True)
+        if supports_dropout(q):
+            return flash_attention(q, k, v, scale=scale, causal=True,
+                                   dropout_rate=dropout_rate, rng=rng)
     T, D = q.shape[-2:]
     pos = torch.arange(T, device=q.device)
     return _masked_softmax_pv(q, k, v, pos[None, :] <= pos[:, None],
-                              D ** -0.5, rate=dropout_rate,
-                              generator=generator, train=train)
+                              D ** -0.5 if scale is None else scale,
+                              rate=dropout_rate,
+                              generator=None if rng is None else rng.bits,
+                              train=train)
 
 
 def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,

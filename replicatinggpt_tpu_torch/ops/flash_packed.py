@@ -12,6 +12,9 @@ normalizer sees no dropout), bit for bit for the same int32 seed.
 
 - ``fmix32`` / ``dropout_mult``: the mask (``_fmix32``, ``_dropout_mult``)
   in int64 tensor arithmetic;
+- ``attention_ref`` / ``attention_bwd_ref``: the plain f32 math on
+  (B, H, T, D) heads, causal or not, at any scale, shared with the
+  (B, H, T, D) family of ``ops/flash_heads.py``;
 - ``flash_packed_fwd_ref`` / ``flash_packed_bwd_ref``: the plain PyTorch
   versions (the CPU path and the card's yardstick of correctness);
 - ``flash_packed_fwd`` / ``flash_packed_bwd``: the wrappers. A CPU tensor
@@ -27,10 +30,9 @@ GPT-2 124M, T=1024) and its streamed and triangular variants
 (``_group_fwd_stream``, ``_group_bwd_stream``, ``_group_fwd_tri``,
 ``_group_bwd_tri``, long T). They compute the same function and differ
 only in what the TPU keeps resident in VMEM; the kernels here walk K/V
-tiles through shared memory at any T that is a multiple of 64. What
-the JAX families take and these kernels do not: D=256 (the backward's
-64-row f32 tiles need ~297 KB of shared memory, over the 227 KB a block
-may have) and ``causal=False``; no preset uses either.
+tiles through shared memory at any T that is a multiple of 64, at
+D in {32, 64, 128, 256} (the D=256 backward on 32-row tiles). The same
+kernel body serves the (B, H, T, D) layout (``ops/flash_heads.py``).
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ from .attention import NEG_INF, quantize_dropout_rate
 
 _KERNEL = "flash_packed"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)   # csrc/flash_packed.cu instantiations
+HEAD_DIMS = (32, 64, 128, 256)   # csrc/flash_packed.cu instantiations
 TILE = 64                   # csrc/flash_packed.cu kTile
 MASK32 = 0xFFFFFFFF
 
@@ -105,6 +107,12 @@ def _heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
     return x.float().reshape(B, T, n_head, C // n_head).transpose(1, 2)
 
 
+def _merge(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, T, D) -> (B, T, C)."""
+    B, H, T, D = x.shape
+    return x.transpose(1, 2).reshape(B, T, H * D)
+
+
 def _split(qkv: torch.Tensor, n_head: int):
     C = qkv.shape[-1] // 3
     return tuple(_heads(qkv[..., i * C:(i + 1) * C], n_head)
@@ -123,25 +131,56 @@ def _causal(T: int, device) -> torch.Tensor:
     return pos[None, :] <= pos[:, None]
 
 
+def _scores(q, k, causal: bool, scale: float) -> torch.Tensor:
+    s = (q @ k.transpose(-1, -2)) * scale
+    if causal:
+        s = torch.where(_causal(q.shape[-2], q.device), s,
+                        torch.full_like(s, NEG_INF))
+    return s
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool, scale: float, seed: int = 0,
+                  rate: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain forward on f32 (B, H, T, D) heads: (o f32, lse (B, H, T)
+    f32), the mask of head (b, h) keyed by bh = b * H + h."""
+    B, H, T, _ = q.shape
+    s = _scores(q, k, causal, scale)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    if rate > 0.0:
+        p = p * _mult(B, H, T, seed, rate, q.device)
+    return (p @ v) / l, (m + torch.log(l)).squeeze(-1)
+
+
+def attention_bwd_ref(q, k, v, g, lse, delta, *, causal: bool,
+                      scale: float, seed: int = 0, rate: float = 0.0):
+    """Plain backward in the lse/delta form on f32 heads: p = exp(s -
+    lse), dp = (dO V^T) z, ds = p (dp - delta) scale, dV = (p z)^T dO,
+    dK = ds^T Q, dQ = ds K. lse, delta: (B, H, T). Returns f32 (dq, dk,
+    dv)."""
+    B, H, T, _ = q.shape
+    p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
+    dp = g @ v.transpose(-1, -2)
+    pz = p
+    if rate > 0.0:
+        z = _mult(B, H, T, seed, rate, q.device)
+        dp = dp * z
+        pz = p * z
+    ds = p * (dp - delta[..., None]) * scale
+    return ds @ k, ds.transpose(-1, -2) @ q, pz.transpose(-1, -2) @ g
+
+
 def flash_packed_fwd_ref(qkv: torch.Tensor, n_head: int, *, seed: int = 0,
                          rate: float = 0.0
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain forward. qkv: (B, T, 3C). Returns (o (B, T, C) in qkv's
     dtype, lse (B, T, H) f32)."""
-    B, T, C3 = qkv.shape
-    D = C3 // 3 // n_head
     q, k, v = _split(qkv, n_head)
-    s = (q @ k.transpose(-1, -2)) * D ** -0.5
-    s = torch.where(_causal(T, qkv.device), s, torch.full_like(s, NEG_INF))
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(-1, keepdim=True)
-    if rate > 0.0:
-        p = p * _mult(B, n_head, T, seed, rate, qkv.device)
-    o = (p @ v) / l
-    lse = (m + torch.log(l)).squeeze(-1)
-    return (o.transpose(1, 2).reshape(B, T, C3 // 3).to(qkv.dtype),
-            lse.transpose(1, 2).contiguous())
+    o, lse = attention_ref(q, k, v, causal=True,
+                           scale=q.shape[-1] ** -0.5, seed=seed, rate=rate)
+    return _merge(o).to(qkv.dtype), lse.transpose(1, 2).contiguous()
 
 
 def packed_delta(do: torch.Tensor, o: torch.Tensor,
@@ -156,27 +195,14 @@ def flash_packed_bwd_ref(qkv: torch.Tensor, do: torch.Tensor,
                          lse: torch.Tensor, delta: torch.Tensor,
                          n_head: int, *, seed: int = 0,
                          rate: float = 0.0) -> torch.Tensor:
-    """Plain backward in the lse/delta form: p = exp(s - lse), dp =
-    (dO V^T) z, ds = p (dp - delta) scale, dV = (p z)^T dO, dK = ds^T Q,
-    dQ = ds K. Returns d(qkv) (B, T, 3C) in qkv's dtype."""
-    B, T, C3 = qkv.shape
-    D = C3 // 3 // n_head
-    scale = D ** -0.5
+    """Plain backward (``attention_bwd_ref`` on the packed strips).
+    Returns d(qkv) (B, T, 3C) in qkv's dtype."""
     q, k, v = _split(qkv, n_head)
-    g = _heads(do, n_head)
-    s = (q @ k.transpose(-1, -2)) * scale
-    s = torch.where(_causal(T, qkv.device), s, torch.full_like(s, NEG_INF))
-    p = torch.exp(s - lse.transpose(1, 2)[..., None])
-    dp = g @ v.transpose(-1, -2)
-    pz = p
-    if rate > 0.0:
-        z = _mult(B, n_head, T, seed, rate, qkv.device)
-        dp = dp * z
-        pz = p * z
-    ds = p * (dp - delta.transpose(1, 2)[..., None]) * scale
-    parts = (ds @ k, ds.transpose(-1, -2) @ q, pz.transpose(-1, -2) @ g)
-    return torch.cat([t.transpose(1, 2).reshape(B, T, C3 // 3)
-                      for t in parts], dim=-1).to(qkv.dtype)
+    parts = attention_bwd_ref(
+        q, k, v, _heads(do, n_head), lse.transpose(1, 2),
+        delta.transpose(1, 2), causal=True, scale=q.shape[-1] ** -0.5,
+        seed=seed, rate=rate)
+    return torch.cat([_merge(t) for t in parts], dim=-1).to(qkv.dtype)
 
 
 def _check_kernel_inputs(qkv: torch.Tensor, n_head: int, *extra) -> None:
@@ -189,10 +215,16 @@ def _check_kernel_inputs(qkv: torch.Tensor, n_head: int, *extra) -> None:
                                         qkv.element_size())
     if not ok:
         raise ValueError(f"shapes outside the kernel envelope: {reasons}")
-    for t in (qkv, *extra):
-        if t.device != qkv.device:
+    check_placement(qkv, *extra)
+
+
+def check_placement(first: torch.Tensor, *rest: torch.Tensor) -> None:
+    """Every kernel input on ``first``'s device, contiguous and 16-byte
+    aligned (the kernels load 16 bytes a thread)."""
+    for t in (first, *rest):
+        if t.device != first.device:
             raise ValueError(f"inputs on several devices: {t.device}, "
-                             f"{qkv.device}")
+                             f"{first.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("kernel inputs must be contiguous and 16-byte "
                              "aligned")
@@ -204,7 +236,8 @@ def _check_packed(qkv: torch.Tensor, n_head: int) -> None:
                          f"n_head={n_head}; got {tuple(qkv.shape)}")
 
 
-def _dropout_args(seed: int, rate: float):
+def dropout_args(seed: int, rate: float):
+    """(seed, threshold, keep, on) as the kernels take them."""
     if rate <= 0.0:
         return 0, 0, 0.0, 0
     if not 0 <= seed < 2 ** 31:
@@ -233,7 +266,7 @@ def flash_packed_fwd(qkv: torch.Tensor, n_head: int, *, seed: int = 0,
     D = C // n_head
     err = _lib().flash_packed_fwd_launch(
         qkv.data_ptr(), o.data_ptr(), lse.data_ptr(), B, T, n_head, D,
-        D ** -0.5, *_dropout_args(seed, rate), _DTYPE_CODE[qkv.dtype],
+        D ** -0.5, *dropout_args(seed, rate), _DTYPE_CODE[qkv.dtype],
         torch.cuda.current_stream(qkv.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_packed_fwd launch failed: CUDA error "
@@ -270,7 +303,7 @@ def flash_packed_bwd(qkv: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
     err = _lib().flash_packed_bwd_launch(
         qkv.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dqkv.data_ptr(), B, T, n_head, D, D ** -0.5,
-        *_dropout_args(seed, rate), _DTYPE_CODE[qkv.dtype],
+        *dropout_args(seed, rate), _DTYPE_CODE[qkv.dtype],
         torch.cuda.current_stream(qkv.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_packed_bwd launch failed: CUDA error "
@@ -312,12 +345,18 @@ def flash_packed_attention(qkv: torch.Tensor, n_head: int, *, seed: int = 0,
 
 
 def _lib() -> ctypes.CDLL:
+    """The kernels' library, its four entry points typed: the packed
+    (qkv, ...) pair and the (B, H, T, D) pair of ``ops/flash_heads.py``,
+    which take ``causal`` after the scale."""
     lib = _build.load(_KERNEL)
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    for name, ptrs in (("flash_packed_fwd_launch", 3),
-                       ("flash_packed_bwd_launch", 5)):
+    for name, ptrs, causal in (("flash_packed_fwd_launch", 3, []),
+                               ("flash_packed_bwd_launch", 5, []),
+                               ("flash_heads_fwd_launch", 5, [i]),
+                               ("flash_heads_bwd_launch", 9, [i])):
         fn = getattr(lib, name)
         if fn.argtypes is None:
-            fn.argtypes = [p] * ptrs + [i, i, i, i, f, u, u, f, i, i, p]
+            fn.argtypes = ([p] * ptrs + [i, i, i, i, f] + causal
+                           + [u, u, f, i, i, p])
             fn.restype = ctypes.c_int
     return lib

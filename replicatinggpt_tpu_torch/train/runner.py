@@ -82,9 +82,10 @@ def train(cfg: Config, *, device=None,
     }
     state = create_train_state(mcfg, tcfg, dev)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    remat = f", remat={mcfg.remat_policy}" if mcfg.remat else ""
     logger.log(f"model: {param_count(state.model):,} params "
                f"({mcfg.n_layer}L/{mcfg.n_head}H/{mcfg.n_embd}C, "
-               f"dtype={mcfg.dtype}) on {dev} ({name})")
+               f"dtype={mcfg.dtype}{remat}) on {dev} ({name})")
     logger.log(f"attention: {describe_route(mcfg, T)}")
     train_step = make_train_step(mcfg, tcfg)
     eval_step = make_eval_step(mcfg)

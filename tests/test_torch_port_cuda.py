@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from replicatinggpt_tpu_torch.ops import decode as dec
+from replicatinggpt_tpu_torch.ops import flash_heads as fh
 from replicatinggpt_tpu_torch.ops import flash_packed as fp
 from replicatinggpt_tpu_torch.ops import paged_attention as pa
 
@@ -162,6 +163,83 @@ def test_flash_packed_kernel_rejects_what_it_does_not_take(card):
     qkv, _ = _flash_inputs(64, 2, torch.float16)
     with pytest.raises(TypeError):
         fp.flash_packed_fwd(qkv, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_packed_kernels_at_d256(card, dtype):
+    """D=256 heads (the backward on 32-row tiles) through the packed
+    entry points, with dropout."""
+    qkv, do = _flash_inputs(128, 2, dtype, D=256, seed=3)
+    o, lse = fp.flash_packed_fwd(qkv, 2, seed=21, rate=0.1)
+    delta = fp.packed_delta(do, o, 2)
+    dqkv = fp.flash_packed_bwd(qkv, do, lse, delta, 2, seed=21, rate=0.1)
+    torch.cuda.synchronize()
+    ro, rlse = fp.flash_packed_fwd_ref(qkv, 2, seed=21, rate=0.1)
+    rd = fp.flash_packed_bwd_ref(qkv, do, lse, delta, 2, seed=21, rate=0.1)
+    _hold_flash((o, lse, dqkv), (ro, rlse, rd))
+
+
+def _heads_inputs(B, H, T, D, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda: torch.from_numpy(  # noqa: E731
+        rng.standard_normal((B, H, T, D)).astype(np.float32)).cuda().to(dtype)
+    return mk(), mk(), mk(), mk()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,D", [(2, 25, 256, 64), (1, 2, 256, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_heads_kernels_match_ref(card, B, H, T, D, causal, rate,
+                                       dtype):
+    """The (B, H, T, D) forward (o, lse) and backward (dq, dk, dv, from
+    the same lse and delta) against the plain versions: gpt2-xl's 25
+    heads of D=64, and D=256."""
+    q, k, v, do = _heads_inputs(B, H, T, D, dtype, seed=T + D)
+    kw = dict(causal=causal, seed=123_456, rate=rate)
+    f0, b0 = fh.flash_heads_fwd.launches, fh.flash_heads_bwd.launches
+    o, lse = fh.flash_heads_fwd(q, k, v, **kw)
+    delta = fh.heads_delta(do, o)
+    grads = fh.flash_heads_bwd(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (fh.flash_heads_fwd.launches, fh.flash_heads_bwd.launches) \
+        == (f0 + 1, b0 + 1)
+    ro, rlse = fh.flash_heads_fwd_ref(q, k, v, **kw)
+    rg = fh.flash_heads_bwd_ref(q, k, v, do, lse, delta, **kw)
+    _hold_flash((o, lse, *grads), (ro, rlse, *rg))
+
+
+@pytest.mark.cuda
+def test_flash_heads_autograd_on_card(card):
+    """FlashHeads launches one forward and one backward, with a custom
+    scale, and its gradients match autograd through the plain forward."""
+    q, k, v, _ = _heads_inputs(2, 3, 128, 32, torch.float32, seed=4)
+    g = torch.randn(2, 3, 128, 64, device="cuda")[..., ::2]
+    x = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    f0, b0 = fh.flash_heads_fwd.launches, fh.flash_heads_bwd.launches
+    fh.flash_heads_attention(*x, scale=0.3, seed=5, rate=0.2).backward(g)
+    torch.cuda.synchronize()
+    assert (fh.flash_heads_fwd.launches, fh.flash_heads_bwd.launches) \
+        == (f0 + 1, b0 + 1)
+    y = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fh.flash_heads_fwd_ref(*y, scale=0.3, seed=5, rate=0.2)[0].backward(g)
+    for a, b in zip(x, y):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_heads_kernel_rejects_what_it_does_not_take(card):
+    for shape, dtype, err in (((1, 2, 64, 48), torch.float32, ValueError),
+                              ((1, 2, 96, 64), torch.float32, ValueError),
+                              ((1, 2, 64, 64), torch.float16, TypeError)):
+        q = torch.zeros(shape, device="cuda", dtype=dtype)
+        with pytest.raises(err):
+            fh.flash_heads_fwd(q, q, q)
+    q = torch.zeros(1, 2, 64, 128, device="cuda").transpose(2, 3)[..., :64, :]
+    with pytest.raises(ValueError):
+        fh.flash_heads_fwd(q, q, q)
 
 
 def _nan_past(cache, pos, seq_axis):

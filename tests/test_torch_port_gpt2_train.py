@@ -229,13 +229,17 @@ def test_gpt2_presets_match_jax(preset):
 
 def test_gpt2_small_takes_the_packed_kernel_at_t1024():
     """The slice's attention is the packed flash kernel at T=1024 and at
-    long T, where the JAX package takes its head-group families."""
+    long T, where the JAX package takes its head-group families; so is
+    D=256 (one head a group), while gpt2-xl's 25 heads of D=64 form no
+    head pair and take the split-heads kernel."""
     mcfg = get_config("gpt2-small").model
     for seq in (1024, 8192):
         assert describe_route(mcfg, seq).startswith(
             f"packed flash attention (csrc/flash_packed.cu")
     assert describe_route(dataclasses.replace(mcfg, n_embd=768 * 4),
-                          1024).startswith("split-heads")   # D=256
+                          1024).startswith("packed flash")   # D=256
+    assert describe_route(get_config("gpt2-xl").model, 1024).startswith(
+        "split-heads flash attention")
 
 
 def test_train_and_generate_cli_with_the_bpe_on_cpu(bpe, tmp_path):
@@ -246,8 +250,9 @@ def test_train_and_generate_cli_with_the_bpe_on_cpu(bpe, tmp_path):
     encodes its prompt through the same BPE."""
     path = tmp_path / "bpe.json"
     bpe.save(str(path))
+    # 4 heads of D=32 form a head group: the packed route, as the preset's
     small = ["--tokenizer", f"bpe:{path}", "--n-layer", "1", "--n-head",
-             "2", "--n-embd", "64", "--block-size", "64", "--vocab-size",
+             "4", "--n-embd", "128", "--block-size", "64", "--vocab-size",
              str(bpe.vocab_size), "--device", "cpu"]
     out = io.StringIO()
     with contextlib.redirect_stdout(out), \

@@ -4,10 +4,14 @@ time, on one NVIDIA card.
 
     python3 tools/torch_port_train_profile.py [--preset gpt2-small] \
         [--steps 10] [--out PATH]
+    python3 tools/torch_port_train_profile.py --preset gpt2-xl \
+        --batch-size 16 --grad-accum-steps 4 --steps 3
 
 Builds the ``train --preset <preset>`` step (char-gpt, the default: 6
 layers, C=384, H=6, T=256, B=64, bf16 compute, dropout 0.2; gpt2-small:
-12 layers, C=768, H=12, T=1024, B=32, vocab 50257, dropout 0) at random
+12 layers, C=768, H=12, T=1024, B=32, vocab 50257, dropout 0; gpt2-xl:
+48 layers, C=1600, H=25, remat full, its global batch of 64 as
+accumulated micro-batches, ``--batch-size`` rows each) at random
 init on batches of the preset's tokens (the BPE is trained at first use
 and cached, as ``train`` does), warms it up, then
 times ``--steps`` steps with the host clock (ending in a device sync) and
@@ -15,18 +19,20 @@ traces the same number with ``torch.profiler``. From the trace: the
 device's busy time (the union of kernel intervals), its idle share of
 the traced window (which the profiler's own overhead stretches) and of
 the untraced steps' wall time, the share of the flash attention kernels
-(``csrc/flash_packed.cu``), and device time by kernel family and by
+(``csrc/flash_packed.cu``, both layouts), and device time by kernel family and by
 kernel name. Prints one JSON object, and writes it to ``--out`` when given.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -70,7 +76,11 @@ def family(name: str) -> str:
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--preset", default="char-gpt",
-                   choices=["char-gpt", "gpt2-small"])
+                   choices=["char-gpt", "gpt2-small", "gpt2-xl"])
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="rows a micro-batch (default: the preset's)")
+    p.add_argument("--grad-accum-steps", type=int, default=None,
+                   help="micro-batches a step (default: the preset's)")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--out", default=None)
     args = p.parse_args()
@@ -79,6 +89,11 @@ def main() -> int:
         return 1
     cfg = get_config(args.preset)
     mcfg, tcfg = cfg.model, cfg.train
+    tcfg = dataclasses.replace(tcfg, **{
+        k: v for k, v in (("batch_size", args.batch_size),
+                          ("grad_accum_steps", args.grad_accum_steps))
+        if v is not None})
+    accum = tcfg.grad_accum_steps
     text = (REPO / cfg.dataset).read_text(encoding="utf-8")
     tokens = get_tokenizer(cfg.tokenizer, corpus_text=text,
                            cache_dir=str(REPO / "datasets")).encode_np(text)
@@ -89,8 +104,12 @@ def main() -> int:
     step = make_train_step(mcfg, tcfg)
 
     def batch():
-        return tuple(torch.from_numpy(a.astype(wire)).cuda()
-                     for a in batcher.next_batch())
+        arrays = [batcher.next_batch() for _ in range(accum)]
+        if accum == 1:
+            x, y = arrays[0]
+        else:
+            x, y = (np.stack(a) for a in zip(*arrays))
+        return tuple(torch.from_numpy(a.astype(wire)).cuda() for a in (x, y))
 
     batches = [batch() for _ in range(5 + 2 * args.steps)]
     for b in batches[:5]:
@@ -122,7 +141,8 @@ def main() -> int:
     n = args.steps
     row = {
         "card": card(), "preset": args.preset, "steps": n,
-        "batch": tcfg.batch_size,
+        "batch": tcfg.batch_size, "grad_accum_steps": accum,
+        "peak_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "step_wall_ms": round(wall_ms, 4),
         "traced_step_wall_ms": round(traced_ms / n, 4),
         "device_busy_ms_per_step": (round(busy_ms / n, 4) if kernels
