@@ -121,7 +121,35 @@ and fails (non-zero exit) on the first phase that fails:
    x (2 x steps x 4 + eval batches) times (full remat runs each block's
    forward twice a micro-batch), its backward 48 x steps x 4, the packed
    kernel never; the peak of ``torch.cuda.max_memory_allocated()``
-   under the card's 80 GB.
+   under the card's 80 GB;
+23. chunk flash kernel phase (TPU rows #21-#24, ``pallas_flash_chunk``:
+   the ring hop): ``flash_chunk_fwd`` / ``flash_chunk_bwd`` against their
+   plain versions at the ``--sp 4`` hop of GPT-2 XL (B=16, H=25,
+   Tq=Tk=256, D=64), bf16 and f32 (``CHUNK_TOL``: one bf16 ulp; f32
+   1e-5), dropout 0 and 0.1, on a fully visible hop, a diagonal one,
+   partly masked hops on a tile boundary (q - k = 128) and off it (96), a
+   fully masked one (o = 0, lse = NEG_INF, gradients exactly 0) and one
+   with Tk = 2 Tq; the backward fed a nonzero lse cotangent. At offsets 0
+   the chunk kernel's results and dropout mask equal the heads kernel's
+   bit for bit. Then timings of both kernels at the fully visible and the
+   diagonal hops (bf16, dropout 0) beside the bound, the plain versions
+   and ``scaled_dot_product_attention`` with the hop's boolean mask;
+24. ring parity phase: GPT-2 XL width (C=1600, H=25), 2 layers, T=1024,
+   B=2, f32, dropout 0: 5 steps through the ring over 4 shards in one
+   process (``LocalSeqGroup``; chunk kernel hops) against the same steps
+   through the dense heads kernel route, losses within 1e-4 relative; and
+   the ring's output and gradients against the heads kernel's at B=2,
+   H=25, T=1024;
+25. sequence-parallel GPT-2 XL slice (a main path): ``train --preset
+   gpt2-xl --sp 4`` through the CLI in one process, as the XL slice
+   (4 x 16 micro-batches, ``XL_STEPS`` steps, ``XL_EVAL_ITERS`` eval
+   batches at 0 and the end): 'auto' resolves to the ring (25 heads do
+   not divide by 4) and the run logs it; every loss finite, the last val
+   loss under step 0's, the chunk kernel's forward launched 48 x 10 x
+   (2 x steps x 4 + eval batches) times (10 hops a layer: shard i runs
+   i + 1; remat runs each forward twice) and its backward 48 x 10 x
+   steps x 4, the heads and packed kernels never; the peak memory under
+   80 GB.
 
 Prints a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -158,11 +186,15 @@ from replicatinggpt_tpu_torch.models.gpt import (BLOCK_SHAPES,
                                                 init_kv_cache, init_params)
 from replicatinggpt_tpu_torch.ops import _build
 from replicatinggpt_tpu_torch.ops import decode as dec
+from replicatinggpt_tpu_torch.ops import flash_chunk as fc
 from replicatinggpt_tpu_torch.ops import flash_heads as fh
 from replicatinggpt_tpu_torch.ops import flash_packed as fp
 from replicatinggpt_tpu_torch.ops import paged_attention as pa
 from replicatinggpt_tpu_torch.ops.attention import full_causal_attention
 from replicatinggpt_tpu_torch.ops.flash_attention import packed_qkv_attention
+from replicatinggpt_tpu_torch.parallel import (LocalSeqGroup,
+                                               make_ring_attention_fn,
+                                               ring_attention)
 from replicatinggpt_tpu_torch.quant.kv import fake_quantize_rows, quantize_rows
 from replicatinggpt_tpu_torch.serve import engine as engine_mod
 from replicatinggpt_tpu_torch.serve import (Engine, EngineConfig,
@@ -206,6 +238,31 @@ HEADS_ALSO_REPLACES = {
 # batch of 64), heads, width; the slice's steps and eval batches a split
 XB, XACC, XH, XC = 16, 4, 25, 1600
 XL_STEPS, XL_EVAL_ITERS = 8, 4
+# the chunk family JAX runs at a ring hop of gpt2-xl (TPU rows #21-#24):
+# the resident forward and the kv-major fused backward (Tq * D * 4 under
+# its scratch bound), and the rows that compute the same function
+CHUNK_REPLACES = {"fwd": "replicatinggpt_tpu/ops/flash_pallas.py:1187",
+                  "bwd": "replicatinggpt_tpu/ops/flash_pallas.py:1592"}
+CHUNK_ALSO_REPLACES = {
+    "fwd": ["replicatinggpt_tpu/ops/flash_pallas.py:1310"],
+    "bwd": ["replicatinggpt_tpu/ops/flash_pallas.py:1225",
+            "replicatinggpt_tpu/ops/flash_pallas.py:1254",
+            "replicatinggpt_tpu/ops/flash_pallas.py:1357",
+            "replicatinggpt_tpu/ops/flash_pallas.py:1393"]}
+# the sequence-parallel slice: 4 shards of 256 tokens; a ring call runs
+# 1 + 2 + 3 + 4 hops with all shards in one process
+SP, XTL = 4, 256
+RING_HOPS = SP * (SP + 1) // 2
+# (name, Tq, Tk, q_offset, k_offset) at the slice's hop shapes
+CHUNK_HOPS = (("visible", XTL, XTL, XTL, 0),
+              ("diagonal", XTL, XTL, 3 * XTL, 3 * XTL),
+              ("aligned", XTL, XTL, XTL + 128, XTL),
+              ("unaligned", XTL, XTL, XTL + 96, XTL),
+              ("masked", XTL, XTL, -XTL, 0),
+              ("tk_2tq", XTL, 2 * XTL, 3 * XTL // 2, 0))
+# the chunk kernels against their plain versions: bf16 o and gradients to
+# one bf16 ulp (FLASH_TOL), lse (f32 on both sides) to 1e-4; f32 to 1e-5
+CHUNK_TOL = {torch.bfloat16: (1e-4, 1e-2), torch.float32: (1e-5, 1e-5)}
 # GPT-2 124M training shapes (the gpt2-small preset), and the long-T case
 GB, GT, GC, GH, LT = 32, 1024, 768, 12, 8192
 # q, k and v as the path feeds the kernel: unit-variance layernorm output
@@ -1309,15 +1366,16 @@ def gpt2_parity_phase() -> None:
           f"difference kernel vs plain {rel:.2e} (limit 1e-4)")
 
 
-FLASH_WRAPPERS = (fp.flash_packed_fwd, fp.flash_packed_bwd,
+FLASH_WRAPPERS = (fc.flash_chunk_fwd, fc.flash_chunk_bwd,
+                  fp.flash_packed_fwd, fp.flash_packed_bwd,
                   fh.flash_heads_fwd, fh.flash_heads_bwd)
 
 
 def run_train_cli(argv) -> tuple:
     """``train`` through the port's CLI, in process: (stdout, JSONL
-    events, forward and backward packed flash launches, and the heads
-    kernel's forward and backward launches), every count set to 0 just
-    before the run."""
+    events, forward and backward packed flash launches, the heads
+    kernel's forward and backward launches, and the chunk kernel's),
+    every count set to 0 just before the run."""
     out = io.StringIO()
     with tempfile.TemporaryDirectory() as tmp:
         log = os.path.join(tmp, "train.jsonl")
@@ -1325,10 +1383,10 @@ def run_train_cli(argv) -> tuple:
             w.launches = 0
         with contextlib.redirect_stdout(out):
             assert cli.main(["train", *argv, "--log-jsonl", log]) == 0
-        pf, pb, hf, hb = (w.launches for w in FLASH_WRAPPERS)
+        cf, cb, pf, pb, hf, hb = (w.launches for w in FLASH_WRAPPERS)
         with open(log) as f:
             events = [json.loads(line) for line in f]
-    return out.getvalue(), events, (pf, pb), (hf, hb)
+    return out.getvalue(), events, (pf, pb), (hf, hb), (cf, cb)
 
 
 def gpt2_slice_phase(card: str) -> tuple:
@@ -1338,7 +1396,7 @@ def gpt2_slice_phase(card: str) -> tuple:
     L = get_config("gpt2-small").model.n_layer
     steps, eval_iters, n_evals = 200, 20, 3
     had_bpe = os.path.exists(BPE_CACHE)
-    text, events, (fwd, bwd), _ = run_train_cli(
+    text, events, (fwd, bwd), _, _ = run_train_cli(
         ["--preset", "gpt2-small", "--max-iters", str(steps),
          "--eval-interval", "100", "--eval-iters", str(eval_iters)])
     print(text, end="")
@@ -1370,7 +1428,7 @@ def gpt2_shakespeare_phase(card: str) -> None:
     50 steps with a ``Step {i}, Loss: ...`` line each."""
     cfg = get_config("gpt2-shakespeare")
     L, steps = cfg.model.n_layer, cfg.train.max_iters
-    text, events, (fwd, bwd), _ = run_train_cli(
+    text, events, (fwd, bwd), _, _ = run_train_cli(
         ["--preset", "gpt2-shakespeare"])
     print(text, end="")
     lines = re.findall(r"^Step (\d+), Loss: (\S+) \|", text, re.M)
@@ -1625,7 +1683,7 @@ def gpt2_xl_slice_phase(card: str) -> tuple:
                                      2)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    text, events, packed, (fwd, bwd) = run_train_cli(
+    text, events, packed, (fwd, bwd), chunk = run_train_cli(
         ["--preset", "gpt2-xl", "--batch-size", str(XB),
          "--grad-accum-steps", str(XACC), "--max-iters", str(steps),
          "--eval-interval", str(steps), "--eval-iters", str(eval_iters),
@@ -1643,10 +1701,11 @@ def gpt2_xl_slice_phase(card: str) -> tuple:
         raise AssertionError(f"xl slice: val loss {first} at step 0, {last} "
                              f"at step {steps}")
     want_fwd = L * (2 * steps * XACC + n_evals * 2 * eval_iters)
-    if (fwd, bwd, *packed) != (want_fwd, L * steps * XACC, 0, 0):
+    if (fwd, bwd, *packed, *chunk) != (want_fwd, L * steps * XACC, 0, 0, 0,
+                                       0):
         raise AssertionError(f"xl slice launches: heads {fwd} / {bwd} "
                              f"(want {want_fwd} / {L * steps * XACC}), "
-                             f"packed {packed} (want 0)")
+                             f"packed {packed}, chunk {chunk} (want 0)")
     if not peak < 80e9:
         raise AssertionError(f"xl slice: peak memory {peak} bytes")
     info = {k: v for e in events if e["event"] == "info" for k, v in e.items()}
@@ -1658,6 +1717,281 @@ def gpt2_xl_slice_phase(card: str) -> tuple:
           f"backward heads kernel launches ({L} x (2 x {steps} x {XACC} + "
           f"{n_evals * 2 * eval_iters}) and {L} x {steps} x {XACC}), packed "
           f"kernel launches {packed[0]} / {packed[1]}")
+    return fwd, bwd
+
+
+def chunk_inputs(dtype: torch.dtype, Tq: int, Tk: int, seed: int = 0,
+                 scale: float = XQKV_SCALE) -> tuple:
+    """q (B, H, Tq, D), k and v (B, H, Tk, D) at the XL path's scale,
+    dO at unit scale, and a unit-scale f32 lse cotangent (B, H, Tq)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    D = XC // XH
+
+    def mk(T, s):
+        return (torch.randn((XB, XH, T, D), generator=g, device="cuda")
+                * s).to(dtype)
+
+    return (mk(Tq, scale), mk(Tk, scale), mk(Tk, scale), mk(Tq, 1.0),
+            torch.randn((XB, XH, Tq), generator=g, device="cuda"))
+
+
+def visible_pairs(hop) -> int:
+    """(q, k) pairs of one (batch, head) that a causal hop computes."""
+    _, Tq, Tk, q_off, k_off = hop
+    return sum(min(max(q_off + r - k_off + 1, 0), Tk) for r in range(Tq))
+
+
+def chunk_bound_ms(q: torch.Tensor, k: torch.Tensor, hop,
+                   which: str) -> tuple:
+    """Least time of one chunk call: q, k, v (and dO, lse, delta') read
+    once, o and lse (dq, dk, dv) written once, over the memory rate, vs
+    the products over the hop's visible pairs (2 forward, 5 backward) over
+    the peak rate of the input type."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    row = B * H * D * q.element_size()
+    pairs = B * H * visible_pairs(hop)
+    if which == "fwd":
+        return _bound((2 * Tq + 2 * Tk) * row + B * H * Tq * 4,
+                      2 * 2 * pairs * D, q.dtype)
+    return _bound((3 * Tq + 4 * Tk) * row + 2 * B * H * Tq * 4,
+                  5 * 2 * pairs * D, q.dtype)
+
+
+def check_chunk(hop, dtype: torch.dtype, seed: int, rate: float) -> dict:
+    """Forward (o, lse) and backward (dq, dk, dv, from the clamped lse and
+    delta' with a nonzero lse cotangent) of the chunk kernels against the
+    plain versions on the same inputs, at ``CHUNK_TOL``; the max abs
+    errors (``d``: the largest gradient's). A fully masked hop must give
+    o = 0, lse = NEG_INF and gradients exactly 0."""
+    name, Tq, Tk, q_off, k_off = hop
+    q, k, v, do, dlse = chunk_inputs(dtype, Tq, Tk, seed=Tq + Tk + q_off)
+    kw = dict(q_offset=q_off, k_offset=k_off, seed=seed, rate=rate)
+    o, lse = fc.flash_chunk_fwd(q, k, v, **kw)
+    do, lse_c, deltap = fc.chunk_bwd_inputs(o, lse, do, dlse)
+    grads = fc.flash_chunk_bwd(q, k, v, do, lse_c, deltap, **kw)
+    torch.cuda.synchronize()
+    pairs = list(zip(("o", "lse"), (o, lse),
+                     fc.flash_chunk_fwd_ref(q, k, v, **kw)))
+    pairs += zip(("dq", "dk", "dv"), grads,
+                 fc.flash_chunk_bwd_ref(q, k, v, do, lse_c, deltap, **kw))
+    err = {}
+    for nm, got, ref in pairs:
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"chunk flash {name}: non-finite {nm}")
+        err[nm] = (got.float() - ref.float()).abs().max().item()
+        atol, rtol = CHUNK_TOL[got.dtype]
+        if nm == "lse" and dtype == torch.bfloat16:
+            atol = rtol = 1e-4
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=rtol,
+                                   msg=lambda m: f"chunk {name} {nm}: {m}")
+    if name == "masked" and (o.any() or (lse != fc.NEG_INF).any()
+                             or any(g.any() for g in grads)):
+        raise AssertionError("chunk flash: a fully masked hop must give o "
+                             "= 0, lse = NEG_INF and zero gradients")
+    err["d"] = max(err["dq"], err["dk"], err["dv"])
+    return err
+
+
+def time_chunk(hop, flush: torch.Tensor, n: int = 20) -> dict:
+    """CUDA-event times (ms) of both chunk kernels at ``hop`` (bf16,
+    dropout 0), their plain versions, ``scaled_dot_product_attention``
+    with the hop's boolean mask (its forward and its backward), the SDPA
+    backend PyTorch picks, and the bounds."""
+    _, Tq, Tk, q_off, k_off = hop
+    q, k, v, do, dlse = chunk_inputs(torch.bfloat16, Tq, Tk)
+    kw = dict(q_offset=q_off, k_offset=k_off)
+    o, lse = fc.flash_chunk_fwd(q, k, v, **kw)
+    do, lse_c, deltap = fc.chunk_bwd_inputs(o, lse, do, dlse)
+    mask = fc._visible(Tq, Tk, q_off, k_off, "cuda")
+    sq, sk, sv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    backend = SDPBackend(torch._fused_sdp_choice(sq, sk, sv, mask, 0.0,
+                                                 False)).name
+
+    def sdpa():
+        return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask)
+
+    out = sdpa()
+    plain_n = max(3, n // 4)
+    t = {"fwd": time_ms(lambda: fc.flash_chunk_fwd(q, k, v, **kw), flush, n),
+         "bwd": time_ms(lambda: fc.flash_chunk_bwd(q, k, v, do, lse_c,
+                                                   deltap, **kw), flush, n),
+         "plain_fwd": time_ms(lambda: fc.flash_chunk_fwd_ref(q, k, v, **kw),
+                              flush, plain_n, 2),
+         "plain_bwd": time_ms(lambda: fc.flash_chunk_bwd_ref(
+             q, k, v, do, lse_c, deltap, **kw), flush, plain_n, 2),
+         "library_fwd": time_ms(sdpa, flush, n),
+         "library_bwd": time_ms(lambda: torch.autograd.grad(
+             out, (sq, sk, sv), do, retain_graph=True), flush, n),
+         "backend": backend}
+    for which in ("fwd", "bwd"):
+        t[f"bound_{which}"], t[f"bound_by_{which}"] = chunk_bound_ms(
+            q, k, hop, which)
+    return t
+
+
+def chunk_flash_phase(flush: torch.Tensor) -> list:
+    """The chunk kernels at the ``--sp 4`` XL hop shapes against their
+    plain versions on every kind of hop; the offset-0 chunk against the
+    heads kernel; timings at the fully visible and diagonal hops."""
+    seed = 3_141_592
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for rate in (0.0, GROUP_RATE):
+            for hop in CHUNK_HOPS:
+                err = errs[(dtype, rate, hop[0])] = check_chunk(
+                    hop, dtype, seed, rate)
+                print(f"chunk flash check ({hop[0]}: B={XB}, H={XH}, "
+                      f"Tq={hop[1]}, Tk={hop[2]}, q_offset={hop[3]}, "
+                      f"k_offset={hop[4]}): {str(dtype)[6:]} rate {rate} "
+                      f"max_abs_err "
+                      + ", ".join(f"{k} {v:.3e}" for k, v in err.items()))
+    q, k, v, do, _ = chunk_inputs(torch.bfloat16, XTL, XTL, seed=1)
+    kw = dict(seed=seed, rate=GROUP_RATE)
+    o, lse = fc.flash_chunk_fwd(q, k, v, **kw)
+    ho, hlse = fh.flash_heads_fwd(q, k, v, **kw)
+    delta = fh.heads_delta(do, ho)
+    same = [torch.equal(a, b) for a, b in zip(
+        (o, lse, *fc.flash_chunk_bwd(q, k, v, do, lse, delta, **kw)),
+        (ho, hlse, *fh.flash_heads_bwd(q, k, v, do, hlse, delta, **kw)))]
+    if not all(same):
+        raise AssertionError(f"chunk at offsets 0 vs heads kernel: equal "
+                             f"o, lse, dq, dk, dv {same}")
+    print(f"chunk flash at offsets 0 (bf16, rate {GROUP_RATE}, T={XTL}): o, "
+          f"lse, dq, dk, dv bit for bit the heads kernel's (one dropout "
+          f"mask)")
+    times = {hop[0]: time_chunk(hop, flush) for hop in CHUNK_HOPS[:2]}
+    rows = []
+    for which, err in (("fwd", "o"), ("bwd", "d")):
+        for name, t in times.items():
+            print(f"chunk flash {which} timing ({name} hop, bf16, B={XB}, "
+                  f"H={XH}, Tq=Tk={XTL}, D={XC // XH}, dropout 0): kernel "
+                  f"{t[which]:.4f} ms, plain {t['plain_' + which]:.3f} ms, "
+                  f"sdpa with the hop's mask ({t['backend']}) "
+                  f"{t['library_' + which]:.4f} ms, bound "
+                  f"{t['bound_' + which]:.4f} ms "
+                  f"({t['bound_by_' + which]})")
+        t, d = times["visible"], times["diagonal"]
+        rows.append({
+            "name": f"flash_chunk_{which}", "route": "cuda",
+            "source": FLASH_SOURCE, "replaces": CHUNK_REPLACES[which],
+            "also_replaces": CHUNK_ALSO_REPLACES[which],
+            "shapes": f"B={XB}, H={XH}, Tq=Tk={XTL}, D={XC // XH}, bf16, "
+                      f"dropout 0, fully visible hop",
+            "max_abs_err": errs[(torch.bfloat16, 0.0, "visible")][err],
+            "ms": t[which], "kernel_ms": t[which],
+            "plain_ms": t["plain_" + which], "bound_ms": t["bound_" + which],
+            "bound_by": t["bound_by_" + which],
+            "library_ms": t["library_" + which],
+            "library": f"sdpa {t['backend']} (boolean mask)",
+            "diagonal_hop": {"ms": d[which], "plain_ms": d["plain_" + which],
+                             "library_ms": d["library_" + which],
+                             "bound_ms": d["bound_" + which]}})
+    return rows
+
+
+def ring_parity_phase() -> None:
+    """5 f32 steps at GPT-2 XL width (2 layers, T=1024, B=2, remat on)
+    through the ring over 4 shards in one process and through the dense
+    heads kernel route, from the same seeds and batches; then the ring's
+    output and gradients against the heads kernel's."""
+    base = get_config("gpt2-xl")
+    mcfg = dataclasses.replace(base.model, n_layer=2, dtype="float32")
+    tcfg = dataclasses.replace(base.train, batch_size=2, max_iters=5)
+    tokens = np.random.default_rng(7).integers(0, 1024, 64 * GT)
+    group = LocalSeqGroup(SP)
+    curves = []
+    for ring in (True, False):
+        fc.flash_chunk_fwd.launches = fh.flash_heads_fwd.launches = 0
+        state = create_train_state(mcfg, tcfg, "cuda")
+        step = make_train_step(mcfg, tcfg,
+                               make_ring_attention_fn(group) if ring
+                               else None, group if ring else None)
+        batcher = RandomBatcher(tokens, tcfg.batch_size, GT, seed=tcfg.seed)
+        losses = [step(state, tuple(torch.from_numpy(a).cuda()
+                                    for a in batcher.next_batch()))
+                  for _ in range(tcfg.max_iters)]
+        curves.append([float(x) for x in losses])
+        want = (2 * 2 * RING_HOPS * tcfg.max_iters, 0) if ring \
+            else (0, 2 * 2 * tcfg.max_iters)
+        got = (fc.flash_chunk_fwd.launches, fh.flash_heads_fwd.launches)
+        if got != want:
+            raise AssertionError(f"ring parity launches (chunk, heads) {got},"
+                                 f" want {want}")
+        del state, step
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*curves))
+    if not rel <= 1e-4:
+        raise AssertionError(f"ring parity: ring {curves[0]} vs heads "
+                             f"{curves[1]}")
+    q, k, v, do = heads_inputs(torch.float32, (2, XH, GT, XC // XH), seed=3)
+    x = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ring_attention(*x, group=group)
+    out.backward(do)
+    y = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = fh.flash_heads_attention(*y)
+    ref.backward(do)
+    torch.cuda.synchronize()
+    o_err = (out - ref).abs().max().item()
+    g_err = max((a.grad - b.grad).abs().max().item() for a, b in zip(x, y))
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    for a, b in zip(x, y):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4)
+    print(f"ring parity (f32, 2 layers, C={XC}, H={XH}, T={GT}, B=2, remat "
+          f"full, {SP} shards in one process): 5 losses {curves[0][0]:.6f} "
+          f"-> {curves[0][-1]:.6f}, max relative difference ring vs heads "
+          f"route {rel:.2e} (limit 1e-4); attention alone (B=2, H={XH}, "
+          f"T={GT}): ring vs heads kernel max abs err o {o_err:.3e}, "
+          f"d(q, k, v) {g_err:.3e} (limit 1e-4)")
+
+
+def sp_xl_slice_phase(card: str) -> tuple:
+    """The sequence-parallel GPT-2 XL main path: ``train --preset gpt2-xl
+    --sp 4`` through the CLI in one process, the XL slice's batches,
+    steps and evals; the ring's chunk kernel only."""
+    L, steps, eval_iters, n_evals = (get_config("gpt2-xl").model.n_layer,
+                                     XL_STEPS, XL_EVAL_ITERS, 2)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    text, events, packed, heads, (fwd, bwd) = run_train_cli(
+        ["--preset", "gpt2-xl", "--sp", str(SP), "--batch-size", str(XB),
+         "--grad-accum-steps", str(XACC), "--max-iters", str(steps),
+         "--eval-interval", str(steps), "--eval-iters", str(eval_iters),
+         "--log-interval", "1"])
+    peak = torch.cuda.max_memory_allocated()
+    print(text, end="")
+    want_line = (f"sequence parallelism: seq axis {SP}, impl 'ring' "
+                 f"(configured 'auto'), one process holding all {SP} shards")
+    if want_line not in text:
+        raise AssertionError(f"sp slice: no line {want_line!r}")
+    evals = [e for e in events if e["event"] == "eval"]
+    losses = [e["loss"] for e in events if e["event"] == "step"]
+    losses += [e[k] for e in evals for k in ("train_loss", "val_loss")]
+    assert len(losses) == steps + 2 * n_evals, losses
+    assert all(math.isfinite(x) for x in losses), losses
+    assert [e["step"] for e in evals] == [0, steps], evals
+    first, last = evals[0]["val_loss"], evals[-1]["val_loss"]
+    if not last < first:
+        raise AssertionError(f"sp slice: val loss {first} at step 0, {last} "
+                             f"at step {steps}")
+    want = (L * RING_HOPS * (2 * steps * XACC + n_evals * 2 * eval_iters),
+            L * RING_HOPS * steps * XACC)
+    if (fwd, bwd, *packed, *heads) != (*want, 0, 0, 0, 0):
+        raise AssertionError(f"sp slice launches: chunk {fwd} / {bwd} (want "
+                             f"{want[0]} / {want[1]}), packed {packed}, "
+                             f"heads {heads} (want 0)")
+    if not peak < 80e9:
+        raise AssertionError(f"sp slice: peak memory {peak} bytes")
+    info = {k: v for e in events if e["event"] == "info" for k, v in e.items()}
+    print(f"gpt2-xl --sp {SP} slice ({steps} steps, {XACC} x B={XB}, T={GT} "
+          f"in {SP} shards of {XTL}, bf16, remat full, one process) on "
+          f"{card}: {info['tokens_per_sec']:.0f} tok/s, train step p50 "
+          f"{info['p50_ms']:.3f} ms (mean {info['mean_ms']:.3f}), val loss "
+          f"{last:.4f} at step {steps} (step 0: {first:.4f}), peak memory "
+          f"allocated {peak / 1e9:.3f} GB, {fwd} forward / {bwd} backward "
+          f"chunk kernel launches ({L} x {RING_HOPS} x (2 x {steps} x {XACC} "
+          f"+ {n_evals * 2 * eval_iters}) and {L} x {RING_HOPS} x {steps} x "
+          f"{XACC}), heads and packed kernel launches 0")
     return fwd, bwd
 
 
@@ -1717,9 +2051,16 @@ def main() -> int:
     xl_parity_phase()
     heads_rows[0]["launches"], heads_rows[1]["launches"] = \
         gpt2_xl_slice_phase(card)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    chunk_rows = chunk_flash_phase(flush)
+    del flush
+    ring_parity_phase()
+    chunk_rows[0]["launches"], chunk_rows[1]["launches"] = \
+        sp_xl_slice_phase(card)
     print(f"smoke: {time.perf_counter() - t0:.1f} s, the builds included")
     print(json.dumps({"kernels": [row, *flash_rows, *group_rows, *heads_rows,
-                                  fused_row, packed_row, fused_paged_row]}))
+                                  *chunk_rows, fused_row, packed_row,
+                                  fused_paged_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

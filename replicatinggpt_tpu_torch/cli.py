@@ -2,6 +2,9 @@
 
     python -m replicatinggpt_tpu_torch train --preset char-gpt
     python -m replicatinggpt_tpu_torch train --preset gpt2-small
+    python -m replicatinggpt_tpu_torch train --preset gpt2-xl --sp 4
+    torchrun --nproc-per-node 4 -m replicatinggpt_tpu_torch train \\
+        --preset gpt2-xl --sp 4
     python -m replicatinggpt_tpu_torch generate --preset char-gpt \\
         --prompt "ROMEO:" --sample-tokens 500 --top-k 20
     python -m replicatinggpt_tpu_torch serve-replay --preset gpt2-small \\
@@ -11,7 +14,12 @@ Every subcommand runs on the card unless given ``--device cpu``, and takes
 the JAX subcommands' flags. Those this port does not implement yet are
 still accepted by the parser, so that a command written for the JAX
 package fails with the ROADMAP item that will bring the feature, instead
-of being half-run or silently ignored.
+of being half-run or silently ignored. ``train --sp N`` is sequence
+parallelism through the ring: all N shards in one process without a
+launcher, one shard a process under ``torchrun`` (N processes); the
+other mesh axes (``--dp``, ``--tp``, ``--pp``, ``--fsdp``,
+``--microbatches``) and ``--attention ulysses`` are refused with ROADMAP.md
+queue A item 11.
 """
 
 from __future__ import annotations
@@ -73,6 +81,19 @@ TRAIN_UNPORTED_FLAGS = (
     ("--steps-per-dispatch", "steps_per_dispatch", 1,
      "ground rules (the K-step dispatch scan is TPU scaffolding; each "
      "step is one dispatch here)"),
+    ("--dp", "dp", 1, "queue A item 11 (data parallelism)"),
+    ("--tp", "tp", 1, "queue A item 11 (tensor parallelism)"),
+    ("--pp", "pp", 1, "queue A item 11 (pipeline parallelism)"),
+    ("--microbatches", "microbatches", 0,
+     "queue A item 11 (pipeline parallelism)"),
+    ("--fsdp", "fsdp", False, "queue A item 11 (FSDP)"),
+)
+
+#: (flag, dest, refused value, ROADMAP.md item): ported flags with a value
+#: this port does not implement yet
+TRAIN_UNPORTED_VALUES = (
+    ("--attention", "attention_impl", "ulysses",
+     "queue A item 11 (Ulysses attention)"),
 )
 
 
@@ -87,13 +108,20 @@ def _add_unported_flags(p: argparse.ArgumentParser,
                            help="not in this port yet (see ROADMAP.md)")
 
 
-def check_unported(args: argparse.Namespace, flags=UNPORTED_FLAGS) -> None:
-    """Raise for any unported flag set away from its off value."""
+def check_unported(args: argparse.Namespace, flags=UNPORTED_FLAGS,
+                   values=()) -> None:
+    """Raise for any unported flag set away from its off value, and for
+    any flag set to an unported value of ``values``."""
     for flag, dest, off, item in flags:
         if getattr(args, dest) != off:
             raise SystemExit(
                 f"{flag} is not implemented in replicatinggpt_tpu_torch "
                 f"yet: ROADMAP.md {item}")
+    for flag, dest, value, item in values:
+        if getattr(args, dest, None) == value:
+            raise SystemExit(
+                f"{flag} {value} is not implemented in "
+                f"replicatinggpt_tpu_torch yet: ROADMAP.md {item}")
 
 
 def add_engine_flags(p: argparse.ArgumentParser) -> None:
@@ -180,7 +208,7 @@ def cmd_serve_replay(args) -> int:
 def cmd_train(args) -> int:
     """Train a preset on the corpus and print the reference's log lines
     (and, with ``--sample-after``, a sample from the trained weights)."""
-    check_unported(args, TRAIN_UNPORTED_FLAGS)
+    check_unported(args, TRAIN_UNPORTED_FLAGS, TRAIN_UNPORTED_VALUES)
     from .train.runner import train
     from .utils.logging import StepLogger
     cfg = config_from_args(args)
@@ -189,7 +217,7 @@ def cmd_train(args) -> int:
         res = train(cfg, device=args.device, logger=logger)
     finally:
         logger.close()
-    if args.sample_after:
+    if args.sample_after and res.main:
         model = res.state.model
         _sample(model, model.cfg, res.tokenizer, args.sample_tokens,
                 device=args.device)

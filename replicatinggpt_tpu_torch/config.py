@@ -6,10 +6,15 @@ optimization schedule, the presets (the GPT-2 ladder ``gpt2-small``,
 ``gpt2-medium``, ``gpt2-large``, ``gpt2-xl``; ``gpt2-shakespeare``,
 ``char-gpt``, ``char-gpt1-ref``, ``test-tiny``) and the CLI overlay.
 ``remat`` / ``remat_policy`` are the memory trade the larger presets
-need (``torch.utils.checkpoint`` per block, ``models/gpt.py``). TPU
-dispatch knobs (``use_layer_scan``, ``scan_layers``, ``attention_impl``,
-``steps_per_dispatch``) have no counterpart here: PyTorch runs the layer
-loop eagerly and the port picks its own kernels.
+need (``torch.utils.checkpoint`` per block, ``models/gpt.py``).
+``MeshConfig`` (``Config.mesh``) carries the JAX mesh axes; this port
+runs the seq axis (``--sp``, ring attention, ``parallel/``) and refuses
+the others (ROADMAP.md queue A item 11). ``attention_impl`` picks the
+core on a seq axis by the JAX rule (``parallel.select_attention_fn``);
+without one, the port's own route rule (``ops/flash_attention.py``)
+stands whatever it says. TPU dispatch knobs (``use_layer_scan``,
+``scan_layers``, ``steps_per_dispatch``) have no counterpart here:
+PyTorch runs the layer loop eagerly.
 """
 
 from __future__ import annotations
@@ -48,6 +53,9 @@ class ModelConfig:
                                   # the matrix products' outputs) |
                                   # 'dots_no_batch' (only those with no
                                   # batch dimensions)
+    attention_impl: str = "auto"  # the core on a seq axis: 'auto' |
+                                  # 'ring' | 'flash' (= 'auto'); 'ulysses'
+                                  # and 'einsum' raise there
 
     @property
     def head_dim(self) -> int:
@@ -71,11 +79,40 @@ class ModelConfig:
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy {self.remat_policy!r}; have "
                              f"{REMAT_POLICIES}")
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl {self.attention_impl!r}; have "
+                             f"{ATTENTION_IMPLS}")
         return self
 
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 REMAT_POLICIES = ("full", "dots", "dots_no_batch")
+ATTENTION_IMPLS = ("auto", "einsum", "flash", "ring", "ulysses")
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The JAX package's logical mesh (``data``, ``seq``, ``model``,
+    ``pipe`` axes, ``fsdp``, pipeline ``microbatches``). This port runs
+    the ``seq`` axis only: ``validate`` refuses the others."""
+
+    data: int = 1
+    seq: int = 1
+    model: int = 1
+    pipe: int = 1
+    fsdp: bool = False
+    microbatches: int = 0
+
+    def validate(self) -> "MeshConfig":
+        if min(self.data, self.seq, self.model, self.pipe) < 1:
+            raise ValueError(f"mesh axes must be >= 1: {self}")
+        if (self.data, self.model, self.pipe, self.fsdp,
+                self.microbatches) != (1, 1, 1, False, 0):
+            raise NotImplementedError(
+                f"mesh {self}: data, tensor and pipeline parallelism and "
+                f"FSDP are not in replicatinggpt_tpu_torch yet: ROADMAP.md "
+                f"queue A item 11 (only the seq axis, --sp, runs)")
+        return self
 
 
 @dataclass(frozen=True)
@@ -110,6 +147,7 @@ class Config:
     name: str
     model: ModelConfig
     train: TrainConfig = TrainConfig()
+    mesh: MeshConfig = MeshConfig()
     tokenizer: str = "char"
     dataset: str = "datasets/shakespeare.txt"
 
@@ -274,6 +312,16 @@ def add_train_flags(p: argparse.ArgumentParser) -> None:
                    choices=["constant", "cosine"])
     p.add_argument("--tokenizer", default=None)
     p.add_argument("--dataset", default=None)
+    p.add_argument("--sp", type=int, default=None,
+                   help="mesh seq axis size: split every sequence into this "
+                        "many shards, their attention the ring (all in this "
+                        "process, or one per torchrun process)")
+    p.add_argument("--attention", dest="attention_impl", default=None,
+                   choices=list(ATTENTION_IMPLS),
+                   help="the attention core on a seq axis: 'auto' (Ulysses "
+                        "where the heads divide by --sp, else the ring), "
+                        "'ring', 'flash' (= 'auto'); 'ulysses' is not "
+                        "ported yet")
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
@@ -282,7 +330,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
           if getattr(args, dest, None) is not None}
     if getattr(args, "dropout", None) is not None:
         mk["dropout"] = mk["attn_dropout"] = args.dropout
-    for dest in ("loss_chunk", "remat"):
+    for dest in ("loss_chunk", "remat", "attention_impl"):
         if getattr(args, dest, None) is not None:
             mk[dest] = getattr(args, dest)
     tk = {dest: getattr(args, dest) for dest, _, _ in TRAIN_OVERRIDE_FLAGS
@@ -292,6 +340,10 @@ def config_from_args(args: argparse.Namespace) -> Config:
             tk[dest] = getattr(args, dest)
     ck = {dest: getattr(args, dest) for dest in ("tokenizer", "dataset")
           if getattr(args, dest, None) is not None}
+    mesh = cfg.mesh
+    if getattr(args, "sp", None) is not None:
+        mesh = dataclasses.replace(mesh, seq=args.sp)
     return dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model, **mk).validate(),
-        train=dataclasses.replace(cfg.train, **tk), **ck)
+        train=dataclasses.replace(cfg.train, **tk), mesh=mesh.validate(),
+        **ck)

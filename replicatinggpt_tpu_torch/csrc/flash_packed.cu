@@ -1,6 +1,7 @@
 // Flash attention, forward and backward, on two layouts with one body:
 // the fused (B, T, 3C) QKV projection output (packed) and separate
-// (B, H, T, D) q, k, v (heads).
+// (B, H, T, D) q, k, v (heads), the latter also as a q-chunk against a
+// kv-chunk at global offsets (chunk: one ring-attention hop).
 //
 // Replaces, in replicatinggpt_tpu/ops/flash_pallas.py:
 // - packed: _fwd_kernel_packed (forward, via _packed_fwd) and
@@ -14,7 +15,12 @@
 //   _bwd_dkv_kernel), _flash_bwd_fused's single-tile kernel, the kv-major
 //   fused backward (_fused_kv_major_bwd), the streamed (_flash_fwd_stream,
 //   _flash_bwd_stream) and the triangular (_flash_fwd_tri, _flash_bwd_tri)
-//   variants.
+//   variants;
+// - chunk: pallas_flash_chunk's kernels, _chunk_fwd_kernel (via
+//   _chunk_fwd), _chunk_bwd_dq_kernel and _chunk_bwd_dkv_kernel (via
+//   _flash_chunk_bwd_rule), the kv-major _chunk_bwd_fused_kernel (via
+//   _fused_kv_major_bwd) and the streamed _chunk_fwd_stream /
+//   _chunk_bwd_stream kernels.
 // All of them compute one function and differ only in what the TPU keeps
 // resident in VMEM; here a block keeps one q or kv tile and walks the
 // other side's tiles through shared memory, so T is bounded by memory
@@ -29,22 +35,39 @@
 // as (B, H, T, D) and lse, delta as (B, H, T) f32. The backward takes
 // delta = rowsum(dO * O) per row and head from the caller. Scores,
 // softmax statistics and every accumulator are f32; loads of bf16 inputs
-// convert to f32 in shared memory. `causal` masks k > q (both sides have
-// the same T); `scale` multiplies the scores.
+// convert to f32 in shared memory. `scale` multiplies the scores.
+//
+// Positions: q row r sits at global position q_off + r, k row c at k_off
+// + c (all offsets 0 for the packed and heads entry points, where the
+// rules below reduce to the diagonal ones). `causal` hides key c from row r iff
+// k_off + c > q_off + r. A q tile walks the kv tiles whose first key is
+// at or before its last row; a kv tile walks the q tiles from the first
+// whose last row sees its first key; a tile is masked elementwise
+// wherever some pair fails the inequality, which at tile-aligned zero
+// offsets is the diagonal tile alone. A row with no visible key (a chunk
+// placed past it, or a row before the first key of a processed tile's
+// chunk) counts no probability mass: o = 0, lse = NEG_INF = -1e30, and
+// its gradients are 0 (the backward gets lse clamped to NEG_INF / 2, so
+// p = exp(s - lse) of its masked scores is 0, and zeroes them anyway).
 //
 // Attention dropout is the JAX kernels' counter hash (_dropout_mult):
 // h = fmix32(seed ^ bh * 0x9E3779B9), y = fmix32(fmix32(h ^ qpos) ^
-// kpos) at absolute positions, kept iff y > threshold, kept weights
-// scaled by `keep`; bh = b * H + h in both layouts (the (B*H) grid index
-// of the JAX heads kernels). The forward's normalizer l sees no dropout;
+// kpos) at global positions, kept iff y > threshold, kept weights
+// scaled by `keep`; bh = bh_off + b * H + h in every layout (the (B*H)
+// grid index of the JAX heads and chunk kernels). The forward's normalizer l sees no dropout;
 // only the V accumulation does. The backward regenerates the same mask.
 //
 // Bound on this card: at GPT-2 XL's shapes (B=16, H=25, T=1024, D=64,
 // bf16, causal) the forward moves ~210 MB (63 us at 3.35 TB/s) against
 // 5.4e10 FLOP (54 us at 989 TFLOP/s): bytes bound it; the backward is
-// bound by its operations. These kernels are far from either: they
+// bound by its operations. A ring hop of GPT-2 XL split 4 ways (B=16,
+// H=25, Tq=Tk=256, D=64, bf16) moves ~53 MB forward and ~93 MB backward
+// (~16 and ~28 us) against 6.7 and 16.8 GFLOP on a fully visible hop (7
+// and 17 us): bytes bound both. These kernels are far from either: they
 // multiply in f32 on the CUDA cores (no tensor cores), so operations
-// bound them in practice. wgmma/TMA tiles are later work.
+// bound them in practice. wgmma/TMA tiles are later work; a hop's grid is
+// a quarter of the full sequence's (Tq / 64 q tiles), still 1600 blocks
+// at the XL hop.
 //
 // Design (first version, correct before fast): BM-row tiles (64; 32 for
 // the D=256 backward, whose 64-row f32 tiles would need ~297 KB of
@@ -54,13 +77,13 @@
 // shared-memory reads are conflict-free with a row stride of D + 1
 // floats.
 // - forward: one block per (q tile, head, batch); K/V tiles walked up to
-//   the diagonal (causal) or to the end, masked inside the diagonal;
-//   online softmax with m, l and the accumulator in f32.
+//   the last one its rows see (causal) or to the end, masked where a key
+//   is past a row; online softmax with m, l and the accumulator in f32.
 // - backward: two kernels, no atomics, so the result is deterministic.
 //   dkv_kernel: one block per (kv tile, head, batch), q tiles from the
-//   diagonal (causal) or the start down, dK and dV accumulated in
-//   registers. dq_kernel: one block per (q tile, head, batch), kv tiles
-//   up to the diagonal or the end. Both recompute p = exp(s - lse) and
+//   first that sees it (causal) or the start down, dK and dV accumulated
+//   in registers. dq_kernel: one block per (q tile, head, batch), kv
+//   tiles as the forward walks them. Both recompute p = exp(s - lse) and
 //   dP; the pair is the port of every TPU backward above.
 //
 // Plain C interface (ctypes); each launch returns cudaGetLastError().
@@ -120,12 +143,20 @@ struct View {
   }
 };
 
+// Where a chunk sits in the whole sequence: q row r is at global
+// position q_off + r, k row c at k_off + c; (batch b, head h) hashes as
+// bh_off + b * H + h. All 0 for full-sequence attention.
+struct Offsets {
+  int q, k, bh;
+};
+
 template <typename T>
 struct FwdArgs {
   View<const T> q, k, v;
   View<T> o;
   View<float> lse;
-  int Tlen, H, causal;
+  int Tq, Tk, H, causal;
+  Offsets off;
   float scale;
   Dropout dp;
 };
@@ -135,10 +166,39 @@ struct BwdArgs {
   View<const T> q, k, v, dout;
   View<const float> lse, delta;
   View<T> dq, dk, dv;
-  int Tlen, H, causal;
+  int Tq, Tk, H, causal;
+  Offsets off;
   float scale;
   Dropout dp;
 };
+
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((b - 1 - a) / b);
+}
+
+__device__ __forceinline__ int clamp_int(int x, int lo, int hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// Causal tile walks on global positions (the JAX chunk kernels' rules,
+// flash_pallas.py _chunk_fwd_kernel / _chunk_bwd_dkv_kernel). kv tiles a
+// q tile whose first row is at qpos0 reaches: those whose first key is
+// at or before its last row. With zero offsets and equal lengths this is
+// q tile index + 1, the diagonal rule.
+template <int BM>
+__device__ __forceinline__ int kv_tiles(int causal, int qpos0, int k_off,
+                                        int n_kv) {
+  if (!causal) return n_kv;
+  return clamp_int(floor_div(qpos0 + BM - 1 - k_off, BM) + 1, 0, n_kv);
+}
+// The first q tile whose last row can see the key at kpos0 (the mirror
+// rule; the kv tile's index with zero offsets).
+template <int BM>
+__device__ __forceinline__ int first_q_tile(int causal, int kpos0, int q_off,
+                                            int n_q) {
+  if (!causal) return 0;
+  return clamp_int(floor_div(kpos0 - q_off, BM), 0, n_q);
+}
 
 __device__ __forceinline__ void load_vec(const float* src, float* dst) {
   const float4 v = *reinterpret_cast<const float4*>(src);
@@ -217,27 +277,30 @@ __device__ __forceinline__ void dot_tile(const float* A, const float* Bt,
 
 // Scores s = Q K^T (rows of q_s) and dP = dO V^T for one tile pair, then
 // p_s = p * z and ds_s = p (z dP - delta) scale, with p = exp(s scale -
-// lse) and columns past the diagonal zeroed when `diag`.
+// lse); the tile's first q row and key are at global positions qpos0 and
+// kpos0, and when `mask`, key c is past row r (p = 0) iff c - r > qpos0 -
+// kpos0.
 template <int D, int BM>
 __device__ __forceinline__ void bwd_scores(
     const float* q_s, const float* do_s, const float* k_s, const float* v_s,
-    const float* lse_s, const float* dl_s, float* p_s, float* ds_s, int q0,
-    int k0, bool diag, float scale, const Dropout& dp, uint32_t hh, int tx,
-    int ty) {
+    const float* lse_s, const float* dl_s, float* p_s, float* ds_s,
+    int qpos0, int kpos0, bool mask, float scale, const Dropout& dp,
+    uint32_t hh, int tx, int ty) {
   constexpr int R = BM / 16, SS = BM + 1;
+  const int d = qpos0 - kpos0;
   float s[R][R] = {}, g[R][R] = {};
   dot_tile<D, BM>(q_s, k_s, s, tx, ty);
   dot_tile<D, BM>(do_s, v_s, g, tx, ty);
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int r = ty + 16 * i;
-    const uint32_t rr = dp.on ? dp.row(hh, q0 + r) : 0u;
+    const uint32_t rr = dp.on ? dp.row(hh, qpos0 + r) : 0u;
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       const int c = tx + 16 * j;
       const float p =
-          (diag && c > r) ? 0.f : expf(s[i][j] * scale - lse_s[r]);
-      const float z = dp.on ? dp.mult(rr, k0 + c) : 1.f;
+          (mask && c - r > d) ? 0.f : expf(s[i][j] * scale - lse_s[r]);
+      const float z = dp.on ? dp.mult(rr, kpos0 + c) : 1.f;
       p_s[r * SS + c] = p * z;
       ds_s[r * SS + c] = p * (g[i][j] * z - dl_s[r]) * scale;
     }
@@ -262,7 +325,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs<T> a) {
   constexpr int SD = D + 1, SS = BM + 1, R = BM / 16, NJ = D / 16;
   constexpr int CPL = BM / 32;  // softmax columns per lane
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * BM;
+  const int q0 = qt * BM, qpos0 = a.off.q + q0;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int lane = tid & 31, warp = tid >> 5;
 
@@ -281,17 +344,20 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs<T> a) {
     l_s[r] = 0.f;
   }
   const Dropout& dp = a.dp;
-  const uint32_t hh = dp.head(b * a.H + h);
+  const uint32_t hh = dp.head(a.off.bh + b * a.H + h);
   float acc[R][NJ];
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
-  const int last = a.causal ? qt : a.Tlen / BM - 1;
-  for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * BM;
-    const bool diag = a.causal && kt == qt;
+  const int n_kv = kv_tiles<BM>(a.causal, qpos0, a.off.k, a.Tk / BM);
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int k0 = kt * BM, kpos0 = a.off.k + k0;
+    // key c is past query row r iff c - r > d; only a tile with d < BM - 1
+    // has such a pair (with zero offsets: the diagonal tile, d = 0)
+    const int d = qpos0 - kpos0;
+    const bool mask = a.causal && d < BM - 1;
     __syncthreads();  // the last tile's readers of k_s, v_s, s_s are done
     load_tile<T, D, BM>(a.k.at(b, h, k0), a.k.sr, k_s);
     load_tile<T, D, BM>(a.v.at(b, h, k0), a.v.sr, v_s);
@@ -303,7 +369,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs<T> a) {
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
-        s_s[r * SS + c] = (diag && c > r) ? kNegInf : s[i][j] * a.scale;
+        s_s[r * SS + c] = (mask && c - r > d) ? kNegInf : s[i][j] * a.scale;
       }
     __syncthreads();
     // online softmax: one warp per row, CPL columns per lane
@@ -317,17 +383,21 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs<T> a) {
       }
       const float m_prev = m_s[r];
       const float m_new = fmaxf(m_prev, warp_max(mx));
+      // no visible key in this row yet: every score so far is the mask
+      // value, and exp(s - m_new) would count each masked key as 1
+      const bool unseen = m_new == kNegInf;
       float sum = 0.f;
 #pragma unroll
       for (int c = 0; c < CPL; ++c) {
-        x[c] = expf(x[c] - m_new);
+        x[c] = unseen ? 0.f : expf(x[c] - m_new);
         sum += x[c];
       }
       sum = warp_sum(sum);
       if (dp.on) {
-        const uint32_t rr = dp.row(hh, q0 + r);
+        const uint32_t rr = dp.row(hh, qpos0 + r);
 #pragma unroll
-        for (int c = 0; c < CPL; ++c) x[c] *= dp.mult(rr, k0 + lane + 32 * c);
+        for (int c = 0; c < CPL; ++c)
+          x[c] *= dp.mult(rr, kpos0 + lane + 32 * c);
       }
 #pragma unroll
       for (int c = 0; c < CPL; ++c) sr[lane + 32 * c] = x[c];
@@ -357,25 +427,30 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs<T> a) {
       }
     }
   }
-  // the first tile leaves every row a positive normalizer (causal: its
-  // column 0 is unmasked)
+  // a row that saw a visible key has l >= 1 (its largest score counts
+  // exp(0)); a row that saw none (a chunk placed past it) has l = 0 and
+  // gets o = 0, lse = NEG_INF, as the JAX chunk kernel writes
+  __syncthreads();  // m_s, l_s as initialized when no kv tile was walked
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int r = ty + 16 * i;
     const float l = l_s[r];
     T* dst = a.o.at(b, h, q0 + r) + tx;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) store(dst + 16 * j, acc[i][j] / l);
+    for (int j = 0; j < NJ; ++j)
+      store(dst + 16 * j, l > 0.f ? acc[i][j] / l : 0.f);
   }
-  for (int r = tid; r < BM; r += kThreads)
-    *a.lse.at(b, h, q0 + r) = m_s[r] + logf(l_s[r]);
+  for (int r = tid; r < BM; r += kThreads) {
+    const float l = l_s[r];
+    *a.lse.at(b, h, q0 + r) = l > 0.f ? m_s[r] + logf(l) : kNegInf;
+  }
 }
 
 template <typename T, int D, int BM>
 __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs<T> a) {
   constexpr int SD = D + 1, SS = BM + 1, R = BM / 16, NJ = D / 16;
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * BM;
+  const int k0 = kt * BM, kpos0 = a.off.k + k0;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
 
   extern __shared__ float smem[];
@@ -390,16 +465,17 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs<T> a) {
 
   load_tile<T, D, BM>(a.k.at(b, h, k0), a.k.sr, k_s);
   load_tile<T, D, BM>(a.v.at(b, h, k0), a.v.sr, v_s);
-  const uint32_t hh = a.dp.head(b * a.H + h);
+  const uint32_t hh = a.dp.head(a.off.bh + b * a.H + h);
   float dk[R][NJ], dv[R][NJ];
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.f;
 
-  const int n_q = a.Tlen / BM;
-  for (int qt = a.causal ? kt : 0; qt < n_q; ++qt) {
-    const int q0 = qt * BM;
+  const int n_q = a.Tq / BM;
+  for (int qt = first_q_tile<BM>(a.causal, kpos0, a.off.q, n_q); qt < n_q;
+       ++qt) {
+    const int q0 = qt * BM, qpos0 = a.off.q + q0;
     __syncthreads();  // the last tile's readers are done
     load_tile<T, D, BM>(a.q.at(b, h, q0), a.q.sr, q_s);
     load_tile<T, D, BM>(a.dout.at(b, h, q0), a.dout.sr, do_s);
@@ -408,8 +484,9 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs<T> a) {
       dl_s[r] = *a.delta.at(b, h, q0 + r);
     }
     __syncthreads();
-    bwd_scores<D, BM>(q_s, do_s, k_s, v_s, lse_s, dl_s, p_s, ds_s, q0, k0,
-                      a.causal && qt == kt, a.scale, a.dp, hh, tx, ty);
+    bwd_scores<D, BM>(q_s, do_s, k_s, v_s, lse_s, dl_s, p_s, ds_s, qpos0,
+                      kpos0, a.causal && qpos0 - kpos0 < BM - 1, a.scale,
+                      a.dp, hh, tx, ty);
     __syncthreads();
     // dV += (p z)^T dO, dK += ds^T Q: rows of the kv tile
     for (int q = 0; q < BM; ++q) {
@@ -448,7 +525,7 @@ template <typename T, int D, int BM>
 __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs<T> a) {
   constexpr int SD = D + 1, SS = BM + 1, R = BM / 16, NJ = D / 16;
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * BM;
+  const int q0 = qt * BM, qpos0 = a.off.q + q0;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
 
   extern __shared__ float smem[];
@@ -466,24 +543,25 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs<T> a) {
     lse_s[r] = *a.lse.at(b, h, q0 + r);
     dl_s[r] = *a.delta.at(b, h, q0 + r);
   }
-  const uint32_t hh = a.dp.head(b * a.H + h);
+  const uint32_t hh = a.dp.head(a.off.bh + b * a.H + h);
   float dq[R][NJ];
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dq[i][j] = 0.f;
 
-  const int last = a.causal ? qt : a.Tlen / BM - 1;
-  for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * BM;
+  const int n_kv = kv_tiles<BM>(a.causal, qpos0, a.off.k, a.Tk / BM);
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int kpos0 = a.off.k + kt * BM;
     __syncthreads();  // the last tile's readers of k_s, ds_s are done
-    load_tile<T, D, BM>(a.k.at(b, h, k0), a.k.sr, k_s);
-    load_tile<T, D, BM>(a.v.at(b, h, k0), a.v.sr, v_s);
+    load_tile<T, D, BM>(a.k.at(b, h, kt * BM), a.k.sr, k_s);
+    load_tile<T, D, BM>(a.v.at(b, h, kt * BM), a.v.sr, v_s);
     __syncthreads();
     // p * z is not needed here: ds_s doubles as the p_s scratch, and is
     // then overwritten by ds in the same call
-    bwd_scores<D, BM>(q_s, do_s, k_s, v_s, lse_s, dl_s, ds_s, ds_s, q0, k0,
-                      a.causal && kt == qt, a.scale, a.dp, hh, tx, ty);
+    bwd_scores<D, BM>(q_s, do_s, k_s, v_s, lse_s, dl_s, ds_s, ds_s, qpos0,
+                      kpos0, a.causal && qpos0 - kpos0 < BM - 1, a.scale,
+                      a.dp, hh, tx, ty);
     __syncthreads();
     // dQ += ds K
     for (int c = 0; c < BM; ++c) {
@@ -521,26 +599,25 @@ int fwd_launch(const FwdArgs<T>& a, int B, cudaStream_t stream) {
   auto kernel = fwd_kernel<T, D, BM>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(a.Tlen / BM, a.H, B), kThreads, smem, stream>>>(a);
+  kernel<<<dim3(a.Tq / BM, a.H, B), kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int bwd_launch(const BwdArgs<T>& a, int B, cudaStream_t stream) {
   constexpr int BM = bwd_rows<D>();
-  const dim3 grid(a.Tlen / BM, a.H, B);
   const size_t smem_kv = dkv_smem_floats<D, BM>() * sizeof(float);
   auto kv = dkv_kernel<T, D, BM>;
   cudaError_t err = allow_smem(kv, smem_kv);
   if (err != cudaSuccess) return (int)err;
-  kv<<<grid, kThreads, smem_kv, stream>>>(a);
+  kv<<<dim3(a.Tk / BM, a.H, B), kThreads, smem_kv, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t smem_q = dq_smem_floats<D, BM>() * sizeof(float);
   auto q = dq_kernel<T, D, BM>;
   err = allow_smem(q, smem_q);
   if (err != cudaSuccess) return (int)err;
-  q<<<grid, kThreads, smem_q, stream>>>(a);
+  q<<<dim3(a.Tq / BM, a.H, B), kThreads, smem_q, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -607,7 +684,7 @@ int packed_fwd(const void* qkv, void* out, void* lse, int B, int Tlen,
                packed(x, 2 * C, Tlen, H, D),
                merged(static_cast<T*>(out), Tlen, H, D),
                packed_stats(static_cast<float*>(lse), Tlen, H),
-               Tlen, H, 1, scale, dp};
+               Tlen, Tlen, H, 1, Offsets{0, 0, 0}, scale, dp};
   return fwd_dispatch(a, B, D, s);
 }
 
@@ -624,39 +701,70 @@ int packed_bwd(const void* qkv, const void* dout, const void* lse,
                packed_stats(static_cast<const float*>(lse), Tlen, H),
                packed_stats(static_cast<const float*>(delta), Tlen, H),
                packed(dx, 0, Tlen, H, D), packed(dx, C, Tlen, H, D),
-               packed(dx, 2 * C, Tlen, H, D), Tlen, H, 1, scale, dp};
+               packed(dx, 2 * C, Tlen, H, D), Tlen, Tlen, H, 1,
+               Offsets{0, 0, 0}, scale, dp};
   return bwd_dispatch(a, B, D, s);
 }
 
+// (B, H, Tq, D) q, o, dO, dq; (B, H, Tk, D) k, v, dk, dv; (B, H, Tq) lse,
+// delta: the heads entry points (Tq = Tk, zero offsets) and the chunk ones
 template <typename T>
-int heads_fwd(const void* q, const void* k, const void* v, void* out,
-              void* lse, int B, int Tlen, int H, int D, float scale,
-              int causal, Dropout dp, cudaStream_t s) {
-  FwdArgs<T> a{heads(static_cast<const T*>(q), Tlen, H, D),
-               heads(static_cast<const T*>(k), Tlen, H, D),
-               heads(static_cast<const T*>(v), Tlen, H, D),
-               heads(static_cast<T*>(out), Tlen, H, D),
-               heads_stats(static_cast<float*>(lse), Tlen, H),
-               Tlen, H, causal, scale, dp};
+int chunk_fwd(const void* q, const void* k, const void* v, void* out,
+              void* lse, int B, int Tq, int Tk, int H, int D, float scale,
+              int causal, Offsets off, Dropout dp, cudaStream_t s) {
+  FwdArgs<T> a{heads(static_cast<const T*>(q), Tq, H, D),
+               heads(static_cast<const T*>(k), Tk, H, D),
+               heads(static_cast<const T*>(v), Tk, H, D),
+               heads(static_cast<T*>(out), Tq, H, D),
+               heads_stats(static_cast<float*>(lse), Tq, H),
+               Tq, Tk, H, causal, off, scale, dp};
   return fwd_dispatch(a, B, D, s);
 }
 
 template <typename T>
-int heads_bwd(const void* q, const void* k, const void* v, const void* dout,
+int chunk_bwd(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, void* dk,
-              void* dv, int B, int Tlen, int H, int D, float scale,
-              int causal, Dropout dp, cudaStream_t s) {
-  BwdArgs<T> a{heads(static_cast<const T*>(q), Tlen, H, D),
-               heads(static_cast<const T*>(k), Tlen, H, D),
-               heads(static_cast<const T*>(v), Tlen, H, D),
-               heads(static_cast<const T*>(dout), Tlen, H, D),
-               heads_stats(static_cast<const float*>(lse), Tlen, H),
-               heads_stats(static_cast<const float*>(delta), Tlen, H),
-               heads(static_cast<T*>(dq), Tlen, H, D),
-               heads(static_cast<T*>(dk), Tlen, H, D),
-               heads(static_cast<T*>(dv), Tlen, H, D), Tlen, H, causal,
-               scale, dp};
+              void* dv, int B, int Tq, int Tk, int H, int D, float scale,
+              int causal, Offsets off, Dropout dp, cudaStream_t s) {
+  BwdArgs<T> a{heads(static_cast<const T*>(q), Tq, H, D),
+               heads(static_cast<const T*>(k), Tk, H, D),
+               heads(static_cast<const T*>(v), Tk, H, D),
+               heads(static_cast<const T*>(dout), Tq, H, D),
+               heads_stats(static_cast<const float*>(lse), Tq, H),
+               heads_stats(static_cast<const float*>(delta), Tq, H),
+               heads(static_cast<T*>(dq), Tq, H, D),
+               heads(static_cast<T*>(dk), Tk, H, D),
+               heads(static_cast<T*>(dv), Tk, H, D), Tq, Tk, H, causal,
+               off, scale, dp};
   return bwd_dispatch(a, B, D, s);
+}
+
+int chunk_fwd_typed(const void* q, const void* k, const void* v, void* out,
+                    void* lse, int B, int Tq, int Tk, int H, int D,
+                    float scale, int causal, Offsets off, Dropout dp,
+                    int dtype, cudaStream_t s) {
+  if (dtype == 0)
+    return chunk_fwd<float>(q, k, v, out, lse, B, Tq, Tk, H, D, scale,
+                            causal, off, dp, s);
+  if (dtype == 1)
+    return chunk_fwd<__nv_bfloat16>(q, k, v, out, lse, B, Tq, Tk, H, D,
+                                    scale, causal, off, dp, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int chunk_bwd_typed(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dq, void* dk, void* dv, int B, int Tq, int Tk,
+                    int H, int D, float scale, int causal, Offsets off,
+                    Dropout dp, int dtype, cudaStream_t s) {
+  if (dtype == 0)
+    return chunk_bwd<float>(q, k, v, dout, lse, delta, dq, dk, dv, B, Tq,
+                            Tk, H, D, scale, causal, off, dp, s);
+  if (dtype == 1)
+    return chunk_bwd<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                    B, Tq, Tk, H, D, scale, causal, off, dp,
+                                    s);
+  return (int)cudaErrorInvalidValue;
 }
 
 bool shape_ok(int B, int Tlen, int H) {
@@ -713,15 +821,10 @@ extern "C" int flash_heads_fwd_launch(const void* q, const void* k,
                                       float keep, int dropout, int dtype,
                                       void* stream) {
   if (!shape_ok(B, Tlen, H)) return (int)cudaErrorInvalidValue;
-  const Dropout dp{dropout, seed, threshold, keep};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return heads_fwd<float>(q, k, v, out, lse, B, Tlen, H, D, scale, causal,
-                            dp, s);
-  if (dtype == 1)
-    return heads_fwd<__nv_bfloat16>(q, k, v, out, lse, B, Tlen, H, D, scale,
-                                    causal, dp, s);
-  return (int)cudaErrorInvalidValue;
+  return chunk_fwd_typed(q, k, v, out, lse, B, Tlen, Tlen, H, D, scale,
+                         causal, Offsets{0, 0, 0},
+                         Dropout{dropout, seed, threshold, keep}, dtype,
+                         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_heads_bwd_launch(const void* q, const void* k,
@@ -734,13 +837,46 @@ extern "C" int flash_heads_bwd_launch(const void* q, const void* k,
                                       int dropout, int dtype,
                                       void* stream) {
   if (!shape_ok(B, Tlen, H)) return (int)cudaErrorInvalidValue;
-  const Dropout dp{dropout, seed, threshold, keep};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return heads_bwd<float>(q, k, v, dout, lse, delta, dq, dk, dv, B, Tlen,
-                            H, D, scale, causal, dp, s);
-  if (dtype == 1)
-    return heads_bwd<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv,
-                                    B, Tlen, H, D, scale, causal, dp, s);
-  return (int)cudaErrorInvalidValue;
+  return chunk_bwd_typed(q, k, v, dout, lse, delta, dq, dk, dv, B, Tlen,
+                         Tlen, H, D, scale, causal, Offsets{0, 0, 0},
+                         Dropout{dropout, seed, threshold, keep}, dtype,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The chunk entry points (ops/flash_chunk.py): a (B, H, Tq, D) q-chunk
+// against a (B, H, Tk, D) kv-chunk, q row r at global position q_off + r
+// and k row c at k_off + c (causal: visible iff q_off + r >= k_off + c),
+// the dropout hash keyed on bh_off + b * H + h at global positions. The
+// backward takes the lse clamped to >= NEG_INF / 2 and delta' =
+// rowsum(dO * O) - dlse. Tq and Tk multiples of 64.
+extern "C" int flash_chunk_fwd_launch(const void* q, const void* k,
+                                      const void* v, void* out, void* lse,
+                                      int B, int Tq, int Tk, int H, int D,
+                                      float scale, int causal, int q_off,
+                                      int k_off, int bh_off, unsigned seed,
+                                      unsigned threshold, float keep,
+                                      int dropout, int dtype, void* stream) {
+  if (!shape_ok(B, Tq, H) || !shape_ok(B, Tk, H))
+    return (int)cudaErrorInvalidValue;
+  return chunk_fwd_typed(q, k, v, out, lse, B, Tq, Tk, H, D, scale, causal,
+                         Offsets{q_off, k_off, bh_off},
+                         Dropout{dropout, seed, threshold, keep}, dtype,
+                         static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_chunk_bwd_launch(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* delta,
+                                      void* dq, void* dk, void* dv, int B,
+                                      int Tq, int Tk, int H, int D,
+                                      float scale, int causal, int q_off,
+                                      int k_off, int bh_off, unsigned seed,
+                                      unsigned threshold, float keep,
+                                      int dropout, int dtype, void* stream) {
+  if (!shape_ok(B, Tq, H) || !shape_ok(B, Tk, H))
+    return (int)cudaErrorInvalidValue;
+  return chunk_bwd_typed(q, k, v, dout, lse, delta, dq, dk, dv, B, Tq, Tk,
+                         H, D, scale, causal, Offsets{q_off, k_off, bh_off},
+                         Dropout{dropout, seed, threshold, keep}, dtype,
+                         static_cast<cudaStream_t>(stream));
 }

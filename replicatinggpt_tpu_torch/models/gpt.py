@@ -290,11 +290,11 @@ def _block(x, lp, cfg: ModelConfig, *, rng: Optional[DropoutRNG],
 
 
 def _seeded_block(x, lp, cfg: ModelConfig, seed: Optional[int],
-                  train: bool, attention_fn: AttentionFn):
-    """``_block`` with its own dropout streams, built from ``seed``: a
-    recompute under checkpointing builds the same streams again, so it
-    draws the forward's masks and kernel seeds."""
-    rng = None if seed is None else DropoutRNG(seed, x.device)
+                  train: bool, attention_fn: AttentionFn, stream: int = 0):
+    """``_block`` with its own dropout streams, built from ``seed`` (and
+    the run's ``stream``): a recompute under checkpointing builds the same
+    streams again, so it draws the forward's masks and kernel seeds."""
+    rng = None if seed is None else DropoutRNG(seed, x.device, stream)
     return _block(x, lp, cfg, rng=rng, train=train,
                   attention_fn=attention_fn)
 
@@ -337,24 +337,27 @@ def _run_blocks(x, p: Params, cfg: ModelConfig, *,
     (JAX's ``fold_in(rng, layer_idx)``), with or without remat, so both
     give the same masks."""
     context = _remat_context(cfg.remat_policy) if cfg.remat else None
+    stream = rng.stream if rng is not None else 0
     for lp in _layers(p, cfg.n_layer):
         seed = rng.kernel_seed() if rng is not None else None
         if cfg.remat:
             x = checkpoint(_seeded_block, x, lp, cfg, seed, train,
-                           attention_fn, use_reentrant=False,
+                           attention_fn, stream, use_reentrant=False,
                            preserve_rng_state=False, context_fn=context)
         else:
-            x = _seeded_block(x, lp, cfg, seed, train, attention_fn)
+            x = _seeded_block(x, lp, cfg, seed, train, attention_fn, stream)
     return x
 
 
 def forward(params: Params, idx: torch.Tensor, cfg: ModelConfig, *,
             targets: Optional[torch.Tensor] = None,
             rng: Optional[DropoutRNG] = None, train: bool = False,
-            attention_fn: Optional[AttentionFn] = None
+            attention_fn: Optional[AttentionFn] = None, pos_offset: int = 0
             ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Full-sequence forward over the master weights ``params`` (the
-    ``GPT.tree()`` dict). idx: (B, T) token ids of any integer dtype.
+    ``GPT.tree()`` dict). idx: (B, T) token ids of any integer dtype, at
+    global positions ``pos_offset ... pos_offset + T - 1`` (a sequence
+    shard of a process group starts past 0).
 
     Returns ``(logits, loss)``: (B, T, V) f32 logits (the compute-dtype
     product, cast) and the mean f32 cross-entropy, or None without
@@ -364,7 +367,10 @@ def forward(params: Params, idx: torch.Tensor, cfg: ModelConfig, *,
     B, T = idx.shape
     p = _cast_tree(params, cfg.compute_dtype)
     attend = attention_fn or attention_for(cfg, T)
-    x = p["wte"][idx.long()] + p["wpe"][:T]
+    if pos_offset + T > cfg.block_size:
+        raise ValueError(f"positions {pos_offset}..{pos_offset + T - 1} "
+                         f"past block_size={cfg.block_size}")
+    x = p["wte"][idx.long()] + p["wpe"][pos_offset:pos_offset + T]
     x = _run_blocks(x, p, cfg, rng=rng, train=train, attention_fn=attend)
     x = _layer_norm(x, p["ln_f_scale"], p["ln_f_bias"], cfg.layernorm_eps)
     head = p["wte"].T if cfg.tied_head else p["lm_head"]

@@ -61,11 +61,18 @@ class DropoutRNG:
     generator on the device, draws the residual masks (and the plain
     core's attention masks); ``seeds``, a CPU generator, draws the flash
     kernels' int32 seeds and the blocks' own seeds, so no draw waits on
-    the card."""
+    the card. ``stream`` (a sequence shard's rank) decorrelates ``bits``
+    between the processes of a seq group, whose residual masks cover other
+    positions, and leaves ``seeds`` alone: every rank draws the same
+    kernel seeds, so a (q, k) pair's hashed attention mask is the same on
+    whichever rank computes it. Stream 0 is the single-process stream."""
 
-    def __init__(self, seed: int, device=None):
+    def __init__(self, seed: int, device=None, stream: int = 0):
         dev = torch.device("cpu" if device is None else device)
-        self.bits = torch.Generator(device=dev).manual_seed(seed)
+        self.stream = stream
+        bits_seed = seed if stream == 0 else \
+            (seed + stream * 0x9E3779B97F4A7C15) % 2 ** 63
+        self.bits = torch.Generator(device=dev).manual_seed(bits_seed)
         self.seeds = torch.Generator().manual_seed(seed)
 
     def kernel_seed(self) -> int:

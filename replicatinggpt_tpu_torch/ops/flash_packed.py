@@ -345,18 +345,23 @@ def flash_packed_attention(qkv: torch.Tensor, n_head: int, *, seed: int = 0,
 
 
 def _lib() -> ctypes.CDLL:
-    """The kernels' library, its four entry points typed: the packed
-    (qkv, ...) pair and the (B, H, T, D) pair of ``ops/flash_heads.py``,
-    which take ``causal`` after the scale."""
+    """The kernels' library, its six entry points typed: the packed
+    (qkv, ...) pair, the (B, H, T, D) pair of ``ops/flash_heads.py``,
+    which take ``causal`` after the scale, and the chunk pair of
+    ``ops/flash_chunk.py``, which take (B, Tq, Tk, H, D) and, after
+    ``causal``, the q, k and (batch * head) offsets."""
     lib = _build.load(_KERNEL)
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    for name, ptrs, causal in (("flash_packed_fwd_launch", 3, []),
-                               ("flash_packed_bwd_launch", 5, []),
-                               ("flash_heads_fwd_launch", 5, [i]),
-                               ("flash_heads_bwd_launch", 9, [i])):
+    dims, chunk_dims = [i, i, i, i, f], [i, i, i, i, i, f]
+    for name, ptrs, shape, after in (
+            ("flash_packed_fwd_launch", 3, dims, []),
+            ("flash_packed_bwd_launch", 5, dims, []),
+            ("flash_heads_fwd_launch", 5, dims, [i]),
+            ("flash_heads_bwd_launch", 9, dims, [i]),
+            ("flash_chunk_fwd_launch", 5, chunk_dims, [i, i, i, i]),
+            ("flash_chunk_bwd_launch", 9, chunk_dims, [i, i, i, i])):
         fn = getattr(lib, name)
         if fn.argtypes is None:
-            fn.argtypes = ([p] * ptrs + [i, i, i, i, f] + causal
-                           + [u, u, f, i, i, p])
+            fn.argtypes = [p] * ptrs + shape + after + [u, u, f, i, i, p]
             fn.restype = ctypes.c_int
     return lib

@@ -4,27 +4,34 @@ Corpus -> the preset's tokenizer (char, or the byte-level BPE trained at
 first use and cached) -> 90/10 split -> random or sequential windows
 prefetched to the device -> the train loop with the periodic train/val
 estimate and the reference's log lines -> a final estimate and the
-tokens/s. Mesh sharding, fault supervision, the profiler, telemetry and
-checkpoints are not in this port yet (ROADMAP.md queue A items 4, 11
+tokens/s. With a seq axis (``--sp``) every sequence splits into shards
+whose attention is the ring (``parallel/``): all of them in this process,
+or one per ``torchrun`` process, where every rank draws the same batches
+and keeps its columns, only rank 0 logs, and tokens/s counts the global
+batch. The other mesh axes, fault supervision, the profiler, telemetry
+and checkpoints are not in this port yet (ROADMAP.md queue A items 4, 11
 and 12).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config
 from ..data.dataset import TokenDataset, load_corpus
 from ..data.loader import make_batcher, prefetch
-from ..device import resolve_device
 from ..models.gpt import param_count
 from ..ops.flash_attention import describe_route
+from ..parallel import (describe_ring_route, distributed,
+                        select_attention_fn)
 from ..tokenizers import get_tokenizer
 from ..utils.logging import StepLogger
 from ..utils.profiling import StepTimes
@@ -40,6 +47,7 @@ class TrainResult:
     tokenizer: Any
     tokens_per_sec: float
     step_times: Dict[str, float]   # StepTimes.summary() of the train steps
+    main: bool = True              # rank 0, or the only process
 
 
 def _resolve_vocab(cfg: Config, tokenizer) -> Config:
@@ -59,9 +67,22 @@ def _wire_dtype(vocab_size: int):
 
 def train(cfg: Config, *, device=None,
           logger: Optional[StepLogger] = None) -> TrainResult:
-    """Train ``cfg`` on ``device`` (None = the card; raises without one)."""
-    dev = resolve_device(device)
-    logger = logger or StepLogger()
+    """Train ``cfg`` on ``device`` (None = the card; raises without one;
+    under ``torchrun``, the card of the process's ``LOCAL_RANK``)."""
+    joined = dist.is_initialized()
+    dev, group = distributed.setup(cfg.mesh.validate().seq, device)
+    try:
+        return _train(cfg, dev, group, logger or StepLogger())
+    finally:
+        if dist.is_initialized() and not joined:
+            dist.destroy_process_group()
+
+
+def _train(cfg: Config, dev: torch.device, group,
+           logger: StepLogger) -> TrainResult:
+    main = group is None or group.is_main
+    if not main:
+        logger = StepLogger(stream=io.StringIO())   # only rank 0 logs
     text = load_corpus(cfg.dataset)
     t0 = time.perf_counter()
     tokenizer = get_tokenizer(cfg.tokenizer, corpus_text=text)
@@ -80,21 +101,34 @@ def train(cfg: Config, *, device=None,
         "train": make_batcher("random", ds.train, B, T, seed=tcfg.seed + 1),
         "val": make_batcher("random", ds.val, B, T, seed=tcfg.seed + 2),
     }
-    state = create_train_state(mcfg, tcfg, dev)
+    state = create_train_state(mcfg, tcfg, dev,
+                               stream=0 if group is None else group.rank)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     remat = f", remat={mcfg.remat_policy}" if mcfg.remat else ""
     logger.log(f"model: {param_count(state.model):,} params "
                f"({mcfg.n_layer}L/{mcfg.n_head}H/{mcfg.n_embd}C, "
                f"dtype={mcfg.dtype}{remat}) on {dev} ({name})")
-    logger.log(f"attention: {describe_route(mcfg, T)}")
-    train_step = make_train_step(mcfg, tcfg)
-    eval_step = make_eval_step(mcfg)
+    attention_fn = None
+    if group is None:
+        logger.log(f"attention: {describe_route(mcfg, T)}")
+    else:
+        # every rank drew the same weights from the seed; rank 0's are
+        # the run's all the same
+        group.broadcast_(list(state.model.parameters()))
+        attention_fn = select_attention_fn(mcfg, cfg.mesh, group)
+        logger.log(f"sequence parallelism: seq axis {cfg.mesh.seq}, impl "
+                   f"{attention_fn.impl_name!r} (configured "
+                   f"{mcfg.attention_impl!r}), {group.describe()}")
+        logger.log(f"attention: {describe_ring_route(T, group)}")
+    train_step = make_train_step(mcfg, tcfg, attention_fn, group)
+    eval_step = make_eval_step(mcfg, attention_fn, group)
 
     accum = max(tcfg.grad_accum_steps, 1)
     if accum > 1:
         logger.log(f"gradient accumulation: {accum} x {B} rows/optimizer "
                    f"step (effective batch {accum * B})")
-    tokens_per_batch = B * T * accum
+    tokens_per_batch = B * T * accum   # the global batch, on every rank
+    chips = 1 if group is None else group.size // len(group.shards)
     wire = _wire_dtype(mcfg.vocab_size)
 
     def feed():
@@ -136,7 +170,7 @@ def train(cfg: Config, *, device=None,
                 if not np.isfinite(loss_val):
                     raise FloatingPointError(
                         f"non-finite train loss {loss_val} at step {it - 1}")
-                logger.log_step(it - 1, loss_val, tokens_since_log,
+                logger.log_step(it - 1, loss_val, tokens_since_log, chips,
                                 lr=lr_at(it - 1))
                 tokens_since_log = 0
     finally:
@@ -152,13 +186,15 @@ def train(cfg: Config, *, device=None,
     # the first step pays the kernels' build and first-launch costs
     step_times = times.summary(skip=1 if len(times.pairs) > 1 else 0)
     clock = "device events" if dev.type == "cuda" else "host clock"
-    logger.log(f"trained {tokens_seen:,} tokens in {wall:.1f}s "
-               f"({tps:,.0f} tok/s/chip)", tokens=tokens_seen, wall_s=wall,
-               tokens_per_sec=tps)
+    rate = (f"{tps:,.0f} tok/s/chip" if chips == 1 else
+            f"{tps:,.0f} tok/s over {chips} chips, {tps / chips:,.0f} "
+            f"tok/s/chip")
+    logger.log(f"trained {tokens_seen:,} tokens in {wall:.1f}s ({rate})",
+               tokens=tokens_seen, wall_s=wall, tokens_per_sec=tps)
     logger.log(f"train step p50 {step_times['p50_ms']:.3f} ms, mean "
                f"{step_times['mean_ms']:.3f} ms over {step_times['n']} "
                f"steps ({clock})",
                **step_times)
     return TrainResult(state=state, history=history, final_eval=final_eval,
                        tokenizer=tokenizer, tokens_per_sec=tps,
-                       step_times=step_times)
+                       step_times=step_times, main=main)

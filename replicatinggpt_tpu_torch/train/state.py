@@ -115,14 +115,16 @@ class TrainState:
 
 
 def create_train_state(mcfg: ModelConfig, tcfg: TrainConfig, device,
-                       model: Optional[GPT] = None) -> TrainState:
+                       model: Optional[GPT] = None,
+                       stream: int = 0) -> TrainState:
     """Fresh state on ``device``: weights from ``tcfg.seed`` (or the
     given ``model``), dropout streams from ``tcfg.seed + 1`` (another
-    stream than the weights' on the same device)."""
+    stream than the weights' on the same device), residual masks
+    decorrelated by ``stream`` (a process's sequence shard)."""
     dev = torch.device(device)
     if model is None:
         gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
         model = init_params(mcfg, gen, device=dev)
     return TrainState(step=0, model=model,
                       optimizer=make_optimizer(model.parameters(), tcfg),
-                      rng=DropoutRNG(tcfg.seed + 1, dev))
+                      rng=DropoutRNG(tcfg.seed + 1, dev, stream))

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from replicatinggpt_tpu_torch.ops import decode as dec
+from replicatinggpt_tpu_torch.ops import flash_chunk as fc
 from replicatinggpt_tpu_torch.ops import flash_heads as fh
 from replicatinggpt_tpu_torch.ops import flash_packed as fp
 from replicatinggpt_tpu_torch.ops import paged_attention as pa
@@ -240,6 +241,120 @@ def test_flash_heads_kernel_rejects_what_it_does_not_take(card):
     q = torch.zeros(1, 2, 64, 128, device="cuda").transpose(2, 3)[..., :64, :]
     with pytest.raises(ValueError):
         fh.flash_heads_fwd(q, q, q)
+
+
+def _chunk_inputs(B, H, Tq, Tk, D, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def mk(T):
+        return torch.from_numpy(rng.standard_normal((B, H, T, D))
+                                .astype(np.float32)).cuda().to(dtype)
+
+    return mk(Tq), mk(Tk), mk(Tk), mk(Tq), torch.from_numpy(
+        rng.standard_normal((B, H, Tq)).astype(np.float32)).cuda()
+
+
+# (Tq, Tk, q_offset, k_offset): fully visible, diagonal, partly masked on
+# a tile boundary and off it, fully masked, rows before the chunk's first
+# key in a walked tile, Tq != Tk
+CHUNK_HOPS = [(128, 128, 128, 0), (128, 128, 128, 128), (128, 128, 64, 0),
+              (128, 128, 96, 0), (128, 128, -128, 0), (128, 128, 0, 32),
+              (64, 192, 160, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tq,Tk,q_off,k_off", CHUNK_HOPS)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_chunk_kernels_match_ref(card, Tq, Tk, q_off, k_off, rate,
+                                       dtype):
+    """The chunk forward (o, lse) and backward (dq, dk, dv from the
+    clamped lse and delta' with a nonzero lse cotangent) against the
+    plain versions at global offsets; a fully masked hop gives o = 0,
+    lse = NEG_INF and gradients exactly 0."""
+    q, k, v, do, dlse = _chunk_inputs(2, 3, Tq, Tk, 64, dtype,
+                                      seed=Tq + q_off)
+    kw = dict(q_offset=q_off, k_offset=k_off, seed=424_242, rate=rate,
+              bh_offset=5)
+    f0, b0 = fc.flash_chunk_fwd.launches, fc.flash_chunk_bwd.launches
+    o, lse = fc.flash_chunk_fwd(q, k, v, **kw)
+    do, lse_c, deltap = fc.chunk_bwd_inputs(o, lse, do, dlse)
+    grads = fc.flash_chunk_bwd(q, k, v, do, lse_c, deltap, **kw)
+    torch.cuda.synchronize()
+    assert (fc.flash_chunk_fwd.launches, fc.flash_chunk_bwd.launches) \
+        == (f0 + 1, b0 + 1)
+    ro, rlse = fc.flash_chunk_fwd_ref(q, k, v, **kw)
+    rg = fc.flash_chunk_bwd_ref(q, k, v, do, lse_c, deltap, **kw)
+    _hold_flash((o, lse, *grads), (ro, rlse, *rg))
+    if q_off + Tq <= k_off:
+        assert not o.any() and not any(g.any() for g in grads)
+        assert (lse == fc.NEG_INF).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_chunk_at_offset_zero_is_the_heads_kernel(card, dtype):
+    """Offsets 0, Tq = Tk: the chunk kernel's o, lse and gradients equal
+    the heads kernel's bit for bit, dropout mask included."""
+    q, k, v, do, _ = _chunk_inputs(2, 25, 256, 256, 64, dtype, seed=9)
+    kw = dict(seed=77, rate=0.1)
+    o, lse = fc.flash_chunk_fwd(q, k, v, **kw)
+    ho, hlse = fh.flash_heads_fwd(q, k, v, **kw)
+    delta = fh.heads_delta(do, ho)
+    g = fc.flash_chunk_bwd(q, k, v, do, lse, delta, **kw)
+    hg = fh.flash_heads_bwd(q, k, v, do, hlse, delta, **kw)
+    for a, b in zip((o, lse, *g), (ho, hlse, *hg)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_chunk_autograd_and_ring_on_card(card):
+    """FlashChunk launches one forward and one backward and matches
+    autograd through the plain forward; the ring over 4 shards in one
+    process launches 10 hops and matches the dense plain attention."""
+    from replicatinggpt_tpu_torch.parallel import (LocalSeqGroup,
+                                                   ring_attention)
+    q, k, v, g, dl = _chunk_inputs(2, 3, 128, 128, 32, torch.float32,
+                                   seed=4)
+    x = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    f0, b0 = fc.flash_chunk_fwd.launches, fc.flash_chunk_bwd.launches
+    o, lse = fc.flash_chunk(*x, q_offset=64, k_offset=0, seed=5, rate=0.2)
+    ((o * g).sum() + (lse * dl).sum()).backward()
+    torch.cuda.synchronize()
+    assert (fc.flash_chunk_fwd.launches, fc.flash_chunk_bwd.launches) \
+        == (f0 + 1, b0 + 1)
+    y = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ro, rlse = fc.flash_chunk_fwd_ref(*y, q_offset=64, k_offset=0, seed=5,
+                                      rate=0.2)
+    ((ro * g).sum() + (rlse * dl).sum()).backward()
+    for a, b in zip(x, y):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4)
+    q, k, v, g, _ = _chunk_inputs(2, 3, 512, 512, 64, torch.float32, seed=6)
+    x = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    f0 = fc.flash_chunk_fwd.launches
+    out = ring_attention(*x, group=LocalSeqGroup(4))
+    (out * g).backward(torch.ones_like(out))
+    assert fc.flash_chunk_fwd.launches == f0 + 10
+    y = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref, _ = fh.flash_heads_fwd_ref(*y)
+    (ref * g).backward(torch.ones_like(ref))
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    for a, b in zip(x, y):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_chunk_kernel_rejects_what_it_does_not_take(card):
+    for (tq, tk, d), dtype, err in (((64, 96, 64), torch.float32, ValueError),
+                                    ((64, 64, 48), torch.float32, ValueError),
+                                    ((64, 64, 64), torch.float16, TypeError)):
+        q = torch.zeros(1, 2, tq, d, device="cuda", dtype=dtype)
+        k = torch.zeros(1, 2, tk, d, device="cuda", dtype=dtype)
+        with pytest.raises(err):
+            fc.flash_chunk_fwd(q, k, k)
+    q = torch.zeros(1, 2, 64, 64, device="cuda")
+    with pytest.raises(ValueError):
+        fc.flash_chunk_fwd(q, q.cpu(), q)
 
 
 def _nan_past(cache, pos, seq_axis):

@@ -6,21 +6,24 @@ time, on one NVIDIA card.
         [--steps 10] [--out PATH]
     python3 tools/torch_port_train_profile.py --preset gpt2-xl \
         --batch-size 16 --grad-accum-steps 4 --steps 3
+    python3 tools/torch_port_train_profile.py --preset gpt2-xl --sp 4 \
+        --batch-size 16 --grad-accum-steps 4 --steps 3
 
 Builds the ``train --preset <preset>`` step (char-gpt, the default: 6
 layers, C=384, H=6, T=256, B=64, bf16 compute, dropout 0.2; gpt2-small:
 12 layers, C=768, H=12, T=1024, B=32, vocab 50257, dropout 0; gpt2-xl:
 48 layers, C=1600, H=25, remat full, its global batch of 64 as
-accumulated micro-batches, ``--batch-size`` rows each) at random
-init on batches of the preset's tokens (the BPE is trained at first use
+accumulated micro-batches, ``--batch-size`` rows each; with ``--sp N``
+its attention is the ring over N sequence shards in this one process,
+as ``train --sp N`` runs it) at random init on batches of the preset's tokens (the BPE is trained at first use
 and cached, as ``train`` does), warms it up, then
 times ``--steps`` steps with the host clock (ending in a device sync) and
 traces the same number with ``torch.profiler``. From the trace: the
 device's busy time (the union of kernel intervals), its idle share of
 the traced window (which the profiler's own overhead stretches) and of
 the untraced steps' wall time, the share of the flash attention kernels
-(``csrc/flash_packed.cu``, both layouts), and device time by kernel family and by
-kernel name. Prints one JSON object, and writes it to ``--out`` when given.
+(``csrc/flash_packed.cu``: the packed, heads and chunk entry points), and
+device time by kernel family and by kernel name. Prints one JSON object, and writes it to ``--out`` when given.
 """
 
 from __future__ import annotations
@@ -42,7 +45,10 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 from torch_port_profile import (busy_us, card, device_kernels,  # noqa: E402
                                 us_by_name)
 
-from replicatinggpt_tpu_torch.config import get_config  # noqa: E402
+from replicatinggpt_tpu_torch.config import (MeshConfig,  # noqa: E402
+                                             get_config)
+from replicatinggpt_tpu_torch.parallel import (  # noqa: E402
+    LocalSeqGroup, select_attention_fn)
 from replicatinggpt_tpu_torch.data.loader import RandomBatcher  # noqa: E402
 from replicatinggpt_tpu_torch.tokenizers import get_tokenizer  # noqa: E402
 from replicatinggpt_tpu_torch.train.runner import _wire_dtype  # noqa: E402
@@ -82,6 +88,8 @@ def main() -> int:
     p.add_argument("--grad-accum-steps", type=int, default=None,
                    help="micro-batches a step (default: the preset's)")
     p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence shards, attention through the ring")
     p.add_argument("--out", default=None)
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -101,7 +109,12 @@ def main() -> int:
     batcher = RandomBatcher(tokens, tcfg.batch_size, mcfg.block_size,
                             seed=tcfg.seed)
     state = create_train_state(mcfg, tcfg, "cuda")
-    step = make_train_step(mcfg, tcfg)
+    group = attention_fn = None
+    if args.sp > 1:
+        group = LocalSeqGroup(args.sp)
+        attention_fn = select_attention_fn(mcfg, MeshConfig(seq=args.sp),
+                                           group)
+    step = make_train_step(mcfg, tcfg, attention_fn, group)
 
     def batch():
         arrays = [batcher.next_batch() for _ in range(accum)]
@@ -140,7 +153,7 @@ def main() -> int:
              for k in ("fwd_kernel", "dkv_kernel", "dq_kernel")}
     n = args.steps
     row = {
-        "card": card(), "preset": args.preset, "steps": n,
+        "card": card(), "preset": args.preset, "sp": args.sp, "steps": n,
         "batch": tcfg.batch_size, "grad_accum_steps": accum,
         "peak_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "step_wall_ms": round(wall_ms, 4),
