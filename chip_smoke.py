@@ -7,7 +7,11 @@ Drives ``replicatinggpt_tpu_torch`` (never the JAX package) in phases,
 and fails (non-zero exit) on the first phase that fails:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels from ``replicatinggpt_tpu_torch/csrc/``;
+2. build the CUDA kernels from ``replicatinggpt_tpu_torch/csrc/`` (with
+   ``-Xptxas -v``: registers, shared memory and spills a kernel); name the
+   flash kernels' two bodies (bf16 on the tensor cores, f32 on the CUDA
+   cores) and, where the toolkit has ``cuobjdump``, count the HMMA/HGMMA
+   instructions of each bf16 flash kernel (evidence, gating nothing);
 3. kernel phase: ``paged_window_attention`` against its plain PyTorch
    version at the serving path's shapes (GPT-2 124M: C=768, H=12,
    page 16, 64 pages per slot, 512 pages, 8 slots), W in {1, 4}, bf16
@@ -18,7 +22,8 @@ and fails (non-zero exit) on the first phase that fails:
 4. flash kernel phase: ``flash_packed_fwd`` / ``flash_packed_bwd``
    against their plain versions at the training path's shapes (char-GPT:
    B=64, T=256, C=384, H=6), bf16 and f32 (``FLASH_TOL``: one bf16 ulp,
-   else 1e-4), attention dropout off and at 0.2 with one seed (o, lse,
+   else 1e-4; every flash check feeds bf16 inputs on the exact grid of
+   ``on_grid``), attention dropout off and at 0.2 with one seed (o, lse,
    d(qkv)); then timings of
    both kernels, their plain versions and ``scaled_dot_product_attention``
    on split heads (its forward, and its backward), at the path's dropout;
@@ -100,7 +105,8 @@ and fails (non-zero exit) on the first phase that fails:
    their plain versions at GPT-2 XL's attention shapes (B=16, the slice's
    micro-batch, H=25, T=1024, D=64), bf16 and f32 (``FLASH_TOL``),
    dropout 0 and 0.1, causal; ``causal=False`` at B=2, H=4, T=512; D=256
-   at B=2, H=4, T=2048 (the backward on 32-row tiles), bf16 and f32; then
+   at B=2, H=4, T=2048 (the f32 backward on 32-row tiles, the bf16 one
+   on 64-row tiles over column chunks of D), bf16 and f32; then
    timings at the path's setting (bf16, dropout 0) of the kernels, their
    plain versions and ``scaled_dot_product_attention(is_causal=True)``
    beside the bound, and of both routes at those shapes: the packed
@@ -151,7 +157,10 @@ and fails (non-zero exit) on the first phase that fails:
    steps x 4, the heads and packed kernels never; the peak memory under
    80 GB.
 
-Prints a ``{"kernels": [...]}`` line and, last, the
+Every flash row of the ``{"kernels": [...]}`` line also carries the
+achieved rate (``tflops``: the bound's operation count over the kernel's
+time) and ``vs_library`` (kernel time over the library call's). Prints
+that line, the card's name and power limit and, last, the
 ``{"ok": true, "device": {...}}`` line.
 """
 
@@ -304,6 +313,19 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 FLASH_TOL = {torch.bfloat16: (1e-4, 1e-2), torch.float32: (1e-4, 1e-4)}
 
 
+def on_grid(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x as the flash checks feed it in ``dtype``: bf16 on a grid of 1/32
+    within [-4, 4], where every product of two inputs is a multiple of
+    2^-10 below 16 and a sum of D <= 256 of them is exact in f32 in any
+    order. The bf16 kernels and their plain versions round p z and ds to
+    bf16 at the same points; from equal scores they round equally, so
+    ``FLASH_TOL`` holds elementwise. Off the grid, f32 summation order
+    alone moves a few in a million of those roundings by one bf16 ulp."""
+    if dtype == torch.bfloat16:
+        x = (x * 32).round().clamp(-128, 128) / 32
+    return x.to(dtype)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -432,14 +454,14 @@ def flash_inputs(dtype: torch.dtype, seed: int = 0, shape=(FB, FT, FC),
     g = torch.Generator(device="cuda").manual_seed(seed)
     qkv = torch.randn((B, T, 3 * C), generator=g, device="cuda") * scale
     do = torch.randn((B, T, C), generator=g, device="cuda")
-    return qkv.to(dtype), do.to(dtype)
+    return on_grid(qkv, dtype), on_grid(do, dtype)
 
 
 def flash_bound_ms(qkv: torch.Tensor, n_head: int, which: str) -> tuple:
     """Least time of one call: its inputs read once and outputs written
     once over the memory rate, vs its causal products (2 matrix products
     forward, 5 backward, over the T(T+1)/2 unmasked pairs) over the peak
-    rate of the input type."""
+    rate of the input type; (ms, what bounds it, the products' FLOP)."""
     B, T, C3 = qkv.shape
     C, isz = C3 // 3, qkv.element_size()
     rows, D = B * T, C // n_head
@@ -451,7 +473,17 @@ def flash_bound_ms(qkv: torch.Tensor, n_head: int, which: str) -> tuple:
         nbytes = (2 * rows * 3 * C * isz + rows * C * isz
                   + 2 * rows * n_head * 4)
         flops = 5 * 2 * pairs * D
-    return _bound(nbytes, flops, qkv.dtype)
+    return (*_bound(nbytes, flops, qkv.dtype), flops)
+
+
+def rates(ms: float, flops: float, library_ms: float) -> dict:
+    """A flash row's achieved rate (the bound's operation count over the
+    kernel's time) and its time over the library call's."""
+    return {"tflops": flops / ms / 1e9, "vs_library": ms / library_ms}
+
+
+def rates_text(r: dict) -> str:
+    return f"{r['tflops']:.1f} TFLOP/s, {r['vs_library']:.2f}x sdpa"
 
 
 def flash_tol_text(dtype: torch.dtype) -> str:
@@ -543,13 +575,14 @@ def flash_kernel_phase() -> list:
                                              flush)
     rows = []
     for which, err in (("fwd", "o"), ("bwd", "dqkv")):
-        b_ms, b_by = flash_bound_ms(qkv, FH, which)
+        b_ms, b_by, b_ops = flash_bound_ms(qkv, FH, which)
+        r = rates(ms[which], b_ops, library[which])
         print(f"flash {which} timing (bf16, B={FB}, T={FT}, C={FC}, H={FH}, "
               f"attention dropout {ATTN_RATE}): kernel "
               f"{ms[which] * 1e3:.1f} us, plain {plain[which] * 1e3:.1f} us, "
               f"sdpa ({backend}) {library[which] * 1e3:.1f} us, bound "
-              f"{b_ms * 1e3:.2f} us ({b_by})")
-        rows.append({
+              f"{b_ms * 1e3:.2f} us ({b_by}); {rates_text(r)}")
+        rows.append({**r,
             "name": f"flash_packed_{which}", "route": "cuda",
             "source": FLASH_SOURCE, "replaces": FLASH_REPLACES[which],
             "max_abs_err": errs[(torch.bfloat16, ATTN_RATE)][err],
@@ -1302,16 +1335,18 @@ def group_flash_phase(flush: torch.Tensor) -> list:
                                              n=10)
     rows = []
     for which, err in (("fwd", "o"), ("bwd", "dqkv")):
-        b_ms, b_by = flash_bound_ms(qkv, GH, which)
-        lb_ms, lb_by = long_bound[which]
-        for label, t, p, lib, bm, bb in (
-                (f"B={GB}, T={GT}", ms, plain, library, b_ms, b_by),
-                (f"B=1, T={LT}", *long_t[:3], lb_ms, lb_by)):
+        b_ms, b_by, b_ops = flash_bound_ms(qkv, GH, which)
+        lb_ms, lb_by, lb_ops = long_bound[which]
+        r = rates(ms[which], b_ops, library[which])
+        lr = rates(long_t[0][which], lb_ops, long_t[2][which])
+        for label, t, p, lib, bm, bb, rr in (
+                (f"B={GB}, T={GT}", ms, plain, library, b_ms, b_by, r),
+                (f"B=1, T={LT}", *long_t[:3], lb_ms, lb_by, lr)):
             print(f"flash {which} timing (bf16, {label}, C={GC}, H={GH}, "
                   f"dropout 0): kernel {t[which]:.3f} ms, plain "
                   f"{p[which]:.3f} ms, sdpa ({backend}) {lib[which]:.3f} ms, "
-                  f"bound {bm:.4f} ms ({bb})")
-        rows.append({
+                  f"bound {bm:.4f} ms ({bb}); {rates_text(rr)}")
+        rows.append({**r,
             "name": f"flash_packed_{which}@gpt2-small", "route": "cuda",
             "source": FLASH_SOURCE, "replaces": GROUP_REPLACES[which],
             "also_replaces": GROUP_ALSO_REPLACES[which],
@@ -1326,7 +1361,7 @@ def group_flash_phase(flush: torch.Tensor) -> list:
                        "plain_ms": long_t[1][which],
                        "library_ms": long_t[2][which],
                        "library": f"sdpa {long_t[3]}", "bound_ms": lb_ms,
-                       "bound_by": lb_by}})
+                       "bound_by": lb_by, **lr}})
     return rows
 
 
@@ -1454,20 +1489,22 @@ def heads_inputs(dtype: torch.dtype, shape, seed: int = 0,
     q, k, v = (torch.randn(shape, generator=g, device="cuda") * scale
                for _ in range(3))
     do = torch.randn(shape, generator=g, device="cuda")
-    return tuple(t.to(dtype) for t in (q, k, v, do))
+    return tuple(on_grid(t, dtype) for t in (q, k, v, do))
 
 
 def heads_bound_ms(q: torch.Tensor, which: str, causal: bool = True) -> tuple:
     """Least time of one call: q, k, v (and dO, lse, delta) read once,
     o and lse (dq, dk, dv) written once, over the memory rate, vs the
     products over the unmasked pairs (2 forward, 5 backward) over the peak
-    rate of the input type."""
+    rate of the input type; (ms, what bounds it, the products' FLOP)."""
     B, H, T, D = q.shape
     n = B * H * T * D * q.element_size()
     pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
     if which == "fwd":
-        return _bound(4 * n + B * H * T * 4, 2 * 2 * pairs * D, q.dtype)
-    return _bound(7 * n + 2 * B * H * T * 4, 5 * 2 * pairs * D, q.dtype)
+        nbytes, flops = 4 * n + B * H * T * 4, 2 * 2 * pairs * D
+    else:
+        nbytes, flops = 7 * n + 2 * B * H * T * 4, 5 * 2 * pairs * D
+    return (*_bound(nbytes, flops, q.dtype), flops)
 
 
 def check_heads(q, k, v, do, seed: int, rate: float,
@@ -1591,12 +1628,14 @@ def heads_flash_phase(flush: torch.Tensor) -> list:
           f"bwd {routes['heads_bwd']:.3f} ms")
     rows = []
     for which, err in (("fwd", "o"), ("bwd", "d")):
-        b_ms, b_by = heads_bound_ms(q, which)
+        b_ms, b_by, b_ops = heads_bound_ms(q, which)
+        r = rates(ms[which], b_ops, library[which])
         print(f"heads flash {which} timing (bf16, B={XB}, H={XH}, T={GT}, "
               f"D={shape[-1]}, dropout 0): kernel {ms[which]:.3f} ms, plain "
               f"{plain[which]:.3f} ms, sdpa ({backend}) "
-              f"{library[which]:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-        rows.append({
+              f"{library[which]:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"{rates_text(r)}")
+        rows.append({**r,
             "name": f"flash_heads_{which}", "route": "cuda",
             "source": FLASH_SOURCE, "replaces": HEADS_REPLACES[which],
             "also_replaces": HEADS_ALSO_REPLACES[which],
@@ -1728,8 +1767,8 @@ def chunk_inputs(dtype: torch.dtype, Tq: int, Tk: int, seed: int = 0,
     D = XC // XH
 
     def mk(T, s):
-        return (torch.randn((XB, XH, T, D), generator=g, device="cuda")
-                * s).to(dtype)
+        return on_grid(torch.randn((XB, XH, T, D), generator=g,
+                                   device="cuda") * s, dtype)
 
     return (mk(Tq, scale), mk(Tk, scale), mk(Tk, scale), mk(Tq, 1.0),
             torch.randn((XB, XH, Tq), generator=g, device="cuda"))
@@ -1746,16 +1785,19 @@ def chunk_bound_ms(q: torch.Tensor, k: torch.Tensor, hop,
     """Least time of one chunk call: q, k, v (and dO, lse, delta') read
     once, o and lse (dq, dk, dv) written once, over the memory rate, vs
     the products over the hop's visible pairs (2 forward, 5 backward) over
-    the peak rate of the input type."""
+    the peak rate of the input type; (ms, what bounds it, the products'
+    FLOP)."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     row = B * H * D * q.element_size()
     pairs = B * H * visible_pairs(hop)
     if which == "fwd":
-        return _bound((2 * Tq + 2 * Tk) * row + B * H * Tq * 4,
-                      2 * 2 * pairs * D, q.dtype)
-    return _bound((3 * Tq + 4 * Tk) * row + 2 * B * H * Tq * 4,
-                  5 * 2 * pairs * D, q.dtype)
+        nbytes, flops = ((2 * Tq + 2 * Tk) * row + B * H * Tq * 4,
+                         2 * 2 * pairs * D)
+    else:
+        nbytes, flops = ((3 * Tq + 4 * Tk) * row + 2 * B * H * Tq * 4,
+                         5 * 2 * pairs * D)
+    return (*_bound(nbytes, flops, q.dtype), flops)
 
 
 def check_chunk(hop, dtype: torch.dtype, seed: int, rate: float) -> dict:
@@ -1804,7 +1846,7 @@ def time_chunk(hop, flush: torch.Tensor, n: int = 20) -> dict:
     kw = dict(q_offset=q_off, k_offset=k_off)
     o, lse = fc.flash_chunk_fwd(q, k, v, **kw)
     do, lse_c, deltap = fc.chunk_bwd_inputs(o, lse, do, dlse)
-    mask = fc._visible(Tq, Tk, q_off, k_off, "cuda")
+    mask = fp.visible(Tq, Tk, q_off, k_off, "cuda")
     sq, sk, sv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     backend = SDPBackend(torch._fused_sdp_choice(sq, sk, sv, mask, 0.0,
                                                  False)).name
@@ -1826,8 +1868,8 @@ def time_chunk(hop, flush: torch.Tensor, n: int = 20) -> dict:
              out, (sq, sk, sv), do, retain_graph=True), flush, n),
          "backend": backend}
     for which in ("fwd", "bwd"):
-        t[f"bound_{which}"], t[f"bound_by_{which}"] = chunk_bound_ms(
-            q, k, hop, which)
+        (t[f"bound_{which}"], t[f"bound_by_{which}"],
+         t[f"ops_{which}"]) = chunk_bound_ms(q, k, hop, which)
     return t
 
 
@@ -1864,6 +1906,9 @@ def chunk_flash_phase(flush: torch.Tensor) -> list:
     times = {hop[0]: time_chunk(hop, flush) for hop in CHUNK_HOPS[:2]}
     rows = []
     for which, err in (("fwd", "o"), ("bwd", "d")):
+        rr = {name: rates(t[which], t["ops_" + which],
+                          t["library_" + which])
+              for name, t in times.items()}
         for name, t in times.items():
             print(f"chunk flash {which} timing ({name} hop, bf16, B={XB}, "
                   f"H={XH}, Tq=Tk={XTL}, D={XC // XH}, dropout 0): kernel "
@@ -1871,9 +1916,9 @@ def chunk_flash_phase(flush: torch.Tensor) -> list:
                   f"sdpa with the hop's mask ({t['backend']}) "
                   f"{t['library_' + which]:.4f} ms, bound "
                   f"{t['bound_' + which]:.4f} ms "
-                  f"({t['bound_by_' + which]})")
+                  f"({t['bound_by_' + which]}); {rates_text(rr[name])}")
         t, d = times["visible"], times["diagonal"]
-        rows.append({
+        rows.append({**rr["visible"],
             "name": f"flash_chunk_{which}", "route": "cuda",
             "source": FLASH_SOURCE, "replaces": CHUNK_REPLACES[which],
             "also_replaces": CHUNK_ALSO_REPLACES[which],
@@ -1887,7 +1932,8 @@ def chunk_flash_phase(flush: torch.Tensor) -> list:
             "library": f"sdpa {t['backend']} (boolean mask)",
             "diagonal_hop": {"ms": d[which], "plain_ms": d["plain_" + which],
                              "library_ms": d["library_" + which],
-                             "bound_ms": d["bound_" + which]}})
+                             "bound_ms": d["bound_" + which],
+                             **rr["diagonal"]}})
     return rows
 
 
@@ -2006,6 +2052,36 @@ def build_kernels() -> None:
     print(f"build: {time.perf_counter() - t0:.1f} s")
 
 
+def flash_design() -> None:
+    """Names the flash kernels' two bodies and, where the toolkit has
+    ``cuobjdump``, counts the tensor-core instructions (HMMA, HGMMA) in
+    the SASS of each bf16 flash kernel: evidence only, it gates
+    nothing."""
+    print("flash design: bf16 -> the tensor-core body (mma.sync m16n8k16 "
+          "bf16 -> f32, ldmatrix, cp.async double-buffered tiles: "
+          "fwd_tc_kernel, dkv_tc_kernel, dq_tc_kernel); f32 -> the "
+          "CUDA-core body (fwd_kernel, dkv_kernel, dq_kernel)")
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        print("flash sass: no cuobjdump beside nvcc")
+        return
+    sass = subprocess.run(
+        [tool, "-sass", str(_build.library_path("flash_packed"))],
+        capture_output=True, text=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*?((?:fwd|dkv|dq)_tc_kernel)ILi(\d+)E",
+                      line)
+        if "Function :" in line:
+            name = f"{m.group(1)}<{m.group(2)}>" if m else None
+            if name:
+                counts[name] = 0
+        elif name and re.search(r"\bHG?MMA\.", line):
+            counts[name] += 1
+    print("flash sass (HMMA/HGMMA instructions a bf16 kernel): "
+          + ", ".join(f"{k} {v}" for k, v in sorted(counts.items())))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2017,6 +2093,7 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}")
     build_kernels()
+    flash_design()
     row = kernel_phase()
     flash_rows = flash_kernel_phase()
     parity_phase()

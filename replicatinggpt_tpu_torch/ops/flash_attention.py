@@ -23,9 +23,13 @@ head pair and take the split-heads kernel, as in the reference;
 char-gpt1-ref (D=21) and test-tiny (D=16) take the plain core. The JAX
 VMEM budgets that also gate its packed families (``PACKED_QKV_BYTES``,
 ``GROUP_STRIP_BYTES``, ``GROUP_STREAM_AUTOROUTE``) are TPU residency
-limits and are left out. Both kernels run on the CUDA cores of the same
-body; a later route PR may move the line on H100 timings, which
-``chip_smoke.py`` prints for both layouts at gpt2-xl's shapes. Kernels
+limits and are left out. Both layouts run one body of
+``csrc/flash_packed.cu``: bf16 on the tensor cores (``mma.sync``, p z
+and ds rounded to bf16 where the JAX kernels round them), f32 on the
+CUDA cores; at gpt2-xl's shapes its forward is bound by bytes (~0.063
+ms on an H100) and its backward by operations (~0.136 ms). A later
+route PR may move the line on H100 timings, which ``chip_smoke.py``
+prints for both layouts at gpt2-xl's shapes. Kernels
 run on CUDA tensors, their plain versions on CPU tensors; the route
 depends only on the configuration and the sequence length, and the
 training runner logs it once.

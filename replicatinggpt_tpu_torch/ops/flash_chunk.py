@@ -49,8 +49,9 @@ from typing import Optional, Tuple
 import torch
 
 from .attention import NEG_INF
-from .flash_packed import (HEAD_DIMS, MASK32, TILE, _DTYPE_CODE, _lib,
-                           check_placement, dropout_args, dropout_mult)
+from .flash_packed import (HEAD_DIMS, TILE, _DTYPE_CODE, _lib,
+                           attention_bwd_ref, attention_ref,
+                           check_placement, dropout_args)
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -74,81 +75,31 @@ def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
     return q.shape[-1] ** -0.5 if scale is None else float(scale)
 
 
-def _visible(Tq: int, Tk: int, q_offset: int, k_offset: int, device
-             ) -> torch.Tensor:
-    """(Tq, Tk) bool: key c at or before row r in global positions."""
-    qpos = q_offset + torch.arange(Tq, device=device)
-    kpos = k_offset + torch.arange(Tk, device=device)
-    return kpos[None, :] <= qpos[:, None]
-
-
-def _chunk_mult(B: int, H: int, Tq: int, Tk: int, q_offset: int,
-                k_offset: int, bh_offset: int, seed: int, rate: float,
-                device) -> torch.Tensor:
-    """(B, H, Tq, Tk) dropout multipliers at global positions (uint32
-    wrap-around, as the kernels cast them)."""
-    def pos(off: int, n: int) -> torch.Tensor:
-        return (off + torch.arange(n, device=device)) & MASK32
-
-    return dropout_mult(seed, pos(bh_offset, B * H), pos(q_offset, Tq),
-                        pos(k_offset, Tk), rate).reshape(B, H, Tq, Tk)
-
-
 def flash_chunk_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, scale: Optional[float] = None, causal: bool = True,
                         q_offset: int = 0, k_offset: int = 0, seed: int = 0,
                         rate: float = 0.0, bh_offset: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain forward: (o (B, H, Tq, D) in q's dtype, lse (B, H, Tq) f32).
-    Only the visible keys enter the softmax (no exp of a masked score)."""
-    B, H, Tq, _ = q.shape
-    Tk = k.shape[2]
-    s = (q.float() @ k.float().transpose(-1, -2)) * _scale(q, scale)
-    if causal:
-        vis = _visible(Tq, Tk, q_offset, k_offset, q.device)
-        s = torch.where(vis, s, torch.full_like(s, NEG_INF))
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
-    if causal:
-        p = torch.where(vis, p, torch.zeros_like(p))
-    l = p.sum(-1, keepdim=True)
-    if rate > 0.0:
-        p = p * _chunk_mult(B, H, Tq, Tk, q_offset, k_offset, bh_offset,
-                            seed, rate, q.device)
-    o = (p @ v.float()) / l.clamp(min=1e-30)
-    lse = torch.where(l > 0, m + torch.log(l.clamp(min=1e-30)),
-                      torch.full_like(l, NEG_INF))
-    return o.to(q.dtype), lse.squeeze(-1)
+    """Plain forward (``flash_packed.attention_ref`` at the offsets):
+    (o (B, H, Tq, D) in q's dtype, lse (B, H, Tq) f32). Only the visible
+    keys enter the softmax (no exp of a masked score)."""
+    o, lse = attention_ref(q, k, v, causal=causal, scale=_scale(q, scale),
+                           seed=seed, rate=rate, q_offset=q_offset,
+                           k_offset=k_offset, bh_offset=bh_offset)
+    return o.to(q.dtype), lse
 
 
 def flash_chunk_bwd_ref(q, k, v, do, lse, deltap, *,
                         scale: Optional[float] = None, causal: bool = True,
                         q_offset: int = 0, k_offset: int = 0, seed: int = 0,
                         rate: float = 0.0, bh_offset: int = 0):
-    """Plain backward from lse (clamped, as ``FlashChunk`` passes it) and
-    delta' = rowsum(dO * O) - dlse: p = exp(s - lse) over the visible
-    keys, dp = (dO V^T) z, ds = p (dp - delta') scale, dV = (p z)^T dO,
-    dK = ds^T Q, dQ = ds K. Returns (dq, dk, dv) in q's dtype."""
-    B, H, Tq, _ = q.shape
-    Tk = k.shape[2]
-    sc = _scale(q, scale)
-    qf, kf, vf, gf = (t.float() for t in (q, k, v, do))
-    s = (qf @ kf.transpose(-1, -2)) * sc
-    if causal:
-        vis = _visible(Tq, Tk, q_offset, k_offset, q.device)
-        s = torch.where(vis, s, torch.full_like(s, NEG_INF))
-    p = torch.exp(s - lse[..., None])
-    if causal:
-        p = torch.where(vis, p, torch.zeros_like(p))
-    dp = gf @ vf.transpose(-1, -2)
-    pz = p
-    if rate > 0.0:
-        z = _chunk_mult(B, H, Tq, Tk, q_offset, k_offset, bh_offset, seed,
-                        rate, q.device)
-        dp = dp * z
-        pz = p * z
-    ds = p * (dp - deltap[..., None]) * sc
-    grads = (ds @ kf, ds.transpose(-1, -2) @ qf, pz.transpose(-1, -2) @ gf)
+    """Plain backward (``flash_packed.attention_bwd_ref`` at the offsets)
+    from lse (clamped, as ``FlashChunk`` passes it) and delta' =
+    rowsum(dO * O) - dlse. Returns (dq, dk, dv) in q's dtype."""
+    grads = attention_bwd_ref(q, k, v, do, lse, deltap, causal=causal,
+                              scale=_scale(q, scale), seed=seed, rate=rate,
+                              q_offset=q_offset, k_offset=k_offset,
+                              bh_offset=bh_offset)
     return tuple(g.to(q.dtype) for g in grads)
 
 

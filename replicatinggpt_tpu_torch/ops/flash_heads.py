@@ -62,8 +62,8 @@ def flash_heads_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         seed: int = 0, rate: float = 0.0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain forward: (o (B, H, T, D) in q's dtype, lse (B, H, T) f32)."""
-    o, lse = attention_ref(q.float(), k.float(), v.float(), causal=causal,
-                           scale=_scale(q, scale), seed=seed, rate=rate)
+    o, lse = attention_ref(q, k, v, causal=causal, scale=_scale(q, scale),
+                           seed=seed, rate=rate)
     return o.to(q.dtype), lse
 
 
@@ -77,8 +77,7 @@ def flash_heads_bwd_ref(q, k, v, do, lse, delta, *, causal: bool = True,
                         scale: Optional[float] = None, seed: int = 0,
                         rate: float = 0.0):
     """Plain backward in the lse/delta form: (dq, dk, dv) in q's dtype."""
-    grads = attention_bwd_ref(q.float(), k.float(), v.float(), do.float(),
-                              lse, delta, causal=causal,
+    grads = attention_bwd_ref(q, k, v, do, lse, delta, causal=causal,
                               scale=_scale(q, scale), seed=seed, rate=rate)
     return tuple(g.to(q.dtype) for g in grads)
 

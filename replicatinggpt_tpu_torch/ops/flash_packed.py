@@ -12,9 +12,12 @@ normalizer sees no dropout), bit for bit for the same int32 seed.
 
 - ``fmix32`` / ``dropout_mult``: the mask (``_fmix32``, ``_dropout_mult``)
   in int64 tensor arithmetic;
-- ``attention_ref`` / ``attention_bwd_ref``: the plain f32 math on
-  (B, H, T, D) heads, causal or not, at any scale, shared with the
-  (B, H, T, D) family of ``ops/flash_heads.py``;
+- ``attention_ref`` / ``attention_bwd_ref``: the plain math on
+  (B, H, T, D) heads, causal or not, at any scale and global offsets,
+  shared with ``ops/flash_heads.py`` and ``ops/flash_chunk.py``: f32
+  scores and softmax over 64-key tiles, with the probabilities and the
+  score gradients rounded to the input dtype before their products,
+  where the kernels and the JAX kernels round them;
 - ``flash_packed_fwd_ref`` / ``flash_packed_bwd_ref``: the plain PyTorch
   versions (the CPU path and the card's yardstick of correctness);
 - ``flash_packed_fwd`` / ``flash_packed_bwd``: the wrappers. A CPU tensor
@@ -31,8 +34,9 @@ GPT-2 124M, T=1024) and its streamed and triangular variants
 ``_group_bwd_tri``, long T). They compute the same function and differ
 only in what the TPU keeps resident in VMEM; the kernels here walk K/V
 tiles through shared memory at any T that is a multiple of 64, at
-D in {32, 64, 128, 256} (the D=256 backward on 32-row tiles). The same
-kernel body serves the (B, H, T, D) layout (``ops/flash_heads.py``).
+D in {32, 64, 128, 256}: bf16 on the tensor cores, f32 on the CUDA cores
+(the f32 D=256 backward on 32-row tiles). The same kernel body serves
+the (B, H, T, D) layout (``ops/flash_heads.py``).
 """
 
 from __future__ import annotations
@@ -49,8 +53,12 @@ from .attention import NEG_INF, quantize_dropout_rate
 _KERNEL = "flash_packed"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)   # csrc/flash_packed.cu instantiations
-TILE = 64                   # csrc/flash_packed.cu kTile
+# csrc/flash_packed.cu kTile: the rows of a kernel tile, T's granule,
+# and the key tile over which the kernels and the plain forward round p
+# from the running max (the JAX kernels' block_k at the tests' blocks)
+TILE = 64
 MASK32 = 0xFFFFFFFF
+LOG2E = float(np.float32(1.4426950408889634))   # csrc/flash_packed.cu kLog2e
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -102,9 +110,9 @@ def flash_packed_envelope(seq_len: int, n_embd: int, n_head: int,
 
 
 def _heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
-    """(B, T, C) -> (B, H, T, D) in f32."""
+    """(B, T, C) -> (B, H, T, D), in x's dtype."""
     B, T, C = x.shape
-    return x.float().reshape(B, T, n_head, C // n_head).transpose(1, 2)
+    return x.reshape(B, T, n_head, C // n_head).transpose(1, 2)
 
 
 def _merge(x: torch.Tensor) -> torch.Tensor:
@@ -119,57 +127,119 @@ def _split(qkv: torch.Tensor, n_head: int):
                  for i in range(3))
 
 
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    """exp(x) as the bf16 kernels take it (``exp_``): exp2(x log2 e) in
+    f32, the product rounded first, so that on the card the two agree
+    bit for bit."""
+    return torch.exp2(x * LOG2E)
+
+
+def _positions(offset: int, n: int, device) -> torch.Tensor:
+    """Global positions offset, ..., offset + n - 1 as the kernels hash
+    them (uint32 wrap-around)."""
+    return (offset + torch.arange(n, device=device)) & MASK32
+
+
 def _mult(B: int, H: int, T: int, seed: int, rate: float,
           device) -> torch.Tensor:
-    pos = torch.arange(T, device=device)
-    bh = torch.arange(B * H, device=device)
-    return dropout_mult(seed, bh, pos, pos, rate).reshape(B, H, T, T)
+    """(B, H, T, T) dropout multipliers at offsets 0."""
+    return chunk_mult(B, H, T, T, 0, 0, 0, seed, rate, device)
 
 
-def _causal(T: int, device) -> torch.Tensor:
-    pos = torch.arange(T, device=device)
-    return pos[None, :] <= pos[:, None]
+def chunk_mult(B: int, H: int, Tq: int, Tk: int, q_offset: int,
+               k_offset: int, bh_offset: int, seed: int, rate: float,
+               device) -> torch.Tensor:
+    """(B, H, Tq, Tk) dropout multipliers of q rows at q_offset + r
+    against keys at k_offset + c, head (b, h) keyed by bh_offset + b * H
+    + h."""
+    return dropout_mult(seed, _positions(bh_offset, B * H, device),
+                        _positions(q_offset, Tq, device),
+                        _positions(k_offset, Tk, device),
+                        rate).reshape(B, H, Tq, Tk)
 
 
-def _scores(q, k, causal: bool, scale: float) -> torch.Tensor:
-    s = (q @ k.transpose(-1, -2)) * scale
-    if causal:
-        s = torch.where(_causal(q.shape[-2], q.device), s,
-                        torch.full_like(s, NEG_INF))
-    return s
+def visible(Tq: int, Tk: int, q_offset: int, k_offset: int,
+            device) -> torch.Tensor:
+    """(Tq, Tk) bool: key c at or before row r in global positions."""
+    qpos = q_offset + torch.arange(Tq, device=device)
+    kpos = k_offset + torch.arange(Tk, device=device)
+    return kpos[None, :] <= qpos[:, None]
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool, scale: float, seed: int = 0,
-                  rate: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain forward on f32 (B, H, T, D) heads: (o f32, lse (B, H, T)
-    f32), the mask of head (b, h) keyed by bh = b * H + h."""
-    B, H, T, _ = q.shape
-    s = _scores(q, k, causal, scale)
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(-1, keepdim=True)
-    if rate > 0.0:
-        p = p * _mult(B, H, T, seed, rate, q.device)
-    return (p @ v) / l, (m + torch.log(l)).squeeze(-1)
+                  rate: float = 0.0, q_offset: int = 0, k_offset: int = 0,
+                  bh_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain forward as the kernels and the JAX kernels compute it, on
+    (B, H, Tq, D) q and (B, H, Tk, D) k, v in their input dtype: f32
+    scores, a walk over TILE-key tiles with a running max m and a
+    dropout-free normalizer l, and each tile's p * z rounded to the
+    input dtype before its product with v (``flash_pallas._fwd_tile``;
+    a no-op for f32). q row r sits at global position q_offset + r, key
+    c at k_offset + c; causal hides key c from row r iff it is past it.
+    Only visible keys count (selected, never masked: no 0 x NaN), and a
+    row with none gets o = 0, lse = NEG_INF. Returns (o f32, lse
+    (B, H, Tq) f32)."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    vis = visible(Tq, Tk, q_offset, k_offset, q.device) if causal else None
+    m = torch.full((B, H, Tq, 1), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, H, Tq, D), device=q.device)
+    for c0 in range(0, Tk, TILE):
+        c1 = min(c0 + TILE, Tk)
+        s = (qf @ kf[:, :, c0:c1].transpose(-1, -2)) * scale
+        if causal:
+            s = torch.where(vis[:, c0:c1], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = _exp(s - m_new)
+        if causal:
+            p = torch.where(vis[:, c0:c1], p, 0.0)
+        alpha = _exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        if rate > 0.0:
+            p = p * chunk_mult(B, H, Tq, c1 - c0, q_offset, k_offset + c0,
+                               bh_offset, seed, rate, q.device)
+        acc = acc * alpha + p.to(q.dtype).float() @ vf[:, :, c0:c1]
+        m = m_new
+    seen = l > 0
+    o = torch.where(seen, acc / l.clamp(min=1e-30), 0.0)
+    lse = torch.where(seen, m + torch.log(l.clamp(min=1e-30)), NEG_INF)
+    return o, lse.squeeze(-1)
 
 
 def attention_bwd_ref(q, k, v, g, lse, delta, *, causal: bool,
-                      scale: float, seed: int = 0, rate: float = 0.0):
-    """Plain backward in the lse/delta form on f32 heads: p = exp(s -
-    lse), dp = (dO V^T) z, ds = p (dp - delta) scale, dV = (p z)^T dO,
-    dK = ds^T Q, dQ = ds K. lse, delta: (B, H, T). Returns f32 (dq, dk,
+                      scale: float, seed: int = 0, rate: float = 0.0,
+                      q_offset: int = 0, k_offset: int = 0,
+                      bh_offset: int = 0):
+    """Plain backward in the lse/delta form, positions as
+    ``attention_ref``: p = exp(s - lse) over the visible keys, dp = (dO
+    V^T) z, ds = p (dp - delta) scale, then p z and ds rounded to the
+    input dtype before dV = (p z)^T dO, dK = ds^T Q and dQ = ds K, as the
+    JAX kernels round them (``_dkv_tile``, ``_dq_tile``). q, k, v, g in
+    their input dtype; lse, delta (B, H, Tq) f32. Returns f32 (dq, dk,
     dv)."""
-    B, H, T, _ = q.shape
-    p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
-    dp = g @ v.transpose(-1, -2)
+    B, H, Tq, _ = q.shape
+    Tk = k.shape[2]
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    s = (qf @ kf.transpose(-1, -2)) * scale
+    if causal:
+        vis = visible(Tq, Tk, q_offset, k_offset, q.device)
+        s = torch.where(vis, s, NEG_INF)
+    p = _exp(s - lse[..., None])
+    if causal:
+        p = torch.where(vis, p, 0.0)
+    dp = gf @ vf.transpose(-1, -2)
     pz = p
     if rate > 0.0:
-        z = _mult(B, H, T, seed, rate, q.device)
+        z = chunk_mult(B, H, Tq, Tk, q_offset, k_offset, bh_offset, seed,
+                       rate, q.device)
         dp = dp * z
         pz = p * z
     ds = p * (dp - delta[..., None]) * scale
-    return ds @ k, ds.transpose(-1, -2) @ q, pz.transpose(-1, -2) @ g
+    pz, ds = pz.to(q.dtype).float(), ds.to(q.dtype).float()
+    return ds @ kf, ds.transpose(-1, -2) @ qf, pz.transpose(-1, -2) @ gf
 
 
 def flash_packed_fwd_ref(qkv: torch.Tensor, n_head: int, *, seed: int = 0,

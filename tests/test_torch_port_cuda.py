@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card. Marked ``cuda``: without a card every test here skips.
+card. Marked ``cuda``: without a card every test here skips. The bf16
+flash inputs lie on an exact grid (``_on_grid``), so that a kernel and
+its plain version round p z and ds from equal scores.
 
 Imports neither jax nor the JAX package, so it also runs where only the
 port is installed:
@@ -19,6 +21,21 @@ from replicatinggpt_tpu_torch.ops import flash_packed as fp
 from replicatinggpt_tpu_torch.ops import paged_attention as pa
 
 H, PSZ, MP, N, C = 2, 8, 4, 24, 64
+
+
+def _on_grid(x: np.ndarray, dtype) -> np.ndarray:
+    """bf16 flash inputs on a grid of 1/32 within [-4, 4]: every product
+    of two is a multiple of 2^-10 below 16, so a sum of D <= 256 of them
+    is exact in f32 in any order (cuBLAS's, the tensor cores'). The
+    scores and dO V^T then agree bit for bit between a kernel and its
+    plain version, and so do the bf16 roundings of p z and ds that
+    follow; with inputs off the grid, f32 summation order alone moves a
+    few in a million of those roundings by one bf16 ulp, which no
+    elementwise tolerance of the outputs can tell from a fault. f32
+    inputs stay as drawn."""
+    if dtype != torch.bfloat16:
+        return x
+    return np.clip(np.round(x * 32), -128, 128) / 32
 
 
 def _inputs(W, dtype, seed=0):
@@ -73,15 +90,16 @@ def test_paged_attention_kernel_rejects_what_it_does_not_take(card):
 
 def _flash_inputs(T, H, dtype, D=64, B=2, seed=0):
     rng = np.random.default_rng(seed)
-    mk = lambda *s: torch.from_numpy(  # noqa: E731
-        rng.standard_normal(s).astype(np.float32)).cuda().to(dtype)
+    mk = lambda *s: torch.from_numpy(_on_grid(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32), dtype)).cuda().to(dtype)
     return mk(B, T, 3 * H * D), mk(B, T, H * D)
 
 
 # the kernels and their plain versions sum in f32 in different orders and
-# round once to the output's type: bf16 o and d(qkv) agree to one bf16 ulp
-# (at most 2^-7 of the value, under rtol) plus an f32 difference far under
-# atol; lse is f32 on both sides
+# round once to the output's type (bf16: after rounding p z and ds at the
+# same points from equal f32 values, see _on_grid): bf16 o and d(qkv)
+# agree to one bf16 ulp (at most 2^-7 of the value, under rtol) plus an
+# f32 difference far under atol; lse is f32 on both sides
 FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-4, 1e-2)}
 
 
@@ -169,8 +187,9 @@ def test_flash_packed_kernel_rejects_what_it_does_not_take(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_packed_kernels_at_d256(card, dtype):
-    """D=256 heads (the backward on 32-row tiles) through the packed
-    entry points, with dropout."""
+    """D=256 heads (f32: the backward on 32-row tiles; bf16: 64-row tiles
+    over column chunks of D) through the packed entry points, with
+    dropout."""
     qkv, do = _flash_inputs(128, 2, dtype, D=256, seed=3)
     o, lse = fp.flash_packed_fwd(qkv, 2, seed=21, rate=0.1)
     delta = fp.packed_delta(do, o, 2)
@@ -183,8 +202,9 @@ def test_flash_packed_kernels_at_d256(card, dtype):
 
 def _heads_inputs(B, H, T, D, dtype, seed=0):
     rng = np.random.default_rng(seed)
-    mk = lambda: torch.from_numpy(  # noqa: E731
-        rng.standard_normal((B, H, T, D)).astype(np.float32)).cuda().to(dtype)
+    mk = lambda: torch.from_numpy(_on_grid(  # noqa: E731
+        rng.standard_normal((B, H, T, D)).astype(np.float32),
+        dtype)).cuda().to(dtype)
     return mk(), mk(), mk(), mk()
 
 
@@ -210,6 +230,45 @@ def test_flash_heads_kernels_match_ref(card, B, H, T, D, causal, rate,
     ro, rlse = fh.flash_heads_fwd_ref(q, k, v, **kw)
     rg = fh.flash_heads_bwd_ref(q, k, v, do, lse, delta, **kw)
     _hold_flash((o, lse, *grads), (ro, rlse, *rg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("T", [64, 192, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.2])
+def test_flash_heads_tensor_core_kernels_over_the_envelope(card, D, T,
+                                                           causal, rate):
+    """The bf16 (tensor-core) forward and backward against the rounding
+    plain versions at every head size the envelope takes, one tile,
+    three tiles (each rounding p from a new running max) and sixteen,
+    causal or not, dropout 0, 0.1 and 0.2."""
+    q, k, v, do = _heads_inputs(1, 2, T, D, torch.bfloat16, seed=D + T)
+    kw = dict(causal=causal, seed=31_337, rate=rate)
+    o, lse = fh.flash_heads_fwd(q, k, v, **kw)
+    delta = fh.heads_delta(do, o)
+    grads = fh.flash_heads_bwd(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    ro, rlse = fh.flash_heads_fwd_ref(q, k, v, **kw)
+    rg = fh.flash_heads_bwd_ref(q, k, v, do, lse, delta, **kw)
+    _hold_flash((o, lse, *grads), (ro, rlse, *rg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 256])
+def test_flash_f32_keeps_the_cuda_core_body(card, D):
+    """f32 q, k, v run the CUDA-core body, which rounds nowhere: forward
+    and backward within 1e-5 of the plain versions."""
+    q, k, v, do = _heads_inputs(2, 3, 192, D, torch.float32, seed=D)
+    kw = dict(seed=5, rate=0.1)
+    o, lse = fh.flash_heads_fwd(q, k, v, **kw)
+    delta = fh.heads_delta(do, o)
+    grads = fh.flash_heads_bwd(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    ro, rlse = fh.flash_heads_fwd_ref(q, k, v, **kw)
+    rg = fh.flash_heads_bwd_ref(q, k, v, do, lse, delta, **kw)
+    for got, want in zip((o, lse, *grads), (ro, rlse, *rg)):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.cuda
@@ -247,8 +306,9 @@ def _chunk_inputs(B, H, Tq, Tk, D, dtype, seed=0):
     rng = np.random.default_rng(seed)
 
     def mk(T):
-        return torch.from_numpy(rng.standard_normal((B, H, T, D))
-                                .astype(np.float32)).cuda().to(dtype)
+        return torch.from_numpy(_on_grid(rng.standard_normal((B, H, T, D))
+                                         .astype(np.float32), dtype)
+                                ).cuda().to(dtype)
 
     return mk(Tq), mk(Tk), mk(Tk), mk(Tq), torch.from_numpy(
         rng.standard_normal((B, H, Tq)).astype(np.float32)).cuda()

@@ -6,11 +6,12 @@
   ``family="group_stream"`` at equal blocks (its triangular kernels) and
   at ``block_q=128, block_k=64`` (its streamed kernels), in Pallas
   interpret mode at B=2, T=256, C=256, H=4 (D=64, two heads a group),
-  128-row tiles, unit-scale inputs; f32 with dropout off and at 0.1 from
+  unit-scale inputs; f32 with dropout off and at 0.1 from
   the same int32 seed (the hash is bit-exact), elementwise at 1e-5
   (forward) and 2e-4 (gradients, the JAX package's own tolerance for its
   flash gradients); bf16 at dropout 0.1, held in norm, relative to the
   reference, against JAX and against an f64 witness (see ``BF16_REL``);
+  the blocks walk 64-key tiles, the plain versions' (see ``FAMILIES``);
 - the plain versions against that f64 witness alone, f32 and bf16,
   dropout off and at 0.1;
 - a gpt2-flavour loss curve (gelu, tied head, cosine warmup, clipping,
@@ -58,18 +59,21 @@ F32_TOLS = ((1e-5, 0.0), (2e-4, 0.0))
 # f32 plain versions against the f64 witness, as ||x - ref|| / ||ref||
 # (read 2.4e-7 forward and 4.2e-7 for the gradients)
 F32_REL = 2e-6
-# bf16, as ||x - ref|| / ||ref||: the plain versions round once from f32
-# (read 1.7e-3 and 1.8e-3 from the f64 witness, output and gradient,
-# about bf16's rms rounding); the JAX kernels also round their tile
-# products to bf16 (read 3.0e-3 to 3.1e-3, and single elements up to
-# 3.7e-2 off the witness where the port is 1.3e-2 off). So the port is
-# held against JAX at 1e-2 (read at most 3.6e-3), against the witness at
-# 4e-3, and never further from the witness than JAX is
-BF16_REL = {"jax": 1e-2, "witness": 4e-3}
-# 128-row tiles, so each family walks more than one tile at T=256
-FAMILIES = {"group": ("group", {"block_q": 128, "block_k": 128}),
+# bf16, as ||x - ref|| / ||ref||: the plain versions round p z and ds
+# to bf16 before their products, from the running max of each 64-key
+# tile, where the JAX kernels round them, so the two are one computation
+# up to f32 summation order (read 4.0e-5 output, 1.2e-4 gradient) and
+# equally far from the f64 witness (read 2.7e-3 to 3.1e-3, about bf16's
+# rms rounding)
+BF16_REL = {"jax": 1e-3, "witness": 4e-3}
+# each family at 64-key tiles (block_k = the plain versions' TILE): the
+# JAX kernels round p from the running max of their own key tile, so at
+# 128-key tiles the two round at other points and differ by about bf16's
+# rms rounding, close to the 1e-3 bound; T=256 walks 4 tiles, the
+# streamed family with 128-row q tiles
+FAMILIES = {"group": ("group", {"block_q": 64, "block_k": 64}),
             "group_stream_tri": ("group_stream",
-                                 {"block_q": 128, "block_k": 128}),
+                                 {"block_q": 64, "block_k": 64}),
             "group_stream": ("group_stream", {"block_q": 128, "block_k": 64})}
 # f32 with dropout off and on; bf16 once, with dropout (the same code)
 CASES = [("float32", 0.0), ("float32", 0.1), ("bfloat16", 0.1)]
@@ -174,7 +178,7 @@ def test_flash_twins_match_jax_group_families(family, dtype, rate):
                             rate)
     for got, want, ref in ((got_o, want_o, ref_o), (got_g, want_g, ref_g)):
         assert _rel(got, want) <= BF16_REL["jax"]
-        assert _rel(got, ref) <= min(BF16_REL["witness"], _rel(want, ref))
+        assert _rel(got, ref) <= BF16_REL["witness"]
 
 
 def test_gpt2_flavour_loss_curve_matches_jax(bpe, corpus_text):

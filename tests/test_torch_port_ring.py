@@ -9,7 +9,9 @@
   boundary (k at 32) and one Tq != Tk case; dropout 0 and 0.2; (o, lse)
   and the three gradients under a loss that feeds both o and lse, f32 at
   1e-5 (the offsets are traced on the JAX side: one interpret-mode
-  compile serves each rate and shape);
+  compile serves each rate and shape); then bf16 at Tq=Tk=192 (three
+  64-key tiles) with dropout 0.1, rows before the chunk's first key, in
+  norm at 1e-3 (both round p z and ds to bf16 over 64-key tiles);
 - the port's ring (``LocalSeqGroup(4)``) against the JAX ``ring_attention``
   on the conftest's virtual mesh (seq=4, einsum hops), forward and
   gradients at 1e-5, and against the port's dense plain core;
@@ -66,6 +68,9 @@ from replicatinggpt_tpu_torch.train import state as tstate
 from replicatinggpt_tpu_torch.train import steps as tsteps
 
 TOL = 1e-5
+# bf16 chunk twin against JAX, as ||x - ref|| / ||ref|| (read at most
+# 2.1e-4: o 6.9e-5, dq 1.7e-4, dk 2.1e-4)
+BF16_REL_JAX = 1e-3
 D, BLOCK = 32, 64
 # id: (Tq, Tk, q_offset, k_offset)
 CHUNKS = {
@@ -148,6 +153,41 @@ def test_chunk_plain_matches_pallas_flash_chunk(case, rate):
                                    atol=TOL, rtol=TOL)
     if case == "masked":
         assert not any(t.grad.any() for t in x)
+
+
+def test_chunk_plain_rounds_as_pallas_flash_chunk_in_bf16():
+    """bf16 q, k, v: the plain versions round p z before P V and ds
+    before dQ, dK where the JAX chunk kernel rounds them, over the same
+    64-key tiles, so o on the rows that see a key and the gradients agree
+    with it up to f32 summation order, in norm at ``BF16_REL_JAX``; lse
+    (f32 on both sides) at ``TOL``."""
+    Tq = Tk = 192
+    q_off, k_off = 0, 32          # rows 0-31 see no key of this chunk
+    rng = np.random.default_rng(11)
+    q, k, v = (rng.standard_normal((1, 2, T, D)).astype(np.float32)
+               for T in (Tq, Tk, Tk))
+    w, wl = _loss_weights(q, q[..., 0])
+    bf = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, w)]
+    want_o, want_lse, want_g = _jax_chunk(
+        *bf, jnp.asarray(wl), jnp.array([q_off, k_off, 0], jnp.int32),
+        rate=0.1)
+    x = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_(True)
+         for a in (q, k, v)]
+    o, lse = tfc.flash_chunk(*x, q_offset=q_off, k_offset=k_off, seed=SEED,
+                             rate=0.1)
+    seen = torch.where(lse > NEG_INF / 2, lse, torch.zeros_like(lse))
+    ((o * torch.from_numpy(w).to(torch.bfloat16)).sum()
+     + (seen * torch.from_numpy(wl)).sum()).backward()
+    rows = np.arange(Tq) + q_off >= k_off
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(want_lse),
+                               atol=TOL, rtol=TOL)
+    pairs = [(o.detach().float().numpy()[..., rows, :],
+              np.asarray(want_o, np.float32)[..., rows, :])]
+    pairs += [(t.grad.float().numpy(), np.asarray(g, np.float32))
+              for t, g in zip(x, want_g)]
+    for got, want in pairs:
+        err = np.linalg.norm(got - want) / np.linalg.norm(want)
+        assert err <= BF16_REL_JAX, err
 
 
 def test_chunk_at_offset_zero_is_the_heads_function():

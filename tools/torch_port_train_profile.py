@@ -22,7 +22,8 @@ traces the same number with ``torch.profiler``. From the trace: the
 device's busy time (the union of kernel intervals), its idle share of
 the traced window (which the profiler's own overhead stretches) and of
 the untraced steps' wall time, the share of the flash attention kernels
-(``csrc/flash_packed.cu``: the packed, heads and chunk entry points), and
+(``csrc/flash_packed.cu``: the packed, heads and chunk entry points; the
+bf16 steps run its tensor-core kernels ``*_tc_kernel``), and
 device time by kernel family and by kernel name. Prints one JSON object, and writes it to ``--out`` when given.
 """
 
@@ -58,9 +59,10 @@ from replicatinggpt_tpu_torch.train.steps import make_train_step  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 # device time by family: the first family whose pattern a name contains
+FLASH_KERNELS = ("fwd_kernel", "dkv_kernel", "dq_kernel",      # f32 body
+                 "fwd_tc_kernel", "dkv_tc_kernel", "dq_tc_kernel")  # bf16
 FAMILIES = (
-    ("flash attention", ("namespace)::fwd_kernel<", "namespace)::dkv_kernel<",
-                         "namespace)::dq_kernel<")),
+    ("flash attention", tuple(f"namespace)::{k}<" for k in FLASH_KERNELS)),
     ("matrix products", ("nvjet", "sm90_xmma", "gemm")),
     ("softmax and cross-entropy", ("SoftMax", "nll_loss", "log_softmax")),
     ("layernorm", ("layer_norm", "LayerNorm")),
@@ -150,7 +152,8 @@ def main() -> int:
         by_family[fam] = by_family.get(fam, 0.0) + e.time_range.elapsed_us()
     flash = {k: sum(us for n, us in by_name.items()
                     if f"namespace)::{k}<" in n)
-             for k in ("fwd_kernel", "dkv_kernel", "dq_kernel")}
+             for k in FLASH_KERNELS}
+    flash = {k: v for k, v in flash.items() if v}
     n = args.steps
     row = {
         "card": card(), "preset": args.preset, "sp": args.sp, "steps": n,
