@@ -8,60 +8,154 @@
 // running max, denominator and accumulator are f32; the output is
 // written in the input dtype (bf16 or f32). A quantized pool (int8 or
 // fp8 e4m3 pages with f32 scales per row, or per row and head) is
-// dequantized in f32 as its rows are loaded, f32(q) * scale, never
+// dequantized in f32 as its rows are used, f32(q) * scale, never
 // rounded to the compute dtype; the caller hands the fresh window
 // already fake-quantized (quant/kv.py).
 //
 // Bound on this card: bytes. One call reads sum_b live_b * psz * C * 2 *
 // itemsize bytes of K+V pages (live_b = ceil(pos[b] / psz); plus 8 or
-// 8 * H scale bytes per row when quantized) and does
-// about 4 flops per page element read, far below the H100's ~295
-// flops/byte ridge, so its floor is those bytes at 3.35 TB/s.
+// 8 * H scale bytes per row when quantized) and does about 4 flops per
+// page element read, far below the H100's ~295 flops/byte ridge, so its
+// floor is those bytes at 3.35 TB/s. At the serving step's small batch
+// those bytes are few (~7 MB at GPT-2 124M, B=8), so what sets the time
+// is how many loads are in flight on how many SMs, and the longest
+// slot's history.
 //
-// Design (first version, correct before fast): one thread block per
-// (slot, head). The block reads its own pos[b] and live page-table
-// prefix, and walks its history in tiles of kTile rows. A tile's rows
-// may come from several pages (row g lives in page tables[b, g / psz]),
-// so small pages still give every thread several independent 16-byte
-// loads per tile. Each tile: K/V rows -> shared memory (f32), scores by
-// groups of kGroup threads with shuffle reductions, one online-softmax
-// update per query row by a warp, then the accumulator update. Rows at
-// positions >= pos and table entries past the live frontier are never
-// read. Nothing yet overlaps the next tile's loads with this tile's
-// math, and B * H blocks under-fill the 132 SMs at small batch (split
-// over pages is a later change).
+// Design. A thread-block cluster of R CTAs (R <= 8, cudaLaunchKernelEx
+// with a cluster dimension; R = 1 is a plain grid with no cluster
+// barrier) serves one (slot, head); the grid is (R, H, B). R is sized
+// from W and a span of history rows that the caller already holds on
+// the host, never from pos read back: the engine's step passes the
+// longest slot's position, other callers get the table's whole
+// max_pages * page_size (plan below, mirrored by cluster_ranks in
+// ops/paged_attention.py). A short history thus launches one CTA per
+// (slot, head), and no idle rank holds an SM while its cluster waits.
+// - The slot's live history is cut into tiles of `tile` rows (64, fewer
+//   where a row is wide) and dealt round-robin: tile t to rank t % R.
+//   A rank that owns no tile contributes m = -1e30, l = 0, loads nothing
+//   but pos, and no rank reads a table entry past the live frontier or
+//   a row >= pos.
+// - Each CTA copies its tiles into a ring of 2-4 stages in shared memory
+//   with 16-byte cp.async copies, every stage at once, in the pool's own
+//   type (bf16, f32, int8 or fp8, with the rows' scales), converted at
+//   use; a rank with more tiles than stages streams them, one barrier a
+//   tile handing a stage over. The live table prefix is loaded once.
+// - Inside a CTA every lane group of G lanes (G = 16-byte vectors of a
+//   row, at most 32) owns whole rows: scores by shuffles over the group,
+//   then its own online softmax (m, l, acc) in registers for up to 4
+//   query rows at a time (W > 4 walks the tiles again). Groups merge by
+//   shuffles, warps through shared memory, once a pass.
+// - The ranks merge by logsumexp through distributed shared memory
+//   (cg::this_cluster().map_shared_rank), in rank order, on rank 0: one
+//   thread an element, every rank's loads in flight at once. Rank 0 then
+//   folds the fresh (W, W) block in causally from shared memory (it
+//   loaded the fresh rows with the queries) and writes the rows.
+// What is left for later: tensor cores (mma) for wide windows; a batch
+// whose slots' histories differ widely still sizes every cluster for the
+// longest one (a persistent grid over (slot, head, tile) work would
+// not).
 //
 // Plain C interface (ctypes); the launch returns cudaGetLastError().
 
+#include <cooperative_groups.h>
+
 #include "kv_quant.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;     // history rows per tile
-constexpr int kGroup = 8;     // threads per dot product
-constexpr int kPad = 8;       // K row padding (floats): conflict-free reads
+constexpr int kStages = 4;          // ring stages of one CTA, at most
+constexpr int kMaxTile = 64;        // history rows per tile
+constexpr int kMinTile = 8;
+constexpr int kStageBytes = 16384;  // K+V bytes of one stage, at most
+constexpr int kMaxRanks = 8;        // CTAs of a cluster (portable size)
+constexpr int kMaxLaneCols = 8;     // D / 32 columns a lane, D <= 256
 constexpr size_t kMaxSmem = 232448;
 constexpr float kNegInf = -1e30f;
 
+// query rows one pass over the history holds in registers
+__host__ __device__ constexpr int pass_rows(int W) { return W == 1 ? 1 : 4; }
+
+// Byte offsets of one CTA's dynamic shared memory; keep in step with
+// smem_bytes() in ops/paged_attention.py. The K/V ring (stages x {K, V}
+// x tile x D elements of the pool type, then stages x {K, V} x tile f32
+// scales when quantized) shares its bytes with the warps' partial states
+// of a pass ("uni"); then the window's query rows and its fresh K and V
+// rows (3 x W x D f32), the CTA's merged state (W x D acc, W m, W l) and
+// the live table prefix (mp int32).
+struct Carve {
+  int tile, stages, ranks;
+  size_t kv, uni, q, kn, vn, part, tab, total;
+};
+
+__host__ __device__ inline Carve carve(int W, int D, int mp, int isz,
+                                       bool quant, int tile, int stages) {
+  Carve c;
+  c.tile = tile;
+  c.stages = stages;
+  c.ranks = 1;
+  c.kv = (size_t)stages * 2 * tile * D * isz;
+  const size_t ring = c.kv + (quant ? (size_t)stages * 2 * tile * 4 : 0);
+  const size_t warps = (size_t)kWarps * pass_rows(W) * (D + 2) * 4;
+  c.uni = ring > warps ? ring : warps;
+  c.q = c.uni;
+  c.kn = c.q + (size_t)W * D * 4;
+  c.vn = c.kn + (size_t)W * D * 4;
+  c.part = c.vn + (size_t)W * D * 4;
+  c.tab = c.part + (size_t)W * (D + 2) * 4;
+  c.total = c.tab + (size_t)mp * 4;
+  return c;
+}
+
+// 64-row tiles, halved while a stage passes kStageBytes or the CTA (at
+// kStages) the card's shared memory
+__host__ __device__ inline int tile_rows(int W, int D, int mp, int isz,
+                                         bool quant) {
+  int tile = kMaxTile;
+  while (tile > kMinTile &&
+         ((size_t)2 * tile * D * isz > (size_t)kStageBytes ||
+          carve(W, D, mp, isz, quant, tile, kStages).total > kMaxSmem))
+    tile /= 2;
+  return tile;
+}
+
+// The launch's split for a history of `span` rows (the caller's bound on
+// every slot's pos, the table's mp * psz when it has none; clamped to 1
+// .. mp * psz): the fewest ranks (at most kMaxRanks) that hold all of
+// their tiles in flight at once, times the passes over them a wide
+// window makes, and a ring of a rank's tiles of one pass, 2 to kStages
+// stages, fewer while the CTA passes the card's shared memory. Any span
+// gives the right result: a rank with more tiles than stages streams
+// them. Keep in step with cluster_ranks() / ring_stages() in
+// ops/paged_attention.py.
+__host__ __device__ inline Carve plan(int W, int D, int mp, int psz,
+                                      int isz, bool quant, int span) {
+  const int tile = tile_rows(W, D, mp, isz, quant);
+  span = span < 1 ? 1 : span > mp * psz ? mp * psz : span;
+  const int tiles = (span + tile - 1) / tile;
+  const int work = tiles * ((W + pass_rows(W) - 1) / pass_rows(W));
+  int ranks = (work + kStages - 1) / kStages;
+  ranks = ranks > kMaxRanks ? kMaxRanks : ranks;
+  int stages = (tiles + ranks - 1) / ranks;
+  stages = stages < 2 ? 2 : stages > kStages ? kStages : stages;
+  while (stages > 2 &&
+         carve(W, D, mp, isz, quant, tile, stages).total > kMaxSmem)
+    --stages;
+  Carve c = carve(W, D, mp, isz, quant, tile, stages);
+  c.ranks = ranks;
+  return c;
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 __device__ __forceinline__ void store(float* dst, float v) { *dst = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* dst, float v) {
   *dst = __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = kGroup / 2; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -70,188 +164,380 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Shared memory floats of one block; keep in step with smem_bytes() in
-// ops/paged_attention.py.
-__host__ __device__ inline size_t smem_floats(int W, int D, int mp) {
-  const int ks = D + kPad;
-  const int ps = W > kTile ? W : kTile;
-  return (size_t)W * D + (size_t)W * ks + 2 * (size_t)W * D +
-         (size_t)kTile * ks + (size_t)kTile * D + (size_t)W * ps + 3 * W +
-         mp;  // the table prefix is int32, one float slot each
-}
-
-// Scores of rows [0, n_rows) of `keys` (row stride ks) against every
-// query row, times `scale`, into p_s[w * ps + r]. Groups of kGroup
-// threads share one dot product; the loop bound is uniform across the
-// block, so every lane reaches the shuffles.
-__device__ __forceinline__ void scores(const float* q_s, const float* keys,
-                                       int ks, float* p_s, int ps, int W,
-                                       int n_rows, int D, float scale) {
-  const int gl = threadIdx.x & (kGroup - 1);
-  const int n_pairs = W * n_rows;
-  for (int base = 0; base < n_pairs; base += kThreads / kGroup) {
-    const int pair = base + threadIdx.x / kGroup;
-    const bool ok = pair < n_pairs;
-    const int w = ok ? pair / n_rows : 0;
-    const int r = ok ? pair % n_rows : 0;
-    float s = 0.f;
-    if (ok)
-      for (int d = gl; d < D; d += kGroup)
-        s += q_s[w * D + d] * keys[r * ks + d];
-    s = group_sum(s);
-    if (ok && gl == 0) p_s[w * ps + r] = s * scale;
-  }
-}
+template <typename T, typename P>
+struct Args {
+  const T* q;
+  const T* k_new;
+  const T* v_new;
+  const P* k_pages;
+  const P* v_pages;
+  const float* k_scales;   // null for an unquantized pool
+  const float* v_scales;
+  const int* tables;
+  const int* pos;
+  T* out;
+  int W, psz, mp, H, D, head_gran;
+  float scale;
+  Carve cv;
+};
 
 // T: the window rows' and output's dtype; P: the pool's (T, int8 or fp8).
-// k_scales/v_scales: null for an unquantized pool, else (N, psz) f32 per
-// row (head_gran 0) or (N, psz, H) per row and head (head_gran 1).
-template <typename T, typename P>
+// NVL: 16-byte vectors of a row one lane holds (1 or 2); WQ: query rows
+// a pass holds in registers (1 at W = 1, else 4).
+template <typename T, typename P, int NVL, int WQ>
 __global__ void __launch_bounds__(kThreads)
-paged_window_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
-                    const T* __restrict__ v_new,
-                    const P* __restrict__ k_pages,
-                    const P* __restrict__ v_pages,
-                    const float* __restrict__ k_scales,
-                    const float* __restrict__ v_scales, int head_gran,
-                    const int* __restrict__ tables,
-                    const int* __restrict__ pos_arr, T* __restrict__ out,
-                    int W, int psz, int mp, int H, int D, float scale) {
-  using kvq::load_vec;
-  constexpr int VEC = kvq::vec_elems<T>();
+paged_window_kernel(const Args<T, P> a) {
   constexpr int PVEC = kvq::vec_elems<P>();
-  const int b = blockIdx.x;
+  constexpr int VEC = kvq::vec_elems<T>();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = blockIdx.x;   // the cluster spans gridDim.x
   const int h = blockIdx.y;
+  const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int C = H * D;
-  const int ks = D + kPad;
-  const int ps = W > kTile ? W : kTile;
-  const int vpr = D / VEC;     // 16-byte vectors per window head row
-  const int pvpr = D / PVEC;   // 16-byte vectors per page head row
+  const int W = a.W, D = a.D, C = a.H * a.D, TR = a.cv.tile;
+  const int nvec = D / PVEC;
+  int G = 1;                     // lanes a row: 2^k <= min(32, nvec)
+  while (2 * G <= nvec && 2 * G <= 32) G *= 2;
+  const int gl = lane & (G - 1);
+  const int groups = kThreads / G;
+  const int gidx = tid / G;
+  const bool quant = a.k_scales != nullptr;
 
-  extern __shared__ float smem[];
-  float* q_s = smem;                 // W x D
-  float* kn_s = q_s + W * D;         // W x ks
-  float* vn_s = kn_s + W * ks;       // W x D
-  float* acc_s = vn_s + W * D;       // W x D
-  float* k_s = acc_s + W * D;        // kTile x ks
-  float* v_s = k_s + kTile * ks;     // kTile x D
-  float* p_s = v_s + kTile * D;      // W x ps
-  float* m_s = p_s + W * ps;         // W
-  float* l_s = m_s + W;              // W
-  float* a_s = l_s + W;              // W
-  int* tab_s = reinterpret_cast<int*>(a_s + W);   // live table prefix
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;
+  float* sc_ring = reinterpret_cast<float*>(smem + a.cv.kv);
+  float* wpart = reinterpret_cast<float*>(smem);   // aliases the ring
+  float* q_s = reinterpret_cast<float*>(smem + a.cv.q);
+  float* kn_s = reinterpret_cast<float*>(smem + a.cv.kn);
+  float* vn_s = reinterpret_cast<float*>(smem + a.cv.vn);
+  float* acc_s = reinterpret_cast<float*>(smem + a.cv.part);
+  float* m_s = acc_s + W * D;
+  float* l_s = m_s + W;
+  int* tab_s = reinterpret_cast<int*>(smem + a.cv.tab);
 
-  const int pos = pos_arr[b];
-  const int live = min((pos + psz - 1) / psz, mp);
-  const int n_hist = min(pos, live * psz);
+  const int pos = a.pos[b];
+  const int live = min((pos + a.psz - 1) / a.psz, a.mp);
+  const int n_hist = min(pos, live * a.psz);
+  const int n_tiles = (n_hist + TR - 1) / TR;
+  const int mine =
+      rank < n_tiles ? (n_tiles - rank + a.cv.ranks - 1) / a.cv.ranks : 0;
   const size_t row0 = (size_t)b * W * C + (size_t)h * D;
+  const int NS = a.cv.stages;
+  const size_t stage_bytes = (size_t)2 * TR * D * sizeof(P);
+  const int cp_step = kThreads / (2 * nvec);   // rows a copy pass, >= 2
+  const int cp_col = tid % (2 * nvec);
 
-  for (int e = tid; e < W * vpr; e += kThreads) {
-    const int w = e / vpr, c = (e % vpr) * VEC;
-    const size_t off = row0 + (size_t)w * C + c;
-    load_vec(q + off, q_s + w * D + c);
-    load_vec(k_new + off, kn_s + w * ks + c);
-    load_vec(v_new + off, vn_s + w * D + c);
+  // the query rows (a rank with tiles, and rank 0 for the fold), the
+  // fresh rows (rank 0) and the live table prefix (a rank with tiles)
+  if (mine > 0 || rank == 0) {
+    for (int e = tid; e < W * (D / VEC); e += kThreads) {
+      const int w = e / (D / VEC), c = (e % (D / VEC)) * VEC;
+      const size_t off = row0 + (size_t)w * C + c;
+      kvq::load_vec(a.q + off, q_s + w * D + c);
+      if (rank == 0) {
+        kvq::load_vec(a.k_new + off, kn_s + w * D + c);
+        kvq::load_vec(a.v_new + off, vn_s + w * D + c);
+      }
+    }
   }
-  for (int e = tid; e < W * D; e += kThreads) acc_s[e] = 0.f;
-  for (int w = tid; w < W; w += kThreads) {
-    m_s[w] = kNegInf;
-    l_s[w] = 0.f;
-  }
-  for (int p = tid; p < live; p += kThreads)
-    tab_s[p] = tables[(size_t)b * mp + p];
+  if (mine > 0)
+    for (int p = tid; p < live; p += kThreads)
+      tab_s[p] = a.tables[(size_t)b * a.mp + p];
   __syncthreads();
 
-  for (int t0 = 0; t0 < n_hist; t0 += kTile) {
-    const int rows = min(kTile, n_hist - t0);
-    for (int e = tid; e < rows * pvpr; e += kThreads) {
-      const int r = e / pvpr, c = (e % pvpr) * PVEC;
-      const int g = t0 + r;
-      const size_t prow = (size_t)tab_s[g / psz] * psz + g % psz;
-      const size_t src = prow * C + (size_t)h * D + c;
-      float* kd = k_s + r * ks + c;
-      float* vd = v_s + r * D + c;
-      load_vec(k_pages + src, kd);
-      load_vec(v_pages + src, vd);
-      if (k_scales != nullptr) {
-        const size_t si = head_gran ? prow * H + h : prow;
-        const float sk = k_scales[si], sv = v_scales[si];
+  // the CTA's k-th tile (history tile rank + k * R) into stage k % NS,
+  // one commit group
+  auto issue = [&](int k) {
+    {
+      const int t0 = (rank + k * a.cv.ranks) * TR;
+      const int rows = min(TR, n_hist - t0);
+      unsigned char* st = ring + (size_t)(k % NS) * stage_bytes;
+      // a thread keeps one 16-byte column of K or V and steps over rows
+      if (tid < cp_step * 2 * nvec) {
+        const int v = cp_col >= nvec, c = cp_col - v * nvec;
+        const P* pages = v ? a.v_pages : a.k_pages;
+        for (int r = tid / (2 * nvec); r < rows; r += cp_step) {
+          const int g = t0 + r, pi = g / a.psz;
+          const size_t prow = (size_t)tab_s[pi] * a.psz + (g - pi * a.psz);
+          kvq::cp_async16(
+              st + ((size_t)v * TR + r) * D * sizeof(P) + c * 16,
+              pages + prow * C + (size_t)h * D + (size_t)c * PVEC);
+        }
+      }
+      if (quant) {
+        float* ss = sc_ring + (k % NS) * 2 * TR;
+        for (int e = tid; e < 2 * rows; e += kThreads) {
+          const int v = e >= rows, r = e - v * rows;
+          const int g = t0 + r, pi = g / a.psz;
+          const size_t prow = (size_t)tab_s[pi] * a.psz + (g - pi * a.psz);
+          const size_t si = a.head_gran ? prow * a.H + h : prow;
+          kvq::cp_async4(ss + v * TR + r, (v ? a.v_scales : a.k_scales) + si);
+        }
+      }
+    }
+    kvq::cp_async_commit();
+  };
+
+  for (int w0 = 0; w0 < W; w0 += WQ) {
+    float m[WQ], l[WQ], acc[WQ][NVL * PVEC];
 #pragma unroll
-        for (int j = 0; j < PVEC; ++j) {
-          kd[j] *= sk;
-          vd[j] *= sv;
+    for (int i = 0; i < WQ; ++i) {
+      m[i] = kNegInf;
+      l[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NVL * PVEC; ++j) acc[i][j] = 0.f;
+    }
+    // every stage filled at once; a stage freed by tile k - 1 takes tile
+    // k + NS - 1 (a rank with more tiles than stages streams them)
+    int issued = 0;
+    for (; issued < NS && issued < mine; ++issued) issue(issued);
+    for (int k = 0; k < mine; ++k) {
+      kvq::cp_async_wait_dyn(issued - k - 1);
+      __syncthreads();   // tile k is in; every warp is done with tile k-1
+      if (k > 0 && issued < mine) issue(issued++);
+      const int t0 = (rank + k * a.cv.ranks) * TR;
+      const int rows = min(TR, n_hist - t0);
+      const P* ks = reinterpret_cast<const P*>(
+          ring + (size_t)(k % NS) * stage_bytes);
+      const P* vs = ks + (size_t)TR * D;
+      const float* ss = sc_ring + (k % NS) * 2 * TR;
+      for (int r0 = 0; r0 < rows; r0 += groups) {   // block-uniform bound
+        const int r = r0 + gidx;
+        const bool ok = r < rows;
+        const int rr = ok ? r : 0;
+        const float sk = quant ? ss[rr] : 1.f;
+        const float sv = quant ? ss[TR + rr] : 1.f;
+        float s[WQ], vv[NVL][PVEC];
+#pragma unroll
+        for (int i = 0; i < WQ; ++i) s[i] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NVL; ++j) {
+          const int vi = gl + j * G;
+          if (vi < nvec) {
+            float kv[PVEC];
+            kvq::load_vec(ks + (size_t)rr * D + vi * PVEC, kv);
+            kvq::load_vec(vs + (size_t)rr * D + vi * PVEC, vv[j]);
+            if (quant) {
+#pragma unroll
+              for (int i = 0; i < PVEC; ++i) {
+                kv[i] *= sk;
+                vv[j][i] *= sv;
+              }
+            }
+#pragma unroll
+            for (int wq = 0; wq < WQ; ++wq) {
+              const float* qq = q_s + min(w0 + wq, W - 1) * D + vi * PVEC;
+#pragma unroll
+              for (int i = 0; i < PVEC; ++i) s[wq] += qq[i] * kv[i];
+            }
+          } else {
+#pragma unroll
+            for (int i = 0; i < PVEC; ++i) vv[j][i] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int wq = 0; wq < WQ; ++wq)
+          for (int o = G / 2; o > 0; o >>= 1)
+            s[wq] += __shfl_xor_sync(0xffffffffu, s[wq], o);
+        if (ok) {
+#pragma unroll
+          for (int wq = 0; wq < WQ; ++wq) {
+            if (w0 + wq < W) {
+              const float sc = s[wq] * a.scale;
+              const float mn = fmaxf(m[wq], sc);
+              const float al = expf(m[wq] - mn), p = expf(sc - mn);
+              l[wq] = l[wq] * al + p;
+#pragma unroll
+              for (int j = 0; j < NVL; ++j)
+#pragma unroll
+                for (int i = 0; i < PVEC; ++i)
+                  acc[wq][j * PVEC + i] =
+                      acc[wq][j * PVEC + i] * al + p * vv[j][i];
+              m[wq] = mn;
+            }
+          }
+        }
+      }
+    }
+    // merge the lane groups of a warp (butterfly over lanes >= G apart)
+    for (int o = G; o < 32; o <<= 1) {
+#pragma unroll
+      for (int wq = 0; wq < WQ; ++wq) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[wq], o);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[wq], o);
+        const float mn = fmaxf(m[wq], mo);
+        const float x = expf(m[wq] - mn), y = expf(mo - mn);
+        l[wq] = l[wq] * x + lo * y;
+#pragma unroll
+        for (int j = 0; j < NVL * PVEC; ++j) {
+          const float ao = __shfl_xor_sync(0xffffffffu, acc[wq][j], o);
+          acc[wq][j] = acc[wq][j] * x + ao * y;
+        }
+        m[wq] = mn;
+      }
+    }
+    kvq::cp_async_wait<0>();
+    __syncthreads();   // the ring is read: the warps' states may take it
+    if (lane < G) {
+#pragma unroll
+      for (int wq = 0; wq < WQ; ++wq) {
+        float* wp = wpart + (warp * WQ + wq) * (D + 2);
+#pragma unroll
+        for (int j = 0; j < NVL; ++j) {
+          const int vi = lane + j * G;
+          if (vi < nvec)
+#pragma unroll
+            for (int i = 0; i < PVEC; ++i)
+              wp[vi * PVEC + i] = acc[wq][j * PVEC + i];
+        }
+        if (lane == 0) {
+          wp[D] = m[wq];
+          wp[D + 1] = l[wq];
         }
       }
     }
     __syncthreads();
-    scores(q_s, k_s, ks, p_s, ps, W, rows, D, scale);
-    __syncthreads();
-    // online softmax: one warp per query row
-    for (int w = warp; w < W; w += kWarps) {
-      float* pw = p_s + w * ps;
-      float mx = kNegInf;
-      for (int r = lane; r < rows; r += 32) mx = fmaxf(mx, pw[r]);
-      const float m_prev = m_s[w];
-      const float m_new = fmaxf(m_prev, warp_max(mx));
-      float sum = 0.f;
-      for (int r = lane; r < rows; r += 32) {
-        const float e = expf(pw[r] - m_new);
-        pw[r] = e;
-        sum += e;
+    // merge the warps, in warp order, into the CTA's state
+    for (int e = tid; e < WQ * D; e += kThreads) {
+      const int wq = e / D, d = e % D;
+      if (w0 + wq >= W) continue;
+      float M = kNegInf;
+      for (int i = 0; i < kWarps; ++i)
+        M = fmaxf(M, wpart[(i * WQ + wq) * (D + 2) + D]);
+      float L = 0.f, A = 0.f;
+      for (int i = 0; i < kWarps; ++i) {
+        const float* wp = wpart + (i * WQ + wq) * (D + 2);
+        const float f = expf(wp[D] - M);
+        L += wp[D + 1] * f;
+        A += wp[d] * f;
       }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[w] = alpha;
-        l_s[w] = l_s[w] * alpha + sum;
-        m_s[w] = m_new;
+      acc_s[(w0 + wq) * D + d] = A;
+      if (d == 0) {
+        m_s[w0 + wq] = M;
+        l_s[w0 + wq] = L;
       }
     }
-    __syncthreads();
-    for (int e = tid; e < W * D; e += kThreads) {
-      const int w = e / D, d = e % D;
-      const float* pw = p_s + w * ps;
-      float a = acc_s[e] * a_s[w];
-      for (int r = 0; r < rows; ++r) a += pw[r] * v_s[r * D + d];
-      acc_s[e] = a;
-    }
-    __syncthreads();
+    __syncthreads();   // the ring is free for the next pass
   }
 
-  // fold the fresh window: row w attends fresh rows 0..w
-  scores(q_s, kn_s, ks, p_s, ps, W, W, D, scale);
-  __syncthreads();
-  for (int w = warp; w < W; w += kWarps) {
-    float* pw = p_s + w * ps;
-    float mx = kNegInf;
-    for (int j = lane; j <= w; j += 32) mx = fmaxf(mx, pw[j]);
-    const float m_prev = m_s[w];
-    const float m2 = fmaxf(m_prev, warp_max(mx));
-    float sum = 0.f;
-    for (int j = lane; j < W; j += 32) {
-      const float e = j <= w ? expf(pw[j] - m2) : 0.f;
-      pw[j] = e;
-      sum += e;
+  // one rank: its state is the slot's (the pass loop's last barrier
+  // published it); else every rank's state is in its shared memory
+  const bool split = a.cv.ranks > 1;
+  if (split) cluster.sync();
+  if (rank == 0 && split) {
+    // the ranks by logsumexp, in rank order: one thread an element, the
+    // ranks' loads all in flight
+    float Ms[(kMaxLaneCols * 32 + kThreads - 1) / kThreads];
+    float Ls[(kMaxLaneCols * 32 + kThreads - 1) / kThreads];
+    float As[(kMaxLaneCols * 32 + kThreads - 1) / kThreads];
+    for (int w = 0; w < W; ++w) {
+#pragma unroll
+      for (int i = 0; i * kThreads < kMaxLaneCols * 32; ++i) {
+        const int d = tid + i * kThreads;
+        if (d >= D) continue;
+        float mr[kMaxRanks], lr[kMaxRanks], ar[kMaxRanks];
+#pragma unroll
+        for (int r = 0; r < kMaxRanks; ++r) {
+          if (r < a.cv.ranks) {
+            mr[r] = cluster.map_shared_rank(m_s, r)[w];
+            lr[r] = cluster.map_shared_rank(l_s, r)[w];
+            ar[r] = cluster.map_shared_rank(acc_s, r)[w * D + d];
+          }
+        }
+        float M = kNegInf;
+#pragma unroll
+        for (int r = 0; r < kMaxRanks; ++r)
+          if (r < a.cv.ranks) M = fmaxf(M, mr[r]);
+        float L = 0.f, A = 0.f;
+#pragma unroll
+        for (int r = 0; r < kMaxRanks; ++r) {
+          if (r < a.cv.ranks) {
+            const float f = expf(mr[r] - M);
+            L += lr[r] * f;
+            A += ar[r] * f;
+          }
+        }
+        Ms[i] = M;
+        Ls[i] = L;
+        As[i] = A;
+      }
+      __syncthreads();   // every read of this row's state is done
+#pragma unroll
+      for (int i = 0; i * kThreads < kMaxLaneCols * 32; ++i) {
+        const int d = tid + i * kThreads;
+        if (d >= D) continue;
+        acc_s[w * D + d] = As[i];
+        if (d == 0) {
+          m_s[w] = Ms[i];
+          l_s[w] = Ls[i];
+        }
+      }
     }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      // denominator >= the diagonal term > 0
-      const float alpha = expf(m_prev - m2);
-      a_s[w] = alpha;
-      l_s[w] = l_s[w] * alpha + sum;
+    __syncthreads();
+  }
+  if (rank == 0) {
+    // the fresh rows j <= w, in order, a warp a query row
+    for (int w = warp; w < W; w += kWarps) {
+      float M = m_s[w], L = l_s[w], A[kMaxLaneCols];
+#pragma unroll
+      for (int i = 0; i < kMaxLaneCols; ++i) {
+        const int d = lane + 32 * i;
+        A[i] = d < D ? acc_s[w * D + d] : 0.f;
+      }
+      for (int j = 0; j <= w; ++j) {
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < kMaxLaneCols; ++i) {
+          const int d = lane + 32 * i;
+          if (d < D) s += q_s[w * D + d] * kn_s[j * D + d];
+        }
+        s = warp_sum(s) * a.scale;
+        const float mn = fmaxf(M, s);
+        const float al = expf(M - mn), p = expf(s - mn);
+        L = L * al + p;   // >= the diagonal term, > 0
+#pragma unroll
+        for (int i = 0; i < kMaxLaneCols; ++i) {
+          const int d = lane + 32 * i;
+          if (d < D) A[i] = A[i] * al + p * vn_s[j * D + d];
+        }
+        M = mn;
+      }
+#pragma unroll
+      for (int i = 0; i < kMaxLaneCols; ++i) {
+        const int d = lane + 32 * i;
+        if (d < D) store(a.out + row0 + (size_t)w * C + d, A[i] / L);
+      }
     }
   }
-  __syncthreads();
-  for (int e = tid; e < W * D; e += kThreads) {
-    const int w = e / D, d = e % D;
-    const float* pw = p_s + w * ps;
-    float a = acc_s[e] * a_s[w];
-    for (int j = 0; j < W; ++j) a += pw[j] * vn_s[j * D + d];
-    store(out + row0 + (size_t)w * C + d, a / l_s[w]);
+  if (split) cluster.sync();   // no rank leaves while rank 0 reads it
+}
+
+template <typename T, typename P, int NVL, int WQ>
+int launch_kernel(const Args<T, P>& a, int B, cudaStream_t stream) {
+  auto kernel = paged_window_kernel<T, P, NVL, WQ>;
+  const size_t smem = a.cv.total;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.cv.ranks, a.H, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cv.ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = a.cv.ranks > 1 ? 1 : 0;   // one rank: a plain grid
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 template <typename T, typename P>
@@ -259,24 +545,41 @@ int launch(const void* q, const void* k_new, const void* v_new,
            const void* k_pages, const void* v_pages, const float* k_scales,
            const float* v_scales, int head_gran, const int* tables,
            const int* pos, void* out, int B, int W, int psz, int mp, int H,
-           int D, cudaStream_t stream) {
-  const size_t smem = smem_floats(W, D, mp) * sizeof(float);
-  if (smem > kMaxSmem || D % kvq::vec_elems<T>() != 0 ||
-      D % kvq::vec_elems<P>() != 0 || H > 65535 ||
-      (k_scales == nullptr) != (v_scales == nullptr))
+           int D, int span, cudaStream_t stream) {
+  const bool quant = k_scales != nullptr;
+  if (W < 1 || D % kvq::vec_elems<T>() != 0 ||
+      D % kvq::vec_elems<P>() != 0 || D > 32 * kMaxLaneCols || H > 65535 ||
+      B > 65535 || quant != (v_scales != nullptr))
     return (int)cudaErrorInvalidValue;
-  auto kernel = paged_window_kernel<T, P>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<dim3(B, H), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_new),
-      static_cast<const T*>(v_new), static_cast<const P*>(k_pages),
-      static_cast<const P*>(v_pages), k_scales, v_scales, head_gran, tables,
-      pos, static_cast<T*>(out), W, psz, mp, H, D, 1.0f / sqrtf((float)D));
-  return (int)cudaGetLastError();
+  Args<T, P> a;
+  a.q = static_cast<const T*>(q);
+  a.k_new = static_cast<const T*>(k_new);
+  a.v_new = static_cast<const T*>(v_new);
+  a.k_pages = static_cast<const P*>(k_pages);
+  a.v_pages = static_cast<const P*>(v_pages);
+  a.k_scales = k_scales;
+  a.v_scales = v_scales;
+  a.tables = tables;
+  a.pos = pos;
+  a.out = static_cast<T*>(out);
+  a.W = W;
+  a.psz = psz;
+  a.mp = mp;
+  a.H = H;
+  a.D = D;
+  a.head_gran = head_gran;
+  a.scale = 1.0f / sqrtf((float)D);
+  a.cv = plan(W, D, mp, psz, (int)sizeof(P), quant, span);
+  if (a.cv.total > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int nvec = D / kvq::vec_elems<P>();
+  int G = 1;
+  while (2 * G <= nvec && 2 * G <= 32) G *= 2;
+  const bool two = nvec > G;
+  if (W == 1)
+    return two ? launch_kernel<T, P, 2, 1>(a, B, stream)
+               : launch_kernel<T, P, 1, 1>(a, B, stream);
+  return two ? launch_kernel<T, P, 2, 4>(a, B, stream)
+             : launch_kernel<T, P, 1, 4>(a, B, stream);
 }
 
 template <typename T>
@@ -284,17 +587,18 @@ int launch_pool(int pool, const void* q, const void* k_new, const void* v_new,
                 const void* k_pages, const void* v_pages, const float* ks,
                 const float* vs, int head_gran, const int* tab, const int* p,
                 void* out, int B, int W, int psz, int mp, int H, int D,
-                cudaStream_t s) {
+                int span, cudaStream_t s) {
   if (pool == 0 && ks == nullptr)
     return launch<T, T>(q, k_new, v_new, k_pages, v_pages, ks, vs, head_gran,
-                        tab, p, out, B, W, psz, mp, H, D, s);
+                        tab, p, out, B, W, psz, mp, H, D, span, s);
   if (pool == 1 && ks != nullptr)
     return launch<T, int8_t>(q, k_new, v_new, k_pages, v_pages, ks, vs,
-                             head_gran, tab, p, out, B, W, psz, mp, H, D, s);
+                             head_gran, tab, p, out, B, W, psz, mp, H, D,
+                             span, s);
   if (pool == 2 && ks != nullptr)
     return launch<T, __nv_fp8_e4m3>(q, k_new, v_new, k_pages, v_pages, ks,
                                     vs, head_gran, tab, p, out, B, W, psz,
-                                    mp, H, D, s);
+                                    mp, H, D, span, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -303,14 +607,16 @@ int launch_pool(int pool, const void* q, const void* k_new, const void* v_new,
 // dtype (window rows and output): 0 = float32, 1 = bfloat16. pool: 0 =
 // the pages in that dtype (k_scales and v_scales null), 1 = int8, 2 = fp8
 // e4m3, with f32 scales (N, psz) (head_gran 0) or (N, psz, H) (head_gran
-// 1). The kernel trusts the live prefix of each table row to hold page
-// ids inside the pool (the allocator's invariant); entries past it are
-// never read.
+// 1). span: the caller's bound on every slot's pos, which sizes the
+// split (any value gives the right result). The kernel trusts the live
+// prefix of each table row to hold page ids inside the pool (the
+// allocator's invariant); entries past it are never read.
 extern "C" int paged_window_attention_launch(
     const void* q, const void* k_new, const void* v_new, const void* k_pages,
     const void* v_pages, const void* k_scales, const void* v_scales,
     int head_gran, const void* tables, const void* pos, void* out, int B,
-    int W, int psz, int mp, int H, int D, int dtype, int pool, void* stream) {
+    int W, int psz, int mp, int H, int D, int span, int dtype, int pool,
+    void* stream) {
   const int* tab = static_cast<const int*>(tables);
   const int* p = static_cast<const int*>(pos);
   const float* ks = static_cast<const float*>(k_scales);
@@ -319,10 +625,24 @@ extern "C" int paged_window_attention_launch(
   if (dtype == 0)
     return launch_pool<float>(pool, q, k_new, v_new, k_pages, v_pages, ks,
                               vs, head_gran, tab, p, out, B, W, psz, mp, H,
-                              D, s);
+                              D, span, s);
   if (dtype == 1)
     return launch_pool<__nv_bfloat16>(pool, q, k_new, v_new, k_pages,
                                       v_pages, ks, vs, head_gran, tab, p,
-                                      out, B, W, psz, mp, H, D, s);
+                                      out, B, W, psz, mp, H, D, span, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The CTA's dynamic shared memory (bytes), tile rows, ring stages and
+// cluster ranks at these shapes and span (isz: the pool's element size),
+// for the tests of the Python mirror.
+extern "C" int paged_window_attention_carve(int W, int D, int mp, int psz,
+                                            int isz, int quant, int span,
+                                            int* out) {
+  const Carve c = plan(W, D, mp, psz, isz, quant != 0, span);
+  out[0] = (int)c.total;
+  out[1] = c.tile;
+  out[2] = c.stages;
+  out[3] = c.ranks;
+  return 0;
 }

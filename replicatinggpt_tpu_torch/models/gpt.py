@@ -578,7 +578,7 @@ def decode_step_paged(params: Params, idx_t, pos, active, tables, cache,
                           "v_scales": cache["vs"][i]}
             attn = paged_window_attention(
                 q_m, k_new, v_new, cache["k"][i], cache["v"][i], tables,
-                pos32, n_head=H, **scales)
+                pos32, n_head=H, max_pos=int(pe_host.max()), **scales)
             _scatter_kv(cache, i, phys, woff, k_m[rows, 0], v_m[rows, 0],
                         packed, H)
         else:

@@ -163,12 +163,47 @@ def attend_smem_bytes(seq_len: int, head_dim: int) -> int:
 
 def fused_smem_bytes(n_embd: int, seq_len: int, head_dim: int,
                      itemsize: int) -> int:
-    """Shared memory of one fused-kernel block (mirrors ``smem_floats``
-    in csrc/fused_decode_layers.cu)."""
+    """Shared memory of one fused-kernel block (mirrors ``smem_total``
+    in csrc/fused_decode_layers.cu): an mbarrier and the rows (2 + 3C +
+    32 x tile columns + 20 + 2D + S floats) and, when they fit, a ring of
+    whatever the card leaves, in whole 16-byte units."""
     tile_cols = _TILE_VECS * (16 // itemsize)
     row_groups = _THREADS // _TILE_VECS
-    return (4 * (4 * n_embd + row_groups * tile_cols + _THREADS // 32 + 1)
-            + attend_smem_bytes(seq_len, head_dim))
+    fixed = 4 * (2 + 3 * n_embd + row_groups * tile_cols
+                 + 2 * (_THREADS // 32) + 4 + 2 * head_dim + seq_len)
+    if fixed > _MAX_SMEM:
+        return fixed
+    return fixed + ((_MAX_SMEM - fixed) & ~15)
+
+
+_PLAN_KEYS = ("grid", "qkv_tiles", "qkv_splits", "qkv_rows", "proj_tiles",
+              "proj_splits", "proj_rows", "up_tiles", "up_splits", "up_rows",
+              "down_tiles", "down_splits", "down_rows", "part_floats",
+              "weight_slots", "kv_rows", "smem", "slot_bytes")
+_PLANS: Dict[tuple, Dict[str, int]] = {}
+
+
+def fused_decode_plan(n_embd: int, n_head: int, seq_len: int,
+                      dtype: torch.dtype, device) -> Dict[str, int]:
+    """The fused kernel's split on ``device`` at these shapes (built at
+    first use): its grid (every block the card holds resident), each
+    product's column tiles x input slices of ``*_rows`` rows, the f32
+    partials its scratch holds, the weight slots and K/V rows its ring
+    holds, and its shared memory."""
+    dev = torch.device(device)
+    key = (n_embd, n_head, seq_len, dtype, dev.index)
+    plan = _PLANS.get(key)
+    if plan is None:
+        out = (ctypes.c_long * len(_PLAN_KEYS))()
+        lib = _lib("fused_decode_layers")
+        with torch.cuda.device(dev):
+            err = lib.fused_decode_layers_plan(n_embd, n_head, seq_len,
+                                               _DTYPE_CODE[dtype], out)
+        if err != 0:
+            raise RuntimeError(f"fused_decode_layers plan failed: CUDA "
+                               f"error {err}")
+        plan = _PLANS[key] = dict(zip(_PLAN_KEYS, out))
+    return plan
 
 
 def kernel_envelope(head_dim: int, itemsize: int, smem: int) -> tuple:
@@ -500,13 +535,15 @@ def fused_decode_layers(x0, blocks: Dict[str, torch.Tensor], pos: int,
     xout = torch.empty((1, C), dtype=dt, device=dev)
     newk = torch.empty((L, 1, C), dtype=dt, device=dev)
     newv = torch.empty((L, 1, C), dtype=dt, device=dev)
-    scratch = torch.empty(9 * C, dtype=dt, device=dev)
+    plan = fused_decode_plan(C, H, S, dt, dev)
+    partials = torch.empty(plan["part_floats"], dtype=torch.float32,
+                           device=dev)
     ptrs = (ctypes.c_void_p * 19)(*(t.data_ptr() for t in (
-        *ts, xout, newk, newv, scratch)))
+        *ts, xout, newk, newv, partials)))
     lib = _lib("fused_decode_layers")
     err = lib.fused_decode_layers_launch(
         ptrs, L, C, H, S, pos, int(packed), int(cfg.activation == "gelu"),
-        cfg.layernorm_eps, _DTYPE_CODE[dt], _stream(x0))
+        cfg.layernorm_eps, _DTYPE_CODE[dt], plan["grid"], _stream(x0))
     if err != 0:
         raise RuntimeError(f"fused_decode_layers launch failed: CUDA error "
                            f"{err}")
@@ -638,6 +675,12 @@ def _lib(name: str) -> ctypes.CDLL:
                            i, i, i, ctypes.c_float, i, i, p]
         else:
             fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), i, i, i, i, i, i,
-                           i, ctypes.c_float, i, p]
+                           i, ctypes.c_float, i, i, p]
+            plan = lib.fused_decode_layers_plan
+            plan.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_long)]
+            plan.restype = ctypes.c_int
+            probe = lib.fused_decode_barrier_probe
+            probe.argtypes = [i, i, i, i, i, p]
+            probe.restype = ctypes.c_int
         fn.restype = ctypes.c_int
     return lib

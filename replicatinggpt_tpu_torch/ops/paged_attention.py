@@ -16,6 +16,8 @@ hands the fresh rows already fake-quantized (``quant.kv``).
 - ``paged_window_attention``: the wrapper. A CPU tensor takes the plain
   version; a CUDA tensor launches ``csrc/paged_window_attention.cu`` or
   raises. ``paged_window_attention.launches`` counts kernel launches;
+- ``cluster_ranks`` / ``smem_bytes``: the kernel's split of a history
+  over a thread-block cluster, and its shared-memory carve-up;
 - ``paged_attention_envelope``: which shapes the kernel takes, with the
   failed checks named (the engine's route export reports them).
 """
@@ -23,6 +25,7 @@ hands the fresh rows already fake-quantized (``quant.kv``).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -31,8 +34,10 @@ from . import _build
 
 NEG_INF = -1e30   # large-negative instead of -inf: NaN-free masked rows
 
-#: kernel constants (csrc/paged_window_attention.cu: kTile, kMaxSmem)
-_TILE = 64
+#: kernel constants (csrc/paged_window_attention.cu: kStages, kMaxTile,
+#: kMinTile, kStageBytes, kMaxRanks, kWarps, kMaxSmem)
+_STAGES, _MAX_TILE, _MIN_TILE, _STAGE_BYTES = 4, 64, 8, 16384
+_MAX_RANKS, _WARPS = 8, 8
 _MAX_SMEM = 232_448
 _KERNEL = "paged_window_attention"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -41,16 +46,89 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 POOL_CODE = {torch.int8: 1, torch.float8_e4m3fn: 2}
 
 
-def smem_bytes(window: int, head_dim: int, max_pages: int) -> int:
-    """Dynamic shared memory of one kernel block (mirrors the carve-up at
-    the top of the kernel)."""
-    W, D = window, head_dim
-    ks = D + 8
-    floats = (W * D + W * ks + 2 * W * D + _TILE * ks + _TILE * D
-              + W * max(_TILE, W) + 3 * W)
-    return 4 * (floats + max_pages)
+def _pass_rows(window: int) -> int:
+    return 1 if window == 1 else 4
 
 
+def _carve(W: int, D: int, mp: int, isz: int, quantized: bool, tile: int,
+           stages: int) -> int:
+    ring = stages * 2 * tile * D * isz + (
+        stages * 2 * tile * 4 if quantized else 0)
+    warps = _WARPS * _pass_rows(W) * (D + 2) * 4
+    return max(ring, warps) + 3 * W * D * 4 + W * (D + 2) * 4 + mp * 4
+
+
+@functools.lru_cache(maxsize=None)
+def tile_rows(window: int, head_dim: int, max_pages: int, itemsize: int = 2,
+              quantized: bool = False) -> int:
+    """History rows of one ring stage (mirrors ``tile_rows`` in the
+    kernel): 64, halved while a stage's K+V passes 16 KiB or the CTA, at
+    4 stages, the card's shared memory, down to 8."""
+    tile = _MAX_TILE
+    while tile > _MIN_TILE and (
+            2 * tile * head_dim * itemsize > _STAGE_BYTES
+            or _carve(window, head_dim, max_pages, itemsize, quantized,
+                      tile, _STAGES) > _MAX_SMEM):
+        tile //= 2
+    return tile
+
+
+def _span_tiles(window, head_dim, max_pages, page_size, itemsize,
+                quantized, span) -> int:
+    cap = max_pages * page_size
+    span = cap if span is None else min(max(span, 1), cap)
+    tile = tile_rows(window, head_dim, max_pages, itemsize, quantized)
+    return -(-span // tile)
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_ranks(window: int, head_dim: int, max_pages: int,
+                  page_size: int, itemsize: int = 2,
+                  quantized: bool = False, span=None) -> int:
+    """CTAs of the cluster that serves one (slot, head) (mirrors ``plan``
+    in the kernel): the fewest, at most 8, that hold all of their tiles
+    of a ``span``-row history in flight at once (4 stages each), times
+    the passes over it a wide window makes. ``span``: a bound on every
+    slot's pos that the caller holds on the host, the whole table's
+    ``max_pages * page_size`` when None; the host never reads ``pos``
+    back."""
+    tiles = _span_tiles(window, head_dim, max_pages, page_size, itemsize,
+                        quantized, span)
+    passes = -(-window // _pass_rows(window))
+    return max(1, min(_MAX_RANKS, -(-(tiles * passes) // _STAGES)))
+
+
+@functools.lru_cache(maxsize=None)
+def ring_stages(window: int, head_dim: int, max_pages: int, page_size: int,
+                itemsize: int = 2, quantized: bool = False,
+                span=None) -> int:
+    """Stages of a CTA's ring: a rank's tiles of one pass, 2 to 4, fewer
+    while the CTA would pass the card's shared memory."""
+    tiles = _span_tiles(window, head_dim, max_pages, page_size, itemsize,
+                        quantized, span)
+    ranks = cluster_ranks(window, head_dim, max_pages, page_size, itemsize,
+                          quantized, span)
+    stages = min(_STAGES, max(2, -(-tiles // ranks)))
+    args = (window, head_dim, max_pages, itemsize, quantized)
+    while stages > 2 and _carve(*args, tile_rows(*args), stages) > _MAX_SMEM:
+        stages -= 1
+    return stages
+
+
+@functools.lru_cache(maxsize=None)
+def smem_bytes(window: int, head_dim: int, max_pages: int, page_size: int,
+               itemsize: int = 2, quantized: bool = False,
+               span=None) -> int:
+    """Dynamic shared memory of one kernel CTA (mirrors ``carve`` at the
+    top of the kernel); ``itemsize`` is the pool's element size. No span
+    needs more than the whole table's, ``span=None``."""
+    args = (window, head_dim, max_pages, itemsize, quantized)
+    return _carve(*args, tile_rows(*args),
+                  ring_stages(window, head_dim, max_pages, page_size,
+                              itemsize, quantized, span))
+
+
+@functools.lru_cache(maxsize=None)
 def paged_attention_envelope(n_head: int, head_dim: int, page_size: int,
                              *, itemsize: int = 2, window: int = 1,
                              max_pages: int = 64, kv_quant: str = "none",
@@ -68,7 +146,8 @@ def paged_attention_envelope(n_head: int, head_dim: int, page_size: int,
     vec = 8 if kv_quant == "none" else 16   # elements of a 16-byte load
     if head_dim % vec or not vec <= head_dim <= 256:
         reasons.append("head_dim")
-    if smem_bytes(window, head_dim, max_pages) > _MAX_SMEM:
+    if smem_bytes(window, head_dim, max_pages, page_size, itemsize,
+                  kv_quant != "none") > _MAX_SMEM:
         reasons.append("smem_budget")
     return (not reasons), tuple(reasons)
 
@@ -161,14 +240,17 @@ def _check(q, k_new, v_new, k_pages, v_pages, tables, pos, n_head,
 
 
 def paged_window_attention(q, k_new, v_new, k_pages, v_pages, tables, pos,
-                           *, n_head: int, k_scales=None,
-                           v_scales=None) -> torch.Tensor:
+                           *, n_head: int, k_scales=None, v_scales=None,
+                           max_pos=None) -> torch.Tensor:
     """Windowed paged attention (see the module docstring for shapes).
     CPU tensors run the plain version; CUDA tensors run the kernel,
     which takes bf16 or f32 contiguous window rows, pages in that dtype
     or (with contiguous f32 scales) int8 / fp8 e4m3, int32 tables and
     pos, and shapes inside ``paged_attention_envelope``; anything else
-    raises."""
+    raises. ``max_pos``: a bound on every slot's pos that the caller
+    already holds on the host; it sizes the kernel's split
+    (``cluster_ranks``) and never changes the result. None sizes it for
+    the whole table."""
     _check(q, k_new, v_new, k_pages, v_pages, tables, pos, n_head, k_scales,
            v_scales)
     if q.device.type == "cpu":
@@ -221,6 +303,7 @@ def paged_window_attention(q, k_new, v_new, k_pages, v_pages, tables, pos,
         v_scales.data_ptr() if quantized else None,
         int(quantized and k_scales.dim() == 3), tables.data_ptr(),
         pos.data_ptr(), out.data_ptr(), B, W, psz, mp, n_head, D,
+        mp * psz if max_pos is None else min(max(int(max_pos), 1), mp * psz),
         _DTYPE_CODE[q.dtype], POOL_CODE.get(k_pages.dtype, 0),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -239,6 +322,6 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, i, p, p, p, i, i, i, i, i, i, i,
-                       i, p]
+                       i, i, p]
         fn.restype = ctypes.c_int
     return lib

@@ -88,6 +88,118 @@ def test_paged_attention_kernel_rejects_what_it_does_not_take(card):
         pa.paged_window_attention(strided, *args[1:], n_head=H)
 
 
+def _edge_inputs(W, dtype, kv_dtype, gran, mp, seed=0):
+    """Slots at pos 0, 1, psz - 1, psz, psz + 1 and mp * psz - 1 beside
+    an empty one; table entries past each live frontier point past the
+    pool; the pool rows at positions >= pos inside each slot's last live
+    page hold NaN (a quantized pool: their scales). Returns the kernel's
+    (args, kw) and the plain version's, whose pool has those rows finite:
+    the kernel must not read them, and the plain version masks them
+    without selecting (0 x NaN)."""
+    from replicatinggpt_tpu_torch.quant.kv import (fake_quantize_rows,
+                                                   quantize_rows)
+    rng = np.random.default_rng(seed)
+    pos = np.array([0, 1, PSZ - 1, PSZ, PSZ + 1, mp * PSZ - 1, 0], np.int32)
+    B = pos.size
+    n = B * mp + 3
+    tables = rng.permutation(n)[:B * mp].reshape(B, mp).astype(np.int32)
+    live = (pos + PSZ - 1) // PSZ
+    tables[np.arange(mp)[None, :] >= live[:, None]] = n + 5
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).cuda()
+    q, kn, vn, kp, vp = mk(B, W, C), mk(B, W, C), mk(B, W, C), \
+        mk(n, PSZ, C), mk(n, PSZ, C)
+    if kv_dtype == "none":
+        pages = {"k": kp.to(dtype), "v": vp.to(dtype)}
+    else:
+        (kq, ks), (vq, vs) = (quantize_rows(t, kv_dtype, H, gran)
+                              for t in (kp, vp))
+        kn, vn = (fake_quantize_rows(t, kv_dtype, H, gran) for t in (kn, vn))
+        pages = {"k": kq, "v": vq, "ks": ks, "vs": vs}
+    clean = {k: t.clone() for k, t in pages.items()}
+    dirty = ("k", "v") if kv_dtype == "none" else ("ks", "vs")
+    for b, p in enumerate(pos):
+        for g in range(p, live[b] * PSZ):
+            for name in dirty:
+                pages[name][tables[b, g // PSZ], g % PSZ] = float("nan")
+    rows = [t.to(dtype) for t in (q, kn, vn)]
+    tabs = (torch.from_numpy(tables).cuda(), torch.from_numpy(pos).cuda())
+
+    def call(pool):
+        kw = {"n_head": H}
+        if kv_dtype != "none":
+            kw.update(k_scales=pool["ks"], v_scales=pool["vs"])
+        return (*rows, pool["k"], pool["v"], *tabs), kw
+
+    return call(pages), call(clean)
+
+
+# (compute dtype, pool, scale granularity); tolerances as TOL
+EDGE_POOLS = [(torch.float32, "none", "page"),
+              (torch.bfloat16, "none", "page")]
+EDGE_POOLS += [(dt, kv, gran) for kv in ("int8", "fp8")
+               for gran in ("page", "head")
+               for dt in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mp,max_pos,ranks", [
+    (4, None, 1), (64, None, 2), (96, None, 3), (128, None, 4),
+    (256, None, 8), (256, 20, 1), (256, 300, 2)])
+@pytest.mark.parametrize("W", [1, 4])
+@pytest.mark.parametrize("dtype,kv_dtype,gran", EDGE_POOLS)
+def test_paged_attention_kernel_edge_positions(card, mp, max_pos, ranks, W,
+                                               dtype, kv_dtype, gran):
+    """The cluster split at 1-8 ranks (ranks that own no tile among
+    them), sized from the table or from a caller's ``max_pos`` below
+    the longest slot's pos (its ranks then stream more tiles), slots at
+    every page edge and at the table's last row, NaN past pos, every
+    pool type; two launches give the same bits."""
+    (args, kw), (ref_args, ref_kw) = _edge_inputs(W, dtype, kv_dtype, gran,
+                                                  mp)
+    quant = kv_dtype != "none"
+    assert pa.cluster_ranks(W, C // H, mp, PSZ, 1 if quant else
+                            dtype.itemsize, quant, max_pos) == ranks
+    if max_pos is not None:
+        kw = {**kw, "max_pos": max_pos}
+    before = pa.paged_window_attention.launches
+    got = pa.paged_window_attention(*args, **kw)
+    again = pa.paged_window_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert pa.paged_window_attention.launches == before + 2
+    assert torch.equal(got, again)
+    ref = pa.paged_window_attention_ref(*ref_args, **ref_kw)
+    assert torch.isfinite(got).all()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_paged_attention_smem_mirror_matches_kernel(card):
+    """ops/paged_attention.py's carve-up, tile rows, ring stages and
+    cluster ranks equal the kernel's own at shapes around every halving
+    of the tile and every cluster size, with and without a span."""
+    import ctypes
+    lib = pa._lib()
+    fn = lib.paged_window_attention_carve
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 4)()
+    for W in (1, 4, 9, 64):
+        for D in (8, 32, 64, 128, 256):
+            for mp in (1, 8, 64, 4096):
+                for isz, quant in ((2, False), (4, False), (1, True)):
+                    for span in (None, 0, 65, 300, 1024):
+                        assert fn(W, D, mp, 16, isz, int(quant),
+                                  mp * 16 if span is None else span,
+                                  out) == 0
+                        assert tuple(out) == (
+                            pa.smem_bytes(W, D, mp, 16, isz, quant, span),
+                            pa.tile_rows(W, D, mp, isz, quant),
+                            pa.ring_stages(W, D, mp, 16, isz, quant, span),
+                            pa.cluster_ranks(W, D, mp, 16, isz, quant,
+                                             span))
+
+
 def _flash_inputs(T, H, dtype, D=64, B=2, seed=0):
     rng = np.random.default_rng(seed)
     mk = lambda *s: torch.from_numpy(_on_grid(  # noqa: E731
@@ -451,20 +563,31 @@ def test_packed_decode_attention_kernel_matches_ref(card, D, dtype, tol):
                                    rtol=tol)
 
 
-def _fused_inputs(layout, D, dtype, pos, S=64, C=256, L=2, seed=0):
+def _fused_inputs(layout, D, dtype, pos, S=64, C=256, L=2, seed=0,
+                  activation="gelu"):
+    """Weights at the path's scales (the residual projections at 0.02 /
+    sqrt(2L), as ``init_params`` draws them), layernorm parameters and
+    biases perturbed so their casts show, NaN in every cache row >=
+    pos."""
     from replicatinggpt_tpu_torch.config import ModelConfig
     from replicatinggpt_tpu_torch.models.gpt import BLOCK_SHAPES
     H = C // D
     cfg = ModelConfig(vocab_size=64, block_size=S, n_layer=L, n_head=H,
                       n_embd=C, dtype="float32" if dtype == torch.float32
-                      else "bfloat16", activation="gelu",
+                      else "bfloat16", activation=activation,
                       decode_cache_layout=layout)
     rng = np.random.default_rng(seed)
+    resid = 0.02 * (2 * L) ** -0.5
     blocks = {}
     for name, shape in BLOCK_SHAPES.items():
         a = rng.standard_normal((L, *shape(C))).astype(np.float32)
-        a = 1 + 0.1 * a if name.endswith("_scale") else (
-            0.02 * a if name.endswith("_kernel") else 0.1 * a)
+        if name.endswith("_scale"):
+            a = 1 + 0.1 * a
+        elif name.endswith("_kernel"):
+            a = a * (resid if name in ("attn_out_kernel", "mlp_down_kernel")
+                     else 0.02)
+        else:
+            a = 0.1 * a
         blocks[name] = torch.from_numpy(a).cuda()
     blocks = dec.fused_weights(blocks, dtype)
     shape = (L, 1, S, C) if layout == "packed" else (L, 1, H, S, D)
@@ -481,19 +604,48 @@ def _fused_inputs(layout, D, dtype, pos, S=64, C=256, L=2, seed=0):
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-def test_fused_decode_layers_kernel_matches_ref(card, layout, D, dtype, tol):
-    for pos in (0, 32, 63):
-        x0, blocks, cache, cfg = _fused_inputs(layout, D, dtype, pos)
+@pytest.mark.parametrize("L", [1, 6])
+@pytest.mark.parametrize("activation", ["relu", "gelu"])
+def test_fused_decode_layers_kernel_matches_ref(card, layout, D, dtype, tol,
+                                                L, activation):
+    """pos at 0, 1, a tile edge and the cache's last row, NaN at and past
+    pos; two launches give the same bits."""
+    for pos in (0, 1, 63, 64, 255):
+        x0, blocks, cache, cfg = _fused_inputs(layout, D, dtype, pos, S=256,
+                                               L=L, activation=activation)
         before = dec.fused_decode_layers.launches
         got = dec.fused_decode_layers(x0, blocks, pos, cache, cfg)
+        again = dec.fused_decode_layers(x0, blocks, pos, cache, cfg)
         torch.cuda.synchronize()
-        assert dec.fused_decode_layers.launches == before + 1
+        assert dec.fused_decode_layers.launches == before + 2
         ref = dec.fused_decode_layers_ref(x0, blocks, pos, cache, cfg)
-        for g, r in zip(got, ref):
+        for g, a, r in zip(got, again, ref):
             assert g.shape == r.shape and g.dtype == r.dtype
             assert torch.isfinite(g).all()
+            assert torch.equal(g, a)
             torch.testing.assert_close(g.float(), r.float(), atol=tol,
                                        rtol=tol)
+
+
+@pytest.mark.cuda
+def test_fused_decode_plan_fills_the_card(card):
+    """The grid covers every SM, the shared memory is the mirror's, and
+    every product's items cover its columns and input rows."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for C, H, S, dtype in ((384, 6, 256, torch.bfloat16),
+                           (384, 6, 256, torch.float32),
+                           (768, 12, 1024, torch.bfloat16),
+                           (256, 2, 64, torch.float32)):
+        plan = dec.fused_decode_plan(C, H, S, dtype, "cuda")
+        isz = dtype.itemsize
+        assert plan["grid"] >= sms
+        assert plan["smem"] == dec.fused_smem_bytes(C, S, C // H, isz)
+        tc = 128 // isz
+        for name, K, N in (("qkv", C, 3 * C), ("proj", C, C),
+                           ("up", C, 4 * C), ("down", 4 * C, C)):
+            assert plan[f"{name}_tiles"] * tc >= N
+            assert plan[f"{name}_splits"] * plan[f"{name}_rows"] >= K
+        assert (C // H) % plan["proj_rows"] == 0
 
 
 @pytest.mark.cuda

@@ -19,6 +19,7 @@ from replicatinggpt_tpu.ops import attention as jattn
 from replicatinggpt_tpu.ops import paged_pallas as jpp
 from replicatinggpt_tpu_torch.ops import attention as tattn
 from replicatinggpt_tpu_torch.ops import paged_attention as tpa
+from replicatinggpt_tpu_torch.ops.paged_attention import NEG_INF
 from replicatinggpt_tpu_torch.sample import generate as tgen
 
 # the JAX package's sample/__init__ re-exports a function named generate
@@ -74,6 +75,177 @@ def test_paged_attention_wrapper_checks_and_envelope():
     ok, reasons = tpa.paged_attention_envelope(4, 60, 16, itemsize=1,
                                                window=4096, max_pages=64)
     assert not ok and set(reasons) == {"dtype", "head_dim", "smem_budget"}
+
+
+def _split_merge_twin(q, k_new, v_new, k_pages, v_pages, tables, pos, *,
+                      n_head, ranks, tile, k_scales=None, v_scales=None):
+    """csrc/paged_window_attention.cu's algebra in plain torch: each
+    slot's live history in tiles of ``tile`` rows, dealt round-robin to
+    ``ranks`` ranks (tile t to rank t % ranks); an online softmax per rank
+    over its tiles; the ranks merged by logsumexp in rank order (a rank
+    with no tile holds m = -1e30, l = 0); then the fresh (W, W) block,
+    row j <= w, in order."""
+    B, W, C = q.shape
+    N, psz, _ = k_pages.shape
+    mp = tables.shape[1]
+    H, D = n_head, C // n_head
+    scale = D ** -0.5
+    out = torch.empty(B, W, C)
+
+    def history(pages, scales, prow):
+        rows = pages.reshape(N * psz, C)[prow].float().reshape(-1, H, D)
+        if scales is None:
+            return rows
+        sc = scales.reshape(N * psz, -1)[prow]          # (n, 1) or (n, H)
+        return rows * sc[..., None]
+
+    for b in range(B):
+        p = int(pos[b])
+        live = min(-(-p // psz), mp)
+        n_hist = min(p, live * psz)
+        g = torch.arange(n_hist)
+        prow = tables[b, g // psz].long() * psz + g % psz
+        kh = history(k_pages, k_scales, prow)
+        vh = history(v_pages, v_scales, prow)
+        qh = q[b].float().reshape(W, H, D)
+        n_tiles = -(-n_hist // tile)
+        states = []
+        for r in range(ranks):
+            m = torch.full((W, H), NEG_INF)
+            l_ = torch.zeros(W, H)
+            acc = torch.zeros(W, H, D)
+            for t in range(r, n_tiles, ranks):
+                sl = slice(t * tile, min(n_hist, (t + 1) * tile))
+                s = torch.einsum("whd,thd->wht", qh, kh[sl]) * scale
+                mn = torch.maximum(m, s.amax(-1))
+                a = torch.exp(m - mn)
+                e = torch.exp(s - mn[..., None])
+                l_ = l_ * a + e.sum(-1)
+                acc = acc * a[..., None] + torch.einsum("wht,thd->whd", e,
+                                                        vh[sl])
+                m = mn
+            states.append((m, l_, acc))
+        M = states[0][0]
+        for m, _, _ in states[1:]:
+            M = torch.maximum(M, m)
+        L = torch.zeros(W, H)
+        A = torch.zeros(W, H, D)
+        for m, l_, acc in states:
+            f = torch.exp(m - M)
+            L = L + l_ * f
+            A = A + acc * f[..., None]
+        kn = k_new[b].float().reshape(W, H, D)
+        vn = v_new[b].float().reshape(W, H, D)
+        for w in range(W):
+            for j in range(w + 1):
+                s = (qh[w] * kn[j]).sum(-1) * scale
+                mn = torch.maximum(M[w], s)
+                a, e = torch.exp(M[w] - mn), torch.exp(s - mn)
+                L[w] = L[w] * a + e
+                A[w] = A[w] * a[:, None] + e[:, None] * vn[j]
+                M[w] = mn
+        out[b] = (A / L[..., None]).reshape(W, C)
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 3, 8])
+@pytest.mark.parametrize("kv_dtype,gran", [("none", "page"), ("int8", "page"),
+                                           ("fp8", "head")])
+@pytest.mark.parametrize("W", [1, 4])
+def test_cluster_split_merge_matches_plain_version(ranks, kv_dtype, gran, W):
+    """Row #1's split over a cluster and its merge against the plain
+    version, f32, atol = rtol = 1e-5 (the two sum in different orders):
+    8-row tiles of a 32-row table, so 8 ranks leave ranks with no tile."""
+    from replicatinggpt_tpu_torch.quant.kv import (fake_quantize_rows,
+                                                   quantize_rows)
+    q, kn, vn, kp, vp, tables, pos = (torch.from_numpy(a)
+                                      for a in _paged_inputs(W))
+    kw = {}
+    if kv_dtype != "none":
+        (kp, ks), (vp, vs) = (quantize_rows(t, kv_dtype, H, gran)
+                              for t in (kp, vp))
+        kn, vn = (fake_quantize_rows(t, kv_dtype, H, gran) for t in (kn, vn))
+        kw = {"k_scales": ks, "v_scales": vs}
+    want = tpa.paged_window_attention_ref(q, kn, vn, kp, vp, tables, pos,
+                                          n_head=H, **kw)
+    got = _split_merge_twin(q, kn, vn, kp, vp, tables, pos, n_head=H,
+                            ranks=ranks, tile=8, **kw)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_cluster_split_merge_matches_jax_kernel():
+    """The twin at 3 ranks against JAX paged_window_attention (interpret
+    mode) at the shape test_paged_attention_ref_matches_jax_kernel
+    already compiles, f32, atol 2e-5."""
+    args = _paged_inputs(1)
+    want = np.asarray(jpp.paged_window_attention(
+        *(jnp.asarray(a) for a in args), n_head=H))
+    t = [torch.from_numpy(a) for a in args]
+    got = _split_merge_twin(*t, n_head=H, ranks=3, tile=8).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+
+
+def _parent_paged_smem(W, D, mp):
+    """The row #1 kernel's shared memory before the cluster split: f32
+    tiles of 64 rows, window rows, scores and the table prefix."""
+    ks = D + 8
+    return 4 * (W * D + W * ks + 2 * W * D + 64 * ks + 64 * D
+                + W * max(64, W) + 3 * W + mp)
+
+
+def _parent_fused_smem(C, S, D, isz):
+    """The row #3 kernel's shared memory before the split-K redesign."""
+    return 4 * (4 * C + 32 * 8 * (16 // isz) + 9) + 4 * (D + S + 256 + 9)
+
+
+def test_kernel_envelopes_accept_what_they_accepted_before():
+    """Neither redesigned kernel refuses a shape its predecessor took: at
+    every sampled shape inside the old shared-memory budget the new
+    carve-up fits too, and the kernel's split stays inside a cluster."""
+    from replicatinggpt_tpu_torch.ops import decode as tdec
+    limit = 232_448
+    for W in (1, 2, 4, 7, 16, 64, 150):
+        for D in range(8, 257, 8):
+            for mp in (1, 64, 4096, 40_000, 55_000):
+                if _parent_paged_smem(W, D, mp) > limit:
+                    continue
+                for isz, quant in ((2, False), (4, False), (1, True)):
+                    assert tpa.smem_bytes(W, D, mp, 16, isz,
+                                          quant) <= limit
+                    assert 1 <= tpa.cluster_ranks(W, D, mp, 16, isz,
+                                                  quant) <= 8
+    for D in (4, 8, 16, 32, 64, 128, 256):
+        for C in range(D, 16_000, 7 * D):
+            for S in (8, 256, 1024, 30_000, 55_000):
+                for isz in (2, 4):
+                    if _parent_fused_smem(C, S, D, isz) <= limit:
+                        assert tdec.fused_smem_bytes(C, S, D, isz) <= limit
+    assert tpa.cluster_ranks(1, 64, 64, 16, 2) == 4     # the 124M step
+    assert tpa.cluster_ranks(1, 64, 256, 16, 2) == 8
+    assert tpa.cluster_ranks(1, 64, 4, 8, 2) == 1
+
+
+def test_cluster_split_follows_the_callers_span():
+    """Row #1's split sized from a bound on pos that the caller holds on
+    the host (the engine's step): one rank (a plain grid) while a
+    history fits one CTA's ring, more as it grows, the whole table's
+    split without a bound; any span fits the shared memory that the
+    whole table's split fits."""
+    ranks = [tpa.cluster_ranks(1, 64, 64, 16, 2, False, span)
+             for span in (0, 1, 64, 256, 257, 512, 1000, 1024, 10 ** 6)]
+    assert ranks == [1, 1, 1, 1, 2, 2, 4, 4, 4]
+    assert tpa.cluster_ranks(1, 64, 64, 16, 2) == 4
+    assert tpa.ring_stages(1, 64, 64, 16, 2, False, 64) == 2
+    limit = 232_448
+    for W in (1, 4, 9):
+        for D in (8, 64, 128, 256):
+            for mp in (1, 64, 4096, 40_000):
+                for isz, quant in ((2, False), (4, False), (1, True)):
+                    if tpa.smem_bytes(W, D, mp, 16, isz, quant) > limit:
+                        continue
+                    for span in (1, 17, 64, 300, 2048, mp * 16):
+                        assert tpa.smem_bytes(W, D, mp, 16, isz, quant,
+                                              span) <= limit
 
 
 def test_attention_cores_match_jax():

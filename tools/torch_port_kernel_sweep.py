@@ -2,20 +2,25 @@
 """Time the port's CUDA paged attention kernel over batch and position,
 on one NVIDIA card.
 
-    python3 tools/torch_port_kernel_sweep.py [--out PATH]
+    python3 tools/torch_port_kernel_sweep.py [--root DIR] [--out PATH]
 
 GPT-2 124M widths (C=768, H=12, pages of 16, 64 pages per slot, bf16,
 W=1). For every (B, pos) cell, all B slots sit at the same position:
-the kernel's median time over 30 runs (CUDA events, L2 flushed before
-each run), the library yardstick ``F.scaled_dot_product_attention`` over
-the same K/V gathered dense, the byte bound at 3.35 TB/s, and the
-achieved rate of the kernel (bound bytes / kernel time). Prints one JSON
+the kernel's median time over 30 runs (CUDA events, L2 flushed and the
+stream padded with a device spin before each run), the library
+yardstick ``F.scaled_dot_product_attention`` over the same K/V gathered
+dense, the byte bound at 3.35 TB/s, and the
+achieved rate of the kernel (bound bytes / kernel time). The kernel is
+told the cell's position as its ``max_pos`` where the wrapper takes one,
+as the engine's step tells it. ``--root`` imports the port from another
+checkout (an older tree measured by the same code). Prints one JSON
 object per cell and writes them all to ``--out`` when given.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import pathlib
 import statistics
@@ -25,20 +30,20 @@ import sys
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
-
-from replicatinggpt_tpu_torch.ops import paged_attention as pa  # noqa: E402
-
 C, H, D, PSZ, MP = 768, 12, 64, 16, 64
 HBM_BYTES_PER_S = 3.35e12
 
 
 def time_ms(fn, flush, n=30, warm=5):
+    """Median device time of ``fn``: each run after an L2 flush and a
+    device spin (~0.5 ms) that outlasts the host's launch work, so the
+    events bracket the device time alone."""
     for _ in range(warm):
         fn()
     out = []
     for _ in range(n):
         flush.zero_()
+        torch.cuda._sleep(1_000_000)
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
         fn()
@@ -48,7 +53,7 @@ def time_ms(fn, flush, n=30, warm=5):
     return statistics.median(out)
 
 
-def cell(B: int, pos: int, flush, g) -> dict:
+def cell(pa, B: int, pos: int, flush, g) -> dict:
     N = B * MP
     dt = torch.bfloat16
 
@@ -60,8 +65,10 @@ def cell(B: int, pos: int, flush, g) -> dict:
     tables = torch.randperm(N, generator=g, device="cuda").reshape(
         B, MP).to(torch.int32)
     posv = torch.full((B,), pos, dtype=torch.int32, device="cuda")
+    hint = ({"max_pos": pos} if "max_pos" in inspect.signature(
+        pa.paged_window_attention).parameters else {})
     ms = time_ms(lambda: pa.paged_window_attention(
-        q, kn, vn, kp, vp, tables, posv, n_head=H), flush)
+        q, kn, vn, kp, vp, tables, posv, n_head=H, **hint), flush)
     live = -(-pos // PSZ)
     S = live * PSZ
     tab = tables[:, :live].long()
@@ -85,12 +92,16 @@ def cell(B: int, pos: int, flush, g) -> dict:
 
 def main() -> int:
     p = argparse.ArgumentParser()
+    p.add_argument("--root", default=str(pathlib.Path(__file__).resolve()
+                                         .parents[1]))
     p.add_argument("--out", default=None,
                    help="also write the rows here as one JSON list")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
+    sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
+    from replicatinggpt_tpu_torch.ops import paged_attention as pa
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -100,7 +111,7 @@ def main() -> int:
     rows = []
     for B in (8, 32):
         for pos in (64, 256, 512, 1000):
-            row = {"card": card, **cell(B, pos, flush, g)}
+            row = {"card": card, **cell(pa, B, pos, flush, g)}
             print(json.dumps(row))
             rows.append(row)
     if args.out:
