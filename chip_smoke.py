@@ -47,7 +47,9 @@ and fails (non-zero exit) on the first phase that fails:
    S=256) and at GPT-2 124M B=1 (L=12, C=768, H=12, S=1024), both cache
    layouts, and ``packed_decode_attention`` at GPT-2 124M (B=8, S=1024,
    C=768, H=12); bf16 (2e-2) and f32 (1e-4), pos at 0, inside and at
-   S-1, NaN in every cache row >= pos; then timings of the kernels, their
+   S-1 (packed: also one pos for each rank count of its split, 1 to 8,
+   and the split printed), NaN in every cache row >= pos; then timings
+   of the kernels, their
    plain versions and (packed attention) ``scaled_dot_product_attention``
    over the split-heads cache after the write; the fused kernel's rate,
    its split (grid, each product's column tiles x input slices) and the
@@ -74,8 +76,10 @@ and fails (non-zero exit) on the first phase that fails:
    pages of 16, 16 pages per slot, 8 slots at ragged positions, one of
    them inactive at 0), f32 (1e-4) then bf16 (2e-2), in every pool (none,
    int8 and fp8, page and head scales), NaN in every pool row (quantized:
-   every scale) at or past a slot's position; then timings of the kernel
-   and its plain version in every pool (bf16), against the bound. No
+   every scale) at or past a slot's position, with the history split
+   sized from the longest position (the engine's call) and from the
+   whole table; then the plan (grid, splits, ring) and timings of the
+   kernel and its plain version in every pool (bf16), against the bound. No
    single PyTorch call computes every layer of a step: no library time;
 13. quantized paged kernel phase: ``paged_window_attention`` with int8
    and fp8 pages, page and head scales, at the GPT-2 124M serving shapes
@@ -989,11 +993,17 @@ def packed_inputs(dtype: torch.dtype, pos: int, seed: int = 0):
             _nan_past(rnd(PB, PS, C), pos, 1), pos)
 
 
+# one pos a rank count of the packed kernel's split (1 to 8 ranks at
+# S=1024), besides the slice's positions
+PACKED_POS = (0, 64, 318, PS - 1, 129, 257, 385, 513, 641, 769, 897)
+
+
 def packed_kernel_phase(flush: torch.Tensor) -> dict:
     errs = {}
+    D = C // H
     for dtype in (torch.bfloat16, torch.float32):
-        err = 0.0
-        for pos in (0, 64, 318, PS - 1):
+        err, ranks = 0.0, set()
+        for pos in PACKED_POS:
             args = packed_inputs(dtype, pos)
             got = dec.packed_decode_attention(*args, n_head=H)
             torch.cuda.synchronize()
@@ -1003,11 +1013,19 @@ def packed_kernel_phase(flush: torch.Tensor) -> dict:
             torch.testing.assert_close(got.float(), ref.float(),
                                        atol=TOL[dtype], rtol=TOL[dtype])
             err = max(err, (got.float() - ref.float()).abs().max().item())
+            ranks.add(dec.packed_decode_split(D, dtype.itemsize,
+                                              pos)["ranks"])
+        if ranks != set(range(1, 9)):
+            raise AssertionError(f"packed: rank counts {sorted(ranks)}")
         errs[dtype] = err
         print(f"packed check: {str(dtype)[6:]} B={PB} S={PS} pos "
-              f"0/64/318/{PS - 1} max_abs_err {err:.3e} "
-              f"(atol=rtol={TOL[dtype]})")
+              f"{'/'.join(map(str, PACKED_POS))} (1 to 8 ranks) max_abs_err "
+              f"{err:.3e} (atol=rtol={TOL[dtype]})")
     pos = 318                       # the slice's last step: 63 + 255
+    split = dec.packed_decode_split(D, 2, pos)
+    print(f"packed split (bf16, pos {pos}): {split['ranks']} ranks of "
+          f"{split['rows']} rows, {split['held']} held, {split['smem']} "
+          f"bytes of shared memory, grid ({split['ranks'] * PB}, {H})")
     args = packed_inputs(torch.bfloat16, pos)
     q, kn, vn, kc, vc, _ = args
     D = C // H
@@ -1031,12 +1049,16 @@ def packed_kernel_phase(flush: torch.Tensor) -> dict:
     print(f"packed timing (bf16, B={PB}, S={PS}, pos {pos}): kernel "
           f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, sdpa "
           f"{library_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by})")
+    if not ms < library_ms:
+        print(f"packed note: the kernel ({ms * 1e3:.1f} us) is not below "
+              f"sdpa ({library_ms * 1e3:.1f} us) in this call")
     return {"name": "packed_decode_attention", "route": "cuda",
             "source": DECODE_SOURCE["packed"],
             "replaces": DECODE_REPLACES["packed"],
             "max_abs_err": errs[torch.bfloat16], "ms": ms, "kernel_ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms, "library": "sdpa, split-heads cache"}
+            "library_ms": library_ms, "library": "sdpa, split-heads cache",
+            "split": split}
 
 
 @contextlib.contextmanager
@@ -1209,38 +1231,57 @@ def fused_paged_bound_ms(args) -> tuple:
     return _bound(nbytes, 2 * FPB * weights + 4 * L * hist * C, x0.dtype)
 
 
+def fused_paged_plan(args) -> dict:
+    """The paged fused kernel's plan for these inputs and the history
+    split the engine's step gets (max_pos = the longest position)."""
+    x0, _, _, tables, cache, mcfg = args
+    plan = dec.fused_paged_decode_plan(
+        mcfg.n_embd, mcfg.n_head, tables.shape[1] * cache["k"].shape[2],
+        x0.dtype, cache["k"].dtype, "cuda")
+    return {**plan, "attn_splits": dec.fused_paged_attn_splits(
+        max(FPOS), FPB, mcfg.n_head, plan["grid"])}
+
+
 def fused_paged_kernel_phase(flush: torch.Tensor) -> dict:
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         for kv, gran in POOLS:
             args = fused_paged_inputs(dtype, kv, gran)
-            got = dec.fused_paged_decode_layers(*args)
-            torch.cuda.synchronize()
             ref = dec.fused_paged_decode_layers_ref(*args)
             tol = (FP8_BF16_TOL if kv == "fp8" and dtype == torch.bfloat16
                    else TOL[dtype])
             err = 0.0
-            for a, b in zip(got, ref):
-                if not torch.isfinite(a).all():
-                    raise AssertionError(f"fused paged: non-finite output "
-                                         f"({dtype}, {kv}-{gran})")
-                torch.testing.assert_close(a.float(), b.float(), atol=tol,
-                                           rtol=tol)
-                err = max(err, (a.float() - b.float()).abs().max().item())
+            # as the engine's step calls it (its longest position), and
+            # with the split sized from the whole table
+            for max_pos in (max(FPOS), None):
+                got = dec.fused_paged_decode_layers(*args, max_pos=max_pos)
+                torch.cuda.synchronize()
+                for a, b in zip(got, ref):
+                    if not torch.isfinite(a).all():
+                        raise AssertionError(f"fused paged: non-finite "
+                                             f"output ({dtype}, {kv}-{gran})")
+                    torch.testing.assert_close(a.float(), b.float(),
+                                               atol=tol, rtol=tol)
+                    err = max(err, (a.float() - b.float()).abs().max().item())
             errs[(dtype, pool_label(kv, gran))] = err
             print(f"fused paged check: {str(dtype)[6:]} pool "
-                  f"{pool_label(kv, gran)} B={FPB} pos {FPOS} max_abs_err "
-                  f"{err:.3e} (atol=rtol={tol})")
+                  f"{pool_label(kv, gran)} B={FPB} pos {FPOS} max_pos "
+                  f"{max(FPOS)} and none, max_abs_err {err:.3e} "
+                  f"(atol=rtol={tol})")
     by_pool = {}
     for kv, gran in POOLS:
         args = fused_paged_inputs(torch.bfloat16, kv, gran)
-        ms = time_ms(lambda: dec.fused_paged_decode_layers(*args), flush)
+        plan = fused_paged_plan(args)
+        print(f"fused paged plan (char-gpt, bf16, pool "
+              f"{pool_label(kv, gran)}): {plan}")
+        ms = time_ms(lambda: dec.fused_paged_decode_layers(
+            *args, max_pos=max(FPOS)), flush)
         plain_ms = time_ms(lambda: dec.fused_paged_decode_layers_ref(*args),
                            flush, n=10, warm=2)
         b_ms, b_by = fused_paged_bound_ms(args)
         by_pool[pool_label(kv, gran)] = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by,
+            "bound_by": b_by, "plan": plan,
             "max_abs_err": errs[(torch.bfloat16, pool_label(kv, gran))]}
         print(f"fused paged timing (char-gpt, bf16, pool "
               f"{pool_label(kv, gran)}, B={FPB}, pos sum {sum(FPOS)}): "
@@ -1255,6 +1296,8 @@ def fused_paged_kernel_phase(flush: torch.Tensor) -> dict:
             "library_ms": None,
             "library": "none: no single PyTorch call computes every layer "
                        "of a paged decode step",
+            "split": {k: main["plan"][k] for k in (
+                "grid", "attn_splits", "weight_slots", "kv_rows")},
             "by_pool": by_pool}
 
 

@@ -1,10 +1,10 @@
-// Block-level building blocks of the two decode kernels
-// (packed_decode_attention.cu, fused_decode_layers.cu): element
-// conversion, warp and block reductions, and the decode attention of
-// ONE head over a stale cache plus the fresh column.
+// Block-level building blocks of the decode kernels
+// (packed_decode_attention.cu, fused_decode_layers.cu,
+// fused_paged_decode_layers.cu): element conversion, warp and block
+// reductions, the ordered sums of split-K partials, and the activation.
 //
-// Every function here is called by all kThreads threads of a block with
-// block-uniform arguments (they contain __syncthreads).
+// Every block function here is called by all kThreads threads of a block
+// with block-uniform arguments (they contain __syncthreads).
 
 #pragma once
 
@@ -14,8 +14,7 @@ namespace decode {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kGroup = 8;   // threads per score dot product
-constexpr int kRowsPerPass = kThreads / kGroup;
+constexpr int kMaxSplits = 8;   // partials a reader loads at once
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -40,9 +39,6 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
 }
 
-// 16 bytes of T at src (16-byte aligned) as floats
-using kvq::load_vec;
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -56,15 +52,8 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = kGroup / 2; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // Sum (is_max false) or max over the block; every thread gets the
-// result. red: kWarps + 1 floats of shared memory.
+// result. red: kWarps + 1 floats, free again on return.
 __device__ __forceinline__ float block_reduce(float v, float* red,
                                               bool is_max) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -78,97 +67,91 @@ __device__ __forceinline__ float block_reduce(float v, float* red,
   }
   __syncthreads();
   const float out = red[kWarps];
-  __syncthreads();   // red may be reused right after
+  __syncthreads();
   return out;
 }
 
-// Shared-memory floats attend_head needs at cache length S, head dim D.
-__host__ __device__ inline int attend_smem_floats(int S, int D) {
-  return D + S + kThreads + kWarps + 1;
+// (m, l) pairs merged over the block: m the largest of the m's, l the
+// sum of l * exp(m_i - m); every thread gets both. A thread with nothing
+// holds (-1e30, 0). red: 2 * kWarps + 2 floats, free again on return.
+__device__ __forceinline__ float2 block_max_sumexp(float m, float l,
+                                                   float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  auto merge = [&](float mo, float lo) {
+    const float mn = fmaxf(m, mo);
+    l = l * expf(m - mn) + lo * expf(mo - mn);
+    m = mn;
+  };
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    merge(__shfl_xor_sync(0xffffffffu, m, o),
+          __shfl_xor_sync(0xffffffffu, l, o));
+  if (lane == 0) {
+    red[2 * warp] = m;
+    red[2 * warp + 1] = l;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    m = lane < kWarps ? red[2 * lane] : kNegInf;
+    l = lane < kWarps ? red[2 * lane + 1] : 0.f;
+#pragma unroll
+    for (int o = kWarps / 2; o > 0; o >>= 1)
+      merge(__shfl_xor_sync(0xffffffffu, m, o),
+            __shfl_xor_sync(0xffffffffu, l, o));
+    if (lane == 0) {
+      red[2 * kWarps] = m;
+      red[2 * kWarps + 1] = l;
+    }
+  }
+  __syncthreads();
+  const float2 r = make_float2(red[2 * kWarps], red[2 * kWarps + 1]);
+  __syncthreads();
+  return r;
 }
 
-// Decode attention of one head, mirroring _packed_attn_kernel and the
-// attention of _decode_kernel (replicatinggpt_tpu/ops/decode_pallas.py):
-// the query attends cache rows r < pos (row r of the head at kc + r *
-// row_stride, D contiguous elements) and then the fresh column
-// (k_new, v_new). Scores and softmax in f32; the probabilities are
-// rounded to T before the value product, and the fresh value's weight
-// p_new / denom likewise. Rows >= pos are never read. q, k_new, v_new
-// and out hold D elements; D is a multiple of 16 / sizeof(T) that
-// divides kThreads. smem: attend_smem_floats(S, D) floats.
-template <typename T>
-__device__ void attend_head(const T* q, const T* k_new, const T* v_new,
-                            const T* kc, const T* vc, long row_stride,
-                            int pos, int D, float scale, float* smem,
-                            T* out) {
-  constexpr int VEC = 16 / sizeof(T);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  float* q_s = smem;              // D
-  float* p_s = q_s + D;           // pos (<= S): scores, then weights
-  float* part = p_s + (pos > 0 ? pos : 0);   // kThreads partial sums
-  float* red = part + kThreads;   // kWarps + 1
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float k = 0.7978845608028654f;   // sqrt(2 / pi)
+  return 0.5f * x * (1.f + tanhf(k * (x + 0.044715f * x * x * x)));
+}
 
-  for (int d = tid; d < D; d += kThreads) q_s[d] = to_f(q[d]);
-  __syncthreads();
-
-  // scores of the stale rows, kGroup threads per row
-  const int gl = tid & (kGroup - 1);
-  for (int base = 0; base < pos; base += kRowsPerPass) {
-    const int r = base + tid / kGroup;
-    float s = 0.f;
-    if (r < pos) {
-      const T* krow = kc + (long)r * row_stride;
-      for (int d0 = gl * VEC; d0 < D; d0 += kGroup * VEC) {
-        float kv[VEC];
-        load_vec(krow + d0, kv);
+// p[0] + p[stride] + ... + p[(n - 1) * stride], added in index order,
+// the loads issued kMaxSplits at a time (L2: written by other blocks)
+__device__ __forceinline__ float sum_parts(const float* p, long stride,
+                                           int n) {
+  float s = 0.f;
+  for (int i0 = 0; i0 < n; i0 += kMaxSplits) {
+    float v[kMaxSplits];
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) s += q_s[d0 + i] * kv[i];
+    for (int j = 0; j < kMaxSplits; ++j)
+      v[j] = i0 + j < n ? __ldcg(p + (i0 + j) * stride) : 0.f;
+#pragma unroll
+    for (int j = 0; j < kMaxSplits; ++j)
+      if (i0 + j < n) s += v[j];
+  }
+  return s;
+}
+
+// the same for four consecutive columns (p 16-byte aligned)
+__device__ __forceinline__ float4 sum_parts4(const float* p, long stride,
+                                             int n) {
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i0 = 0; i0 < n; i0 += kMaxSplits) {
+    float4 v[kMaxSplits];
+#pragma unroll
+    for (int j = 0; j < kMaxSplits; ++j)
+      if (i0 + j < n)
+        v[j] = __ldcg(reinterpret_cast<const float4*>(p + (i0 + j) * stride));
+#pragma unroll
+    for (int j = 0; j < kMaxSplits; ++j) {
+      if (i0 + j < n) {
+        s.x += v[j].x;
+        s.y += v[j].y;
+        s.z += v[j].z;
+        s.w += v[j].w;
       }
     }
-    s = group_sum(s);
-    if (r < pos && gl == 0) p_s[r] = s * scale;
   }
-  // the fresh column's score, by warp 0
-  float s_new = 0.f;
-  if (warp == 0) {
-    for (int d = lane; d < D; d += 32) s_new += q_s[d] * to_f(k_new[d]);
-    s_new = warp_sum(s_new) * scale;
-    if (lane == 0) red[0] = s_new;
-  }
-  __syncthreads();
-  s_new = red[0];
-  __syncthreads();
-
-  float mx = kNegInf;
-  for (int r = tid; r < pos; r += kThreads) mx = fmaxf(mx, p_s[r]);
-  const float m = fmaxf(block_reduce(mx, red, true), s_new);
-  float sum = 0.f;
-  for (int r = tid; r < pos; r += kThreads) {
-    const float e = expf(p_s[r] - m);
-    p_s[r] = e;
-    sum += e;
-  }
-  const float p_new = expf(s_new - m);
-  const float denom = block_reduce(sum, red, false) + p_new;
-  for (int r = tid; r < pos; r += kThreads)
-    p_s[r] = round_to<T>(p_s[r] / denom);
-  __syncthreads();
-
-  // weighted values: kThreads / D row groups, thread (g, d)
-  const int G = kThreads / D;
-  const int d = tid % D, g = tid / D;
-  float acc = 0.f;
-  for (int r = g; r < pos; r += G) acc += p_s[r] * to_f(vc[(long)r * row_stride + d]);
-  part[g * D + d] = acc;
-  __syncthreads();
-  if (tid < D) {
-    float pv = 0.f;
-    for (int j = 0; j < G; ++j) pv += part[j * D + tid];
-    const float w_new = round_to<T>(p_new / denom);
-    out[tid] = from_f<T>(pv + w_new * to_f(v_new[tid]));
-  }
-  __syncthreads();
+  return s;
 }
 
 }  // namespace decode

@@ -72,18 +72,22 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using decode::block_max_sumexp;
 using decode::from_f;
+using decode::gelu_tanh;
+using decode::kMaxSplits;
 using decode::kNegInf;
 using decode::kThreads;
 using decode::kWarps;
 using decode::round_to;
+using decode::sum_parts;
+using decode::sum_parts4;
 using decode::to_f;
 using kvq::load_vec;
 
 constexpr int kTileVecs = 8;                      // 16-byte vectors / tile row
 constexpr int kRowGroups = kThreads / kTileVecs;  // rows a pass over a slab
 constexpr int kMaxSlabs = 8;                      // weight slots of the ring
-constexpr int kMaxSplits = 8;   // input slices a product: one load batch
 constexpr long kMaxSmem = 232448;
 enum { kQkv = 0, kProj = 1, kUp = 2, kDown = 3 };
 
@@ -246,89 +250,6 @@ __device__ __forceinline__ float2 block_sum2(float x, float y, float* red) {
   const float2 r = make_float2(red[2 * kWarps], red[2 * kWarps + 1]);
   __syncthreads();
   return r;
-}
-
-// (m, l) pairs merged over the block: m the largest of the m's, l the
-// sum of l * exp(m_i - m); every thread gets both. A thread with nothing
-// holds (-1e30, 0). red as for block_sum2.
-__device__ __forceinline__ float2 block_max_sumexp(float m, float l,
-                                                   float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  auto merge = [&](float mo, float lo) {
-    const float mn = fmaxf(m, mo);
-    l = l * expf(m - mn) + lo * expf(mo - mn);
-    m = mn;
-  };
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    merge(__shfl_xor_sync(0xffffffffu, m, o),
-          __shfl_xor_sync(0xffffffffu, l, o));
-  if (lane == 0) {
-    red[2 * warp] = m;
-    red[2 * warp + 1] = l;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    m = lane < kWarps ? red[2 * lane] : kNegInf;
-    l = lane < kWarps ? red[2 * lane + 1] : 0.f;
-#pragma unroll
-    for (int o = kWarps / 2; o > 0; o >>= 1)
-      merge(__shfl_xor_sync(0xffffffffu, m, o),
-            __shfl_xor_sync(0xffffffffu, l, o));
-    if (lane == 0) {
-      red[2 * kWarps] = m;
-      red[2 * kWarps + 1] = l;
-    }
-  }
-  __syncthreads();
-  const float2 r = make_float2(red[2 * kWarps], red[2 * kWarps + 1]);
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float k = 0.7978845608028654f;   // sqrt(2 / pi)
-  return 0.5f * x * (1.f + tanhf(k * (x + 0.044715f * x * x * x)));
-}
-
-// p[0] + p[stride] + ... + p[(n - 1) * stride], added in index order,
-// the loads issued kMaxSplits at a time (L2: written by other blocks)
-__device__ __forceinline__ float sum_parts(const float* p, long stride,
-                                           int n) {
-  float s = 0.f;
-  for (int i0 = 0; i0 < n; i0 += kMaxSplits) {
-    float v[kMaxSplits];
-#pragma unroll
-    for (int j = 0; j < kMaxSplits; ++j)
-      v[j] = i0 + j < n ? __ldcg(p + (i0 + j) * stride) : 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxSplits; ++j)
-      if (i0 + j < n) s += v[j];
-  }
-  return s;
-}
-
-// the same for four consecutive columns (p 16-byte aligned)
-__device__ __forceinline__ float4 sum_parts4(const float* p, long stride,
-                                             int n) {
-  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int i0 = 0; i0 < n; i0 += kMaxSplits) {
-    float4 v[kMaxSplits];
-#pragma unroll
-    for (int j = 0; j < kMaxSplits; ++j)
-      if (i0 + j < n)
-        v[j] = __ldcg(reinterpret_cast<const float4*>(p + (i0 + j) * stride));
-#pragma unroll
-    for (int j = 0; j < kMaxSplits; ++j) {
-      if (i0 + j < n) {
-        s.x += v[j].x;
-        s.y += v[j].y;
-        s.z += v[j].z;
-        s.w += v[j].w;
-      }
-    }
-  }
-  return s;
 }
 
 // Phase stamps for tools/torch_port_fused_stamps.py: built with

@@ -87,8 +87,7 @@ __device__ __forceinline__ float span_scale(float amax, bool fp8) {
 }
 
 // Asynchronous global -> shared copies (cp.async, sm_80 and later), used
-// by paged_window_attention.cu and fused_decode_layers.cu to keep loads
-// in flight across their barriers. A thread's copies complete in the
+// by the decode kernels to keep loads in flight across their barriers. A thread's copies complete in the
 // order of its commit groups.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);

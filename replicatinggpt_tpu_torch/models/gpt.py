@@ -555,8 +555,9 @@ def decode_step_paged(params: Params, idx_t, pos, active, tables, cache,
     pos32 = pos_eff.to(torch.int32)
     if use_fused:
         blocks = fused_blocks or fused_weights(params["blocks"], cd)
-        x_row, newk, newv = fused_paged_decode_layers(x, blocks, pos32,
-                                                      tables, cache, cfg)
+        x_row, newk, newv = fused_paged_decode_layers(
+            x, blocks, pos32, tables, cache, cfg,
+            max_pos=int(pe_host.max()))
         for name, new in (("k", newk), ("v", newv)):
             new = new[:, rows]                                 # (L, R, C)
             if kv_dtype is not None:

@@ -62,15 +62,22 @@ PACKED_DECODE_BYTES = 8 * 1024 * 1024
 PAGED_DECODE_BYTES = 4 * 1024 * 1024
 _LANES = 128
 
-#: kernel constants (csrc/decode_attention.cuh kThreads; the fused
-#: kernel's kTileVecs and kRowGroups; the card's shared-memory limit)
+#: kernel constants (csrc/decode_attention.cuh kThreads, kWarps; the
+#: fused kernels' kTileVecs; the card's shared-memory limit)
 _THREADS = 256
+_WARPS = _THREADS // 32
 _TILE_VECS = 8
 _MAX_SMEM = 232_448
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: the paged fused kernel's slots per weight pass, attention tile rows
-#: and K row padding (csrc/fused_paged_decode_layers.cu kRB, kTile, kPad)
-_RB, _TILE, _PAD = 8, 64, 8
+#: the paged fused kernel's slots per weight pass, history splits of one
+#: (slot, head) at most and rows that earn one (csrc/
+#: fused_paged_decode_layers.cu kRB, kMaxAttn, kAttnRows), and the floats
+#: of one input row of a product in its shared memory (kInStride)
+_RB, _MAX_ATTN, _ATTN_ROWS = 8, 8, 64
+_IN_STRIDE = _RB + 4
+#: the packed decode kernel's rows that earn a rank, and its cluster's
+#: largest size (csrc/packed_decode_attention.cu kRankRows, kMaxRanks)
+_RANK_ROWS, _MAX_RANKS = 128, 8
 BLOCK_NAMES = ("ln1_scale", "ln1_bias", "qkv_kernel", "qkv_bias",
                "attn_out_kernel", "attn_out_bias", "ln2_scale", "ln2_bias",
                "mlp_up_kernel", "mlp_up_bias", "mlp_down_kernel",
@@ -111,12 +118,21 @@ def packed_decode_supported(cfg, itemsize: int = 2, seq_len: int = 0) -> bool:
 def fused_paged_smem_bytes(n_embd: int, head_dim: int, max_pages: int,
                            itemsize: int) -> int:
     """Shared memory of one paged fused-kernel block (mirrors
-    ``smem_floats`` in csrc/fused_paged_decode_layers.cu)."""
-    C, D = n_embd, head_dim
-    rows = _RB * 4 * C + (_THREADS // 32) * _RB * _TILE_VECS * (16 // itemsize)
-    att = (3 * D + _TILE * (D + _PAD) + _TILE * D + _TILE + _THREADS + 4
-           + max_pages)
-    return 4 * (_THREADS // 32 + 1 + max(rows, att))
+    ``smem_total`` in csrc/fused_paged_decode_layers.cu): an mbarrier, the
+    reductions, a slot group's layernorm statistics, scale and bias, the
+    attention merge's factors, a product's row quarters, a slot group's
+    rows (8 C) and a product's inputs (12 C: 8 slots and 4 of padding a
+    row): 2 + 2 x 8 + 4 + 16 + 2 C + 160 + 32 x tile columns + 20 C floats;
+    and, when they fit, a ring of whatever the card leaves, in whole
+    16-byte units. The head dim and the table's width no longer size it
+    (kept for the callers)."""
+    tile_cols = _TILE_VECS * (16 // itemsize)
+    fixed = 4 * (2 + 2 * _WARPS + 4 + 2 * _RB + 2 * n_embd
+                 + 2 * _RB * (_MAX_ATTN + 2) + 4 * _RB * tile_cols
+                 + (_RB + _IN_STRIDE) * n_embd)
+    if fixed > _MAX_SMEM:
+        return fixed
+    return fixed + ((_MAX_SMEM - fixed) & ~15)
 
 
 def fused_paged_decode_supported(cfg, n_slots: int, page_size: int,
@@ -155,10 +171,34 @@ def fused_paged_decode_supported(cfg, n_slots: int, page_size: int,
     return ok
 
 
+def _packed_fixed_bytes(rows: int, head_dim: int) -> int:
+    return 4 * (rows + 2 * _WARPS + 6 + (_WARPS + _MAX_RANKS) * head_dim)
+
+
+def packed_decode_split(head_dim: int, itemsize: int, pos: int
+                        ) -> Dict[str, int]:
+    """The packed decode kernel's split at ``pos`` (mirrors ``split`` in
+    csrc/packed_decode_attention.cu): ``ranks`` CTAs of a cluster per
+    (row, head), one per 128 history rows, at most 8 (1: a plain grid);
+    ``rows`` a rank (contiguous); ``held`` of them in shared memory (the
+    rest read in place); ``smem`` bytes of the CTA. ``pos`` is a host int,
+    so the split costs no device read."""
+    ranks = min(_MAX_RANKS, max(1, -(-pos // _RANK_ROWS)))
+    rows = -(-pos // ranks)
+    fixed = _packed_fixed_bytes(rows, head_dim)
+    row = 2 * head_dim * itemsize
+    held = min(rows, max(0, (_MAX_SMEM - fixed) // row))
+    return {"ranks": ranks, "rows": rows, "held": held,
+            "smem": held * row + fixed}
+
+
 def attend_smem_bytes(seq_len: int, head_dim: int) -> int:
-    """Shared memory of the attention of one head (mirrors
-    ``attend_smem_floats`` in csrc/decode_attention.cuh)."""
-    return 4 * (head_dim + seq_len + _THREADS + _THREADS // 32 + 1)
+    """The packed decode kernel's shared memory without its K/V rows, at
+    the longest rank that any pos < ``seq_len`` gives (its K/V rows take
+    what the card leaves, none at worst): the envelope's figure."""
+    worst = max(min(max(seq_len - 1, 0), _RANK_ROWS),
+                -(-max(seq_len - 1, 0) // _MAX_RANKS))
+    return _packed_fixed_bytes(worst, head_dim)
 
 
 def fused_smem_bytes(n_embd: int, seq_len: int, head_dim: int,
@@ -204,6 +244,65 @@ def fused_decode_plan(n_embd: int, n_head: int, seq_len: int,
                                f"error {err}")
         plan = _PLANS[key] = dict(zip(_PLAN_KEYS, out))
     return plan
+
+
+_PAGED_PLAN_KEYS = ("grid", "qkv_tiles", "qkv_splits", "qkv_rows",
+                    "proj_tiles", "proj_splits", "proj_rows", "up_tiles",
+                    "up_splits", "up_rows", "down_tiles", "down_splits",
+                    "down_rows", "part_row", "weight_slots", "kv_rows",
+                    "smem", "slot_bytes", "attn_split_rows",
+                    "attn_splits_max")
+
+
+def fused_paged_decode_plan(n_embd: int, n_head: int, table_rows: int,
+                            dtype: torch.dtype, pool: torch.dtype,
+                            device) -> Dict[str, int]:
+    """The paged fused kernel's split on ``device`` at these shapes
+    (built at first use, cached per shape, dtype, pool type and device):
+    its grid (every block the card holds resident), each product's column
+    tiles x input slices of ``*_rows`` rows, the partial floats a slot,
+    the weight slots and history rows its ring holds, its shared memory.
+    ``table_rows``: max_pages x page size; ``pool``: the pool's dtype."""
+    dev = torch.device(device)
+    key = ("paged", n_embd, n_head, table_rows, dtype, pool, dev.index)
+    plan = _PLANS.get(key)
+    if plan is None:
+        out = (ctypes.c_long * len(_PAGED_PLAN_KEYS))()
+        lib = _lib("fused_paged_decode_layers")
+        with torch.cuda.device(dev):
+            err = lib.fused_paged_decode_layers_plan(
+                n_embd, n_head, table_rows, _DTYPE_CODE[dtype],
+                POOL_CODE.get(pool, 0), out)
+        if err != 0:
+            raise RuntimeError(f"fused_paged_decode_layers plan failed: "
+                               f"CUDA error {err}")
+        plan = _PLANS[key] = dict(zip(_PAGED_PLAN_KEYS, out))
+    return plan
+
+
+def fused_paged_attn_splits(span: int, n_slots: int, n_head: int,
+                            grid: int) -> int:
+    """History splits of one (slot, head) in the paged fused kernel
+    (mirrors ``attn_splits``): one per 64 rows of ``span`` (the caller's
+    bound on every slot's pos), at most 8, and no more attention items
+    than the grid where that allows."""
+    ns = min(_MAX_ATTN, -(-max(span, 1) // _ATTN_ROWS),
+             grid // (n_slots * n_head))
+    return max(1, ns)
+
+
+def fused_paged_scratch_floats(plan: Dict[str, int], n_slots: int,
+                               n_layer: int, n_embd: int, n_head: int,
+                               itemsize: int) -> int:
+    """The paged fused kernel's f32 scratch (``run`` in the kernel): the
+    products' partials, the attention records ((D + 4) floats, 9 a
+    (slot, head)), the residual after attention; then the heads' counters
+    and the product tiles' (one slot per 128-byte column tile of the
+    widest product, four products)."""
+    C, D = n_embd, n_embd // n_head
+    tiles = -(-4 * C // (_TILE_VECS * 16 // itemsize))
+    return (n_slots * (plan["part_row"] + n_head * (_MAX_ATTN + 1) * (D + 4)
+                       + C) + n_layer * n_head + 4 * tiles)
 
 
 def kernel_envelope(head_dim: int, itemsize: int, smem: int) -> tuple:
@@ -564,7 +663,8 @@ def _block_shapes(L: int, C: int) -> Dict[str, tuple]:
 
 
 def fused_paged_decode_layers(x0, blocks: Dict[str, torch.Tensor], pos,
-                              tables, cache: Dict[str, torch.Tensor], cfg
+                              tables, cache: Dict[str, torch.Tensor], cfg,
+                              *, max_pos=None
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """All layers of one multi-slot paged decode step (see the module
@@ -574,7 +674,11 @@ def fused_paged_decode_layers(x0, blocks: Dict[str, torch.Tensor], pos,
     version. On CUDA tensors every block tensor must already be
     contiguous in x0's dtype (``fused_weights``), the pool contiguous in
     that dtype or int8 / fp8 e4m3 with contiguous f32 scales, tables and
-    pos int32; the kernel launches or the call raises."""
+    pos int32; the kernel launches or the call raises. ``max_pos``: a
+    bound on every slot's pos that the caller holds on the host (the
+    engine's step has it); it sizes the kernel's split of each history
+    (any value gives the right result), the whole table's rows when
+    None."""
     H = cfg.n_head
     if x0.dim() != 2:
         raise ValueError(f"x0 must be (B, C); got {tuple(x0.shape)}")
@@ -642,16 +746,20 @@ def fused_paged_decode_layers(x0, blocks: Dict[str, torch.Tensor], pos,
     newv = torch.empty((L, B, C), dtype=dt, device=dev)
     if B == 0:
         return xout, newk, newv
-    scratch = torch.empty(9 * B * C, dtype=dt, device=dev)
+    plan = fused_paged_decode_plan(C, H, mp * psz, dt, kc.dtype, dev)
+    scratch = torch.empty(fused_paged_scratch_floats(plan, B, L, C, H,
+                                                     x0.element_size()),
+                          dtype=torch.float32, device=dev)
+    span = mp * psz if max_pos is None else operator.index(max_pos)
     sp = [t.data_ptr() for t in scales] or [None, None]
     ptrs = (ctypes.c_void_p * 23)(
         *(t.data_ptr() for t in (x0, *ws, kc, vc)), *sp, tables.data_ptr(),
         pos.data_ptr(), *(t.data_ptr() for t in (xout, newk, newv, scratch)))
     lib = _lib("fused_paged_decode_layers")
     err = lib.fused_paged_decode_layers_launch(
-        ptrs, L, B, C, H, N, psz, mp, int(cfg.activation == "gelu"),
+        ptrs, L, B, C, H, N, psz, mp, span, int(cfg.activation == "gelu"),
         int(gran == "head"), cfg.layernorm_eps, _DTYPE_CODE[dt],
-        POOL_CODE.get(kc.dtype, 0), _stream(x0))
+        POOL_CODE.get(kc.dtype, 0), plan["grid"], _stream(x0))
     if err != 0:
         raise RuntimeError(f"fused_paged_decode_layers launch failed: CUDA "
                            f"error {err}")
@@ -667,12 +775,19 @@ def _lib(name: str) -> ctypes.CDLL:
     fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
+        longs = ctypes.POINTER(ctypes.c_long)
         if name == "packed_decode_attention":
             fn.argtypes = [p, p, p, p, p, p, i, ctypes.c_long, i, i, i, i, i,
                            p]
+            split = lib.packed_decode_attention_split
+            split.argtypes = [i, i, i, longs]
+            split.restype = ctypes.c_int
         elif name == "fused_paged_decode_layers":
             fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), i, i, i, i, i, i,
-                           i, i, i, ctypes.c_float, i, i, p]
+                           i, i, i, i, ctypes.c_float, i, i, i, p]
+            plan = lib.fused_paged_decode_layers_plan
+            plan.argtypes = [i, i, i, i, i, longs]
+            plan.restype = ctypes.c_int
         else:
             fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), i, i, i, i, i, i,
                            i, ctypes.c_float, i, i, p]

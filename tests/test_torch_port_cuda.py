@@ -537,6 +537,67 @@ def _nan_past(cache, pos, seq_axis):
     return cache
 
 
+#: positions that give every rank count of the packed decode kernel's
+#: split at S=1024 (one rank per 128 rows, at most 8), each at a rank
+#: edge and one past it, beside 0, 1 and S - 1
+PACKED_POS = (0, 1, 127, 128, 129, 255, 257, 383, 385, 511, 513, 639, 641,
+              767, 769, 895, 897, 1023)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_packed_decode_attention_split_over_every_rank_count(card, D, dtype,
+                                                             tol):
+    """Row #4 at B in {1, 8, 32}, S=1024, every rank count: q/k_new/v_new
+    as slices of one (B, 3C) row, NaN in every cache row >= pos, a second
+    launch bit for bit the first, one launch a call."""
+    S, C = 1024, 512
+    H = C // D
+    rng = np.random.default_rng(D)
+    for B in (1, 8, 32):
+        mk = lambda *s: torch.from_numpy(  # noqa: E731
+            rng.standard_normal(s).astype(np.float32)).cuda().to(dtype)
+        q, kn, vn = mk(B, 3 * C).split(C, dim=-1)
+        kc0, vc0 = mk(B, S, C), mk(B, S, C)
+        for pos in PACKED_POS:
+            if B == 32 and pos % 128 not in (0, 1, 127):
+                continue    # the widest batch at the edges only
+            kc = _nan_past(kc0.clone(), pos, 1)
+            vc = _nan_past(vc0.clone(), pos, 1)
+            before = dec.packed_decode_attention.launches
+            got = dec.packed_decode_attention(q, kn, vn, kc, vc, pos,
+                                              n_head=H)
+            again = dec.packed_decode_attention(q, kn, vn, kc, vc, pos,
+                                                n_head=H)
+            torch.cuda.synchronize()
+            assert dec.packed_decode_attention.launches == before + 2
+            ref = dec.packed_decode_attention_ref(q, kn, vn, kc, vc, pos,
+                                                  n_head=H)
+            assert torch.isfinite(got).all(), (B, pos)
+            assert torch.equal(got, again), (B, pos)
+            torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                       rtol=tol, msg=f"B={B} pos={pos}")
+
+
+@pytest.mark.cuda
+def test_packed_decode_split_mirror_matches_kernel(card):
+    """ops.decode.packed_decode_split against the kernel's own split."""
+    import ctypes
+    lib = dec._lib("packed_decode_attention")
+    out = (ctypes.c_long * 4)()
+    for D in (8, 32, 64, 128, 256):
+        for isz in (2, 4):
+            for pos in (0, 1, 127, 128, 129, 1000, 1023, 1025, 5000,
+                        57_000):
+                assert lib.packed_decode_attention_split(D, isz, pos,
+                                                         out) == 0
+                want = dec.packed_decode_split(D, isz, pos)
+                assert list(out) == [want[k] for k in ("ranks", "rows",
+                                                       "held", "smem")]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -674,7 +735,7 @@ def test_decode_kernels_reject_what_they_do_not_take(card):
 
 
 def _fused_paged_inputs(dtype, kv_dtype, gran, D=64, C=256, L=2, psz=8,
-                        N=40, seed=0):
+                        N=40, seed=0, pos=(5, 0, 17, 47, 8, 0), mp=6):
     """Ragged positions (two slots at 0, one of them inactive), a
     permuted table with ids past the pool beyond each live frontier, and
     NaN in every pool row (or, quantized, every scale) at or past a
@@ -683,14 +744,14 @@ def _fused_paged_inputs(dtype, kv_dtype, gran, D=64, C=256, L=2, psz=8,
     from replicatinggpt_tpu_torch.models.gpt import BLOCK_SHAPES
     from replicatinggpt_tpu_torch.quant.kv import quantize_rows
     H = C // D
-    mp = 6
     cfg = ModelConfig(vocab_size=64, block_size=mp * psz, n_layer=L,
                       n_head=H, n_embd=C, activation="gelu",
                       dtype="float32" if dtype == torch.float32
                       else "bfloat16", decode_cache_layout="packed")
     rng = np.random.default_rng(seed)
-    pos = np.array([5, 0, 17, 47, 8, 0], np.int32)
+    pos = np.array(pos, np.int32)
     B = pos.size
+    N = max(N, B * mp)
     tables = rng.permutation(N)[:B * mp].reshape(B, mp).astype(np.int32)
     live = (pos + psz - 1) // psz
     tables[np.arange(mp)[None, :] >= live[:, None]] = N + 3
@@ -739,6 +800,78 @@ def test_fused_paged_decode_kernel_matches_ref(card, D, kv_dtype, gran,
         assert g.shape == r.shape and g.dtype == r.dtype
         assert torch.isfinite(g).all()
         torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol)
+
+
+#: slots over a 24-page table of 8 rows: 0 (inactive too), 1, page
+#: edges, the table's last row; 11 slots walk two groups of 8
+PAGED_POS = (5, 0, 17, 191, 64, 0, 128, 63, 1, 129, 100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,D", [(1, 256, 64), (3, 256, 64),
+                                   (8, 256, 64), (11, 256, 64),
+                                   (11, 512, 32)])
+@pytest.mark.parametrize("kv_dtype,gran", [("none", "page"), ("int8", "page"),
+                                           ("int8", "head"), ("fp8", "page"),
+                                           ("fp8", "head")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_paged_decode_kernel_over_slots_and_splits(card, B, C, D,
+                                                         kv_dtype, gran,
+                                                         dtype):
+    """Row #2 at B in {1, 3, 8, 11} (the groups of 8 slots), with its
+    history split sized from the caller's max_pos (the longest position,
+    a bound below it, none: the whole table), over every pool type; at
+    C=512, D=32 the 176 (slot, head) pairs outnumber the grid. NaN past
+    every pos, table entries past the frontier past the pool; a second
+    launch is bit for bit the first. bf16 through fp8 at 5e-2 (a one-ulp
+    bf16 difference crossing an e4m3 boundary of the fresh column)."""
+    tol = (5e-2 if kv_dtype == "fp8" and dtype == torch.bfloat16
+           else 1e-4 if dtype == torch.float32 else 2e-2)
+    args = _fused_paged_inputs(dtype, kv_dtype, gran, D=D, C=C, mp=24,
+                               pos=PAGED_POS[:B])
+    ref = dec.fused_paged_decode_layers_ref(*args)
+    longest = int(args[2].max())
+    for max_pos in (longest, 1, None):
+        before = dec.fused_paged_decode_layers.launches
+        got = dec.fused_paged_decode_layers(*args, max_pos=max_pos)
+        again = dec.fused_paged_decode_layers(*args, max_pos=max_pos)
+        torch.cuda.synchronize()
+        assert dec.fused_paged_decode_layers.launches == before + 2
+        for g, a, r in zip(got, again, ref):
+            assert g.shape == r.shape and g.dtype == r.dtype
+            assert torch.isfinite(g).all(), max_pos
+            assert torch.equal(g, a), max_pos
+            torch.testing.assert_close(g.float(), r.float(), atol=tol,
+                                       rtol=tol, msg=f"max_pos={max_pos}")
+
+
+@pytest.mark.cuda
+def test_fused_paged_plan_fills_the_card(card):
+    """The paged kernel's grid covers every SM, its shared memory is the
+    mirror's, every product's items cover its columns and input rows,
+    and the attention split follows the mirror."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for C, H, rows, dtype, pool in (
+            (384, 6, 256, torch.bfloat16, torch.bfloat16),
+            (384, 6, 256, torch.float32, torch.int8),
+            (384, 6, 256, torch.bfloat16, torch.float8_e4m3fn),
+            (768, 12, 1024, torch.bfloat16, torch.bfloat16),
+            (256, 4, 48, torch.float32, torch.float32)):
+        plan = dec.fused_paged_decode_plan(C, H, rows, dtype, pool, "cuda")
+        isz = dtype.itemsize
+        assert plan["grid"] >= sms
+        assert plan["smem"] == dec.fused_paged_smem_bytes(C, C // H, 1, isz)
+        tc = 128 // isz
+        for name, K, N in (("qkv", C, 3 * C), ("proj", C, C),
+                           ("up", C, 4 * C), ("down", 4 * C, C)):
+            assert plan[f"{name}_tiles"] * tc >= N
+            assert plan[f"{name}_splits"] * plan[f"{name}_rows"] >= K
+        assert (C // H) % plan["proj_rows"] == 0
+        assert 0 < plan["kv_rows"] <= rows
+        for B in (1, 8, 32):
+            ns = dec.fused_paged_attn_splits(rows, B, H, plan["grid"])
+            assert 1 <= ns <= plan["attn_splits_max"]
+            assert B * H * ns <= max(plan["grid"], B * H)
 
 
 @pytest.mark.cuda

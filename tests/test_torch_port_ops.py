@@ -8,6 +8,7 @@ the ``cuda``-marked tests of test_torch_port_cuda.py (skipped without a
 card) and by ``chip_smoke.py`` on the card.
 """
 
+import dataclasses
 import importlib
 
 import jax.numpy as jnp
@@ -332,3 +333,315 @@ def test_sample_tokens_batched_greedy_and_kept_set():
                 assert toks[b] == 0
             else:
                 assert np.isfinite(want[b, toks[b]])
+
+
+# ---------------------------------------------------------------------------
+# rows #4 and #2 (the redesigned decode kernels): torch twins of the
+# kernels' splits
+# ---------------------------------------------------------------------------
+
+from replicatinggpt_tpu.ops import decode_pallas as jdp  # noqa: E402
+from replicatinggpt_tpu_torch.ops import decode as tdec  # noqa: E402
+
+
+def _packed_split_twin(q, k_new, v_new, k_cache, v_cache, pos, *, n_head,
+                       ranks):
+    """csrc/packed_decode_attention.cu's algebra in plain torch: the
+    history < pos cut into ``ranks`` contiguous ranges of ceil(pos /
+    ranks) rows; each rank's (m, l) over its scores (a rank with no row
+    holds m = -1e30, l = 0); the global m = max(m_all, s_new) and denom in
+    rank order; each rank's weights exp(s - m) / denom rounded to the
+    cache dtype before its P V; the partials summed in rank order, then
+    round(p_new / denom) * v_new."""
+    B, C = q.shape
+    H, D = n_head, C // n_head
+    scale = D ** -0.5
+    rows = -(-pos // ranks)
+    qh = q.float().reshape(B, H, D)
+    kh = k_cache.float().reshape(B, -1, H, D)
+    vh = v_cache.float().reshape(B, -1, H, D)
+    s_new = (k_new.float().reshape(B, H, D) * qh).sum(-1) * scale
+    scores, ms, ls = [], [], []
+    for r in range(ranks):
+        sl = slice(min(r * rows, pos), min((r + 1) * rows, pos))
+        s = torch.einsum("bhd,bthd->bht", qh, kh[:, sl]) * scale
+        m = s.amax(-1) if s.shape[-1] else torch.full((B, H), NEG_INF)
+        scores.append((sl, s))
+        ms.append(m)
+        ls.append(torch.exp(s - m[..., None]).sum(-1))
+    M = s_new
+    for m in ms:
+        M = torch.maximum(M, m)
+    denom = torch.zeros(B, H)
+    for m, l_ in zip(ms, ls):
+        denom = denom + l_ * torch.exp(m - M)
+    p_new = torch.exp(s_new - M)
+    denom = denom + p_new
+    out = torch.zeros(B, H, D)
+    for sl, s in scores:
+        w = (torch.exp(s - M[..., None]) / denom[..., None]).to(
+            v_cache.dtype).float()
+        out = out + torch.einsum("bht,bthd->bhd", w, vh[:, sl])
+    w_new = (p_new / denom).to(v_new.dtype).float()
+    out = out + w_new[..., None] * v_new.float().reshape(B, H, D)
+    return out.reshape(B, C).to(q.dtype)
+
+
+def _packed_arrays(pos_seed, B=3, S=16, Hh=4, D=32):
+    rng = np.random.default_rng(pos_seed)
+    C = Hh * D
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, C),) * 3 + ((B, S, C),) * 2]
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 3, 8])
+@pytest.mark.parametrize("pos", [0, 5, 13, 15])
+def test_packed_split_merge_matches_plain_version(ranks, pos):
+    """Row #4's split over ranks and its two-pass merge against the plain
+    version, f32, atol = rtol = 1e-5: at 8 ranks of pos 5 or 13 some ranks
+    get no rows."""
+    t = [torch.from_numpy(a) for a in _packed_arrays(pos)]
+    want = tdec.packed_decode_attention_ref(*t, pos, n_head=4)
+    got = _packed_split_twin(*t, pos, n_head=4, ranks=ranks)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_packed_split_merge_matches_jax_kernel():
+    """The twin at 3 ranks against JAX packed_decode_attention (interpret
+    mode) at the shape test_torch_port_generate.py already compiles, f32,
+    atol 2e-6."""
+    arrs = _packed_arrays(15)
+    want = np.asarray(jdp.packed_decode_attention(
+        *(jnp.asarray(a) for a in arrs), jnp.int32(15), n_head=4))
+    got = _packed_split_twin(*(torch.from_numpy(a) for a in arrs), 15,
+                             n_head=4, ranks=3).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-6, rtol=0)
+
+
+def _paged_step_twin(x0, blocks, pos, tables, cache, cfg, *, splits, span):
+    """csrc/fused_paged_decode_layers.cu's attention algebra in plain torch
+    inside the plain step: each slot's live history cut into ``splits``
+    contiguous ranges of ceil(span / splits) rows (the last takes the
+    rest), an online softmax state (m, l, acc) per range (m = -1e30, l = 0
+    for none), the fresh column as one more state (s_new, 1, v_new), the
+    states merged by logsumexp in split order, the fresh one last."""
+    from replicatinggpt_tpu_torch.ops.paged_attention import gather_history
+    from replicatinggpt_tpu_torch.quant.kv import (fake_quantize_row_body,
+                                                   pool_quant_mode)
+    cd = x0.dtype
+    w = {n: blocks[n].to(cd) for n in tdec.BLOCK_NAMES}
+    kv_dtype, gran = pool_quant_mode(cache)
+    L, N, psz, C = cache["k"].shape
+    B, mp = tables.shape
+    H = cfg.n_head
+    D = C // H
+    scale = D ** -0.5
+    rows = -(-span // splits)
+    pos = pos.long()
+    tab = torch.where(torch.arange(mp)[None] < ((pos + psz - 1) // psz)[:, None],
+                      tables.long(), 0)
+    x = x0
+    newk, newv = [], []
+    for i in range(L):
+        h = tdec._ln_row(x, w["ln1_scale"][i], w["ln1_bias"][i],
+                         cfg.layernorm_eps)
+        q, k_row, v_row = tdec._row_matmul(h, w["qkv_kernel"][i],
+                                           w["qkv_bias"][i]).split(C, dim=-1)
+        newk.append(k_row)
+        newv.append(v_row)
+        if kv_dtype is not None:
+            k_row, v_row = (fake_quantize_row_body(t, kv_dtype, H, gran)
+                            .to(cd) for t in (k_row, v_row))
+        hist = {n: gather_history(cache[n][i], cache[n + "s"][i]
+                                  if kv_dtype is not None else None, tab, H)
+                .reshape(B, mp * psz, H, D) for n in ("k", "v")}
+        qh = q.float().reshape(B, H, D)
+        attn = torch.empty(B, H, D)
+        for b in range(B):
+            n_hist = int(pos[b])
+            states = []
+            for s in range(splits):
+                r0 = min(s * rows, n_hist)
+                r1 = n_hist if s == splits - 1 else min(r0 + rows, n_hist)
+                sc = torch.einsum("hd,thd->ht", qh[b],
+                                  hist["k"][b, r0:r1]) * scale
+                if sc.shape[-1] == 0:
+                    states.append((torch.full((H,), NEG_INF), torch.zeros(H),
+                                   torch.zeros(H, D)))
+                    continue
+                m = sc.amax(-1)
+                e = torch.exp(sc - m[:, None])
+                states.append((m, e.sum(-1), torch.einsum(
+                    "ht,thd->hd", e, hist["v"][b, r0:r1])))
+            kn = k_row[b].float().reshape(H, D)
+            states.append(((kn * qh[b]).sum(-1) * scale, torch.ones(H),
+                           v_row[b].float().reshape(H, D)))
+            M = states[0][0]
+            for m, _, _ in states[1:]:
+                M = torch.maximum(M, m)
+            Ls, A = torch.zeros(H), torch.zeros(H, D)
+            for m, l_, acc in states:
+                f = torch.exp(m - M)
+                Ls = Ls + l_ * f
+                A = A + acc * f[:, None]
+            attn[b] = A / Ls[:, None]
+        attn = tdec._row_matmul(attn.reshape(B, C).to(cd),
+                                w["attn_out_kernel"][i], w["attn_out_bias"][i])
+        x_mid = x + attn
+        h = tdec._ln_row(x_mid, w["ln2_scale"][i], w["ln2_bias"][i],
+                         cfg.layernorm_eps)
+        h = tdec._row_matmul(h, w["mlp_up_kernel"][i], w["mlp_up_bias"][i])
+        h = (torch.nn.functional.gelu(h.float(), approximate="tanh")
+             if cfg.activation == "gelu" else torch.relu(h.float())).to(cd)
+        x = x_mid + tdec._row_matmul(h, w["mlp_down_kernel"][i],
+                                     w["mlp_down_bias"][i])
+    return x, torch.stack(newk), torch.stack(newv)
+
+
+def _paged_step_inputs(kv_dtype="none", gran="page", seed=0):
+    """A 2-layer C=64 step over ragged slots (0, a page edge, mid-page,
+    the table's last row), stale ids past each live frontier."""
+    from replicatinggpt_tpu_torch.config import ModelConfig
+    from replicatinggpt_tpu_torch.models.gpt import BLOCK_SHAPES
+    from replicatinggpt_tpu_torch.quant.kv import quantize_rows
+    rng = np.random.default_rng(seed)
+    L, Nn, psz, mp, Cc = 2, 24, 8, 4, 64
+    cfg = ModelConfig(vocab_size=64, block_size=mp * psz, n_layer=L,
+                      n_head=H, n_embd=Cc, activation="gelu",
+                      decode_cache_layout="packed")
+    pos = torch.tensor([5, 0, 16, 31, 9], dtype=torch.int32)
+    tables = torch.from_numpy(rng.permutation(Nn)[:5 * mp].reshape(5, mp)
+                              .astype(np.int32))
+    live = (pos + psz - 1) // psz
+    tables[torch.arange(mp)[None] >= live[:, None]] = Nn + 3
+    blocks = {n: torch.from_numpy(0.05 * rng.standard_normal(
+        (L, *s(Cc))).astype(np.float32)) for n, s in BLOCK_SHAPES.items()}
+    kv = [torch.from_numpy(rng.standard_normal((L, Nn, psz, Cc)).astype(
+        np.float32)) for _ in range(2)]
+    if kv_dtype == "none":
+        cache = {"k": kv[0], "v": kv[1]}
+    else:
+        (kq, ks), (vq, vs) = (quantize_rows(t, kv_dtype, H, gran) for t in kv)
+        cache = {"k": kq, "v": vq, "ks": ks, "vs": vs}
+    x0 = torch.from_numpy(rng.standard_normal((5, Cc)).astype(np.float32))
+    return x0, blocks, pos, tables, cache, cfg
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("kv_dtype,gran", [("none", "page"),
+                                           ("int8", "head")])
+def test_paged_split_merge_matches_plain_version(splits, kv_dtype, gran):
+    """Row #2's split of each history and its logsumexp merge against the
+    plain step, f32, atol = rtol = 1e-5; a span of 32 rows at 8 splits
+    leaves the slots at pos 0, 5 and 9 splits with no rows, and a span of
+    6 (below every long slot's pos) makes the last split take the rest."""
+    args = _paged_step_inputs(kv_dtype, gran)
+    want = tdec.fused_paged_decode_layers_ref(*args)
+    for span in (32, 6):
+        got = _paged_step_twin(*args, splits=splits, span=span)
+        for g, r in zip(got, want):
+            torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
+
+
+def test_paged_split_merge_matches_jax_kernel():
+    """The twin at 3 splits against JAX fused_paged_decode_layers
+    (interpret mode), f32, atol = rtol = 1e-5, on the pool of
+    test_torch_port_serve_fused.py's fused step."""
+    x0, blocks, pos, tables, cache, cfg = _paged_step_inputs()
+    from replicatinggpt_tpu.config import ModelConfig as JConfig
+    jcfg = JConfig(vocab_size=64, block_size=32, n_layer=2, n_head=H,
+                   n_embd=64, dropout=0.0, attn_dropout=0.0,
+                   activation="gelu", decode_cache_layout="packed")
+    jt = np.where(tables.numpy() < 24, tables.numpy(), 0)
+    want = jdp.fused_paged_decode_layers(
+        jnp.asarray(x0.numpy()), {n: jnp.asarray(a.numpy())
+                                  for n, a in blocks.items()},
+        jnp.asarray(pos.numpy()), jnp.asarray(jt),
+        {n: jnp.asarray(a.numpy()) for n, a in cache.items()}, jcfg)
+    got = _paged_step_twin(x0, blocks, pos, tables, cache, cfg, splits=3,
+                           span=32)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def _parent_attend_smem(S, D):
+    """Row #4's shared memory before the cluster split: q, the scores of
+    the whole cache, the partial sums and the reductions."""
+    return 4 * (D + S + 256 + 8 + 1)
+
+
+def _parent_fused_paged_smem(C, D, mp, isz):
+    """Row #2's shared memory before the split-K redesign."""
+    rows = 8 * 4 * C + 8 * 8 * 8 * (16 // isz)
+    att = 3 * D + 64 * (D + 8) + 64 * D + 64 + 256 + 4 + mp
+    return 4 * (8 + 1 + max(rows, att))
+
+
+def test_redesigned_decode_envelopes_accept_what_they_accepted_before():
+    """Neither redesigned decode kernel refuses a shape its predecessor
+    took: at every sampled shape inside the old shared-memory budget the
+    new carve-up fits, and every pos < S splits into at most 8 ranks that
+    fit too."""
+    limit = 232_448
+    for D in (4, 8, 16, 32, 64, 128, 256):
+        for S in (1, 2, 8, 64, 129, 1024, 1025, 5000, 30_000, 57_000,
+                  57_600):
+            if _parent_attend_smem(S, D) > limit:
+                continue
+            assert tdec.attend_smem_bytes(S, D) <= limit
+            for isz in (2, 4):
+                for pos in {0, 1, S // 2, max(S - 1, 0)}:
+                    sp = tdec.packed_decode_split(D, isz, pos)
+                    assert 1 <= sp["ranks"] <= 8
+                    assert sp["ranks"] * sp["rows"] >= pos
+                    assert sp["smem"] <= limit
+                    assert sp["held"] == min(sp["rows"], sp["held"])
+        for C in range(D, 16_000, 11 * D):
+            for mp in (1, 64, 4096, 48_000):
+                for isz in (2, 4):
+                    if _parent_fused_paged_smem(C, D, mp, isz) <= limit:
+                        assert tdec.fused_paged_smem_bytes(C, D, mp,
+                                                           isz) <= limit
+
+
+def test_fused_paged_route_rule_answers_as_before(monkeypatch):
+    """fused_paged_decode_supported gives the parent's answer on every
+    preset, slot count, page size, pool type and granularity."""
+    from replicatinggpt_tpu_torch.config import PRESETS
+    cases = [(name, n, psz, isz, kv, gran)
+             for name in sorted(PRESETS) for n in (1, 8, 32)
+             for psz in (8, 16) for isz, kv in ((4, "none"), (2, "none"),
+                                                (1, "int8"), (1, "fp8"))
+             for gran in ("page", "head")]
+
+    def answers():
+        return [tdec.fused_paged_decode_supported(
+            dataclasses.replace(PRESETS[name].model,
+                                decode_cache_layout="packed"),
+            n, psz, isz, kv_quant=kv, granularity=gran)
+            for name, n, psz, isz, kv, gran in cases]
+
+    new = answers()
+    monkeypatch.setattr(tdec, "fused_paged_smem_bytes",
+                        _parent_fused_paged_smem)
+    assert new == answers()
+    assert any(new) and not all(new)
+
+
+def test_packed_split_follows_pos():
+    """Row #4's split from pos alone: one rank (a plain grid) up to 128
+    history rows, one more per 128, at most 8; every row held in shared
+    memory at GPT-2 124M's widths."""
+    ranks = [tdec.packed_decode_split(64, 2, p)["ranks"]
+             for p in (0, 1, 127, 128, 129, 256, 257, 318, 896, 897, 1023,
+                       5000)]
+    assert ranks == [1, 1, 1, 1, 2, 2, 3, 3, 7, 8, 8, 8]
+    for pos in range(0, 1024, 7):
+        sp = tdec.packed_decode_split(64, 2, pos)
+        assert sp["held"] == sp["rows"] == -(-pos // sp["ranks"])
+    splits = [tdec.fused_paged_attn_splits(span, 8, 6, 132)
+              for span in (0, 64, 65, 255, 1000)]
+    assert splits == [1, 1, 2, 2, 2]
+    assert [tdec.fused_paged_attn_splits(span, 1, 6, 132)
+            for span in (64, 65, 255, 1000)] == [1, 2, 4, 8]

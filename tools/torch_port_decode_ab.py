@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
-"""Time the two decode kernels of a checkout of the port the same way
-for any two trees, on one NVIDIA card.
+"""Time the decode kernels of a checkout of the port the same way for
+any two trees, on one NVIDIA card.
 
     python3 tools/torch_port_decode_ab.py [--root DIR] [--out PATH]
 
 Imports ``replicatinggpt_tpu_torch`` from ``--root`` (default: this
 checkout), so an older tree unpacked beside this one is measured by the
-same code and the same inputs; only the wrappers' public calls are used.
-Two kernels, at the shapes ``chip_smoke.py`` times them:
+same code and the same inputs; only the wrappers' public calls are used
+(a keyword the older wrapper lacks is left out). Four kernels, at the
+shapes ``chip_smoke.py`` times them:
 
 - ``paged_window_attention`` at GPT-2 124M widths (C=768, H=12, pages of
   16, 64 pages a slot, 512 in the pool, B=8, W=1, bf16) with the slots
   at pos 0, 1, 15, 16, 17, 333, 777, 1000, on a bf16 pool and on int8 and
   fp8 pools with page scales;
 - ``fused_decode_layers`` at char-GPT (L=6, C=384, H=6, bf16, heads
-  cache) at pos 255.
+  cache) at pos 255;
+- ``packed_decode_attention`` at GPT-2 124M (B=8, S=1024, C=768, H=12,
+  bf16) at pos 318, q/k_new/v_new slices of one (B, 3C) row;
+- ``fused_paged_decode_layers`` at char-GPT serving (L=6, C=384, H=6,
+  B=8 at pos 0, 1, 64, 100, 129, 170, 230, 255, pages of 16, 16 a slot,
+  bf16) on a bf16 pool and on int8 and fp8 pools with page and head
+  scales, told the longest position as ``max_pos`` where it takes one.
 
 For each: the median device time over 30 runs (CUDA events, L2 flushed
 and the stream padded with a ~0.5 ms device spin before each run, as in
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import json
 import pathlib
 import statistics
@@ -126,6 +134,52 @@ def fused_args(g):
     return (x0, blocks, pos, cache, cfg)
 
 
+FPOS = [0, 1, 64, 100, 129, 170, 230, 255]
+FPB, FPSZ, FPMP = 8, 16, 16
+
+
+def packed_args(g):
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    q, kn, vn = rnd(B, 3 * C).split(C, dim=-1)
+    return (q, kn, vn, rnd(B, 1024, C), rnd(B, 1024, C), 318)
+
+
+def fused_paged_args(kv: str, gran: str, g):
+    from replicatinggpt_tpu_torch.config import get_config
+    from replicatinggpt_tpu_torch.models.gpt import BLOCK_SHAPES
+    from replicatinggpt_tpu_torch.ops import decode as dec
+    from replicatinggpt_tpu_torch.quant.kv import quantize_rows
+    cfg = dataclasses.replace(get_config("char-gpt").model,
+                              decode_cache_layout="packed")
+    L, Cc, Hh = cfg.n_layer, cfg.n_embd, cfg.n_head
+    Np = FPB * FPMP
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    blocks = {}
+    for name, shape in BLOCK_SHAPES.items():
+        blocks[name] = (1 + rnd(L, *shape(Cc), scale=0.1)
+                        if name.endswith("_scale")
+                        else rnd(L, *shape(Cc), scale=0.02))
+    blocks = dec.fused_weights(blocks, torch.bfloat16)
+    rows = [rnd(L, Np, FPSZ, Cc, scale=0.5) for _ in range(2)]
+    if kv == "none":
+        cache = {"k": rows[0].to(torch.bfloat16),
+                 "v": rows[1].to(torch.bfloat16)}
+    else:
+        (kq, ks), (vq, vs) = (quantize_rows(t, kv, Hh, gran) for t in rows)
+        cache = {"k": kq, "v": vq, "ks": ks, "vs": vs}
+    tables = torch.randperm(Np, generator=g, device="cuda").reshape(
+        FPB, FPMP).to(torch.int32)
+    pos = torch.tensor(FPOS, dtype=torch.int32, device="cuda")
+    x0 = rnd(FPB, Cc, scale=0.03).to(torch.bfloat16)
+    return (x0, blocks, pos, tables, cache, cfg)
+
+
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=str(pathlib.Path(__file__).resolve()
@@ -163,6 +217,26 @@ def main() -> int:
 
     result["fused_char_pos255"] = {"kernel_ms": time_ms(fused, flush),
                                    "host_us_per_call": host_us(fused)}
+    pk = packed_args(g)
+
+    def packed():
+        return dec.packed_decode_attention(*pk, n_head=H)
+
+    result["packed_124m_b8_pos318"] = {"kernel_ms": time_ms(packed, flush),
+                                       "host_us_per_call": host_us(packed)}
+    hint = ({"max_pos": max(FPOS)} if "max_pos" in inspect.signature(
+        dec.fused_paged_decode_layers).parameters else {})
+    for kv, gran in (("none", "page"), ("int8", "page"), ("int8", "head"),
+                     ("fp8", "page"), ("fp8", "head")):
+        fp = fused_paged_args(kv, gran, g)
+
+        def paged_fused():
+            return dec.fused_paged_decode_layers(*fp, **hint)
+
+        label = "none" if kv == "none" else f"{kv}_{gran}"
+        result[f"fused_paged_char_b8_{label}"] = {
+            "kernel_ms": time_ms(paged_fused, flush),
+            "host_us_per_call": host_us(paged_fused)}
     print(json.dumps(result))
     if args.out:
         out = pathlib.Path(args.out)
