@@ -169,6 +169,24 @@ and fails (non-zero exit) on the first phase that fails:
    steps x 4, the heads and packed kernels never; the peak memory under
    80 GB.
 
+26. partials kernel phase (row #1's ``fold=False`` over owned pages, the
+   sharded serving path's kernel): one model shard of the GPT-2 124M
+   serving shapes (H_loc=6, C_loc=384, B=8, W=1, pos ``POS``), its pool in
+   2 data blocks whose pages interleave in each slot's table and one slot
+   that owns nothing in block 0; bf16, f32, int8 and fp8 pools; each
+   block's raw (acc, m, l) against the plain twin (``PARTIALS_TOL``: the
+   partials are f32), and both blocks merged and folded against the
+   unsharded fold mode (``MERGE_TOL``); then one block's time beside its
+   bound (its owned rows' bytes at 3.35 TB/s) and the twin's;
+27. mesh serving parity phase: f32 greedy streams of the 2x2 engine
+   (``LocalServeGroup``) on the kernel route, the 1x1 kernel route and
+   the gather route, 124M widths, 2 layers: identical;
+28. mesh serving slice (a main path): ``serve-replay --preset gpt2-small
+   --decode-cache-layout packed --paged-kernel --mesh-shape 2x2`` in one
+   process, bf16, full width and depth, 16 greedy requests: every request
+   completes, the partials kernel runs 12 layers x 4 shards = 48 times a
+   decode step and the fold mode never.
+
 Every flash row of the ``{"kernels": [...]}`` line also carries the
 achieved rate (``tflops``: the bound's operation count over the kernel's
 time) and ``vs_library`` (kernel time over the library call's). Prints
@@ -216,6 +234,7 @@ from replicatinggpt_tpu_torch.ops.flash_attention import packed_qkv_attention
 from replicatinggpt_tpu_torch.parallel import (LocalSeqGroup,
                                                make_ring_attention_fn,
                                                ring_attention)
+from replicatinggpt_tpu_torch.parallel.serve_group import LocalServeGroup
 from replicatinggpt_tpu_torch.quant.kv import fake_quantize_rows, quantize_rows
 from replicatinggpt_tpu_torch.serve import engine as engine_mod
 from replicatinggpt_tpu_torch.serve import (Engine, EngineConfig,
@@ -683,7 +702,7 @@ def parity_phase() -> None:
           f"kernel and gather routes (f32, 2 layers, C=768)")
 
 
-def replay(extra, n_layer: int = 0) -> dict:
+def replay(extra, n_layer: int = 0, shards: int = 1) -> dict:
     argv = ["serve-replay", "--preset", "gpt2-small",
             "--decode-cache-layout", "packed", "--paged-kernel",
             "--rate", "1000", "--pool-size", "8", "--page-size", "16",
@@ -699,8 +718,12 @@ def replay(extra, n_layer: int = 0) -> dict:
     V = get_config("gpt2-small").model.vocab_size
     assert s["n_completed"] == s["n_requests"], s["n_completed"]
     assert s["kernel_route"]["decode"] == "kernel", s["kernel_route"]
-    assert s["kernel_launches"] == n_layer * s["n_steps"], (
-        s["kernel_launches"], s["n_steps"])
+    assert s["kernel_route"]["sharded"] == (shards > 1), s["kernel_route"]
+    # one launch a layer, or on a mesh one partials launch a layer and
+    # data shard of each model shard
+    launched = s["partials_launches" if shards > 1 else "kernel_launches"]
+    assert launched == shards * n_layer * s["n_steps"], (
+        launched, s["n_steps"])
     assert s["pages"]["prefix_hits"] > 0, s["pages"]
     toks = [t for st in s["streams"].values() for t in st]
     assert toks and all(0 <= t < V for t in toks)
@@ -724,6 +747,237 @@ def slice_phase(card: str) -> int:
     print(f"slice (sampled, 8 requests) on {card}: "
           f"{s2['aggregate_tokens_per_s']} tok/s over {s2['n_steps']} "
           f"steps")
+    return launches
+
+
+# the mesh's phases: one model shard of GPT-2 124M on a 2x2 mesh (its 6 of
+# 12 heads, 384 of 768 channels), its pool's pages in 2 data blocks
+MESH_HL, MESH_CL = H // 2, C // 2
+PARTIALS_REPLACES = "replicatinggpt_tpu/ops/paged_pallas.py:277"
+PARTIALS_POOLS = ((torch.float32, "none"), (torch.bfloat16, "none"),
+                  (torch.bfloat16, "int8"), (torch.bfloat16, "fp8"))
+# the partials are f32 whatever the input type: f32's tolerance. The two
+# blocks merged and folded against the unsharded fold mode: the merge's
+# f32 order, then one rounding to the output type on each side
+PARTIALS_TOL = 1e-4
+MERGE_TOL = TOL
+
+
+def partials_inputs(dtype: torch.dtype, kv: str, seed: int = 0):
+    """Rows (q, k_new, v_new) of one model shard at the serving path's
+    shapes (B=8, W=1, pos ``POS``), in ``dtype`` (the fresh rows
+    fake-quantized for a quantized pool, page scales), and its pool of N
+    pages (C_loc channels) in 2 data blocks of N/2. Each live page of a
+    slot is drawn from a random block, so a slot's pages interleave the
+    blocks; slot 3's all come from block 1 (it owns nothing in block 0).
+    Table entries past each live frontier hold ids past the pool."""
+    rng = np.random.default_rng(seed)
+    half = N // 2
+    free = [list(rng.permutation(half)), list(rng.permutation(half) + half)]
+    tables = np.full((B, MP), N + 7, np.int32)
+    for b, p in enumerate(POS):
+        for j in range(-(-p // PSZ)):
+            tables[b, j] = free[1 if b == 3 else int(rng.integers(2))].pop()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    q, kn, vn = (rnd(B, 1, MESH_CL) for _ in range(3))
+    kp, vp = rnd(N, PSZ, MESH_CL), rnd(N, PSZ, MESH_CL)
+    if kv == "none":
+        pool = {"k": kp.to(dtype), "v": vp.to(dtype)}
+    else:
+        (kq, ks), (vq, vs) = (quantize_rows(t, kv, MESH_HL, "page")
+                              for t in (kp, vp))
+        pool = {"k": kq, "v": vq, "ks": ks, "vs": vs}
+        kn, vn = (fake_quantize_rows(t, kv, MESH_HL, "page")
+                  for t in (kn, vn))
+    return ((q.to(dtype), kn.to(dtype), vn.to(dtype)), pool,
+            torch.from_numpy(tables).cuda(),
+            torch.tensor(POS, dtype=torch.int32, device="cuda"), tables)
+
+
+def owned_rows(tables: np.ndarray, lo: int, block: int) -> np.ndarray:
+    """(B,) history rows each slot owns in the block [lo, lo + block)."""
+    pos = np.asarray(POS)[:, None]
+    j = np.arange(MP)[None, :]
+    rows = np.clip(pos - j * PSZ, 0, PSZ)
+    live = j < -(-pos // PSZ)
+    return (rows * (live & (tables >= lo) & (tables < lo + block))).sum(1)
+
+
+def partials_bound_ms(rows: int, isz: int, dtype: torch.dtype) -> tuple:
+    """Least time of one partials call on this block: its owned K+V rows
+    (and their scale pairs, a quantized pool), the query rows, the table
+    and owned mask and pos read once, acc, m and l written once, over
+    the memory rate; 4 C_loc operations an owned row (q.k and p.v) over
+    the input type's peak."""
+    nbytes = (2 * rows * (MESH_CL * isz + (4 if isz == 1 else 0))
+              + B * MESH_CL * (2 if dtype == torch.bfloat16 else 4)
+              + 2 * B * MP * 4 + B * 4
+              + B * MESH_CL * 4 + 2 * B * MESH_HL * 4)
+    return (*_bound(nbytes, 4 * MESH_CL * rows, dtype), nbytes)
+
+
+def partials_kernel_phase(flush: torch.Tensor) -> dict:
+    """Row #1's partials mode (``owned=``, ``fold=False``) at one model
+    shard of the 124M serving path's shapes: each data block's raw (acc,
+    m, l) against the plain twin in every pool, the slot that owns
+    nothing in block 0 giving m = -1e30, l = acc = 0, and both blocks
+    merged and folded (``sharded_paged_window_attention`` over
+    ``LocalServeGroup(2, 1)``) against the unsharded fold mode; then the
+    time of one block's call (bf16, the split sized from its owned rows'
+    bound, as the engine's step sizes it) beside its bound and the
+    twin's. No single PyTorch call returns raw partials: no library
+    time."""
+    group = LocalServeGroup(2, 1)
+    half = N // 2
+    errs = {}
+    for dtype, kv in PARTIALS_POOLS:
+        rows, pool, tables, pos, tab_np = partials_inputs(dtype, kv)
+        blocks = [{k: t[d * half:(d + 1) * half] for k, t in pool.items()}
+                  for d in (0, 1)]
+        local = pa.localize_tables(tables, pos, PSZ, half, (0, 1))
+        err = 0.0
+        for d, blk in enumerate(blocks):
+            sc = ({"k_scales": blk["ks"], "v_scales": blk["vs"]}
+                  if kv != "none" else {})
+            args = (*rows, blk["k"], blk["v"], local[d][0], pos)
+            kw = dict(n_head=MESH_HL, owned=local[d][1], **sc)
+            span = int(owned_rows(tab_np, d * half, half).max())
+            got = pa.paged_window_attention(*args, fold=False, max_pos=span,
+                                            **kw)
+            torch.cuda.synchronize()
+            ref = pa.paged_window_attention_ref(*args, fold=False, **kw)
+            for a, r in zip(got, ref):
+                torch.testing.assert_close(a, r, atol=PARTIALS_TOL,
+                                           rtol=PARTIALS_TOL)
+                err = max(err, (a - r).abs().max().item())
+            if d == 0:
+                assert (got[1][3] == pa.NEG_INF).all() \
+                    and not got[2][3].any() and not got[0][3].any()
+        sc = ({"k_scales": [b["ks"] for b in blocks],
+               "v_scales": [b["vs"] for b in blocks]} if kv != "none" else {})
+        merged = pa.sharded_paged_window_attention(
+            *rows, [b["k"] for b in blocks], [b["v"] for b in blocks],
+            tables, pos, group, n_head=MESH_HL, **sc)
+        whole_sc = ({"k_scales": pool["ks"], "v_scales": pool["vs"]}
+                    if kv != "none" else {})
+        whole = pa.paged_window_attention(*rows, pool["k"], pool["v"],
+                                          tables, pos, n_head=MESH_HL,
+                                          **whole_sc)
+        torch.cuda.synchronize()
+        tol = MERGE_TOL[dtype]
+        torch.testing.assert_close(merged.float(), whole.float(), atol=tol,
+                                   rtol=tol)
+        merge_err = (merged.float() - whole.float()).abs().max().item()
+        errs[(dtype, kv)] = err
+        print(f"partials check: {str(dtype)[6:]} {kv} pool, 2 data blocks "
+              f"of {half} pages (B={B}, W=1, H_loc={MESH_HL}, "
+              f"C_loc={MESH_CL}, pos {POS}): max_abs_err {err:.3e} "
+              f"(atol=rtol={PARTIALS_TOL}); merged and folded vs the "
+              f"unsharded kernel {merge_err:.3e} (atol=rtol={tol})")
+    rows, pool, tables, pos, tab_np = partials_inputs(torch.bfloat16, "none")
+    blk = {k: t[:half] for k, t in pool.items()}
+    loc, own = pa.localize_tables(tables, pos, PSZ, half, (0,))[0]
+    owned = owned_rows(tab_np, 0, half)
+    args = (*rows, blk["k"], blk["v"], loc, pos)
+    kw = dict(n_head=MESH_HL, owned=own, fold=False)
+
+    def kernel():
+        return pa.paged_window_attention(*args, max_pos=int(owned.max()),
+                                         **kw)
+
+    settle(kernel)
+    ms = time_ms(kernel, flush)
+    plain_ms = time_ms(lambda: pa.paged_window_attention_ref(*args, **kw),
+                       flush)
+    b_ms, b_by, nbytes = partials_bound_ms(int(owned.sum()), 2,
+                                           torch.bfloat16)
+    ranks = pa.cluster_ranks(1, MESH_CL // MESH_HL, MP, PSZ, 2, False,
+                             int(owned.max()))
+    print(f"partials timing (bf16, block 0 of 2: {int(owned.sum())} owned "
+          f"rows, at most {int(owned.max())} a slot): kernel "
+          f"{ms * 1e3:.1f} us ({gbps(nbytes, ms):.0f} GB/s of the bound's "
+          f"bytes), plain {plain_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} "
+          f"us ({b_by}); split: clusters of {ranks} CTAs, grid "
+          f"[{ranks}, {MESH_HL}, {B}]; library: none (no PyTorch call "
+          f"returns raw partials)")
+    return {"name": "paged_window_attention_partials", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": PARTIALS_REPLACES,
+            "max_abs_err": errs[(torch.bfloat16, "none")], "ms": ms,
+            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "gbps": gbps(nbytes, ms)}
+
+
+def mesh_parity_phase() -> None:
+    """f32 greedy streams of the 2x2 engine (``LocalServeGroup``: 2 data
+    blocks of pages, 2 model shards of heads) on the kernel route equal
+    the 1x1 kernel route's and the gather route's, at 124M widths cut to
+    2 layers."""
+    base = get_config("gpt2-small").model
+    mcfg = dataclasses.replace(base, n_layer=2, dtype="float32",
+                               decode_cache_layout="packed")
+    model = init_params(mcfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    trace = make_trace(mcfg, ReplayConfig(
+        n_requests=8, seed=1, prompt_len_max=300, prompt_mode="shared_prefix",
+        max_new_tokens=24, greedy=True))
+    streams = {}
+    for name, kw in (("2x2 kernel", dict(paged_kernel=True, mesh_data=2,
+                                         mesh_model=2)),
+                     ("1x1 kernel", dict(paged_kernel=True)),
+                     ("gather", dict(paged_kernel=False))):
+        eng = Engine(model, mcfg, EngineConfig(pool_size=8, page_size=16,
+                                               **kw), device="cuda")
+        route = eng.kernel_route.summary()
+        assert route["decode"] == name.split()[-1], route
+        assert route["sharded"] == (name == "2x2 kernel"), route
+        before = pa.paged_window_attention.partials_launches
+        for _, req in trace:
+            assert eng.submit(dataclasses.replace(req)) is None
+        streams[name] = {r.id: r.tokens for r in eng.drain()}
+        launched = pa.paged_window_attention.partials_launches - before
+        assert launched == (2 * 4 * eng.n_steps if route["sharded"]
+                            else 0), (name, launched, eng.n_steps)
+    a = streams["2x2 kernel"]
+    for name in ("1x1 kernel", "gather"):
+        b = streams[name]
+        for rid in sorted(b):
+            if a[rid] != b[rid]:
+                i = next(j for j, (x, y) in enumerate(zip(a[rid], b[rid]))
+                         if x != y)
+                raise AssertionError(f"mesh parity: {rid} differs at token "
+                                     f"{i}: 2x2 kernel {a[rid][i]} vs "
+                                     f"{name} {b[rid][i]}")
+    n = sum(len(s) for s in a.values())
+    print(f"mesh parity: {len(a)} greedy streams, {n} tokens identical on "
+          f"the 2x2 kernel route (partials, merged over 2 data shards), "
+          f"the 1x1 kernel route and the gather route (f32, 2 layers, "
+          f"C=768)")
+
+
+def mesh_slice_phase(card: str) -> int:
+    """``serve-replay --mesh-shape 2x2`` at GPT-2 124M's full width and
+    depth, bf16, in one process: 4 shards, each layer's attention the
+    partials kernel per (data, model) shard, 48 launches a step."""
+    pa.paged_window_attention.launches = 0
+    pa.paged_window_attention.partials_launches = 0
+    s = replay(["--n-requests", "16", "--greedy", "--mesh-shape", "2x2"],
+               shards=4)
+    launches = pa.paged_window_attention.partials_launches
+    assert launches > 0 and s["kernel_launches"] == 0
+    assert s["pages"]["effective_mesh_shape"] == [2, 2], s["pages"]
+    h = s["histograms"]
+    print(f"mesh slice (2x2, greedy, 16 requests) on {card}: "
+          f"{s['aggregate_tokens_per_s']} tok/s, TTFT p50 "
+          f"{h['ttft_s']['p50'] * 1e3:.2f} ms / p99 "
+          f"{h['ttft_s']['p99'] * 1e3:.2f} ms, step p50 "
+          f"{s['step_latency']['p50_s'] * 1e3:.3f} ms over {s['n_steps']} "
+          f"steps, {s['partials_launches']} partials kernel launches "
+          f"({s['partials_launches'] // s['n_steps']} a step)")
     return launches
 
 
@@ -2281,10 +2535,15 @@ def main() -> int:
     ring_parity_phase()
     chunk_rows[0]["launches"], chunk_rows[1]["launches"] = \
         sp_xl_slice_phase(card)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    partials_row = partials_kernel_phase(flush)
+    del flush
+    mesh_parity_phase()
+    partials_row["launches"] = mesh_slice_phase(card)
     print(f"smoke: {time.perf_counter() - t0:.1f} s, the builds included")
     print(json.dumps({"kernels": [row, *flash_rows, *group_rows, *heads_rows,
                                   *chunk_rows, fused_row, packed_row,
-                                  fused_paged_row]}))
+                                  fused_paged_row, partials_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,11 @@
         --prompt "ROMEO:" --sample-tokens 500 --top-k 20
     python -m replicatinggpt_tpu_torch serve-replay --preset gpt2-small \\
         --decode-cache-layout packed --paged-kernel --n-requests 16
+    python -m replicatinggpt_tpu_torch serve-replay --preset gpt2-small \\
+        --decode-cache-layout packed --paged-kernel --mesh-shape 2x2
+    torchrun --nproc-per-node 4 -m replicatinggpt_tpu_torch serve-replay \\
+        --preset gpt2-small --decode-cache-layout packed --paged-kernel \\
+        --mesh-shape 2x2
 
 Every subcommand runs on the card unless given ``--device cpu``, and takes
 the JAX subcommands' flags. Those this port does not implement yet are
@@ -18,8 +23,10 @@ of being half-run or silently ignored. ``train --sp N`` is sequence
 parallelism through the ring: all N shards in one process without a
 launcher, one shard a process under ``torchrun`` (N processes); the
 other mesh axes (``--dp``, ``--tp``, ``--pp``, ``--fsdp``,
-``--microbatches``) and ``--attention ulysses`` are refused with ROADMAP.md
-queue A item 11.
+``--microbatches``, ``--mesh-shape``) and ``--attention ulysses`` are
+refused with ROADMAP.md queue A item 11. ``serve-replay --mesh-shape DxM``
+serves on a (data, model) mesh likewise: all D x M shards in one process,
+or one a process under ``torchrun`` (D x M processes).
 """
 
 from __future__ import annotations
@@ -44,7 +51,6 @@ UNPORTED_FLAGS = (
      "queue A item 9 (speculative verify)"),
     ("--draft-model", "draft_model", None,
      "queue A item 9 (speculative verify)"),
-    ("--mesh-shape", "mesh_shape", "1x1", "queue A item 11 (meshes)"),
     ("--weight-quant", "weight_quant", "none",
      "queue A item 8 (weight quantization)"),
     ("--act-quant", "act_quant", "none",
@@ -158,10 +164,22 @@ def add_engine_flags(p: argparse.ArgumentParser) -> None:
                    choices=["page", "head"],
                    help="KV scales per written row ('page') or per row "
                         "and head ('head')")
+    p.add_argument("--mesh-shape", default="1x1",
+                   help="serving mesh DATAxMODEL (e.g. 2x2): the KV pool's "
+                        "pages split over data, the heads, pool channels "
+                        "and weights (Megatron TP) over model; all shards "
+                        "in this process, or one a process under torchrun "
+                        "(whose world size must be DATA*MODEL). An axis "
+                        "that does not divide is replicated (the pages "
+                        "over data, the heads over model); a mesh is never "
+                        "downgraded to 1x1, since that would run another "
+                        "path")
 
 
 def engine_config_from_args(args: argparse.Namespace):
+    from .parallel.mesh import parse_mesh_shape
     from .serve.engine import EngineConfig
+    d, m = parse_mesh_shape(args.mesh_shape)
     return EngineConfig(pool_size=args.pool_size, max_queue=args.max_queue,
                         prefill_chunk=args.prefill_chunk,
                         page_size=args.page_size, max_pages=args.max_pages,
@@ -169,20 +187,30 @@ def engine_config_from_args(args: argparse.Namespace):
                         prefix_cache=not args.no_prefix_cache,
                         paged_kernel=args.paged_kernel,
                         kv_quant=args.kv_quant,
-                        quant_granularity=args.quant_granularity)
+                        quant_granularity=args.quant_granularity,
+                        mesh_data=d, mesh_model=m)
 
 
 def cmd_serve_replay(args) -> int:
     """Replay a synthetic Poisson request trace through the engine at
-    random-init weights and print the serving metrics summary."""
+    random-init weights and print the serving metrics summary (on rank 0
+    of a launch, whose ranks start from its weights)."""
     check_unported(args)
-    from .device import resolve_device
+    import torch.distributed as dist
+
     from .models.gpt import init_params
+    from .parallel.distributed import setup_serve
     from .serve.replay import ReplayConfig, format_summary, run_replay
     cfg = config_from_args(args)
-    dev = resolve_device(args.device)
+    ecfg = engine_config_from_args(args)
+    dev = setup_serve(ecfg.mesh_shape, args.device)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     model = init_params(cfg.model, gen, device=dev)
+    launched = dist.is_initialized()
+    if launched:
+        with torch.no_grad():
+            for p in model.parameters():
+                dist.broadcast(p, 0)
     rcfg = ReplayConfig(
         n_requests=args.n_requests, rate=args.rate, seed=args.seed or 0,
         prompt_len_min=args.prompt_len_min,
@@ -191,17 +219,23 @@ def cmd_serve_replay(args) -> int:
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         deadline_s=args.deadline_s, prompt_mode=args.prompt_mode,
         shared_prefix_len=args.shared_prefix_len)
-    ecfg = engine_config_from_args(args)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     m = cfg.model
-    print(f"serve-replay: {rcfg.n_requests} requests @ {rcfg.rate}/s, "
-          f"pool {ecfg.pool_size}, queue {ecfg.max_queue}, model "
-          f"{m.n_layer}L/{m.n_head}H/{m.n_embd}C {m.dtype} on {dev} "
-          f"({name})", file=sys.stderr)
+    main = not launched or dist.get_rank() == 0
+    procs = f" over {dist.get_world_size()} processes" if launched else ""
+    if main:
+        print(f"serve-replay: {rcfg.n_requests} requests @ {rcfg.rate}/s, "
+              f"pool {ecfg.pool_size}, queue {ecfg.max_queue}, mesh "
+              f"{ecfg.mesh_data}x{ecfg.mesh_model}{procs}, model "
+              f"{m.n_layer}L/{m.n_head}H/{m.n_embd}C {m.dtype} on {dev} "
+              f"({name})", file=sys.stderr)
     summary = run_replay(model, cfg.model, rcfg, ecfg, device=dev)
-    print(format_summary(summary))
-    if args.json:
-        print(json.dumps(summary))
+    if main:
+        print(format_summary(summary))
+        if args.json:
+            print(json.dumps(summary))
+    if launched:
+        dist.destroy_process_group()
     return 0
 
 

@@ -1,12 +1,19 @@
 // Windowed paged attention for one layer of a packed KV page pool.
 //
-// Replaces replicatinggpt_tpu/ops/paged_pallas.py:_paged_window_kernel
-// (fold=True, quantized or not). For every slot b a window of W
+// Replaces replicatinggpt_tpu/ops/paged_pallas.py:_paged_window_kernel,
+// both of its modes, quantized or not. For every slot b a window of W
 // fresh query rows (row j at logical position pos[b] + j) attends the
 // STALE pool rows at positions < pos[b], addressed through the slot's
-// page table, and then the fresh (W, W) K/V block causally. Scores,
-// running max, denominator and accumulator are f32; the output is
-// written in the input dtype (bf16 or f32). A quantized pool (int8 or
+// page table, and then (fold mode) the fresh (W, W) K/V block causally.
+// Scores, running max, denominator and accumulator are f32; the output
+// is written in the input dtype (bf16 or f32). The partials mode (the
+// JAX kernel's fold=False, which its shard_map wrapper runs on each
+// data shard of a serving mesh) reads only the live pages that an owned
+// mask marks (one shard's block, the table then holding ids local to
+// it) and writes the raw f32 state per (slot, row, head): acc (B, W, C),
+// m and l (B, W, H), m = -1e30 and l = acc = 0 where the slot owns no
+// page; the caller merges the shards and folds the fresh window once.
+// A quantized pool (int8 or
 // fp8 e4m3 pages with f32 scales per row, or per row and head) is
 // dequantized in f32 as its rows are used, f32(q) * scale, never
 // rounded to the compute dtype; the caller hands the fresh window
@@ -30,11 +37,17 @@
 // max_pages * page_size (plan below, mirrored by cluster_ranks in
 // ops/paged_attention.py). A short history thus launches one CTA per
 // (slot, head), and no idle rank holds an SM while its cluster waits.
-// - The slot's live history is cut into tiles of `tile` rows (64, fewer
-//   where a row is wide) and dealt round-robin: tile t to rank t % R.
-//   A rank that owns no tile contributes m = -1e30, l = 0, loads nothing
-//   but pos, and no rank reads a table entry past the live frontier or
-//   a row >= pos.
+// - Every CTA lists the slot's pages to read in shared memory: the live
+//   prefix, or with an owned mask (the partials mode) the live pages it
+//   marks, an arbitrary subset under allocation churn, compacted by warp
+//   0 (ballots over 32 table entries at a time). Their rows, in logical
+//   order (only the last live page can be partial, and it comes last),
+//   are cut into tiles of `tile` rows (64, fewer where a row is wide)
+//   and dealt round-robin: tile t to rank t % R. A rank that owns no
+//   tile contributes m = -1e30, l = 0, loads nothing but the table row
+//   and the query rows, and no rank reads a table entry past the live
+//   frontier, a page that is not its own or a row >= pos. The span that
+//   sizes R is then the caller's bound on the rows a slot owns.
 // - Each CTA copies its tiles into a ring of 2-4 stages in shared memory
 //   with 16-byte cp.async copies, every stage at once, in the pool's own
 //   type (bf16, f32, int8 or fp8, with the rows' scales), converted at
@@ -49,7 +62,8 @@
 //   (cg::this_cluster().map_shared_rank), in rank order, on rank 0: one
 //   thread an element, every rank's loads in flight at once. Rank 0 then
 //   folds the fresh (W, W) block in causally from shared memory (it
-//   loaded the fresh rows with the queries) and writes the rows.
+//   loaded the fresh rows with the queries) and writes the rows, or, in
+//   partials mode, writes the merged (acc, m, l) as they are.
 // What is left for later: tensor cores (mma) for wide windows; a batch
 // whose slots' histories differ widely still sizes every cluster for the
 // longest one (a persistent grid over (slot, head, tile) work would
@@ -175,7 +189,12 @@ struct Args {
   const float* v_scales;
   const int* tables;
   const int* pos;
-  T* out;
+  const int* owned;        // partials mode's (B, mp) mask; null: every
+                           // live page
+  T* out;                  // fold mode's output, else null
+  float* acc_out;          // partials mode's (B, W, H * D) f32
+  float* m_out;            // and (B, W, H) f32
+  float* l_out;
   int W, psz, mp, H, D, head_gran;
   float scale;
   Carve cv;
@@ -183,8 +202,9 @@ struct Args {
 
 // T: the window rows' and output's dtype; P: the pool's (T, int8 or fp8).
 // NVL: 16-byte vectors of a row one lane holds (1 or 2); WQ: query rows
-// a pass holds in registers (1 at W = 1, else 4).
-template <typename T, typename P, int NVL, int WQ>
+// a pass holds in registers (1 at W = 1, else 4); OWN: an owned mask is
+// given (its own instantiation, so the plain table's code is untouched).
+template <typename T, typename P, int NVL, int WQ, bool OWN>
 __global__ void __launch_bounds__(kThreads)
 paged_window_kernel(const Args<T, P> a) {
   constexpr int PVEC = kvq::vec_elems<P>();
@@ -217,35 +237,64 @@ paged_window_kernel(const Args<T, P> a) {
   float* l_s = m_s + W;
   int* tab_s = reinterpret_cast<int*>(smem + a.cv.tab);
 
+  const bool fold = a.out != nullptr;
   const int pos = a.pos[b];
   const int live = min((pos + a.psz - 1) / a.psz, a.mp);
-  const int n_hist = min(pos, live * a.psz);
-  const int n_tiles = (n_hist + TR - 1) / TR;
-  const int mine =
-      rank < n_tiles ? (n_tiles - rank + a.cv.ranks - 1) / a.cv.ranks : 0;
   const size_t row0 = (size_t)b * W * C + (size_t)h * D;
-  const int NS = a.cv.stages;
-  const size_t stage_bytes = (size_t)2 * TR * D * sizeof(P);
-  const int cp_step = kThreads / (2 * nvec);   // rows a copy pass, >= 2
-  const int cp_col = tid % (2 * nvec);
-
-  // the query rows (a rank with tiles, and rank 0 for the fold), the
-  // fresh rows (rank 0) and the live table prefix (a rank with tiles)
-  if (mine > 0 || rank == 0) {
-    for (int e = tid; e < W * (D / VEC); e += kThreads) {
+  // the pages to read into tab_s, in logical order, and their row count:
+  // the live prefix, copied by the CTAs that own tiles of it (its rows
+  // are known from pos alone); or, with an owned mask (OWN), the live
+  // pages it marks, compacted by warp 0 of every CTA, which leaves their
+  // row count in the first word of acc_s (nothing else touches it before
+  // the pass loop's merges). Meanwhile the other threads load the query
+  // rows (a rank with tiles, and rank 0 of the fold) and the fresh rows
+  // (rank 0 of the fold).
+  auto tiles_of = [&](int n_rows) {
+    const int n_tiles = (n_rows + TR - 1) / TR;
+    return rank < n_tiles ? (n_tiles - rank + a.cv.ranks - 1) / a.cv.ranks
+                          : 0;
+  };
+  const int prefix_rows = min(pos, live * a.psz);
+  const int prefix_mine = tiles_of(prefix_rows);
+  if (OWN && warp == 0) {
+    int n = 0, last = -1;
+    for (int p0 = 0; p0 < live; p0 += 32) {
+      const int p = p0 + lane;
+      const bool own = p < live && a.owned[(size_t)b * a.mp + p] != 0;
+      const unsigned bal = __ballot_sync(0xffffffffu, own);
+      if (own)
+        tab_s[n + __popc(bal & ((1u << lane) - 1u))] =
+            a.tables[(size_t)b * a.mp + p];
+      if (bal) last = p0 + 31 - __clz(bal);
+      n += __popc(bal);
+    }
+    // only the last live page can be partial, and it is last if owned
+    if (lane == 0)
+      reinterpret_cast<int*>(acc_s)[0] =
+          n * a.psz - (last == live - 1 ? max(live * a.psz - pos, 0) : 0);
+  } else if (OWN || prefix_mine > 0 || (rank == 0 && fold)) {
+    const int first = OWN ? 32 : 0;
+    for (int e = tid - first; e < W * (D / VEC); e += kThreads - first) {
       const int w = e / (D / VEC), c = (e % (D / VEC)) * VEC;
       const size_t off = row0 + (size_t)w * C + c;
       kvq::load_vec(a.q + off, q_s + w * D + c);
-      if (rank == 0) {
+      if (rank == 0 && fold) {
         kvq::load_vec(a.k_new + off, kn_s + w * D + c);
         kvq::load_vec(a.v_new + off, vn_s + w * D + c);
       }
     }
+    if (!OWN && prefix_mine > 0)
+      for (int p = tid; p < live; p += kThreads)
+        tab_s[p] = a.tables[(size_t)b * a.mp + p];
   }
-  if (mine > 0)
-    for (int p = tid; p < live; p += kThreads)
-      tab_s[p] = a.tables[(size_t)b * a.mp + p];
   __syncthreads();
+  const int n_hist =
+      OWN ? reinterpret_cast<const int*>(acc_s)[0] : prefix_rows;
+  const int mine = OWN ? tiles_of(n_hist) : prefix_mine;
+  const int NS = a.cv.stages;
+  const size_t stage_bytes = (size_t)2 * TR * D * sizeof(P);
+  const int cp_step = kThreads / (2 * nvec);   // rows a copy pass, >= 2
+  const int cp_col = tid % (2 * nvec);
 
   // the CTA's k-th tile (history tile rank + k * R) into stage k % NS,
   // one commit group
@@ -477,7 +526,19 @@ paged_window_kernel(const Args<T, P> a) {
     }
     __syncthreads();
   }
-  if (rank == 0) {
+  if (rank == 0 && !fold) {
+    // partials mode: the merged state as it is
+    for (int e = tid; e < W * D; e += kThreads) {
+      const int w = e / D, d = e % D;
+      a.acc_out[row0 + (size_t)w * C + d] = acc_s[w * D + d];
+    }
+    for (int w = tid; w < W; w += kThreads) {
+      const size_t o = ((size_t)b * W + w) * a.H + h;
+      a.m_out[o] = m_s[w];
+      a.l_out[o] = l_s[w];
+    }
+  }
+  if (rank == 0 && fold) {
     // the fresh rows j <= w, in order, a warp a query row
     for (int w = warp; w < W; w += kWarps) {
       float M = m_s[w], L = l_s[w], A[kMaxLaneCols];
@@ -514,9 +575,9 @@ paged_window_kernel(const Args<T, P> a) {
   if (split) cluster.sync();   // no rank leaves while rank 0 reads it
 }
 
-template <typename T, typename P, int NVL, int WQ>
+template <typename T, typename P, int NVL, int WQ, bool OWN>
 int launch_kernel(const Args<T, P>& a, int B, cudaStream_t stream) {
-  auto kernel = paged_window_kernel<T, P, NVL, WQ>;
+  auto kernel = paged_window_kernel<T, P, NVL, WQ, OWN>;
   const size_t smem = a.cv.total;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -540,16 +601,26 @@ int launch_kernel(const Args<T, P>& a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <typename T, typename P, int NVL, int WQ>
+int launch_own(const Args<T, P>& a, int B, cudaStream_t stream) {
+  if (a.owned != nullptr)
+    return launch_kernel<T, P, NVL, WQ, true>(a, B, stream);
+  return launch_kernel<T, P, NVL, WQ, false>(a, B, stream);
+}
+
 template <typename T, typename P>
 int launch(const void* q, const void* k_new, const void* v_new,
            const void* k_pages, const void* v_pages, const float* k_scales,
            const float* v_scales, int head_gran, const int* tables,
-           const int* pos, void* out, int B, int W, int psz, int mp, int H,
+           const int* pos, const int* owned, void* out, float* acc_out,
+           float* m_out, float* l_out, int B, int W, int psz, int mp, int H,
            int D, int span, cudaStream_t stream) {
   const bool quant = k_scales != nullptr;
   if (W < 1 || D % kvq::vec_elems<T>() != 0 ||
       D % kvq::vec_elems<P>() != 0 || D > 32 * kMaxLaneCols || H > 65535 ||
-      B > 65535 || quant != (v_scales != nullptr))
+      B > 65535 || quant != (v_scales != nullptr) ||
+      (out == nullptr) == (acc_out == nullptr || m_out == nullptr ||
+                           l_out == nullptr))
     return (int)cudaErrorInvalidValue;
   Args<T, P> a;
   a.q = static_cast<const T*>(q);
@@ -561,7 +632,11 @@ int launch(const void* q, const void* k_new, const void* v_new,
   a.v_scales = v_scales;
   a.tables = tables;
   a.pos = pos;
+  a.owned = owned;
   a.out = static_cast<T*>(out);
+  a.acc_out = acc_out;
+  a.m_out = m_out;
+  a.l_out = l_out;
   a.W = W;
   a.psz = psz;
   a.mp = mp;
@@ -576,29 +651,31 @@ int launch(const void* q, const void* k_new, const void* v_new,
   while (2 * G <= nvec && 2 * G <= 32) G *= 2;
   const bool two = nvec > G;
   if (W == 1)
-    return two ? launch_kernel<T, P, 2, 1>(a, B, stream)
-               : launch_kernel<T, P, 1, 1>(a, B, stream);
-  return two ? launch_kernel<T, P, 2, 4>(a, B, stream)
-             : launch_kernel<T, P, 1, 4>(a, B, stream);
+    return two ? launch_own<T, P, 2, 1>(a, B, stream)
+               : launch_own<T, P, 1, 1>(a, B, stream);
+  return two ? launch_own<T, P, 2, 4>(a, B, stream)
+             : launch_own<T, P, 1, 4>(a, B, stream);
 }
 
 template <typename T>
 int launch_pool(int pool, const void* q, const void* k_new, const void* v_new,
                 const void* k_pages, const void* v_pages, const float* ks,
                 const float* vs, int head_gran, const int* tab, const int* p,
-                void* out, int B, int W, int psz, int mp, int H, int D,
-                int span, cudaStream_t s) {
+                const int* own, void* out, float* acc, float* m, float* l,
+                int B, int W, int psz, int mp, int H, int D, int span,
+                cudaStream_t s) {
   if (pool == 0 && ks == nullptr)
     return launch<T, T>(q, k_new, v_new, k_pages, v_pages, ks, vs, head_gran,
-                        tab, p, out, B, W, psz, mp, H, D, span, s);
+                        tab, p, own, out, acc, m, l, B, W, psz, mp, H, D,
+                        span, s);
   if (pool == 1 && ks != nullptr)
     return launch<T, int8_t>(q, k_new, v_new, k_pages, v_pages, ks, vs,
-                             head_gran, tab, p, out, B, W, psz, mp, H, D,
-                             span, s);
+                             head_gran, tab, p, own, out, acc, m, l, B, W,
+                             psz, mp, H, D, span, s);
   if (pool == 2 && ks != nullptr)
     return launch<T, __nv_fp8_e4m3>(q, k_new, v_new, k_pages, v_pages, ks,
-                                    vs, head_gran, tab, p, out, B, W, psz,
-                                    mp, H, D, span, s);
+                                    vs, head_gran, tab, p, own, out, acc, m,
+                                    l, B, W, psz, mp, H, D, span, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -607,29 +684,39 @@ int launch_pool(int pool, const void* q, const void* k_new, const void* v_new,
 // dtype (window rows and output): 0 = float32, 1 = bfloat16. pool: 0 =
 // the pages in that dtype (k_scales and v_scales null), 1 = int8, 2 = fp8
 // e4m3, with f32 scales (N, psz) (head_gran 0) or (N, psz, H) (head_gran
-// 1). span: the caller's bound on every slot's pos, which sizes the
-// split (any value gives the right result). The kernel trusts the live
-// prefix of each table row to hold page ids inside the pool (the
-// allocator's invariant); entries past it are never read.
+// 1). Fold mode: `out` (B, W, C) in the dtype, acc/m/l null. Partials
+// mode: `out` null, acc (B, W, C), m and l (B, W, H) f32. owned: a (B,
+// mp) int32 mask of the pages to read among the live ones, or null for
+// all of them. span: the caller's bound on the rows any slot reads (its
+// pos, or the rows it owns), which sizes the split (any value gives the
+// right result). The kernel trusts the entries it reads (live, and
+// owned when a mask is given) to hold page ids inside the pool (the
+// allocator's invariant); other entries are never dereferenced.
 extern "C" int paged_window_attention_launch(
     const void* q, const void* k_new, const void* v_new, const void* k_pages,
     const void* v_pages, const void* k_scales, const void* v_scales,
-    int head_gran, const void* tables, const void* pos, void* out, int B,
-    int W, int psz, int mp, int H, int D, int span, int dtype, int pool,
+    int head_gran, const void* tables, const void* pos, const void* owned,
+    void* out, void* acc_out, void* m_out, void* l_out, int B, int W,
+    int psz, int mp, int H, int D, int span, int dtype, int pool,
     void* stream) {
   const int* tab = static_cast<const int*>(tables);
   const int* p = static_cast<const int*>(pos);
+  const int* own = static_cast<const int*>(owned);
   const float* ks = static_cast<const float*>(k_scales);
   const float* vs = static_cast<const float*>(v_scales);
+  float* acc = static_cast<float*>(acc_out);
+  float* m = static_cast<float*>(m_out);
+  float* l = static_cast<float*>(l_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_pool<float>(pool, q, k_new, v_new, k_pages, v_pages, ks,
-                              vs, head_gran, tab, p, out, B, W, psz, mp, H,
-                              D, span, s);
+                              vs, head_gran, tab, p, own, out, acc, m, l, B,
+                              W, psz, mp, H, D, span, s);
   if (dtype == 1)
     return launch_pool<__nv_bfloat16>(pool, q, k_new, v_new, k_pages,
                                       v_pages, ks, vs, head_gran, tab, p,
-                                      out, B, W, psz, mp, H, D, span, s);
+                                      own, out, acc, m, l, B, W, psz, mp, H,
+                                      D, span, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -21,7 +21,9 @@ A port of ``replicatinggpt_tpu/models/gpt.py``:
   ``_scatter_kv``; unquantized, or int8/fp8 pages with f32 scales that
   are quantized on write and dequantized on gather) and the two serving
   steps, ``decode_step_paged`` (fused, per-layer kernel and gather
-  routes) and ``prefill_chunk_paged``;
+  routes) and ``prefill_chunk_paged``, also on the shards of a (data,
+  model) serve mesh (``init_sharded_kv_pool``: a block of pages per data
+  shard in each model shard's columns; Megatron TP over the heads);
 - the contiguous cache of ``generate()`` (``init_kv_cache``,
   ``cache_seq_axis``), ``decode_step`` with its three routes (the fused
   all-layers kernel at B=1, the packed decode attention kernel, the
@@ -34,6 +36,7 @@ return them for symmetry with the JAX signatures.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -53,9 +56,11 @@ from ..ops.decode import (fused_decode_layers, fused_decode_supported,
                           fused_paged_decode_layers, fused_weights,
                           packed_decode_attention, packed_decode_supported)
 from ..ops.flash_attention import packed_qkv_attention, packed_route
-from ..ops.paged_attention import paged_window_attention
+from ..ops.paged_attention import (paged_window_attention,
+                                   sharded_paged_window_attention)
 from ..quant.kv import (dequant_gathered, fake_quantize_rows, init_scales,
-                        kv_store_dtype, pool_quant_mode, quantize_rows)
+                        kv_store_dtype, pool_quant_mode, quantize_rows,
+                        row_amax)
 
 Params = Dict[str, Any]
 
@@ -473,20 +478,22 @@ def _gather_kv(cc, layer_idx: int, tables, packed: bool, n_head: int,
 
 
 def _scatter_kv(cc, layer_idx: int, phys, woff, k_m, v_m, packed: bool,
-                n_head: int):
+                n_head: int, amax=(None, None)):
     """Write merged fresh K/V rows (``phys.shape + (C,)``) into one layer
     of the pool at (phys, woff), in place. Callers pass only the rows
     that land: JAX's ``mode='drop'`` rows (inactive slots, padding past
     ``limit``) are filtered out before this call, since an out-of-range
     index raises here. On a quantized pool the rows are quantized on
-    write and their scales land at the same coordinates of ``ks``/``vs``.
+    write and their scales land at the same coordinates of ``ks``/``vs``;
+    ``amax``: the K and V rows' whole-row maxima where these are one model
+    shard's columns (page granularity, ``quant.kv.quantize_rows``).
     """
     kv_dtype, gran = pool_quant_mode(cc)
     phys, woff = phys.long(), woff.long()
-    for name, rows in (("k", k_m), ("v", v_m)):
+    for name, rows, mx in (("k", k_m, amax[0]), ("v", v_m, amax[1])):
         c = cc[name][layer_idx]
         if kv_dtype is not None:
-            rows, sc = quantize_rows(rows, kv_dtype, n_head, gran)
+            rows, sc = quantize_rows(rows, kv_dtype, n_head, gran, mx)
             s = cc[name + "s"][layer_idx]
             if gran == "head" and not packed:
                 s[phys, :, woff] = sc
@@ -509,7 +516,8 @@ def _check_in_bounds(lo: int, hi_plus_len: int, size: int, what: str):
 def decode_step_paged(params: Params, idx_t, pos, active, tables, cache,
                       cfg: ModelConfig, *, use_kernel: bool = False,
                       use_fused: bool = False,
-                      fused_blocks: Optional[Dict[str, torch.Tensor]] = None
+                      fused_blocks: Optional[Dict[str, torch.Tensor]] = None,
+                      group=None, host_tables=None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One multi-slot decode step over the paged pool.
 
@@ -531,7 +539,21 @@ def decode_step_paged(params: Params, idx_t, pos, active, tables, cache,
     - otherwise the gather route: write the row, gather the logical view
       (dequantized for a quantized pool) and attend.
 
+    With a serve ``group`` (``parallel.serve_group``) the step runs on
+    the shards the group holds: ``params`` is ``parallel.mesh.
+    shard_serve_params``'s split, ``cache`` the ``{(d, m): pool}`` blocks
+    of ``init_sharded_kv_pool`` (``_sharded_decode_step``); the fused
+    route is not taken there. ``host_tables``: the tables as the caller
+    holds them on the host (read back from ``tables`` if not given).
+
     Returns ((B, V) f32 logits, the pool)."""
+    if group is not None:
+        if use_fused:
+            raise ValueError("the fused all-layers route runs on a 1x1 "
+                             "mesh only")
+        return _sharded_decode_step(params, idx_t, pos, active, tables,
+                                    cache, cfg, group, use_kernel,
+                                    host_tables)
     B = idx_t.shape[0]
     packed = cfg.decode_cache_layout == "packed"
     if (use_kernel or use_fused) and not packed:
@@ -593,15 +615,21 @@ def decode_step_paged(params: Params, idx_t, pos, active, tables, cache,
 
 
 def prefill_chunk_paged(params: Params, idx, offset: int, limit: int,
-                        table_row, cache, cfg: ModelConfig
-                        ) -> Dict[str, torch.Tensor]:
+                        table_row, cache, cfg: ModelConfig, *, group=None,
+                        host_row=None) -> Dict[str, torch.Tensor]:
     """Chunked prefill of ONE slot's prompt through its page table.
 
     idx: (1, Pc) chunk of the prompt; ``offset``: its first absolute
     position; ``limit``: the true prompt length — positions >= limit (a
     padded final chunk's tail) write nothing. Queries attend the
     gathered logical view masked to k <= offset + i (write-then-attend
-    across chunks). Returns the pool (updated in place)."""
+    across chunks). With a serve ``group``, as ``decode_step_paged``
+    (``host_row``: the table row on the host): the view spans every data
+    shard's pages, since a prefix hit may sit on any of them. Returns
+    the pool (updated in place)."""
+    if group is not None:
+        return _sharded_prefill_chunk(params, idx, offset, limit, table_row,
+                                      cache, cfg, group, host_row)
     offset, limit = int(offset), int(limit)
     _, Pc = idx.shape
     packed = cfg.decode_cache_layout == "packed"
@@ -629,6 +657,302 @@ def prefill_chunk_paged(params: Params, idx, offset: int, limit: int,
         attn = windowed_cached_attention(_split_heads(q_m, H), k_all, v_all,
                                          base)
         x = _block_tail(x, _merge_heads(attn), lp, cfg)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# the paged serving steps on a (data, model) serve mesh
+# ---------------------------------------------------------------------------
+
+def shard_config(cfg: ModelConfig, model_size: int) -> ModelConfig:
+    """The configuration one model shard's pool block and heads see:
+    ``n_head / model_size`` heads, ``n_embd / model_size`` channels."""
+    return dataclasses.replace(cfg, n_head=cfg.n_head // model_size,
+                               n_embd=cfg.n_embd // model_size)
+
+
+def init_sharded_kv_pool(cfg: ModelConfig, n_pages: int, page_size: int,
+                         group, device=None, quant=None) -> Dict:
+    """``{(d, m): pool}`` for every shard the serve ``group`` holds: data
+    shard d's block of ``n_pages / group.data_size`` physical pages (page
+    d * block + i is its local page i), in model shard m's columns (its
+    heads' K/V; a quantized pool's scales per row of the block, per row
+    and local head at head granularity), as ``init_paged_kv_pool`` lays
+    out a whole pool."""
+    block = n_pages // group.data_size
+    scfg = shard_config(cfg, group.model_size)
+    return {(d, m): init_paged_kv_pool(scfg, block, page_size,
+                                       device=device, quant=quant)
+            for d in group.data_shards for m in group.model_shards}
+
+
+def _block_plan(tab: np.ndarray, shards, block: int, device) -> list:
+    """Per data shard d of ``shards``: (the (B, mp) table in ids local to
+    d's block, the bool mask of the entries that lie in it) on
+    ``device``; entries outside it read as local page 0 and are masked."""
+    out = []
+    for d in shards:
+        lo = d * block
+        inblk = (tab >= lo) & (tab < lo + block)
+        loc = np.where(inblk, tab - lo, 0).astype(np.int32)
+        out.append((torch.from_numpy(loc).to(device),
+                    torch.from_numpy(inblk).to(device)))
+    return out
+
+
+def _write_plan(phys: np.ndarray, woff: np.ndarray, rows: np.ndarray,
+                shards, block: int, device) -> list:
+    """Per data shard: (rows, local pages, offsets) of the fresh K/V rows
+    (row ``rows[j]`` lands at global page ``phys[j]``) that it stores."""
+    out = []
+    for d in shards:
+        sel = (phys >= d * block) & (phys < (d + 1) * block)
+        out.append(tuple(torch.from_numpy(a[sel].astype(np.int64))
+                         .to(device) for a in (rows, phys - d * block,
+                                               woff)))
+    return out
+
+
+def _row_amax(cache, k_rows, v_rows, group) -> tuple:
+    """The fresh K and V rows' whole-row maxima over the model shards
+    (``k_rows[j]``: (R, C_loc) of model shard ``group.model_shards[j]``),
+    which a page-granularity scale needs; (None, None) otherwise."""
+    kv_dtype, gran = pool_quant_mode(next(iter(cache.values())))
+    if kv_dtype is None or gran != "page":
+        return None, None
+    return tuple(group.max_model([row_amax(r) for r in rows])
+                 for rows in (k_rows, v_rows))
+
+
+def _shard_write(cache, i: int, writes, k_rows, v_rows, group, cfg,
+                 amax=None):
+    """Store each model shard's fresh K/V columns (``k_rows[j]``: (R,
+    C_loc) of model shard ``group.model_shards[j]``) in the data blocks
+    that own their pages, quantized on write with ``amax`` (default:
+    ``_row_amax``) for page-granularity scales."""
+    packed = cfg.decode_cache_layout == "packed"
+    hl = cfg.n_head // group.model_size
+    if amax is None:
+        amax = _row_amax(cache, k_rows, v_rows, group)
+    for j, m in enumerate(group.model_shards):
+        for d, (rows, phys, woff) in zip(group.data_shards, writes):
+            if rows.numel():
+                _scatter_kv(cache[(d, m)], i, phys, woff, k_rows[j][rows],
+                            v_rows[j][rows], packed, hl,
+                            tuple(a if a is None else a[rows]
+                                  for a in amax))
+
+
+def _shard_view(cache, i: int, m: int, blocks, group, cfg, cd):
+    """One layer's logical (B, H_loc, S, D) K and V views of model shard
+    m: each held data block read through its local table, the entries
+    outside it zeroed, summed over the data shards (exact: each logical
+    page lies in one block)."""
+    packed = cfg.decode_cache_layout == "packed"
+    hl = cfg.n_head // group.model_size
+    views = []
+    for name in ("k", "v"):
+        parts = []
+        for d, (loc, inblk) in zip(group.data_shards, blocks):
+            pool = cache[(d, m)]
+            g = _gather_pages(pool[name][i], loc, packed, hl,
+                              s_layer=pool[name + "s"][i] if "ks" in pool
+                              else None, cd=cd)
+            mask = inblk.repeat_interleave(g.shape[2] // inblk.shape[1], 1)
+            parts.append(torch.where(mask[:, None, :, None], g,
+                                     torch.zeros_like(g)))
+        views.append(group.sum_data(parts))
+    return views
+
+
+def _embed_sharded(sp, idx, positions, group):
+    """Token + position embedding; a vocab-parallel ``wte`` looks each id
+    up in the shard whose rows hold it and sums over 'model'."""
+    wte = sp["wte"]
+    if not isinstance(wte, dict):
+        return wte[idx.long()] + sp["wpe"][positions]
+    parts = []
+    for m in group.model_shards:
+        vl = wte[m].shape[0]
+        loc = idx.long() - m * vl
+        hit = (loc >= 0) & (loc < vl)
+        rows = wte[m][loc.clamp(0, vl - 1)]
+        parts.append(torch.where(hit[..., None], rows,
+                                 torch.zeros_like(rows)))
+    return group.sum_model(parts) + sp["wpe"][positions]
+
+
+def _head_sharded(x, sp, cfg: ModelConfig, group):
+    """Final layernorm and head over (B, 1, C) -> (B, V) f32 logits; a
+    vocab-parallel head gathers its shards' columns over 'model'."""
+    x = _layer_norm(x, sp["ln_f_scale"], sp["ln_f_bias"],
+                    cfg.layernorm_eps)[:, 0, :]
+    head = sp["wte"] if cfg.tied_head else sp["lm_head"]
+    if not isinstance(head, dict):
+        return (x @ (head.T if cfg.tied_head else head)).float()
+    return group.gather_model([
+        x @ (head[m].T if cfg.tied_head else head[m])
+        for m in group.model_shards]).float()
+
+
+def _sharded_block(x, i: int, sp, cfg: ModelConfig, group, attend):
+    """One pre-LN block with Megatron TP over the model shards: q/k/v
+    of each shard's heads (column-parallel), ``attend(qkv)`` -> each
+    shard's (B, T, C_loc) attention, the projection (row-parallel) summed
+    over 'model' before its bias, the MLP up (column) and down (row,
+    summed, then its bias)."""
+    rep, tp = sp["blocks"], sp["tp"]
+    eps = cfg.layernorm_eps
+    cl = cfg.n_embd // sp["tp_size"]
+    shards = group.model_shards
+    h = _layer_norm(x, rep["ln1_scale"][i], rep["ln1_bias"][i], eps)
+    qkv = [(h @ tp[m]["qkv_kernel"][i] + tp[m]["qkv_bias"][i]).split(cl, -1)
+           for m in shards]
+    attn = attend(qkv)
+    h_mid = x + (group.sum_model([a @ tp[m]["attn_out_kernel"][i]
+                                  for a, m in zip(attn, shards)])
+                 + rep["attn_out_bias"][i])
+    h = _layer_norm(h_mid, rep["ln2_scale"][i], rep["ln2_bias"][i], eps)
+    parts = [_activation(h @ tp[m]["mlp_up_kernel"][i]
+                         + tp[m]["mlp_up_bias"][i], cfg.activation)
+             @ tp[m]["mlp_down_kernel"][i] for m in shards]
+    return h_mid + (group.sum_model(parts) + rep["mlp_down_bias"][i])
+
+
+def _sharded_decode_step(sp, idx_t, pos, active, tables, cache,
+                         cfg: ModelConfig, group, use_kernel: bool,
+                         host_tables):
+    """``decode_step_paged`` on a serve group's shards. Per layer and
+    model shard: the kernel route runs ``sharded_paged_window_attention``
+    (each held data block's partials over the pages it owns, merged
+    over 'data', the fresh row folded once) and then stores the row in
+    the block that owns its page; the gather route stores it first and
+    attends the view summed over the data blocks."""
+    B = idx_t.shape[0]
+    packed = cfg.decode_cache_layout == "packed"
+    if use_kernel and not packed:
+        raise ValueError("the paged attention kernels need the packed "
+                         "cache layout")
+    pool0 = next(iter(cache.values()))
+    psz = paged_page_size(cfg, pool0)
+    block = pool0["k"].shape[1]
+    mp = tables.shape[1]
+    hl = cfg.n_head // group.model_size
+    kv_dtype, gran = pool_quant_mode(pool0)
+    dev = idx_t.device
+    pos_eff = torch.where(active, pos, torch.zeros_like(pos))
+    # one host read per step, as on one device: the bounds check, the
+    # rows that write, the blocks' owned pages and their row counts
+    pe = pos_eff.cpu().numpy().astype(np.int64)
+    act = active.cpu().numpy()
+    _check_in_bounds(int(pe.min()), int(pe.max()) + 1, mp * psz,
+                     "paged decode write")
+    tab = (np.asarray(host_tables) if host_tables is not None
+           else tables.cpu().numpy()).astype(np.int64)
+    rows = np.flatnonzero(act)
+    phys = tab[rows, np.minimum(pe[rows] // psz, mp - 1)]
+    writes = _write_plan(phys, pe[rows] % psz, rows, group.data_shards,
+                         block, dev)
+    blocks = _block_plan(tab, group.data_shards, block, dev)
+    x = _embed_sharded(sp, idx_t, pos_eff.long(), group)[:, None, :]
+    cd = x.dtype
+    pos32 = pos_eff.to(torch.int32)
+    if use_kernel:
+        live = (pe + psz - 1) // psz
+        p_idx = np.arange(mp)[None, :]
+        page_rows = np.clip(pe[:, None] - p_idx * psz, 0, psz)
+        local, spans = [], []
+        for d, (loc, _) in zip(group.data_shards, blocks):
+            own = ((p_idx < live[:, None]) & (tab >= d * block)
+                   & (tab < (d + 1) * block))
+            spans.append(int((page_rows * own).sum(1).max()))
+            local.append((loc, torch.from_numpy(own.astype(np.int32))
+                          .to(dev)))
+
+    def attend_kernel(i, qkv):
+        k_rows = [t[1][:, 0] for t in qkv]
+        v_rows = [t[2][:, 0] for t in qkv]
+        amax = _row_amax(cache, k_rows, v_rows, group)
+        k_new = [t[1] for t in qkv]
+        v_new = [t[2] for t in qkv]
+        if kv_dtype is not None:
+            # the fresh rows as the write below stores them
+            k_new, v_new = ([fake_quantize_rows(
+                t, kv_dtype, hl, gran, None if a is None else a[:, None])
+                .to(cd) for t in ts] for ts, a in zip((k_new, v_new), amax))
+        out = []
+        for j, m in enumerate(group.model_shards):
+            pools = [cache[(d, m)] for d in group.data_shards]
+            sc = {}
+            if kv_dtype is not None:
+                sc = {"k_scales": [p["ks"][i] for p in pools],
+                      "v_scales": [p["vs"][i] for p in pools]}
+            out.append(sharded_paged_window_attention(
+                qkv[j][0].contiguous(), k_new[j].contiguous(),
+                v_new[j].contiguous(), [p["k"][i] for p in pools],
+                [p["v"][i] for p in pools], tables, pos32, group,
+                n_head=hl, local=local, spans=spans, **sc))
+        _shard_write(cache, i, writes, k_rows, v_rows, group, cfg, amax)
+        return out
+
+    def attend_gather(i, qkv):
+        _shard_write(cache, i, writes, [t[1][:, 0] for t in qkv],
+                     [t[2][:, 0] for t in qkv], group, cfg)
+        out = []
+        for j, m in enumerate(group.model_shards):
+            k_all, v_all = _shard_view(cache, i, m, blocks, group, cfg, cd)
+            out.append(_merge_heads(cached_attention(
+                _split_heads(qkv[j][0], hl), k_all, v_all, pos_eff)))
+        return out
+
+    attend = attend_kernel if use_kernel else attend_gather
+    for i in range(cfg.n_layer):
+        x = _sharded_block(x, i, sp, cfg, group,
+                           functools.partial(attend, i))
+    return _head_sharded(x, sp, cfg, group), cache
+
+
+def _sharded_prefill_chunk(sp, idx, offset: int, limit: int, table_row,
+                           cache, cfg: ModelConfig, group, host_row):
+    """``prefill_chunk_paged`` on a serve group's shards (the JAX gather
+    route): each chunk row is stored in the block that owns its page,
+    and the queries attend the view summed over the data blocks."""
+    offset, limit = int(offset), int(limit)
+    _, Pc = idx.shape
+    pool0 = next(iter(cache.values()))
+    psz = paged_page_size(cfg, pool0)
+    block = pool0["k"].shape[1]
+    mp = table_row.shape[0]
+    hl = cfg.n_head // group.model_size
+    _check_in_bounds(offset, offset + 1, cfg.block_size,
+                     "paged prefill chunk")
+    dev = idx.device
+    row = (np.asarray(host_row) if host_row is not None
+           else table_row.cpu().numpy()).astype(np.int64)
+    positions = offset + torch.arange(Pc, device=dev)
+    x = _embed_sharded(sp, idx, positions.clamp(max=cfg.block_size - 1)
+                       [None], group)
+    cd = x.dtype
+    n_write = max(0, min(Pc, min(limit, mp * psz) - offset))
+    wpos = offset + np.arange(n_write)
+    writes = _write_plan(row[wpos // psz], wpos % psz, np.arange(n_write),
+                         group.data_shards, block, dev)
+    blocks = _block_plan(row[None], group.data_shards, block, dev)
+    base = torch.tensor([offset], device=dev)
+
+    def attend(i, qkv):
+        _shard_write(cache, i, writes, [t[1][0] for t in qkv],
+                     [t[2][0] for t in qkv], group, cfg)
+        out = []
+        for j, m in enumerate(group.model_shards):
+            k_all, v_all = _shard_view(cache, i, m, blocks, group, cfg, cd)
+            out.append(_merge_heads(windowed_cached_attention(
+                _split_heads(qkv[j][0], hl), k_all, v_all, base)))
+        return out
+
+    for i in range(cfg.n_layer):
+        x = _sharded_block(x, i, sp, cfg, group,
+                           functools.partial(attend, i))
     return cache
 
 

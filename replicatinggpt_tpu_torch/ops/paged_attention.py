@@ -1,7 +1,7 @@
 """Windowed paged attention for one layer of a packed page pool.
 
 The port of ``replicatinggpt_tpu/ops/paged_pallas.py``
-``paged_window_attention`` (``fold=True``, quantized or not): per slot, a
+``paged_window_attention`` (quantized or not): per slot, a
 (W, C) window of fresh query rows attends the STALE pool pages its page
 table maps, masked to positions < ``pos``, and then the fresh (W, W)
 K/V block causally. Row j of slot b sits at logical position
@@ -11,11 +11,20 @@ pool (int8 or fp8 pages, ``k_scales``/``v_scales`` f32 per row or per
 row and head) is dequantized in f32, ``f32(q) * scale``; the caller
 hands the fresh rows already fake-quantized (``quant.kv``).
 
+The partials mode (the JAX kernel's ``owned=``, ``fold=False``) reads
+only the pages an owned mask marks and returns the raw f32 (acc, m, l)
+state without the fresh window: what one data shard of a serving mesh
+contributes, merged across the shards and folded once by
+``sharded_paged_window_attention``.
+
 - ``paged_window_attention_ref``: the plain PyTorch version (the CPU
   path and the card's yardstick of correctness);
 - ``paged_window_attention``: the wrapper. A CPU tensor takes the plain
   version; a CUDA tensor launches ``csrc/paged_window_attention.cu`` or
-  raises. ``paged_window_attention.launches`` counts kernel launches;
+  raises. ``paged_window_attention.launches`` and ``.partials_launches``
+  count the kernel's launches in each mode;
+- ``fold_fresh_window``, ``localize_tables`` and
+  ``sharded_paged_window_attention``: the shard_map wrapper's pieces;
 - ``cluster_ranks`` / ``smem_bytes``: the kernel's split of a history
   over a thread-block cluster, and its shared-memory carve-up;
 - ``paged_attention_envelope``: which shapes the kernel takes, with the
@@ -152,6 +161,19 @@ def paged_attention_envelope(n_head: int, head_dim: int, page_size: int,
     return (not reasons), tuple(reasons)
 
 
+def paged_kernel_mesh_ok(data: int, model: int, n_pages: int, n_embd: int,
+                         n_head: int) -> bool:
+    """The JAX package's ``paged_kernel_mesh_ok``: on a mesh larger than
+    1x1 the per-layer kernel runs per data shard only where the pages
+    divide over 'data' and the channels and heads over 'model' (else the
+    engine takes the gather route). The fused all-layers kernel stays
+    1x1-only, as in JAX: TP splits the weight matrices it streams."""
+    if data * model == 1:
+        return True
+    return n_pages % data == 0 and n_embd % model == 0 \
+        and n_head % model == 0
+
+
 def gather_history(pages, scales, tab, n_head: int) -> torch.Tensor:
     """The (B, max_pages, page, C) pages of each slot's table as f32,
     dequantized (``f32(q) * scale``) for a quantized pool."""
@@ -163,7 +185,7 @@ def gather_history(pages, scales, tab, n_head: int) -> torch.Tensor:
 
 def paged_window_attention_ref(q, k_new, v_new, k_pages, v_pages, tables,
                                pos, *, n_head: int, k_scales=None,
-                               v_scales=None) -> torch.Tensor:
+                               v_scales=None, owned=None, fold: bool = True):
     """Plain version. q/k_new/v_new: (B, W, C); k_pages/v_pages:
     (N, page, C); tables: (B, max_pages) int32; pos: (B,) int32; a
     quantized pool's k_scales/v_scales: (N, page) or (N, page, H) f32.
@@ -171,7 +193,14 @@ def paged_window_attention_ref(q, k_new, v_new, k_pages, v_pages, tables,
 
     Table entries past a slot's live frontier (page index >= ceil(pos /
     page)) may hold stale ids; they are replaced by page 0 before the
-    gather and every position they cover is masked."""
+    gather and every position they cover is masked. ``owned`` (B,
+    max_pages), bool or int: of the live pages, only those it marks are
+    read (one data shard's pages of a sharded pool, whose ids ``tables``
+    then holds local to the shard's block; unmarked entries are never
+    read). ``fold=False`` attends the history alone and returns the raw
+    f32 partials ``(acc (B, W, C), m (B, W, H), l (B, W, H))``: the
+    running max, the denominator and the unnormalized sum of the owned
+    rows < pos, m = -1e30 and l = acc = 0 where a row owns none."""
     B, W, C = q.shape
     N, psz, _ = k_pages.shape
     mp = tables.shape[1]
@@ -180,9 +209,13 @@ def paged_window_attention_ref(q, k_new, v_new, k_pages, v_pages, tables,
     pos = pos.to(dev, torch.int64)
     tables = tables.to(dev, torch.int64)
     live = (pos + psz - 1) // psz
-    owned = torch.arange(mp, device=dev)[None, :] < live[:, None]
-    tab = torch.where(owned, tables, torch.zeros_like(tables))
+    read = torch.arange(mp, device=dev)[None, :] < live[:, None]
+    if owned is not None:
+        read = read & owned.to(dev).bool()
+    tab = torch.where(read, tables, torch.zeros_like(tables))
     S = mp * psz
+    kpos = torch.arange(S, device=dev)
+    hist = (kpos[None, :] < pos[:, None]) & read.repeat_interleave(psz, 1)
 
     def heads(x, T):  # (B, T, C) f32 -> (B, H, T, D)
         return x.reshape(B, T, H, D).transpose(1, 2)
@@ -190,19 +223,111 @@ def paged_window_attention_ref(q, k_new, v_new, k_pages, v_pages, tables,
     def history(pages, scales):
         return gather_history(pages, scales, tab, H).reshape(B, S, C)
 
-    k_all = torch.cat([history(k_pages, k_scales), k_new.float()], dim=1)
-    v_all = torch.cat([history(v_pages, v_scales), v_new.float()], dim=1)
-    s = (heads(q.float(), W) @ heads(k_all, S + W).transpose(-1, -2)) \
-        * D ** -0.5
+    k_hist, v_hist = history(k_pages, k_scales), history(v_pages, v_scales)
+    qh = heads(q.float(), W)
+    if not fold:
+        mask = hist[:, None, None, :]                         # (B,1,1,S)
+        s = (qh @ heads(k_hist, S).transpose(-1, -2)) * D ** -0.5
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m = s.amax(-1)                                        # (B, H, W)
+        p = torch.where(mask, torch.exp(s - m[..., None]),
+                        torch.zeros_like(s))
+        acc = p @ heads(v_hist, S)                            # (B,H,W,D)
+        return (acc.transpose(1, 2).reshape(B, W, C), m.transpose(1, 2),
+                p.sum(-1).transpose(1, 2))
+    k_all = torch.cat([k_hist, k_new.float()], dim=1)
+    v_all = torch.cat([v_hist, v_new.float()], dim=1)
+    s = (qh @ heads(k_all, S + W).transpose(-1, -2)) * D ** -0.5
     kpos = torch.arange(S + W, device=dev)
-    hist = (kpos[None, None, :] < pos[:, None, None]) & (kpos < S)
     fresh = (kpos[None, :] - S) <= torch.arange(W, device=dev)[:, None]
     fresh = fresh & (kpos >= S)
-    mask = hist | fresh[None]                                 # (B, W, S+W)
+    mask = torch.cat([hist, torch.zeros((B, W), dtype=torch.bool,
+                                        device=dev)], 1)[:, None, :] \
+        | fresh[None]                                         # (B, W, S+W)
     s = torch.where(mask[:, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = p @ heads(v_all, S + W)                             # (B, H, W, D)
     return out.transpose(1, 2).reshape(B, W, C).to(q.dtype)
+
+
+def fold_fresh_window(acc, m, l, q, k_new, v_new, n_head: int
+                      ) -> torch.Tensor:
+    """Fold the fresh causal (W, W) window into raw partials (the JAX
+    package's ``_fold_fresh_window``, run after the shards' partials are
+    merged: the fresh rows are the same on every data shard, so folding
+    them per shard would count them twice). acc: (B, W, C) f32; m, l:
+    (B, W, H) f32. Returns (B, W, C) f32."""
+    B, W, C = q.shape
+    H, D = n_head, C // n_head
+    qh, knh, vnh = (t.float().reshape(B, W, H, D) for t in (q, k_new, v_new))
+    s_new = torch.einsum("bwhd,bjhd->bhwj", qh, knh) * D ** -0.5
+    causal = (torch.arange(W, device=q.device)[None, :]
+              <= torch.arange(W, device=q.device)[:, None])   # col <= row
+    s_new = torch.where(causal, s_new, torch.full_like(s_new, NEG_INF))
+    m_h, l_h = m.transpose(1, 2), l.transpose(1, 2)          # (B, H, W)
+    m2 = torch.maximum(m_h, s_new.amax(-1))
+    alpha = torch.exp(m_h - m2)
+    p_new = torch.where(causal, torch.exp(s_new - m2[..., None]),
+                        torch.zeros_like(s_new))
+    # denom >= the diagonal term > 0 (row j attends itself)
+    denom = l_h * alpha + p_new.sum(-1)
+    acch = acc.reshape(B, W, H, D).transpose(1, 2)
+    out = (acch * alpha[..., None]
+           + torch.einsum("bhwj,bjhd->bhwd", p_new, vnh)) / denom[..., None]
+    return out.transpose(1, 2).reshape(B, W, C)
+
+
+def localize_tables(tables, pos, page_size: int, block: int, shards):
+    """Per data shard d of ``shards`` (block ``block`` pages, starting at
+    ``d * block``): (the table in ids local to the block, the owned mask
+    of the live pages that lie in it), both (B, max_pages) int32 (the
+    JAX package's ``sharded_paged_window_attention``, ``:499-505``)."""
+    tab = tables.to(torch.int64)
+    live = (pos.to(torch.int64) + page_size - 1) // page_size
+    p_idx = torch.arange(tab.shape[1], device=tab.device)[None, :]
+    out = []
+    for d in shards:
+        lo = d * block
+        own = (p_idx < live[:, None]) & (tab >= lo) & (tab < lo + block)
+        out.append((torch.where(own, tab - lo, torch.zeros_like(tab))
+                    .to(torch.int32).contiguous(),
+                    own.to(torch.int32).contiguous()))
+    return out
+
+
+def sharded_paged_window_attention(q, k_new, v_new, k_blocks, v_blocks,
+                                   tables, pos, group, *, n_head: int,
+                                   k_scales=None, v_scales=None,
+                                   local=None, spans=None) -> torch.Tensor:
+    """:func:`paged_window_attention` of one model shard over the data
+    shards of a serve group (the JAX package's
+    ``sharded_paged_window_attention``): each data shard this process
+    holds (``group.data_shards``) runs the partials mode over the pages
+    it owns, ``group.merge_data`` merges them exactly, and the fresh
+    window folds once on the merged state.
+
+    q, k_new, v_new: (B, W, C_loc), the model shard's heads (``n_head``
+    of them); k_blocks/v_blocks (and a quantized pool's k_scales/
+    v_scales): the shard's page block per held data shard, each (N_loc,
+    page, C_loc); tables: (B, max_pages) global page ids; pos: (B,).
+    ``local``: ``localize_tables`` of these tables, when the caller made
+    it once for every layer; ``spans``: per held data shard, a bound on
+    the rows any slot owns there (sizes the kernel's split; None: the
+    whole table). Returns (B, W, C_loc) in q's dtype."""
+    block, psz = k_blocks[0].shape[:2]
+    if local is None:
+        local = localize_tables(tables, pos, psz, block, group.data_shards)
+    n = len(k_blocks)
+    ks = k_scales if k_scales is not None else [None] * n
+    vs = v_scales if v_scales is not None else [None] * n
+    parts = [paged_window_attention(
+        q, k_new, v_new, k_blocks[i], v_blocks[i], local[i][0], pos,
+        n_head=n_head, k_scales=ks[i], v_scales=vs[i], owned=local[i][1],
+        fold=False, max_pos=None if spans is None else spans[i])
+        for i in range(n)]
+    acc, m, l = group.merge_data(parts)
+    return fold_fresh_window(acc, m, l, q, k_new, v_new,
+                             n_head).to(q.dtype)
 
 
 def _check(q, k_new, v_new, k_pages, v_pages, tables, pos, n_head,
@@ -241,28 +366,36 @@ def _check(q, k_new, v_new, k_pages, v_pages, tables, pos, n_head,
 
 def paged_window_attention(q, k_new, v_new, k_pages, v_pages, tables, pos,
                            *, n_head: int, k_scales=None, v_scales=None,
-                           max_pos=None) -> torch.Tensor:
-    """Windowed paged attention (see the module docstring for shapes).
-    CPU tensors run the plain version; CUDA tensors run the kernel,
-    which takes bf16 or f32 contiguous window rows, pages in that dtype
-    or (with contiguous f32 scales) int8 / fp8 e4m3, int32 tables and
-    pos, and shapes inside ``paged_attention_envelope``; anything else
-    raises. ``max_pos``: a bound on every slot's pos that the caller
-    already holds on the host; it sizes the kernel's split
+                           max_pos=None, owned=None, fold: bool = True):
+    """Windowed paged attention (see the module docstring for shapes;
+    ``owned`` and ``fold=False``, the partials mode, as in the plain
+    version). CPU tensors run the plain version; CUDA tensors run the
+    kernel, which takes bf16 or f32 contiguous window rows, pages in that
+    dtype or (with contiguous f32 scales) int8 / fp8 e4m3, int32 tables,
+    pos and owned mask, and shapes inside ``paged_attention_envelope``;
+    anything else raises. ``max_pos``: a bound on the history rows any
+    slot reads (its pos; with ``owned``, the rows it owns) that the
+    caller already holds on the host; it sizes the kernel's split
     (``cluster_ranks``) and never changes the result. None sizes it for
-    the whole table."""
+    the whole table. ``launches`` counts the fold mode's launches,
+    ``partials_launches`` the partials mode's."""
     _check(q, k_new, v_new, k_pages, v_pages, tables, pos, n_head, k_scales,
            v_scales)
+    B, W, C = q.shape
+    mp = tables.shape[1]
+    if owned is not None and (owned.shape != (B, mp)
+                              or owned.device != q.device):
+        raise ValueError(f"owned must be ({B}, {mp}) on {q.device}; got "
+                         f"{tuple(owned.shape)} on {owned.device}")
     if q.device.type == "cpu":
         return paged_window_attention_ref(q, k_new, v_new, k_pages, v_pages,
                                           tables, pos, n_head=n_head,
                                           k_scales=k_scales,
-                                          v_scales=v_scales)
+                                          v_scales=v_scales, owned=owned,
+                                          fold=fold)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    B, W, C = q.shape
     psz = k_pages.shape[1]
-    mp = tables.shape[1]
     D = C // n_head
     quantized = k_scales is not None
     pages_ok = (k_pages.dtype in POOL_CODE if quantized
@@ -274,13 +407,15 @@ def paged_window_attention(q, k_new, v_new, k_pages, v_pages, tables, pos,
                         f"and pages in that dtype, or int8/fp8 pages with "
                         f"scales; got {q.dtype}, {k_new.dtype}, "
                         f"{v_new.dtype}, {k_pages.dtype}, {v_pages.dtype}")
-    if tables.dtype != torch.int32 or pos.dtype != torch.int32:
-        raise TypeError(f"tables and pos must be int32; got "
-                        f"{tables.dtype} / {pos.dtype}")
+    owned_t = () if owned is None else (owned,)
+    if any(t.dtype != torch.int32 for t in (tables, pos, *owned_t)):
+        raise TypeError(f"tables, pos and owned must be int32; got "
+                        f"{tables.dtype} / {pos.dtype} / "
+                        f"{owned.dtype if owned_t else None}")
     scales = (k_scales, v_scales) if quantized else ()
     if any(s.dtype != torch.float32 for s in scales):
         raise TypeError("scales must be float32")
-    ts = (q, k_new, v_new, k_pages, v_pages, tables, pos, *scales)
+    ts = (q, k_new, v_new, k_pages, v_pages, tables, pos, *scales, *owned_t)
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("kernel inputs must be contiguous")
     if any(t.data_ptr() % 16 for t in ts[:5]):
@@ -292,28 +427,41 @@ def paged_window_attention(q, k_new, v_new, k_pages, v_pages, tables, pos,
                                 else "fp8"))
     if not ok:
         raise ValueError(f"shapes outside the kernel envelope: {reasons}")
-    out = torch.empty_like(q)
+    if fold:
+        out, parts = torch.empty_like(q), ()
+    else:
+        f32 = {"dtype": torch.float32, "device": q.device}
+        out = None
+        parts = (torch.empty((B, W, C), **f32),
+                 torch.empty((B, W, n_head), **f32),
+                 torch.empty((B, W, n_head), **f32))
     if B == 0:
-        return out
+        return out if fold else parts
     lib = _lib()
+    ptr = [t.data_ptr() for t in parts] if parts else [None] * 3
     err = lib.paged_window_attention_launch(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         k_pages.data_ptr(), v_pages.data_ptr(),
         k_scales.data_ptr() if quantized else None,
         v_scales.data_ptr() if quantized else None,
         int(quantized and k_scales.dim() == 3), tables.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), B, W, psz, mp, n_head, D,
+        pos.data_ptr(), owned.data_ptr() if owned is not None else None,
+        out.data_ptr() if fold else None, *ptr, B, W, psz, mp, n_head, D,
         mp * psz if max_pos is None else min(max(int(max_pos), 1), mp * psz),
         _DTYPE_CODE[q.dtype], POOL_CODE.get(k_pages.dtype, 0),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_window_attention launch failed: CUDA "
                            f"error {err}")
-    paged_window_attention.launches += 1
-    return out
+    if fold:
+        paged_window_attention.launches += 1
+        return out
+    paged_window_attention.partials_launches += 1
+    return parts
 
 
 paged_window_attention.launches = 0
+paged_window_attention.partials_launches = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -321,7 +469,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.paged_window_attention_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, p, p, p, i, i, i, i, i, i, i,
-                       i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, p, p, p, p, p, p, p, i, i, i,
+                       i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib

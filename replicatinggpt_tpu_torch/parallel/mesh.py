@@ -23,6 +23,10 @@ indices this process holds), ``ring_kv``, ``local_columns`` /
 ``pos_offset`` (which columns of a global batch are this process's, at
 which global position), ``mean`` (a loss over the group),
 ``average_grads`` and ``broadcast_``.
+
+The serving mesh's layout rules follow (``parse_mesh_shape``,
+``page_shards``, ``model_shards``, ``vocab_shards``,
+``shard_serve_params``); its groups are in ``serve_group.py``.
 """
 
 from __future__ import annotations
@@ -186,3 +190,94 @@ class RingKV(torch.autograd.Function):
             acc = group.rotate(acc, -1)
             acc = [a + g for a, g in zip(acc, grads[2 * (s - 1):2 * s])]
         return (None, *acc)
+
+
+# ---------------------------------------------------------------------------
+# the serving mesh: (data, model) layout rules (the JAX package's
+# ``parallel/mesh.py`` ``page_pool_pspec``, ``page_scale_pspec`` and its
+# decode-time tensor-parallel table)
+# ---------------------------------------------------------------------------
+
+def parse_mesh_shape(text: str) -> Tuple[int, int]:
+    """'2x2' / '2,2' / '4x1' -> (data, model); '1x1' is the unsharded
+    identity (the JAX package's ``parse_mesh_shape``)."""
+    s = text.lower().replace(",", "x").split("x")
+    if len(s) != 2:
+        raise ValueError(f"--mesh-shape must be DxM (e.g. 2x2), got "
+                         f"{text!r}")
+    d, m = int(s[0]), int(s[1])
+    if d < 1 or m < 1:
+        raise ValueError(f"--mesh-shape axes must be >= 1, got {text!r}")
+    return d, m
+
+
+def page_shards(n_pages: int, data: int) -> int:
+    """Blocks the pool's physical page axis splits into over 'data': the
+    axis size where it divides ``n_pages``, else 1 (the pages replicate,
+    as the JAX ``page_pool_pspec`` drops a non-dividing axis). A quantized
+    pool's scales follow the pages (``page_scale_pspec``)."""
+    return data if data > 1 and n_pages % data == 0 else 1
+
+
+def model_shards(cfg, model: int) -> int:
+    """Shards of the heads, the pool's channels and the TP weights over
+    'model': the axis size where it divides the heads (and so the
+    channels), else 1 (replicated). The port splits q, k and v by whole
+    heads, so a model axis that cuts a head is dropped."""
+    return model if model > 1 and cfg.n_head % model == 0 else 1
+
+
+def vocab_shards(cfg, model: int) -> int:
+    """Shards of ``wte`` (and the head) over 'model': vocab-parallel
+    where the vocabulary divides, else 1 (GPT-2's 50257 never does)."""
+    return model if model > 1 and cfg.vocab_size % model == 0 else 1
+
+
+def shard_serve_params(params, cfg, tp: int, vocab: int,
+                       shards) -> dict:
+    """The serving steps' weights (``models.gpt.compute_params``) split
+    for the model shards ``shards`` of ``tp``: per shard m, its heads'
+    q, k and v columns (each cut by heads: a contiguous cut of the (C,
+    3C) kernel would hand one shard all of q and part of k), its rows of
+    the attention projection and of mlp-down, its columns of mlp-up and
+    their biases; layernorms and the row-parallel biases replicated.
+    With ``vocab`` > 1, ``wte`` (and an untied head) split by vocabulary
+    rows (columns) as well. Copies: the shards own their slices."""
+    C, L = cfg.n_embd, cfg.n_layer
+    cl, fl = C // tp, 4 * C // tp
+    blocks = params["blocks"]
+    rep = {n: blocks[n] for n in ("ln1_scale", "ln1_bias", "ln2_scale",
+                                  "ln2_bias", "attn_out_bias",
+                                  "mlp_down_bias")}
+    tpd = {}
+    for m in shards:
+        heads = slice(m * cl, (m + 1) * cl)
+        qkv_k = blocks["qkv_kernel"].reshape(L, C, 3, C)[..., heads]
+        qkv_b = blocks["qkv_bias"].reshape(L, 3, C)[..., heads]
+        ff = slice(m * fl, (m + 1) * fl)
+        tpd[m] = {
+            "qkv_kernel": qkv_k.reshape(L, C, 3 * cl).contiguous(),
+            "qkv_bias": qkv_b.reshape(L, 3 * cl).contiguous(),
+            "attn_out_kernel": blocks["attn_out_kernel"][:, heads]
+            .contiguous(),
+            "mlp_up_kernel": blocks["mlp_up_kernel"][..., ff].contiguous(),
+            "mlp_up_bias": blocks["mlp_up_bias"][..., ff].contiguous(),
+            "mlp_down_kernel": blocks["mlp_down_kernel"][:, ff]
+            .contiguous(),
+        }
+    out = {"wpe": params["wpe"], "ln_f_scale": params["ln_f_scale"],
+           "ln_f_bias": params["ln_f_bias"], "blocks": rep, "tp": tpd,
+           "tp_size": tp, "vocab_shards": vocab}
+    V = cfg.vocab_size
+    vl = V // vocab
+    if vocab > 1:
+        out["wte"] = {m: params["wte"][m * vl:(m + 1) * vl].contiguous()
+                      for m in shards}
+        if not cfg.tied_head:
+            out["lm_head"] = {m: params["lm_head"][:, m * vl:(m + 1) * vl]
+                              .contiguous() for m in shards}
+    else:
+        out["wte"] = params["wte"]
+        if not cfg.tied_head:
+            out["lm_head"] = params["lm_head"]
+    return out

@@ -97,14 +97,23 @@ def _cast(q: torch.Tensor, kv_dtype: str) -> torch.Tensor:
     return torch.clamp(q, -qmax, qmax).to(torch.float8_e4m3fn)
 
 
+def row_amax(rows: torch.Tensor) -> torch.Tensor:
+    """|x| max of each (..., C) row in f32: a page-granularity scale's
+    input, which model shards holding columns of one row take the max
+    of (``quantize_rows(..., amax=)``)."""
+    return rows.float().abs().amax(-1)
+
+
 def quantize_rows(rows: torch.Tensor, kv_dtype: str, n_head: int,
-                  granularity: str) -> Tuple[torch.Tensor, torch.Tensor]:
+                  granularity: str, amax=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Quantize merged K or V rows (..., C) for a pool write.
 
     Returns ``(q, scale)``: ``q`` (..., C) in the storage dtype and
     ``scale`` (...,) float32 at page granularity or (..., H) at head
     granularity. An all-zero row gets ``SCALE_EPS`` and round-trips to
-    exact zero."""
+    exact zero. ``amax`` (page granularity): the whole row's ``row_amax``
+    where ``rows`` holds one model shard's columns of it."""
     qmax = kv_qmax(kv_dtype)
     f = rows.float()
     if granularity == "head":
@@ -112,18 +121,19 @@ def quantize_rows(rows: torch.Tensor, kv_dtype: str, n_head: int,
         scale = torch.clamp(fh.abs().amax(-1) / qmax, min=SCALE_EPS)
         q = (fh / scale[..., None]).reshape(f.shape)
     else:
-        scale = torch.clamp(f.abs().amax(-1) / qmax, min=SCALE_EPS)
+        amax = row_amax(f) if amax is None else amax
+        scale = torch.clamp(amax / qmax, min=SCALE_EPS)
         q = f / scale[..., None]
     return _cast(q, kv_dtype), scale
 
 
 def fake_quantize_rows(rows: torch.Tensor, kv_dtype: str, n_head: int,
-                       granularity: str) -> torch.Tensor:
+                       granularity: str, amax=None) -> torch.Tensor:
     """Quantize then dequantize (f32 out): what a fresh row is worth once
     it lands in the pool. The kernel routes attend this for the fresh
     column, so that attending the stale pool plus the fresh column equals
-    writing first and attending after."""
-    q, scale = quantize_rows(rows, kv_dtype, n_head, granularity)
+    writing first and attending after. ``amax`` as in ``quantize_rows``."""
+    q, scale = quantize_rows(rows, kv_dtype, n_head, granularity, amax)
     if granularity == "head":
         qh = q.float().reshape(*q.shape[:-1], n_head, q.shape[-1] // n_head)
         return (qh * scale[..., None]).reshape(q.shape)

@@ -21,9 +21,22 @@ launch, or attends per layer through ``paged_window_attention`` (the
 CUDA kernels on the card), when the route allows it
 (``decide_kernel_route``), else through the gather route. The pool may
 hold int8/fp8 pages with f32 scales (``kv_quant``, ``quant_granularity``).
+
+Sharded serving (``mesh_data`` x ``mesh_model``, the ``--mesh-shape``
+knob): the pool's pages split over 'data', the heads, the pool's
+channels and the weights (Megatron TP) over 'model'
+(``parallel.mesh``), the shards living in one process or one a process
+under ``torchrun`` (``parallel.serve_group``). Each layer's decode
+attention is the partials mode of ``paged_window_attention`` per data
+shard, merged exactly over 'data' and folded once
+(``ops.paged_attention.sharded_paged_window_attention``), or the gather
+route where the geometry does not divide; the fused route stays 1x1.
+Under ``torchrun`` every rank takes rank 0's host decisions: the clock
+is rank 0's (``synced_clock``), and each step's tokens, positions,
+active mask, tables and sampled tokens are rank 0's, broadcast.
+
 Decode windows > 1, mixed prefill+decode steps, speculative verify,
-meshes, weight quantization and telemetry are not ported yet (see
-ROADMAP.md).
+weight quantization and telemetry are not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -41,13 +54,17 @@ from ..device import resolve_device
 from ..models.gpt import (GPT, Params, compute_params, decode_step_paged,
                           prefill_chunk_paged)
 from ..ops.decode import fused_paged_decode_supported, fused_weights
-from ..ops.paged_attention import paged_attention_envelope
+from ..ops.paged_attention import (paged_attention_envelope,
+                                   paged_kernel_mesh_ok)
+from ..parallel.mesh import (model_shards, page_shards, shard_serve_params,
+                             vocab_shards)
+from ..parallel.serve_group import serve_group
 from ..quant import QuantConfig
 from ..sample.generate import sample_tokens_batched
 from ..utils.logging import Metrics
 from ..utils.profiling import StepTimer
 from .cache_pool import prefill_chunk_size
-from .pages import PagedCachePool
+from .pages import PagedCachePool, pool_geometry
 from .requests import (FINISH_CANCELLED, FINISH_DEADLINE, FINISH_EOS,
                        FINISH_LENGTH_CAP, FINISH_MAX_TOKENS,
                        REJECT_BAD_REQUEST, Request, RequestResult)
@@ -76,6 +93,12 @@ class EngineConfig:
                                 # (f32 scales beside the pages)
     quant_granularity: str = "page"   # one scale per row ('page') or per
                                       # row and head ('head')
+    mesh_data: int = 1          # 'data' axis: the pool's physical pages
+    mesh_model: int = 1         # 'model' axis: heads, pool channels, TP
+
+    @property
+    def mesh_shape(self) -> tuple:
+        return (self.mesh_data, self.mesh_model)
 
     def quant(self) -> QuantConfig:
         """The validated KV quantization this engine runs under."""
@@ -103,10 +126,13 @@ class KernelRoute:
     reasons: tuple
     kv_quant: str = "none"
     granularity: str = "page"
+    sharded: bool = False         # the kernel runs per data shard
+    mesh: tuple = (1, 1)          # (data, model)
 
     def summary(self) -> dict:
         return {"route": self.decode, "decode": self.decode,
-                "window": self.window, "sharded": False, "mesh": [1, 1],
+                "window": self.window, "sharded": self.sharded,
+                "mesh": list(self.mesh),
                 "kv_quant": self.kv_quant, "weight_quant": "none",
                 "granularity": self.granularity, "act_quant": "none",
                 "reasons": list(self.reasons)}
@@ -114,29 +140,36 @@ class KernelRoute:
 
 def decide_kernel_route(cfg: ModelConfig, ecfg: EngineConfig,
                         page_size: int, max_pages: int, itemsize: int,
-                        n_slots: int) -> KernelRoute:
+                        n_slots: int, n_pages: int = 0) -> KernelRoute:
     """The JAX engine's rule: the fused all-layers kernel whenever
-    ``fused_paged_decode_supported`` holds, else the per-layer kernel
-    inside its envelope, else the gather route. ``itemsize`` is the
-    POOL's element size (1 for int8/fp8), as the JAX engine passes it,
-    so an int8 pool can admit the f32 fused route that an f32 pool
-    misses."""
+    ``fused_paged_decode_supported`` holds on a 1x1 mesh, else the
+    per-layer kernel inside its envelope (on a mesh, per data shard,
+    where ``paged_kernel_mesh_ok`` holds for the pool's ``n_pages``),
+    else the gather route. ``itemsize`` is the POOL's element size (1
+    for int8/fp8), as the JAX engine passes it, so an int8 pool can
+    admit the f32 fused route that an f32 pool misses."""
     q = ecfg.quant()
+    d, m = ecfg.mesh_shape
     reasons = []
     if not ecfg.paged_kernel:
         reasons.append("paged_kernel_off")
     if cfg.decode_cache_layout != "packed":
         reasons.append("cache_layout")
+    h_loc = cfg.n_head // m if cfg.n_head % m == 0 else cfg.n_head
     _, env = paged_attention_envelope(
-        cfg.n_head, cfg.head_dim, page_size, itemsize=itemsize, window=1,
+        h_loc, cfg.head_dim, page_size, itemsize=itemsize, window=1,
         max_pages=max_pages, kv_quant=q.kv_dtype, granularity=q.granularity)
     reasons.extend(env)
-    fused = not reasons and fused_paged_decode_supported(
+    if not paged_kernel_mesh_ok(d, m, n_pages, cfg.n_embd, cfg.n_head):
+        reasons.append("mesh_indivisible")
+    fused = not reasons and d * m == 1 and fused_paged_decode_supported(
         cfg, n_slots, page_size, itemsize, kv_quant=q.kv_dtype,
         granularity=q.granularity, max_pages=max_pages)
     decode = "fused" if fused else "gather" if reasons else "kernel"
     return KernelRoute(decode=decode, window="none", reasons=tuple(reasons),
-                       kv_quant=q.kv_dtype, granularity=q.granularity)
+                       kv_quant=q.kv_dtype, granularity=q.granularity,
+                       sharded=d * m > 1 and decode == "kernel",
+                       mesh=(d, m))
 
 
 @dataclass
@@ -163,7 +196,9 @@ class Engine:
 
     ``model`` is a ``models.gpt.GPT`` (f32 master weights); the engine
     casts it once to the compute dtype on ``device`` (default: the
-    card)."""
+    card) and, on a mesh, splits it for the shards this process holds:
+    all of them in one process, this rank's under ``torchrun`` (the
+    launch's process group, joined before the engine is made)."""
 
     def __init__(self, model: GPT, cfg: ModelConfig,
                  ecfg: EngineConfig = EngineConfig(),
@@ -174,11 +209,27 @@ class Engine:
         self.cfg = cfg
         self.ecfg = ecfg
         self.params: Params = compute_params(model, dev)
+        # the serving mesh: the shards' group, the weights split for the
+        # model shards it holds, rank 0's clock on every rank
+        self.group = None
+        if ecfg.mesh_data * ecfg.mesh_model > 1:
+            _, _, n_pages = pool_geometry(cfg, ecfg.pool_size,
+                                          ecfg.page_size, ecfg.max_pages,
+                                          ecfg.n_pages)
+            tp = model_shards(cfg, ecfg.mesh_model)
+            self.group = serve_group(ecfg.mesh_data, ecfg.mesh_model,
+                                     page_shards(n_pages, ecfg.mesh_data),
+                                     tp)
+            self.params = shard_serve_params(
+                self.params, cfg, tp, vocab_shards(cfg, tp),
+                self.group.model_shards)
+            clock = self.group.synced_clock(clock)
         self.clock = clock
         self.pool = PagedCachePool(
             cfg, ecfg.pool_size, page_size=ecfg.page_size,
             max_pages=ecfg.max_pages, n_pages=ecfg.n_pages,
-            prefix_cache=ecfg.prefix_cache, device=dev, quant=ecfg.quant())
+            prefix_cache=ecfg.prefix_cache, device=dev, quant=ecfg.quant(),
+            mesh_shape=ecfg.mesh_shape, group=self.group)
         self.scheduler = Scheduler(ecfg.max_queue, cfg.block_size,
                                    clock=clock)
         self.metrics = Metrics()
@@ -187,7 +238,7 @@ class Engine:
         self._chunk = ecfg.chunk(cfg.block_size)
         self.kernel_route = decide_kernel_route(
             cfg, ecfg, self.pool.page_size, self.pool.max_pages,
-            self.pool.cache["k"].element_size(), P)
+            self.pool.itemsize, P, self.pool.n_pages)
         self._use_kernel = self.kernel_route.decode == "kernel"
         self._use_fused = self.kernel_route.decode == "fused"
         # the fused kernel's blocks, every one in the compute dtype
@@ -335,7 +386,8 @@ class Engine:
                 prefill_chunk_paged(
                     self.params, toks[None, c * chunk:(c + 1) * chunk],
                     claimed + c * chunk, P, table_row, self.pool.cache,
-                    self.cfg)
+                    self.cfg, group=self.group,
+                    host_row=self.pool.tables[slot])
         # registration AFTER the prefill wrote the pages: a same-step
         # neighbor may claim them the moment they hit the radix
         self.pool.commit_admission(slot)
@@ -383,6 +435,8 @@ class Engine:
             self._li = tuple(torch.tensor(a, device=dev) for a in (
                 self.pool.tables, self._temp, self._top_k, self._top_p,
                 self._greedy))
+            if self.group is not None:
+                self.group.broadcast_(self._li[:1])   # rank 0's tables
         return self._li
 
     def _decode_once(self) -> List[RequestResult]:
@@ -394,15 +448,21 @@ class Engine:
         tables, temp, top_k, top_p, greedy = self._launch_inputs()
         state = torch.from_numpy(np.stack(
             [self._tok, self._pos, self._active.astype(np.int32)])).to(dev)
+        if self.group is not None:
+            self.group.broadcast_([state])   # rank 0's tokens and positions
         tok, pos, active = state[0], state[1], state[2].bool()
         logits, _ = decode_step_paged(self.params, tok, pos, active, tables,
                                       self.pool.cache, self.cfg,
                                       use_kernel=self._use_kernel,
                                       use_fused=self._use_fused,
-                                      fused_blocks=self._fused_blocks)
+                                      fused_blocks=self._fused_blocks,
+                                      group=self.group,
+                                      host_tables=self.pool.tables)
         gens = [g if a and not gr else None
                 for g, a, gr in zip(self._gens, self._active, self._greedy)]
         nxt = sample_tokens_batched(gens, logits, temp, top_k, top_p, greedy)
+        if self.group is not None:
+            self.group.broadcast_([nxt])     # rank 0's samples
         toks = nxt.cpu().numpy()
         self.step_timer.lap()
         now = self.clock()

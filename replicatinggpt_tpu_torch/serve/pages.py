@@ -41,10 +41,9 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from ..config import ModelConfig
-from ..models.gpt import init_paged_kv_pool
+from ..models.gpt import init_paged_kv_pool, init_sharded_kv_pool
 from ..quant.kv import kv_itemsize, scale_bytes_per_token
 
 
@@ -220,6 +219,17 @@ class PageAllocator:
     def pages_in_use(self) -> int:
         return self.n_pages - len(self._free)
 
+    def in_use_by_block(self, n_blocks: int) -> List[int]:
+        """Pages in use per contiguous block of the physical page axis:
+        each data shard's occupancy when the pool's pages split over
+        'data' ('in use' as ``pages_in_use``: slot-referenced and
+        radix-held pages alike)."""
+        free = np.zeros((self.n_pages,), bool)
+        free[np.fromiter(self._free, np.int64, len(self._free))] = True
+        blk = -(-self.n_pages // n_blocks)
+        return [int((~free[i * blk:(i + 1) * blk]).sum())
+                for i in range(n_blocks)]
+
     def n_pages_for(self, n_prompt: int, cap: int) -> int:
         """Logical pages a request needs END TO END: the last write
         position is P-1 + cap-1 (decode rewrites the last prompt index
@@ -368,9 +378,16 @@ class PagedCachePool:
 
     def __init__(self, cfg: ModelConfig, n_slots: int, *,
                  page_size: int = 0, max_pages: int = 0, n_pages: int = 0,
-                 prefix_cache: bool = True, device=None, quant=None):
+                 prefix_cache: bool = True, device=None, quant=None,
+                 mesh_shape: Tuple[int, int] = (1, 1), group=None):
         """``quant`` (a ``quant.QuantConfig`` with ``kv_dtype`` set)
-        stores the pages in int8/fp8 with f32 scales beside them."""
+        stores the pages in int8/fp8 with f32 scales beside them. With a
+        serve ``group`` (``parallel.serve_group``), the device pool is the
+        group's shards, ``{(d, m): pool}`` (``init_sharded_kv_pool``):
+        data shard d holds the block of pages ``[d * block, (d + 1) *
+        block)``, in model shard m's columns; the allocator, the radix
+        and the tables stay whole, as in the JAX engine. ``mesh_shape``:
+        the requested (data, model) mesh, reported by ``stats()``."""
         assert n_slots >= 1, n_slots
         self.cfg = cfg
         self.quant = quant
@@ -384,8 +401,20 @@ class PagedCachePool:
             "pool smaller than one slot's worst case")
         self.alloc = PageAllocator(self.n_pages, self.page_size,
                                    prefix_cache=prefix_cache)
-        self.cache: Dict[str, torch.Tensor] = init_paged_kv_pool(
-            cfg, self.n_pages, self.page_size, device=device, quant=quant)
+        self.mesh_shape = (int(mesh_shape[0]), int(mesh_shape[1]))
+        self.group = group
+        if group is None:
+            self.page_shards, self.model_shards = 1, 1
+            self.cache = init_paged_kv_pool(
+                cfg, self.n_pages, self.page_size, device=device,
+                quant=quant)
+        else:
+            self.page_shards = group.data_size
+            self.model_shards = group.model_size
+            self.cache = init_sharded_kv_pool(
+                cfg, self.n_pages, self.page_size, group, device=device,
+                quant=quant)
+        self.block = self.n_pages // self.page_shards
         # host-mirrored page tables, uploaded by the engine on change
         self.tables = np.zeros((n_slots, self.max_pages), np.int32)
         self.positions = np.zeros((n_slots,), np.int32)
@@ -395,6 +424,13 @@ class PagedCachePool:
         self._claims: Dict[int, PageClaim] = {}
 
     # ---------------------------------------------------------- geometry
+
+    @property
+    def itemsize(self) -> int:
+        """Bytes of one stored K/V element (1 for an int8/fp8 pool)."""
+        pool = (self.cache if self.group is None
+                else next(iter(self.cache.values())))
+        return pool["k"].element_size()
 
     @property
     def seq_len(self) -> int:
@@ -441,7 +477,12 @@ class PagedCachePool:
     def copy_page(self, src: int, dst: int) -> None:
         """Copy-on-write split on the device: physical page ``src`` into
         ``dst`` across all layers of every pool tensor (K, V and, for a
-        quantized pool, their scales), in place."""
+        quantized pool, their scales), in place; on a serve mesh from one
+        data shard's block into another's where they differ."""
+        if self.group is not None:
+            self.group.copy_page(self.cache, divmod(src, self.block),
+                                 divmod(dst, self.block))
+            return
         for arr in self.cache.values():
             arr[:, dst].copy_(arr[:, src])
 
@@ -475,9 +516,16 @@ class PagedCachePool:
     # ----------------------------------------------------------- metrics
 
     def stats(self) -> dict:
-        """The JAX pool's ``stats()`` keys that a single-device pool has,
-        with its quantization gauges."""
+        """The JAX pool's ``stats()`` keys, with its quantization gauges
+        and its mesh accounting: ``n_pages`` (``aggregate_pages``) is the
+        admission currency, each data shard stores ``pages_per_chip`` of
+        it, and ``effective_mesh_shape`` is the (data, model) split the
+        pool and weights really took (an axis that does not divide is 1
+        there)."""
         a = self.alloc
+        d = self.page_shards
+        by_chip = a.in_use_by_block(d)
+        per_chip = -(-self.n_pages // d)
         kv_quant = (self.quant.kv_dtype
                     if self.quant is not None and self.quant.kv_enabled
                     else "none")
@@ -490,10 +538,17 @@ class PagedCachePool:
             "quant_granularity": gran,
             "bytes_per_page": page_bytes(self.cfg, self.page_size, kv_quant,
                                          gran),
-            "kv_quant_bits": 8 * self.cache["k"].element_size(),
+            "kv_quant_bits": 8 * self.itemsize,
             "pages_in_use": a.pages_in_use,
             "pages_free": a.pages_free,
             "page_utilization": round(a.pages_in_use / self.n_pages, 4),
+            "mesh_shape": list(self.mesh_shape),
+            "effective_mesh_shape": [self.page_shards, self.model_shards],
+            "aggregate_pages": self.n_pages,
+            "pages_per_chip": per_chip,
+            "pages_in_use_by_chip": by_chip,
+            "page_utilization_by_chip": [round(c / per_chip, 4)
+                                         for c in by_chip],
             "radix_pages": len(a.page_node),
             "prefix_cache": a.prefix_cache,
             "prefix_lookups": a.prefix_lookups,

@@ -88,25 +88,30 @@ def run_replay(model, mcfg: ModelConfig, rcfg: ReplayConfig,
     returns the engine's metrics summary plus replay totals and each
     request's token stream. ``kernel_launches`` counts the per-layer
     paged attention kernel's launches during the timed replay alone,
-    ``fused_launches`` the fused all-layers kernel's."""
+    ``partials_launches`` its partials mode's (a mesh's kernel route),
+    ``fused_launches`` the fused all-layers kernel's. The clock is the
+    engine's: under ``torchrun``, rank 0's on every rank, so that every
+    rank submits the same requests at the same steps."""
     w = Engine(model, mcfg, ecfg, device=device)
     w.submit(Request(id="warmup", prompt=np.zeros((1,), np.int32),
                      max_new_tokens=1, sampling=SamplingParams(greedy=True)))
     w.drain()
     del w
     engine = Engine(model, mcfg, ecfg, device=device)
+    clock = engine.clock
     trace = make_trace(mcfg, rcfg)
     results: List[RequestResult] = []
     i = 0
     launches0 = paged_window_attention.launches
+    partials0 = paged_window_attention.partials_launches
     fused0 = fused_paged_decode_layers.launches
-    t0 = time.monotonic()
+    t0 = clock()
     while len(results) < len(trace):
-        now = time.monotonic() - t0
+        now = clock() - t0
         while i < len(trace) and trace[i][0] <= now:
             req = trace[i][1]
             if rcfg.deadline_s > 0:
-                req.deadline = time.monotonic() + rcfg.deadline_s
+                req.deadline = clock() + rcfg.deadline_s
             rej = engine.submit(req)
             if rej is not None:
                 results.append(rej)
@@ -118,7 +123,7 @@ def run_replay(model, mcfg: ModelConfig, rcfg: ReplayConfig,
             time.sleep(min(max(trace[i][0] - now, 0.0), 0.05))
             continue
         results.extend(engine.step())
-    wall_s = time.monotonic() - t0
+    wall_s = clock() - t0
     ok = [r for r in results if r.ok]
     gen_tokens = sum(len(r.tokens) for r in results)
     summary = engine.metrics_summary()
@@ -133,6 +138,8 @@ def run_replay(model, mcfg: ModelConfig, rcfg: ReplayConfig,
         "aggregate_tokens_per_s": round(gen_tokens / wall_s, 1)
         if wall_s > 0 else 0.0,
         "kernel_launches": paged_window_attention.launches - launches0,
+        "partials_launches":
+            paged_window_attention.partials_launches - partials0,
         "fused_launches": fused_paged_decode_layers.launches - fused0,
         "streams": {r.id: list(r.tokens) for r in results},
     })
@@ -152,6 +159,14 @@ def format_summary(s: dict) -> str:
     sl = s["step_latency"]
     pg = s["pages"]
     kr = s["kernel_route"]
+    mesh = []
+    if pg["mesh_shape"] != [1, 1]:
+        d, m = pg["mesh_shape"]
+        mesh = [f"mesh: {d}x{m} (data x model; effective "
+                f"{pg['effective_mesh_shape'][0]}x"
+                f"{pg['effective_mesh_shape'][1]}), {pg['pages_per_chip']} "
+                f"pages/chip of {pg['aggregate_pages']} aggregate, per-chip "
+                f"in use {pg['pages_in_use_by_chip']}"]
     return "\n".join([
         f"requests: {s['n_requests']} submitted, {s['n_completed']} "
         f"completed, {s['n_rejected']} rejected",
@@ -165,6 +180,7 @@ def format_summary(s: dict) -> str:
         f"({pg['prefix_hit_tokens']} tok, rate "
         f"{pg['prefix_hit_rate']:.2f}), {pg['evictions']} evictions, "
         f"{pg['cow_copies']} COW copies",
+        *mesh,
         f"quant: KV {pg['kv_quant']}"
         + (f" ({pg['quant_granularity']}-granularity scales)"
            if pg["kv_quant"] != "none" else "")
@@ -178,6 +194,9 @@ def format_summary(s: dict) -> str:
         f"kernel route: decode={kr['decode']}"
         + (f" (reasons: {','.join(kr['reasons'])})" if kr["reasons"]
            else "")
-        + f", {s['kernel_launches']} per-layer and {s['fused_launches']} "
+        + (f", sharded over {kr['mesh'][0]}x{kr['mesh'][1]}"
+           if kr["sharded"] else "")
+        + f", {s['kernel_launches']} per-layer, "
+        f"{s['partials_launches']} partials and {s['fused_launches']} "
         f"fused kernel launches",
     ])

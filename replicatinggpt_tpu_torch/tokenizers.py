@@ -10,9 +10,10 @@ spelled out as the code-point classes ``regex`` gives them
 (``pretoken_tables.py``, generated from ``regex`` by
 ``tools/gen_pretoken_tables.py``), so ``regex`` is not needed. Both
 engines take the first alternative that matches, leftmost, with greedy
-runs that backtrack, so the splits are the same. The tiktoken branch
-and the JAX package's C++ encoder are not ported (ROADMAP.md queue A
-item 3); ``encode_np`` is the pure-Python ``encode``.
+runs that backtrack, so the splits are the same. The tiktoken branch is
+not ported: its BPE ranks come over the network (ROADMAP.md does not
+queue it). Nor is the JAX package's C++ encoder; ``encode_np`` is the
+pure-Python ``encode``.
 """
 
 from __future__ import annotations
@@ -240,6 +241,7 @@ def get_tokenizer(spec: str, corpus_text: Optional[str] = None,
         return tok
     if spec.startswith("tiktoken"):
         raise NotImplementedError(
-            f"tokenizer {spec!r} is not in replicatinggpt_tpu_torch yet: "
-            f"ROADMAP.md queue A item 3 (tiktoken tokenizers)")
+            f"tokenizer {spec!r} is not ported to replicatinggpt_tpu_torch: "
+            f"its BPE ranks come over the network, which the port does not "
+            f"fetch (ROADMAP.md does not queue it)")
     raise ValueError(f"unknown tokenizer spec {spec!r}")

@@ -174,6 +174,144 @@ def test_paged_attention_kernel_edge_positions(card, mp, max_pos, ranks, W,
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
 
 
+def _partials_inputs(B, dtype, kv_dtype, gran, seed=0, mp=128):
+    """B slots at positions up to 1000 (one at 0) over a pool of B * mp
+    pages of PSZ rows split into 2 data blocks; each slot's table a
+    random draw, so its pages interleave the blocks. The rows at
+    positions >= pos inside each slot's last live page hold NaN (a
+    quantized pool: their scales) in the kernel's pool only. Returns the
+    tables, pos, the window rows, the kernel's pool and the clean one."""
+    from replicatinggpt_tpu_torch.quant.kv import quantize_rows
+    rng = np.random.default_rng(seed)
+    pos = np.array([0, 1000, 17, 333, 777, 16, 501, 64][:B], np.int32)
+    if B == 1:
+        pos[0] = 333
+    n = B * mp
+    tables = rng.permutation(n).reshape(B, mp).astype(np.int32)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).cuda()
+    rows = [mk(B, 1, C).to(dtype) for _ in range(3)]
+    kp, vp = mk(n, PSZ, C), mk(n, PSZ, C)
+    if kv_dtype == "none":
+        clean = {"k": kp.to(dtype), "v": vp.to(dtype)}
+    else:
+        (kq, ks), (vq, vs) = (quantize_rows(t, kv_dtype, H, gran)
+                              for t in (kp, vp))
+        clean = {"k": kq, "v": vq, "ks": ks, "vs": vs}
+    dirty = {k: t.clone() for k, t in clean.items()}
+    live = (pos + PSZ - 1) // PSZ
+    names = ("k", "v") if kv_dtype == "none" else ("ks", "vs")
+    for b, p in enumerate(pos):
+        for g in range(p, live[b] * PSZ):
+            for name in names:
+                dirty[name][tables[b, g // PSZ], g % PSZ] = float("nan")
+    return tables, pos, rows, dirty, clean
+
+
+def _block(pool, d, n_blocks):
+    """Data block d of a pool dict: its pages (and their scales)."""
+    blk = pool["k"].shape[0] // n_blocks
+    return {k: t[d * blk:(d + 1) * blk] for k, t in pool.items()}
+
+
+def _partials_call(rows, pool, loc, own, pos, **kw):
+    sc = ({"k_scales": pool["ks"], "v_scales": pool["vs"]} if "ks" in pool
+          else {})
+    return pa.paged_window_attention(*rows, pool["k"], pool["v"], loc, pos,
+                                     n_head=H, owned=own, **sc, **kw)
+
+
+def _partials_ref(rows, pool, loc, own, pos):
+    sc = ({"k_scales": pool["ks"], "v_scales": pool["vs"]} if "ks" in pool
+          else {})
+    return pa.paged_window_attention_ref(*rows, pool["k"], pool["v"], loc,
+                                         pos, n_head=H, owned=own, fold=False,
+                                         **sc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("owned", ["block0", "block1", "none", "all"])
+@pytest.mark.parametrize("dtype,kv_dtype,gran", EDGE_POOLS)
+def test_paged_partials_kernel_matches_ref(card, B, owned, dtype, kv_dtype,
+                                           gran):
+    """Row #1's partials mode (``owned=``, ``fold=False``) against its
+    plain twin: raw f32 acc, m and l over the pages one data block owns
+    (interleaved with the other block's), over none (m = -1e30, l = acc =
+    0) or over every live page, in every pool, at atol = rtol = 1e-4
+    (f32 partials whatever the input dtype: another summation order); the
+    kernel never reads a row past pos (NaN there) nor an unowned table
+    entry (ids past the block there); the split sized from the owned
+    rows' bound; two launches give the same bits."""
+    tables, pos, rows, dirty, clean = _partials_inputs(B, dtype, kv_dtype,
+                                                       gran)
+    n_blocks = 1 if owned == "all" else 2
+    d = 1 if owned == "block1" else 0
+    blk = tables.size // n_blocks
+    live = (pos + PSZ - 1) // PSZ
+    own = ((np.arange(tables.shape[1])[None] < live[:, None])
+           & (tables >= d * blk) & (tables < (d + 1) * blk))
+    if owned == "none":
+        own[:] = False
+    loc = np.where(own, tables - d * blk, blk + 7).astype(np.int32)
+    page_rows = np.clip(pos[:, None] - np.arange(tables.shape[1]) * PSZ, 0,
+                        PSZ)
+    span = int((page_rows * own).sum(1).max())
+    args = (torch.from_numpy(loc).cuda(),
+            torch.from_numpy(own.astype(np.int32)).cuda(),
+            torch.from_numpy(pos).cuda())
+    before = pa.paged_window_attention.partials_launches
+    got = _partials_call(rows, _block(dirty, d, n_blocks), *args,
+                         fold=False, max_pos=span)
+    again = _partials_call(rows, _block(dirty, d, n_blocks), *args,
+                           fold=False, max_pos=span)
+    torch.cuda.synchronize()
+    assert pa.paged_window_attention.partials_launches == before + 2
+    ref = _partials_ref(rows, _block(clean, d, n_blocks), *args)
+    for g, a, r in zip(got, again, ref):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all()
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+    if owned == "none":
+        assert (got[1] == pa.NEG_INF).all() and not got[2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("dtype,kv_dtype,gran", EDGE_POOLS)
+def test_paged_partials_merge_matches_fold_kernel(card, B, dtype, kv_dtype,
+                                                  gran):
+    """Two data blocks' partials merged by logsumexp and folded with the
+    fresh row (``sharded_paged_window_attention`` over
+    ``LocalServeGroup(2, 1)``) against the unsharded fold mode of the
+    kernel: f32 at 1e-4, bf16 at 2e-2 (the merge's f32 order, then one
+    rounding to bf16 on each side)."""
+    from replicatinggpt_tpu_torch.parallel.serve_group import \
+        LocalServeGroup
+    from replicatinggpt_tpu_torch.quant.kv import fake_quantize_rows
+    tables, pos, rows, dirty, _ = _partials_inputs(B, dtype, kv_dtype, gran)
+    if kv_dtype != "none":
+        rows = rows[:1] + [fake_quantize_rows(t.float(), kv_dtype, H, gran)
+                           .to(dtype) for t in rows[1:]]
+    tab, p = torch.from_numpy(tables).cuda(), torch.from_numpy(pos).cuda()
+    blocks = [_block(dirty, d, 2) for d in (0, 1)]
+    sc = {}
+    if kv_dtype != "none":
+        sc = {"k_scales": [b["ks"] for b in blocks],
+              "v_scales": [b["vs"] for b in blocks]}
+    got = pa.sharded_paged_window_attention(
+        *rows, [b["k"] for b in blocks], [b["v"] for b in blocks], tab, p,
+        LocalServeGroup(2, 1), n_head=H, **sc)
+    whole_sc = ({"k_scales": dirty["ks"], "v_scales": dirty["vs"]}
+                if kv_dtype != "none" else {})
+    want = pa.paged_window_attention(*rows, dirty["k"], dirty["v"], tab, p,
+                                     n_head=H, **whole_sc)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 @pytest.mark.cuda
 def test_paged_attention_smem_mirror_matches_kernel(card):
     """ops/paged_attention.py's carve-up, tile rows, ring stages and

@@ -3,11 +3,14 @@
 time, on one NVIDIA card.
 
     python3 tools/torch_port_profile.py [--preset gpt2-small|char-gpt]
-        [--kv-quant none|int8|fp8] [--steps 20] [--out PATH]
+        [--kv-quant none|int8|fp8] [--mesh-shape 1x1|2x2|...]
+        [--steps 20] [--out PATH]
 
 Builds a ``serve-replay`` slice's engine (random init, bf16, packed pool,
 8 slots, pages of 16; ``gpt2-small`` takes the per-layer kernel route,
-``char-gpt`` the fused all-layers kernel route), fills every slot from
+``char-gpt`` the fused all-layers kernel route; with ``--mesh-shape``
+all shards of that mesh in this process, the kernel route then the
+partials mode per data shard), fills every slot from
 one greedy shared-prefix trace, and then, for the paged-kernel route and
 the gather route in turns (kernel, gather, gather, kernel), times
 ``--steps`` decode steps with the host clock (each step ends in the
@@ -36,6 +39,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 from replicatinggpt_tpu_torch.config import get_config  # noqa: E402
 from replicatinggpt_tpu_torch.models.gpt import init_params  # noqa: E402
+from replicatinggpt_tpu_torch.parallel.mesh import (  # noqa: E402
+    parse_mesh_shape)
 from replicatinggpt_tpu_torch.serve import (Engine, EngineConfig,  # noqa: E402
                                             ReplayConfig, make_trace)
 
@@ -47,13 +52,14 @@ def card() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def filled_engine(model, mcfg, kernel: bool, kv_quant: str) -> Engine:
+def filled_engine(model, mcfg, kernel: bool, kv_quant: str,
+                  mesh=(1, 1)) -> Engine:
     """An engine whose 8 slots all decode: an 8-request greedy trace
     submitted at once, stepped until no slot is left to admit and the
     first decode step is behind it."""
     eng = Engine(model, mcfg, EngineConfig(
-        pool_size=8, page_size=16, paged_kernel=kernel, kv_quant=kv_quant),
-        device="cuda")
+        pool_size=8, page_size=16, paged_kernel=kernel, kv_quant=kv_quant,
+        mesh_data=mesh[0], mesh_model=mesh[1]), device="cuda")
     trace = make_trace(mcfg, ReplayConfig(
         n_requests=8, seed=0, prompt_len_max=min(512, mcfg.block_size // 2),
         prompt_mode="shared_prefix", max_new_tokens=400, greedy=True))
@@ -118,6 +124,7 @@ def measure(eng: Engine, steps: int, cardname: str) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
         "route": eng.kernel_route.decode, "card": cardname, "steps": steps,
+        "mesh": list(eng.ecfg.mesh_shape),
         "kv_quant": eng.kernel_route.kv_quant,
         "granularity": eng.kernel_route.granularity,
         "active_slots": int(eng._active.sum()),
@@ -139,6 +146,8 @@ def main() -> int:
                    choices=["gpt2-small", "char-gpt"])
     p.add_argument("--kv-quant", default="none",
                    choices=["none", "int8", "fp8"])
+    p.add_argument("--mesh-shape", default="1x1",
+                   help="serve mesh DATAxMODEL, all shards in this process")
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--out", default=None,
                    help="also write the rows here as one JSON list")
@@ -151,8 +160,9 @@ def main() -> int:
                                decode_cache_layout="packed")
     model = init_params(mcfg, torch.Generator(device="cuda").manual_seed(0),
                         device="cuda")
-    engines = {r: filled_engine(model, mcfg, r == "kernel", args.kv_quant)
-               for r in ("kernel", "gather")}
+    mesh = parse_mesh_shape(args.mesh_shape)
+    engines = {r: filled_engine(model, mcfg, r == "kernel", args.kv_quant,
+                                mesh) for r in ("kernel", "gather")}
     for eng in engines.values():           # warm both routes
         eng.step()
     rows = [measure(engines[r], args.steps, cardname)
