@@ -185,7 +185,35 @@ and fails (non-zero exit) on the first phase that fails:
    --decode-cache-layout packed --paged-kernel --mesh-shape 2x2`` in one
    process, bf16, full width and depth, 16 greedy requests: every request
    completes, the partials kernel runs 12 layers x 4 shards = 48 times a
-   decode step and the fold mode never.
+   decode step and the fold mode never;
+29. wide window phase (run right after phase 6): ``paged_window_attention``
+   at W in {2, 5, 8, 64} (64: the mixed window's width at 124M, its
+   prefill chunk) at the 124M serving shapes, every pool, bf16 and f32
+   (``TOL``), slot 0 at pos 0 holding the longest slot's table, the
+   split sized from the longest pos; then at W=64, bf16: the kernel's
+   time, the plain version's, SDPA with the same mask, the bound and the
+   rate (row #1's ``w64_*`` fields);
+30. window parity phase: f32 greedy streams of the windowed engine at
+   k = 8 and auto-tuned up to 8 equal k = 1's at 124M width (2 layers) on
+   the kernel and gather routes, then at char-gpt width on the fused
+   route (row #2 in the decode windows, row #1 at W=64 in the mixed
+   ones), through arrivals while windows fly, an eos inside a window and
+   a cancel; every window step's host bound on the positions at or above
+   the card's; row #1 launched 2 times (2 layers) a step of each window
+   kind, row #2 once a decode window step; no window break;
+31. window sync phase: one steady decode window's launch and one mixed
+   window's after an admission (124M width, 2 layers, bf16, sampled
+   slots) under ``torch.cuda.set_sync_debug_mode("error")``;
+32. windowed serving slice (this slice's main path): ``serve-replay
+   --preset gpt2-small --decode-cache-layout packed --paged-kernel
+   --decode-window 8 --decode-window-auto`` at full width and depth, the
+   k = 1 slice's 16 greedy requests: every request completes, row #1
+   runs 12 times a step at W=1 in the decode windows and at W=64 in the
+   mixed ones, no window break; tokens/s, TTFT, step p50, dispatches and
+   host ms a token beside the k = 1 slice's (row #1's ``launches`` and
+   ``launches_by_window`` are this run's; ``launches_k1`` phase 6's);
+33. idle phase: the device's idle share at k = 1 and k = 8 (124M, bf16,
+   8 decoding slots, ``tools/torch_port_profile.py``'s measure).
 
 Every flash row of the ``{"kernels": [...]}`` line also carries the
 achieved rate (``tflops``: the bound's operation count over the kernel's
@@ -200,6 +228,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import importlib.util
 import io
 import json
 import math
@@ -702,6 +731,9 @@ def parity_phase() -> None:
           f"kernel and gather routes (f32, 2 layers, C=768)")
 
 
+MIXED_W = 64        # the 124M (and char-gpt) prefill chunk: the mixed W
+
+
 def replay(extra, n_layer: int = 0, shards: int = 1) -> dict:
     argv = ["serve-replay", "--preset", "gpt2-small",
             "--decode-cache-layout", "packed", "--paged-kernel",
@@ -720,10 +752,21 @@ def replay(extra, n_layer: int = 0, shards: int = 1) -> dict:
     assert s["kernel_route"]["decode"] == "kernel", s["kernel_route"]
     assert s["kernel_route"]["sharded"] == (shards > 1), s["kernel_route"]
     # one launch a layer, or on a mesh one partials launch a layer and
-    # data shard of each model shard
+    # data shard of each model shard; a windowed run launches a layer's
+    # kernel at W=1 in every step of its decode windows and at W=chunk
+    # in every step of its mixed windows
     launched = s["partials_launches" if shards > 1 else "kernel_launches"]
-    assert launched == shards * n_layer * s["n_steps"], (
-        launched, s["n_steps"])
+    dp = s["dispatch"]
+    if dp["window_k_max"] > 1:
+        by_w = s["kernel_launches_by_window"]
+        assert by_w == {k: v for k, v in (
+            ("1", n_layer * dp["decode_window_steps"]),
+            (str(MIXED_W), n_layer * dp["mixed_window_steps"])) if v}, (
+            by_w, dp)
+        assert not any(s["window_breaks"].values()), s["window_breaks"]
+    else:
+        assert launched == shards * n_layer * s["n_steps"], (
+            launched, s["n_steps"])
     assert s["pages"]["prefix_hits"] > 0, s["pages"]
     toks = [t for st in s["streams"].values() for t in st]
     assert toks and all(0 <= t < V for t in toks)
@@ -747,7 +790,7 @@ def slice_phase(card: str) -> int:
     print(f"slice (sampled, 8 requests) on {card}: "
           f"{s2['aggregate_tokens_per_s']} tok/s over {s2['n_steps']} "
           f"steps")
-    return launches
+    return launches, s
 
 
 # the mesh's phases: one model shard of GPT-2 124M on a 2x2 mesh (its 6 of
@@ -2440,6 +2483,329 @@ def sp_xl_slice_phase(card: str) -> tuple:
     return fwd, bwd
 
 
+# --------------------------------------------------------------------------
+# decode windows and mixed prefill+decode windows (the windowed serving
+# slice): row #1 at the mixed window's widths, then the engine
+# --------------------------------------------------------------------------
+
+WIDE_W = (2, 5, 8, MIXED_W)
+
+
+def wide_inputs(W: int, dtype: torch.dtype, kv: str, gran: str):
+    """``paged_inputs`` at width W with slot 0 (pos 0, inactive in the
+    engine's terms) holding the longest slot's table: pages another slot
+    owns, which it must not read. A quantized pool's pages come from the
+    f32 draw, its fresh rows fake-quantized. Returns (args, kw)."""
+    q, kn, vn, kp, vp, tables, pos = paged_inputs(W, torch.float32)
+    tables = tables.clone()
+    tables[0] = tables[-1]
+    kw = {"n_head": H}
+    if kv == "none":
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    else:
+        (kp, ks), (vp, vs) = (quantize_rows(t, kv, H, gran)
+                              for t in (kp, vp))
+        kn, vn = (fake_quantize_rows(t, kv, H, gran) for t in (kn, vn))
+        kw.update(k_scales=ks, v_scales=vs)
+    return (q.to(dtype), kn.to(dtype), vn.to(dtype), kp, vp, tables,
+            pos), kw
+
+
+def wide_window_phase(flush: torch.Tensor) -> dict:
+    """Row #1 at W in {2, 5, 8, 64} (64: the mixed window of the 124M
+    slice, 16 passes of 4 rows over each history) against its plain
+    version, every pool, bf16 and f32, the split sized from the longest
+    pos (the engine's bound); then at W=64, bf16: the kernel's time, the
+    plain version's, SDPA over the same K/V gathered dense with the same
+    mask, the bound and the rate."""
+    errs = {}
+    for W in WIDE_W:
+        for kv, gran in POOLS:
+            for dtype in (torch.float32, torch.bfloat16):
+                args, kw = wide_inputs(W, dtype, kv, gran)
+                got = pa.paged_window_attention(*args, **kw,
+                                                max_pos=max(POS))
+                again = pa.paged_window_attention(*args, **kw,
+                                                  max_pos=max(POS))
+                torch.cuda.synchronize()
+                assert torch.equal(got, again)
+                ref = pa.paged_window_attention_ref(*args, **kw)
+                torch.testing.assert_close(got.float(), ref.float(),
+                                           atol=TOL[dtype], rtol=TOL[dtype])
+                errs[f"{W}/{pool_label(kv, gran)}/{str(dtype)[6:]}"] = (
+                    got.float() - ref.float()).abs().max().item()
+        worst = {dt: max(v for k, v in errs.items()
+                         if k.startswith(f"{W}/") and k.endswith(dt))
+                 for dt in ("bfloat16", "float32")}
+        print(f"wide window check: W={W}, {len(POOLS)} pools x bf16/f32, "
+              f"max_abs_err bf16 {worst['bfloat16']:.3e} (2e-2), f32 "
+              f"{worst['float32']:.3e} (1e-4)")
+    args, kw = wide_inputs(MIXED_W, torch.bfloat16, "none", "page")
+    sq, sk, sv, mask = sdpa_inputs(args, MIXED_W)
+
+    def kernel():
+        return pa.paged_window_attention(*args, **kw, max_pos=max(POS))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask)
+
+    settle(kernel, sdpa)
+    ms_a, lib_a, lib_b, ms_b = (time_ms(f, flush)
+                                for f in (kernel, sdpa, sdpa, kernel))
+    ms, library_ms = (ms_a + ms_b) / 2, (lib_a + lib_b) / 2
+    plain_ms = time_ms(lambda: pa.paged_window_attention_ref(*args, **kw),
+                       flush)
+    b_ms, b_by = bound_ms(args, MIXED_W)
+    rate = gbps(paged_bytes(args, MIXED_W), ms)
+    ranks = pa.cluster_ranks(MIXED_W, C // H, MP, PSZ, 2, False, max(POS))
+    print(f"wide window timing (bf16, W={MIXED_W}, B={B}, pos {POS}): "
+          f"kernel {ms * 1e3:.1f} us ({ms_a * 1e3:.1f} / {ms_b * 1e3:.1f}; "
+          f"{rate:.0f} GB/s of the bound's bytes), plain "
+          f"{plain_ms * 1e3:.1f} us, sdpa {library_ms * 1e3:.1f} us "
+          f"({lib_a * 1e3:.1f} / {lib_b * 1e3:.1f}), bound "
+          f"{b_ms * 1e3:.2f} us ({b_by}); kernel / sdpa "
+          f"{ms / library_ms:.2f}; split: clusters of {ranks} CTAs, "
+          f"{pa.tile_rows(MIXED_W, C // H, MP, 2)}-row tiles, "
+          f"{-(-MIXED_W // 4)} passes")
+    return {"w64_ms": ms, "w64_plain_ms": plain_ms, "w64_bound_ms": b_ms,
+            "w64_bound_by": b_by, "w64_library_ms": library_ms,
+            "w64_gbps": rate, "w64_vs_library": ms / library_ms,
+            "wide_max_abs_err": max(v for k, v in errs.items()
+                                    if k.endswith("bfloat16"))}
+
+
+@contextlib.contextmanager
+def bounded_windows():
+    """Hold every window step's host bound (``max_pos``, which sizes the
+    kernels' split) to the card's positions: read them back (a sync, in
+    this check only) and fail if a bound is below one."""
+    seen = []
+    fns = {n: getattr(gpt, n) for n in ("decode_step_paged",
+                                        "verify_step_paged")}
+
+    def wrap(fn, at):
+        def wrapped(*a, max_pos=None, **kw):
+            if max_pos is not None:
+                pos = torch.where(a[at], a[2], 0)
+                assert max_pos >= int(pos.max()), (max_pos, pos.tolist())
+                seen.append(max_pos)
+            return fn(*a, max_pos=max_pos, **kw)
+        return wrapped
+    gpt.decode_step_paged = wrap(fns["decode_step_paged"], 3)
+    gpt.verify_step_paged = wrap(fns["verify_step_paged"], 4)
+    try:
+        yield seen
+    finally:
+        for n, fn in fns.items():
+            setattr(gpt, n, fn)
+
+
+def window_streams(model, mcfg, ecfg, trace, eos, cancel) -> tuple:
+    """Drive an engine over ``trace`` (arrival step, request): submit
+    each request at its step, ``eos`` ids by request, cancel request
+    ``cancel[1]`` at step ``cancel[0]``. Returns (results by id, the
+    engine, its launches of row #1 by W and of row #2)."""
+    eng = Engine(model, mcfg, ecfg, device="cuda")
+    by_w0 = dict(pa.paged_window_attention.launches_by_window)
+    fused0 = dec.fused_paged_decode_layers.launches
+    out, step = {}, 0
+    while step <= max(a for a, _ in trace) or not eng.idle:
+        for at, req in trace:
+            if at == step:
+                assert eng.submit(dataclasses.replace(
+                    req, eos_token_id=eos.get(req.id))) is None
+        if step == cancel[0]:
+            assert eng.cancel(cancel[1])
+        out.update({r.id: r for r in eng.step()})
+        step += 1
+    by_w = {w: n - by_w0.get(w, 0) for w, n in
+            pa.paged_window_attention.launches_by_window.items()
+            if n > by_w0.get(w, 0)}
+    return out, eng, by_w, dec.fused_paged_decode_layers.launches - fused0
+
+
+def window_parity_phase() -> None:
+    """f32 greedy streams through the windowed engine (k = 8, and
+    auto-tuned up to 8) equal the blocked engine's (k = 1), on the
+    kernel route and the gather route at GPT-2 124M width cut to 2
+    layers, then on char-gpt's fused route (row #2 in the decode
+    windows, row #1 at W=64 in the mixed ones): requests arriving while
+    windows fly, one request whose eos lands inside a window, one cancel
+    (its stream a prefix of the blocked one's); every window step's
+    bound at or above the card's positions; no window break."""
+    for preset, routes in (("gpt2-small", ("kernel", "gather")),
+                           ("char-gpt", ("fused",))):
+        mcfg = dataclasses.replace(get_config(preset).model, n_layer=2,
+                                   dtype="float32",
+                                   decode_cache_layout="packed")
+        model = init_params(mcfg, torch.Generator(device="cuda")
+                            .manual_seed(0), device="cuda")
+        trace = make_trace(mcfg, ReplayConfig(
+            n_requests=10, seed=1, prompt_len_max=200,
+            prompt_mode="shared_prefix", max_new_tokens=40, greedy=True))
+        arrive = [(0 if i < 4 else 2 if i < 7 else 5, r)
+                  for i, (_, r) in enumerate(trace)]
+        for route in routes:
+            def ecfg(k, auto=False):
+                return EngineConfig(pool_size=8, page_size=16,
+                                    paged_kernel=route != "gather",
+                                    decode_window=k, decode_window_auto=auto)
+            with forced_fused_route() if route == "fused" \
+                    else contextlib.nullcontext():
+                base, eng, _, _ = window_streams(model, mcfg, ecfg(1),
+                                                 arrive, {}, (-1, None))
+                assert eng.kernel_route.decode == route, eng.kernel_route
+                # an eos for the first request (not the cancelled one)
+                # whose greedy stream has a token first seen at 2..39
+                eos_id, eos_i = next(
+                    (rid, i) for rid in sorted(base) if rid != "r0002"
+                    for i in range(2, len(base[rid].tokens))
+                    if base[rid].tokens[i] not in base[rid].tokens[:i])
+                eos = {eos_id: base[eos_id].tokens[eos_i]}
+                runs = {}
+                with bounded_windows() as seen:
+                    for k, auto in ((8, False), (8, True)):
+                        runs[(k, auto)] = window_streams(
+                            model, mcfg, ecfg(k, auto), arrive, eos,
+                            (4, "r0002"))
+                assert seen
+            for (k, auto), (res, eng, by_w, fused) in runs.items():
+                for rid, r in res.items():
+                    want = base[rid].tokens
+                    if rid == eos_id:
+                        assert r.finish_reason == "eos", r.finish_reason
+                        want = want[:eos_i + 1]
+                    if rid == "r0002":
+                        assert r.finish_reason == "cancelled"
+                        assert r.tokens == want[:len(r.tokens)]
+                        continue
+                    assert r.tokens == want, (route, k, auto, rid)
+                s = eng.metrics_summary()
+                dp = s["dispatch"]
+                assert not any(s["window_breaks"].values())
+                assert dp["mixed_windows"] > 0 and dp["decode_windows"] > 0
+                if route == "gather":
+                    assert not by_w and not fused
+                else:
+                    assert by_w.get(MIXED_W) == 2 * dp["mixed_window_steps"]
+                    dec_w = (fused if route == "fused"
+                             else by_w.get(1, 0) // 2)
+                    assert dec_w == dp["decode_window_steps"], (by_w, dp)
+                n = sum(len(r.tokens) for r in res.values())
+                print(f"window parity ({preset} width, 2 layers, f32, "
+                      f"{route} route, k={k}{' auto' if auto else ''}): "
+                      f"{len(res)} streams, {n} tokens equal k=1 (eos at "
+                      f"token {eos_i} of {eos_id}, r0002 cancelled after "
+                      f"{len(res['r0002'].tokens)}), "
+                      f"{dp['decode_windows']} decode + "
+                      f"{dp['mixed_windows']} mixed windows, row #1 "
+                      f"launches by W {by_w}, row #2 {fused}")
+
+
+def window_sync_phase() -> None:
+    """A windowed engine's launch reads nothing back: one steady decode
+    window and one mixed window after an admission, each under
+    ``torch.cuda.set_sync_debug_mode("error")`` (GPT-2 124M width, 2
+    layers, bf16, kernel route, one sampled slot)."""
+    mcfg = dataclasses.replace(get_config("gpt2-small").model, n_layer=2,
+                               decode_cache_layout="packed")
+    model = init_params(mcfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    eng = Engine(model, mcfg, EngineConfig(pool_size=8, page_size=16,
+                                           paged_kernel=True,
+                                           decode_window=8), device="cuda")
+    trace = make_trace(mcfg, ReplayConfig(
+        n_requests=3, seed=3, prompt_len_max=200, max_new_tokens=64,
+        top_k=50, temperature=0.8))
+    for _, req in trace[:2]:
+        assert eng.submit(dataclasses.replace(
+            req, sampling=dataclasses.replace(req.sampling, greedy=False))
+        ) is None
+    for _ in range(3):
+        eng.step()
+    assert eng._inflight is not None and not eng._pf_left.any()
+    kinds = []
+    for admit in (False, True):
+        if admit:
+            assert eng.submit(trace[2][1]) is None
+            eng._admit_queue(eng.clock(), [], eng._admit_windowed)
+            assert eng._pf_left.any()
+        mixed0 = eng.metrics.counters.get("mixed_windows", 0)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            w = eng._launch(eng._window_cur)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        kinds.append("mixed" if eng.metrics.counters.get(
+            "mixed_windows", 0) > mixed0 else "decode")
+        eng._drain_pending()
+        eng._inflight = w
+    res = eng.drain()
+    assert kinds == ["decode", "mixed"] and len(res) == 3
+    print("window sync check: a steady decode window and a mixed window "
+          "after an admission launched under "
+          "torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+
+def window_slice_phase(card: str, k1: dict) -> tuple:
+    """The windowed serving slice (this slice's main path): ``serve-replay
+    --preset gpt2-small --decode-cache-layout packed --paged-kernel
+    --decode-window 8 --decode-window-auto`` through the CLI at full
+    width and depth, bf16, the k = 1 slice's 16 greedy requests; its
+    numbers beside the k = 1 slice's. Returns (row #1 launches by W, the
+    summary)."""
+    pa.paged_window_attention.launches = 0
+    pa.paged_window_attention.launches_by_window = {}
+    s = replay(["--n-requests", "16", "--greedy", "--decode-window", "8",
+                "--decode-window-auto"])
+    by_w = dict(pa.paged_window_attention.launches_by_window)
+    assert by_w.get(1) and by_w.get(MIXED_W), by_w
+    for name, x in (("k=1", k1), ("k=8 auto", s)):
+        h, dp = x["histograms"], x["dispatch"]
+        per_tok = (x["step_latency"]["p50_s"] * 1e3
+                   / max(dp["window_k"], 1))
+        print(f"serving slice {name} on {card}: "
+              f"{x['aggregate_tokens_per_s']} tok/s, TTFT p50 "
+              f"{h['ttft_s']['p50'] * 1e3:.2f} ms / p99 "
+              f"{h['ttft_s']['p99'] * 1e3:.2f} ms, step p50 "
+              f"{x['step_latency']['p50_s'] * 1e3:.3f} ms (~{per_tok:.3f} "
+              f"ms a token step; window k={dp['window_k']}), "
+              f"{dp['dispatches']} dispatches, host "
+              f"{dp['host_dispatch_ms_per_token']:.4f} ms/token, window "
+              f"breaks {sum(x['window_breaks'].values())}, row #1 "
+              f"launches by W {x['kernel_launches_by_window']}")
+    return by_w, s
+
+
+def window_idle_phase(card: str) -> None:
+    """The device's idle share at k = 1 and k = 8: GPT-2 124M, bf16,
+    kernel route, 8 slots all decoding (``tools/torch_port_profile.py``'s
+    filled engine and measure: the union of kernel intervals in a
+    ``torch.profiler`` trace over the traced wall), 16 engine steps of
+    each, k = 1 first and last."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_profile", "tools/torch_port_profile.py")
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    mcfg = dataclasses.replace(get_config("gpt2-small").model,
+                               decode_cache_layout="packed")
+    model = init_params(mcfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    engines = {k: prof.filled_engine(model, mcfg, True, "none", window=k)
+               for k in (1, 8)}
+    for eng in engines.values():
+        eng.step()
+    for k in (1, 8, 1):
+        m = prof.measure(engines[k], 16, card)
+        print(f"idle share (k={k}): step wall {m['step_wall_ms']} ms "
+              f"({m['step_wall_ms_per_token_step']} ms a token step), "
+              f"traced {m['traced_step_wall_ms']} ms, device busy "
+              f"{m['device_busy_ms_per_step']} ms a step, idle share "
+              f"{m['device_idle_share']}, {m['kernels_per_step']} kernels "
+              f"a step")
+
+
 def build_kernels() -> None:
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
@@ -2496,8 +2862,18 @@ def main() -> int:
     row = kernel_phase()
     flash_rows = flash_kernel_phase()
     parity_phase()
-    row["launches"] = slice_phase(card)
+    row["launches_k1"], k1 = slice_phase(card)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    row.update(wide_window_phase(flush))
+    window_parity_phase()
+    window_sync_phase()
+    by_w, ws = window_slice_phase(card, k1)
+    row["launches"] = sum(by_w.values())
+    row["launches_by_window"] = {str(w): n for w, n in sorted(by_w.items())}
+    row["launches_per_mixed_step"] = (
+        ws["kernel_launches_by_window"][str(MIXED_W)]
+        / ws["dispatch"]["mixed_window_steps"])
+    window_idle_phase(card)
     fused_paged_row = fused_paged_kernel_phase(flush)
     row["quantized"] = quantized_paged_phase(flush)
     row["int8_ms"] = row["quantized"]["int8-page"]["ms"]

@@ -10,6 +10,9 @@
     python -m replicatinggpt_tpu_torch serve-replay --preset gpt2-small \\
         --decode-cache-layout packed --paged-kernel --n-requests 16
     python -m replicatinggpt_tpu_torch serve-replay --preset gpt2-small \\
+        --decode-cache-layout packed --paged-kernel --decode-window 8 \\
+        --decode-window-auto
+    python -m replicatinggpt_tpu_torch serve-replay --preset gpt2-small \\
         --decode-cache-layout packed --paged-kernel --mesh-shape 2x2
     torchrun --nproc-per-node 4 -m replicatinggpt_tpu_torch serve-replay \\
         --preset gpt2-small --decode-cache-layout packed --paged-kernel \\
@@ -26,7 +29,9 @@ other mesh axes (``--dp``, ``--tp``, ``--pp``, ``--fsdp``,
 ``--microbatches``, ``--mesh-shape``) and ``--attention ulysses`` are
 refused with ROADMAP.md queue A item 11. ``serve-replay --mesh-shape DxM``
 serves on a (data, model) mesh likewise: all D x M shards in one process,
-or one a process under ``torchrun`` (D x M processes).
+or one a process under ``torchrun`` (D x M processes), with one step a
+token read; ``--decode-window`` > 1 on such a mesh is refused with queue
+A item 14.
 """
 
 from __future__ import annotations
@@ -41,16 +46,12 @@ from .config import add_config_flags, add_train_flags, config_from_args
 
 #: (flag, dest, value that means "off", ROADMAP.md item that brings it)
 UNPORTED_FLAGS = (
-    ("--decode-window", "decode_window", 1,
-     "queue A item 9 (decode windows > 1)"),
-    ("--decode-window-auto", "decode_window_auto", False,
-     "queue A item 9 (decode windows > 1)"),
-    ("--spec", "spec", "off", "queue A item 9 (speculative verify)"),
-    ("--spec-k", "spec_k", None, "queue A item 9 (speculative verify)"),
+    ("--spec", "spec", "off", "queue A item 9(c) (speculative decoding)"),
+    ("--spec-k", "spec_k", None, "queue A item 9(c) (speculative decoding)"),
     ("--spec-ngram", "spec_ngram", None,
-     "queue A item 9 (speculative verify)"),
+     "queue A item 9(c) (speculative decoding)"),
     ("--draft-model", "draft_model", None,
-     "queue A item 9 (speculative verify)"),
+     "queue A item 9(c) (speculative decoding)"),
     ("--weight-quant", "weight_quant", "none",
      "queue A item 8 (weight quantization)"),
     ("--act-quant", "act_quant", "none",
@@ -174,12 +175,28 @@ def add_engine_flags(p: argparse.ArgumentParser) -> None:
                         "over data, the heads over model); a mesh is never "
                         "downgraded to 1x1, since that would run another "
                         "path")
+    p.add_argument("--decode-window", type=int, default=1,
+                   help="decode steps enqueued as one window, the state "
+                        "kept on the device and one token read per "
+                        "window; admissions prefill inside the windows "
+                        "(mixed prefill+decode), cancels and deadlines "
+                        "ride them as masks (1 = one step per read; a 1x1 "
+                        "mesh only)")
+    p.add_argument("--decode-window-auto", action="store_true",
+                   help="auto-tune the window size from the host's share "
+                        "of each window's wall: powers of two up to "
+                        "--decode-window")
 
 
 def engine_config_from_args(args: argparse.Namespace):
     from .parallel.mesh import parse_mesh_shape
-    from .serve.engine import EngineConfig
+    from .serve.engine import MESH_WINDOW_ITEM, EngineConfig
     d, m = parse_mesh_shape(args.mesh_shape)
+    if args.decode_window > 1 and d * m > 1:
+        raise SystemExit(
+            f"--decode-window {args.decode_window} with --mesh-shape "
+            f"{args.mesh_shape} is not implemented in "
+            f"replicatinggpt_tpu_torch yet: ROADMAP.md {MESH_WINDOW_ITEM}")
     return EngineConfig(pool_size=args.pool_size, max_queue=args.max_queue,
                         prefill_chunk=args.prefill_chunk,
                         page_size=args.page_size, max_pages=args.max_pages,
@@ -188,7 +205,9 @@ def engine_config_from_args(args: argparse.Namespace):
                         paged_kernel=args.paged_kernel,
                         kv_quant=args.kv_quant,
                         quant_granularity=args.quant_granularity,
-                        mesh_data=d, mesh_model=m)
+                        mesh_data=d, mesh_model=m,
+                        decode_window=args.decode_window,
+                        decode_window_auto=args.decode_window_auto)
 
 
 def cmd_serve_replay(args) -> int:

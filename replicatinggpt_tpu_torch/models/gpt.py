@@ -19,11 +19,16 @@ A port of ``replicatinggpt_tpu/models/gpt.py``:
   as JAX reads them);
 - the paged pool (``init_paged_kv_pool``, ``_gather_pages``,
   ``_scatter_kv``; unquantized, or int8/fp8 pages with f32 scales that
-  are quantized on write and dequantized on gather) and the two serving
+  are quantized on write and dequantized on gather; rows that must not
+  land are dropped on the device, ``_drop_plan``) and the serving
   steps, ``decode_step_paged`` (fused, per-layer kernel and gather
-  routes) and ``prefill_chunk_paged``, also on the shards of a (data,
-  model) serve mesh (``init_sharded_kv_pool``: a block of pages per data
-  shard in each model shard's columns; Megatron TP over the heads);
+  routes), ``verify_step_paged`` (a window of W rows a slot) and
+  ``prefill_chunk_paged``, also on the shards of a (data, model) serve
+  mesh (``init_sharded_kv_pool``: a block of pages per data shard in
+  each model shard's columns; Megatron TP over the heads);
+- the serving windows, k steps enqueued with no host read:
+  ``decode_window_paged`` (k decode steps) and ``mixed_window_paged``
+  (chunked prefill of new slots while the others decode);
 - the contiguous cache of ``generate()`` (``init_kv_cache``,
   ``cache_seq_axis``), ``decode_step`` with its three routes (the fused
   all-layers kernel at B=1, the packed decode attention kernel, the
@@ -38,7 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -477,33 +482,93 @@ def _gather_kv(cc, layer_idx: int, tables, packed: bool, n_head: int,
                       cd=cd) for n in ("k", "v"))
 
 
+class _DropPlan(NamedTuple):
+    """Where a step's fresh rows write when some must write nothing
+    (JAX's ``mode='drop'``), made once a step (``_drop_plan``) for every
+    layer, with no host read and no two values racing for one index."""
+
+    phys: torch.Tensor       # (R,) the rows' pages, dropped rows redirected
+    woff: torch.Tensor       # (R,) their offsets
+    src: torch.Tensor        # (R,) the row whose value each row writes
+    any_valid: torch.Tensor  # () whether any row lands
+    old: Dict[str, torch.Tensor]   # per pool tensor, every layer's row at
+                                   # row 0's place: (L, 1, ...)
+
+
+def _mid_axis(name: str, packed: bool, gran) -> bool:
+    """Whether pool tensor ``name`` keeps a head axis between its page and
+    offset axes: the heads layout's K/V and head-granularity scales."""
+    return not packed and (name in ("k", "v") or gran == "head")
+
+
+def _coords(name: str, packed: bool, gran, phys, woff) -> tuple:
+    """The index of rows (phys, woff) in one layer of pool tensor
+    ``name``."""
+    return ((phys, slice(None), woff) if _mid_axis(name, packed, gran)
+            else (phys, woff))
+
+
+def _drop_plan(cache, phys, woff, valid, packed: bool) -> _DropPlan:
+    """The step's ``_DropPlan`` for rows at (phys, woff) of which
+    ``valid`` land. A valid row writes itself. A dropped row (an inactive
+    slot, whose stale table may name pages a live slot now writes, or a
+    padding row) goes to the FIRST valid row's place with that row's
+    value, so every repeated index carries one value; when no row is
+    valid, every row rewrites row 0's place with what it holds."""
+    _, gran = pool_quant_mode(cache)
+    valid = valid.reshape(-1)
+    first = torch.argmax(valid.to(torch.int32))
+    src = torch.where(valid, torch.arange(valid.numel(), device=valid.device),
+                      first)
+    phys = phys.reshape(-1).long()[src]
+    woff = woff.reshape(-1).long()[src]
+    old = {}
+    for name, t in cache.items():
+        row = t[(slice(None),) + _coords(name, packed, gran, phys[:1],
+                                         woff[:1])]
+        old[name] = (row.movedim(0, 1) if _mid_axis(name, packed, gran)
+                     else row)
+    return _DropPlan(phys, woff, src, valid.any(), old)
+
+
+def _kept_rows(vals, old, drop: _DropPlan, dim: int = 0):
+    """``vals`` (rows along ``dim``) as ``drop``'s writes carry them: row
+    ``src[r]``, or ``old`` when no row lands."""
+    return torch.where(drop.any_valid, vals.index_select(dim, drop.src), old)
+
+
 def _scatter_kv(cc, layer_idx: int, phys, woff, k_m, v_m, packed: bool,
-                n_head: int, amax=(None, None)):
+                n_head: int, amax=(None, None), drop=None):
     """Write merged fresh K/V rows (``phys.shape + (C,)``) into one layer
-    of the pool at (phys, woff), in place. Callers pass only the rows
-    that land: JAX's ``mode='drop'`` rows (inactive slots, padding past
-    ``limit``) are filtered out before this call, since an out-of-range
-    index raises here. On a quantized pool the rows are quantized on
-    write and their scales land at the same coordinates of ``ks``/``vs``;
-    ``amax``: the K and V rows' whole-row maxima where these are one model
-    shard's columns (page granularity, ``quant.kv.quantize_rows``).
+    of the pool at (phys, woff), in place. ``drop``: the step's
+    ``_drop_plan`` of these rows, under which the rows outside its valid
+    mask write nothing (``phys``/``woff`` are then the plan's). Without
+    it every row lands, and callers filter the rows on the host first,
+    since an out-of-range index raises here. On a quantized pool the
+    rows are quantized on write and their scales land at the same
+    coordinates of ``ks``/``vs``; ``amax``: the K and V rows' whole-row
+    maxima where these are one model shard's columns (page granularity,
+    ``quant.kv.quantize_rows``).
     """
     kv_dtype, gran = pool_quant_mode(cc)
+    if drop is not None:
+        phys, woff = drop.phys, drop.woff
+        k_m, v_m = (t.reshape(phys.numel(), -1) for t in (k_m, v_m))
     phys, woff = phys.long(), woff.long()
     for name, rows, mx in (("k", k_m, amax[0]), ("v", v_m, amax[1])):
         c = cc[name][layer_idx]
         if kv_dtype is not None:
             rows, sc = quantize_rows(rows, kv_dtype, n_head, gran, mx)
-            s = cc[name + "s"][layer_idx]
-            if gran == "head" and not packed:
-                s[phys, :, woff] = sc
-            else:
-                s[phys, woff] = sc
-        if packed:
-            c[phys, woff] = rows.to(c.dtype)
-        else:
-            shp = phys.shape + (n_head, rows.shape[-1] // n_head)
-            c[phys, :, woff] = rows.reshape(shp).to(c.dtype)
+            if drop is not None:
+                sc = _kept_rows(sc, drop.old[name + "s"][layer_idx], drop)
+            cc[name + "s"][layer_idx][_coords(name + "s", packed, gran,
+                                               phys, woff)] = sc
+        rows = rows.to(c.dtype)
+        if not packed:
+            rows = rows.reshape(phys.shape + (n_head, -1))
+        if drop is not None:
+            rows = _kept_rows(rows, drop.old[name][layer_idx], drop)
+        c[_coords(name, packed, gran, phys, woff)] = rows
     return cc
 
 
@@ -517,15 +582,16 @@ def decode_step_paged(params: Params, idx_t, pos, active, tables, cache,
                       cfg: ModelConfig, *, use_kernel: bool = False,
                       use_fused: bool = False,
                       fused_blocks: Optional[Dict[str, torch.Tensor]] = None,
-                      group=None, host_tables=None
+                      group=None, host_tables=None, max_pos=None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One multi-slot decode step over the paged pool.
 
     idx_t/pos: (B,) tokens and logical positions; active: (B,) bool;
     tables: (B, max_pages) int32. The fresh K/V row of an active slot
     lands at page ``tables[b, pos // page]``, offset ``pos % page``;
-    inactive slots run at position 0 and write nothing. Three routes
-    (packed layout for the two kernel routes):
+    inactive slots run at position 0 and write nothing (dropped on the
+    device, ``_drop_plan``). Three routes (packed layout for the two
+    kernel routes):
 
     - ``use_fused``: ``fused_paged_decode_layers`` runs every layer in
       one call on the STALE pool plus the fresh column, and then every
@@ -539,12 +605,21 @@ def decode_step_paged(params: Params, idx_t, pos, active, tables, cache,
     - otherwise the gather route: write the row, gather the logical view
       (dequantized for a quantized pool) and attend.
 
+    The last two are ``verify_step_paged`` over a window of one row.
+
+    ``max_pos``: a bound on every active slot's position that the caller
+    holds on the host, having checked that the writes lie inside the
+    pool's ``max_pages * page`` positions; it sizes the kernels' split
+    and changes no result. With None the step reads the positions back
+    (one host sync) and checks them itself.
+
     With a serve ``group`` (``parallel.serve_group``) the step runs on
     the shards the group holds: ``params`` is ``parallel.mesh.
     shard_serve_params``'s split, ``cache`` the ``{(d, m): pool}`` blocks
-    of ``init_sharded_kv_pool`` (``_sharded_decode_step``); the fused
-    route is not taken there. ``host_tables``: the tables as the caller
-    holds them on the host (read back from ``tables`` if not given).
+    of ``init_sharded_kv_pool`` (``_sharded_decode_step``, which reads
+    the positions back to plan each step); the fused route is not taken
+    there. ``host_tables``: the tables as the caller holds them on the
+    host (read back from ``tables`` if not given).
 
     Returns ((B, V) f32 logits, the pool)."""
     if group is not None:
@@ -554,43 +629,102 @@ def decode_step_paged(params: Params, idx_t, pos, active, tables, cache,
         return _sharded_decode_step(params, idx_t, pos, active, tables,
                                     cache, cfg, group, use_kernel,
                                     host_tables)
-    B = idx_t.shape[0]
     packed = cfg.decode_cache_layout == "packed"
     if (use_kernel or use_fused) and not packed:
         raise ValueError("the paged attention kernels need the packed "
                          "cache layout")
+    pos_eff = torch.where(active, pos, torch.zeros_like(pos))
+    if max_pos is None:
+        pe_host = pos_eff.cpu()
+        _check_in_bounds(int(pe_host.min()), int(pe_host.max()) + 1,
+                         tables.shape[1] * paged_page_size(cfg, cache),
+                         "paged decode write")
+        max_pos = int(pe_host.max())
+    if not use_fused:
+        # a window of one row a slot: verify_step_paged's per-layer routes
+        logits, cache = verify_step_paged(
+            params, idx_t[:, None], pos, torch.zeros_like(pos), active,
+            tables, cache, cfg, use_kernel=use_kernel, max_pos=max_pos)
+        return logits[:, 0], cache
+    B = idx_t.shape[0]
     psz = paged_page_size(cfg, cache)
     mp = tables.shape[1]
     H = cfg.n_head
     kv_dtype, gran = pool_quant_mode(cache)
-    pos_eff = torch.where(active, pos, torch.zeros_like(pos))
-    # one host read per step: the bounds check and the rows that write
-    pe_host = pos_eff.cpu()
-    _check_in_bounds(int(pe_host.min()), int(pe_host.max()) + 1, mp * psz,
-                     "paged decode write")
-    rows = torch.nonzero(active.cpu()).squeeze(1).to(idx_t.device)
     x = params["wte"][idx_t.long()] + params["wpe"][pos_eff.long()]
-    cd = x.dtype
     lpage = torch.clamp(pos_eff // psz, max=mp - 1).long()
-    phys = tables[torch.arange(B, device=tables.device), lpage][rows].long()
-    woff = (pos_eff % psz)[rows].long()
+    phys = tables[torch.arange(B, device=tables.device), lpage]
+    blocks = fused_blocks or fused_weights(params["blocks"], x.dtype)
+    x_row, newk, newv = fused_paged_decode_layers(
+        x, blocks, pos_eff.to(torch.int32), tables, cache, cfg,
+        max_pos=max_pos)
+    drop = _drop_plan(cache, phys, pos_eff % psz, active, packed)
+    at = (slice(None), drop.phys, drop.woff)
+    for name, new in (("k", newk), ("v", newv)):               # (L, B, C)
+        if kv_dtype is not None:
+            new, sc = quantize_rows(new, kv_dtype, H, gran)
+            cache[name + "s"][at] = _kept_rows(sc, drop.old[name + "s"],
+                                               drop, dim=1)
+        cache[name][at] = _kept_rows(new.to(cache[name].dtype),
+                                     drop.old[name], drop, dim=1)
+    return _decode_head(x_row[:, None, :], params, cfg), cache
+
+
+def verify_step_paged(params: Params, window, pos, n_valid, active, tables,
+                      cache, cfg: ModelConfig, *,
+                      logits_rows: Optional[int] = None,
+                      use_kernel: bool = False, max_pos=None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """A (B, W) token window per slot through the paged pool: window
+    token j of slot b sits at logical position ``pos[b] + j``, its K/V
+    at page ``tables[b, (pos + j) // page]``, offset ``(pos + j) %
+    page``. Rows j > ``n_valid[b]``, rows past the pool's positions and
+    every row of an inactive slot (run at position 0) write nothing
+    (``_drop_plan``); callers discard their outputs. Two routes:
+
+    - ``use_kernel`` (packed layout): per layer, ``paged_window_attention``
+      attends the stale pool plus the causal fresh window (a quantized
+      pool: its scales, and the fresh rows fake-quantized to what the
+      write stores), and the rows are written afterwards;
+    - otherwise: write the rows, gather the logical view and attend it
+      through ``windowed_cached_attention`` (query j to positions <= pos
+      + j).
+
+    ``logits_rows``: the final layernorm and head over the first that
+    many rows only (the mixed window samples row 0); None keeps all W.
+    ``max_pos`` as in ``decode_step_paged``: the caller's bound on every
+    active slot's ``pos`` (the kernel's split), None for the whole
+    table. The caller bounds the valid rows' positions on the host.
+    Returns ((B, rows, V) f32 logits, the pool)."""
+    B, W = window.shape
+    packed = cfg.decode_cache_layout == "packed"
+    if use_kernel and not packed:
+        raise ValueError("the paged attention kernels need the packed "
+                         "cache layout")
+    psz = paged_page_size(cfg, cache)
+    mp = tables.shape[1]
+    H, C = cfg.n_head, cfg.n_embd
+    kv_dtype, gran = pool_quant_mode(cache)
+    dev = window.device
+    offs = torch.arange(W, device=dev)[None, :]                 # (1, W)
+    pos_eff = torch.where(active, pos, torch.zeros_like(pos))
+    m_eff = torch.where(active, n_valid, torch.zeros_like(n_valid))
+    abs_pos = pos_eff[:, None] + offs                           # (B, W)
+    # the position table clamps padding rows past the block
+    x = (params["wte"][window.long()]
+         + params["wpe"][abs_pos.clamp(max=cfg.block_size - 1).long()])
+    cd = x.dtype
+    valid = ((offs <= m_eff[:, None]) & active[:, None]
+             & (abs_pos < mp * psz))
+    lpage = torch.clamp(abs_pos // psz, max=mp - 1).long()
+    phys = torch.gather(tables.long(), 1, lpage)
+    woff = abs_pos % psz
     pos32 = pos_eff.to(torch.int32)
-    if use_fused:
-        blocks = fused_blocks or fused_weights(params["blocks"], cd)
-        x_row, newk, newv = fused_paged_decode_layers(
-            x, blocks, pos32, tables, cache, cfg,
-            max_pos=int(pe_host.max()))
-        for name, new in (("k", newk), ("v", newv)):
-            new = new[:, rows]                                 # (L, R, C)
-            if kv_dtype is not None:
-                new, sc = quantize_rows(new, kv_dtype, H, gran)
-                cache[name + "s"][:, phys, woff] = sc
-            cache[name][:, phys, woff] = new.to(cache[name].dtype)
-        return _decode_head(x_row[:, None, :], params, cfg), cache
-    x = x[:, None, :]                                           # (B, 1, C)
+    drop = _drop_plan(cache, phys, woff, valid, packed)
     for i in range(cfg.n_layer):
         lp = _layer(params, i)
-        q_m, k_m, v_m = _cached_qkv_merged(x, lp, cfg)
+        q_m, k_m, v_m = _cached_qkv_merged(x, lp, cfg)          # (B, W, C)
+        k_rows, v_rows = k_m.reshape(B * W, C), v_m.reshape(B * W, C)
         if use_kernel:
             q_m, k_new, v_new = (t.contiguous() for t in (q_m, k_m, v_m))
             scales = {}
@@ -601,17 +735,129 @@ def decode_step_paged(params: Params, idx_t, pos, active, tables, cache,
                           "v_scales": cache["vs"][i]}
             attn = paged_window_attention(
                 q_m, k_new, v_new, cache["k"][i], cache["v"][i], tables,
-                pos32, n_head=H, max_pos=int(pe_host.max()), **scales)
-            _scatter_kv(cache, i, phys, woff, k_m[rows, 0], v_m[rows, 0],
-                        packed, H)
+                pos32, n_head=H, max_pos=max_pos, **scales)
+            _scatter_kv(cache, i, phys, woff, k_rows, v_rows, packed, H,
+                        drop=drop)
         else:
-            _scatter_kv(cache, i, phys, woff, k_m[rows, 0], v_m[rows, 0],
-                        packed, H)
+            _scatter_kv(cache, i, phys, woff, k_rows, v_rows, packed, H,
+                        drop=drop)
             k_all, v_all = _gather_kv(cache, i, tables, packed, H, cd)
-            attn = _merge_heads(cached_attention(
+            attn = _merge_heads(windowed_cached_attention(
                 _split_heads(q_m, H), k_all, v_all, pos_eff))
         x = _block_tail(x, attn, lp, cfg)
-    return _decode_head(x, params, cfg), cache
+    if logits_rows is not None:
+        x = x[:, :logits_rows]
+    x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"],
+                    cfg.layernorm_eps)
+    head = params["wte"].T if cfg.tied_head else params["lm_head"]
+    return (x @ head).float(), cache
+
+
+#: ``sample_fn(t, logits)`` of the windows: step ``t``'s (B, V) f32
+#: logits -> (B,) int32 tokens (the caller knows which slots draw at t)
+SampleFn = Callable[[int, torch.Tensor], torch.Tensor]
+
+
+def _window_bookkeeping(nxt, live, tok, pos, budget, eos):
+    """One window step's per-slot state update for the slots ``live``
+    (decoding, so emitting) at it: their budget is spent and their
+    position advanced; a slot whose budget runs out or whose token is its
+    ``eos`` (>= 0) stops. Returns (nxt, 0 where not live, tok, pos,
+    budget, stopped)."""
+    nxt = torch.where(live, nxt, torch.zeros_like(nxt))
+    budget = torch.where(live, budget - 1, budget)
+    hit_eos = live & (eos >= 0) & (nxt == eos)
+    pos = torch.where(live, pos + 1, pos)
+    tok = torch.where(live, nxt, tok)
+    return nxt, tok, pos, budget, live & ((budget <= 0) | hit_eos)
+
+
+def decode_window_paged(params: Params, tok, pos, active, budget, eos,
+                        tables, cache, cfg: ModelConfig, *,
+                        sample_fn: SampleFn, length: int,
+                        use_kernel: bool = False, use_fused: bool = False,
+                        fused_blocks: Optional[Dict[str, torch.Tensor]] = None,
+                        max_pos=None):
+    """``length`` decode steps with the per-slot state on the device
+    (JAX ``decode_window_paged``): per step, ``decode_step_paged`` and
+    ``sample_fn``, then every active slot emits its token, spends one of
+    its ``budget`` and advances; a slot stops (inactive, its writes
+    dropped, its emissions masked) once its budget is spent or it
+    samples its ``eos`` (< 0: none), and idles for the rest of the
+    window. Nothing is read back to the host. ``max_pos``: per step, the
+    caller's host bound on every active slot's position (a sequence of
+    ``length`` ints), or None (each step then reads the positions back).
+
+    Returns ``(toks, emitted, tok, pos, active, budget)``: toks and
+    emitted (length, B), the sampled tokens (0 where not emitted) and
+    whether each slot was live at each step; the rest is the state the
+    next window starts from. The pool is updated in place."""
+    toks, emitted = [], []
+    for t in range(length):
+        logits, cache = decode_step_paged(
+            params, tok, pos, active, tables, cache, cfg,
+            use_kernel=use_kernel, use_fused=use_fused,
+            fused_blocks=fused_blocks,
+            max_pos=None if max_pos is None else max_pos[t])
+        emitted.append(active)
+        nxt, tok, pos, budget, stop = _window_bookkeeping(
+            sample_fn(t, logits), active, tok, pos, budget, eos)
+        active = active & ~stop
+        toks.append(nxt)
+    return torch.stack(toks), torch.stack(emitted), tok, pos, active, budget
+
+
+def mixed_window_paged(params: Params, tok, pos, active, budget, eos,
+                       pf_left, pf_off, pf_limit, pf_toks, tables, cache,
+                       cfg: ModelConfig, *, sample_fn: SampleFn,
+                       length: int, use_kernel: bool = False, max_pos=None):
+    """``decode_window_paged`` with chunked prefill inside the window
+    (JAX ``mixed_window_paged``). At step t a slot PREFILLS while ``t <
+    pf_left[b]`` (the chunks this window writes for it) and decodes
+    after. Each step is one ``verify_step_paged`` over a (B, W) window,
+    W = ``pf_toks.shape[-1]`` (the prefill chunk):
+
+    - a prefilling slot's row is its chunk ``pf_toks[t, b]`` at
+      positions ``pf_off + t*W + j``; positions >= ``pf_limit`` (the
+      prompt's length) write nothing. It emits nothing, its budget and
+      position stay, and ``sample_fn`` must not draw for it (its random
+      stream does not advance);
+    - a decoding slot's row is its token at window column 0, position
+      ``pos`` (the other columns are dropped padding), with
+      ``decode_window_paged``'s bookkeeping.
+
+    A slot flips from prefill to decode with no transition: ``pos`` and
+    ``tok`` were set at admission to the prompt's last position and
+    token. ``max_pos``: per step, a host bound on every active slot's
+    row base (``pf_off + t*W`` while prefilling, else ``pos``), or None
+    for the whole table. Returns what ``decode_window_paged`` returns;
+    ``emitted[:, b]`` is False through b's prefill steps."""
+    W = pf_toks.shape[-1]
+    B = tok.shape[0]
+    col = torch.arange(W, device=tok.device)[None, :]
+    toks, emitted = [], []
+    for t in range(length):
+        prefilling = active & (t < pf_left)
+        cur = pf_off + t * W
+        n_tok = torch.where(prefilling, torch.clamp(pf_limit - cur, 1, W),
+                            torch.ones_like(cur))
+        base = torch.where(prefilling, cur, pos)
+        col0 = torch.where(col == 0, tok[:, None],
+                           torch.zeros((B, W), dtype=tok.dtype,
+                                       device=tok.device))
+        window = torch.where(prefilling[:, None], pf_toks[t].to(tok.dtype),
+                             col0)
+        logits, cache = verify_step_paged(
+            params, window, base, n_tok - 1, active, tables, cache, cfg,
+            logits_rows=1, use_kernel=use_kernel,
+            max_pos=None if max_pos is None else max_pos[t])
+        decoding = active & ~prefilling
+        emitted.append(decoding)
+        nxt, tok, pos, budget, stop = _window_bookkeeping(
+            sample_fn(t, logits[:, 0]), decoding, tok, pos, budget, eos)
+        active = active & ~stop
+        toks.append(nxt)
+    return torch.stack(toks), torch.stack(emitted), tok, pos, active, budget
 
 
 def prefill_chunk_paged(params: Params, idx, offset: int, limit: int,

@@ -22,7 +22,8 @@ contributes, merged across the shards and folded once by
 - ``paged_window_attention``: the wrapper. A CPU tensor takes the plain
   version; a CUDA tensor launches ``csrc/paged_window_attention.cu`` or
   raises. ``paged_window_attention.launches`` and ``.partials_launches``
-  count the kernel's launches in each mode;
+  count the kernel's launches in each mode, ``.launches_by_window`` the
+  fold mode's by window width W;
 - ``fold_fresh_window``, ``localize_tables`` and
   ``sharded_paged_window_attention``: the shard_map wrapper's pieces;
 - ``cluster_ranks`` / ``smem_bytes``: the kernel's split of a history
@@ -378,6 +379,7 @@ def paged_window_attention(q, k_new, v_new, k_pages, v_pages, tables, pos,
     caller already holds on the host; it sizes the kernel's split
     (``cluster_ranks``) and never changes the result. None sizes it for
     the whole table. ``launches`` counts the fold mode's launches,
+    ``launches_by_window`` the same launches by their W,
     ``partials_launches`` the partials mode's."""
     _check(q, k_new, v_new, k_pages, v_pages, tables, pos, n_head, k_scales,
            v_scales)
@@ -455,12 +457,15 @@ def paged_window_attention(q, k_new, v_new, k_pages, v_pages, tables, pos,
                            f"error {err}")
     if fold:
         paged_window_attention.launches += 1
+        by_w = paged_window_attention.launches_by_window
+        by_w[W] = by_w.get(W, 0) + 1
         return out
     paged_window_attention.partials_launches += 1
     return parts
 
 
 paged_window_attention.launches = 0
+paged_window_attention.launches_by_window = {}
 paged_window_attention.partials_launches = 0
 
 

@@ -98,7 +98,10 @@ def sample_tokens_batched(generators: Sequence[Optional[torch.Generator]],
     """(B, V) f32 logits -> (B,) int32 tokens. Greedy rows take the
     argmax of the RAW logits; a row with a generator draws from its
     filtered distribution with that generator; a row with neither (an
-    idle slot) gives 0."""
+    idle slot) gives 0. Nothing is read back to the host: a draw is
+    ``torch.multinomial``'s one-sample path (the argmax of p / q, q
+    exponential from the generator: the same draws, the same token)
+    without its host-side checks of the probabilities."""
     greedy = torch.as_tensor(greedy, device=logits.device, dtype=torch.bool)
     out = torch.argmax(logits, dim=-1).to(torch.int32)
     draw = [b for b, g in enumerate(generators) if g is not None]
@@ -108,8 +111,9 @@ def sample_tokens_batched(generators: Sequence[Optional[torch.Generator]],
         filter_logits_batched(logits, temperature, top_k, top_p), dim=-1)
     sampled = torch.zeros_like(out)
     for b in draw:
-        sampled[b] = torch.multinomial(probs[b], 1,
-                                       generator=generators[b])[0]
+        q = torch.empty_like(probs[b]).exponential_(
+            1, generator=generators[b])
+        sampled[b] = torch.argmax(probs[b] / q)
     return torch.where(greedy, out, sampled)
 
 

@@ -1,26 +1,52 @@
 """Continuous-batching inference engine over the paged KV pool.
 
-The port of ``replicatinggpt_tpu/serve/engine.py`` at
-``decode_window=1``: a host-side scheduler drives one multi-slot decode
-step per engine step. Per step the engine
+The port of ``replicatinggpt_tpu/serve/engine.py``: a host-side
+scheduler drives multi-slot decode over the paged pool. Per step the
+engine
 
 1. expires deadlines (queued and active),
 2. admits queued prompts into free slots, gated on free PAGES as well
    as free slots (serve/pages.py): admission claims the longest
    radix-cached prefix, applies copy-on-write page splits, and chunked
-   prefill (``models.gpt.prefill_chunk_paged``) writes only the
-   uncached tail's K/V through the slot's page table,
-3. runs ONE decode step over all slots
-   (``models.gpt.decode_step_paged``) and samples per slot
-   (``sample.generate.sample_tokens_batched``), then fetches the tokens
-   and does the host bookkeeping: commit, eos / budget finishes, radix
-   registration of pages the decode frontier passed.
+   prefill writes only the uncached tail's K/V through the slot's page
+   table,
+3. decodes every slot and does the host bookkeeping: commit, eos /
+   budget finishes, radix registration of pages the decode frontier
+   passed.
 
-The decode step runs all layers in one ``fused_paged_decode_layers``
-launch, or attends per layer through ``paged_window_attention`` (the
-CUDA kernels on the card), when the route allows it
-(``decide_kernel_route``), else through the gather route. The pool may
-hold int8/fp8 pages with f32 scales (``kv_quant``, ``quant_granularity``).
+With ``decode_window=1`` (the blocked loop) step 2's prefill runs
+``models.gpt.prefill_chunk_paged`` at once and step 3 is ONE decode step
+(``models.gpt.decode_step_paged``) and sampler call, whose tokens are
+read back before the step returns.
+
+With ``decode_window=k > 1`` step 3 is a WINDOW of k steps enqueued at
+once (``models.gpt.decode_window_paged``), the per-slot state (token,
+position, active flag, budget) staying on the card from window to
+window, and the host runs one window ahead: window N+1 is enqueued
+before window N's (k, B) token block is read, which is one copy into
+pinned host memory started at launch and waited on at the drain. The
+cadence is continuous: an admission is host bookkeeping at a window
+boundary while the window before it flies, and the prompt's uncached
+tail prefills INSIDE the next window (``models.gpt.mixed_window_paged``:
+new slots write prompt chunks while resident slots decode, one per-slot
+phase mask); deadlines and cancels ride the next window as lifecycle
+masks (``_merge_lifecycle``: the slot goes inactive on the card, its
+pages free at the boundary); radix registration of an in-window prefill
+waits for the drain of the window that wrote it. With
+``decode_window_auto`` the window size climbs its buckets
+(``EngineConfig.window_buckets``) while the host's launch time is still
+a share of the window's wall. Each slot draws from its own
+``torch.Generator``, on a schedule the host knows (prefill steps draw
+nothing, the budget is known), so a window gives the tokens of k
+blocked steps.
+
+Decoding runs all layers in one ``fused_paged_decode_layers`` launch, or
+attends per layer through ``paged_window_attention`` (the CUDA kernels
+on the card), when the route allows it (``decide_kernel_route``), else
+through the gather route; the mixed windows attend through
+``paged_window_attention`` at W = the prefill chunk (``window`` route).
+The pool may hold int8/fp8 pages with f32 scales (``kv_quant``,
+``quant_granularity``).
 
 Sharded serving (``mesh_data`` x ``mesh_model``, the ``--mesh-shape``
 knob): the pool's pages split over 'data', the heads, the pool's
@@ -33,10 +59,12 @@ shard, merged exactly over 'data' and folded once
 route where the geometry does not divide; the fused route stays 1x1.
 Under ``torchrun`` every rank takes rank 0's host decisions: the clock
 is rank 0's (``synced_clock``), and each step's tokens, positions,
-active mask, tables and sampled tokens are rank 0's, broadcast.
+active mask, tables and sampled tokens are rank 0's, broadcast. A mesh
+runs the blocked loop only: its step plans on the host every step
+(ROADMAP.md queue A item 14).
 
-Decode windows > 1, mixed prefill+decode steps, speculative verify,
-weight quantization and telemetry are not ported yet (see ROADMAP.md).
+Speculative verify, weight quantization and telemetry are not ported yet
+(see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -52,6 +80,7 @@ import torch
 from ..config import ModelConfig
 from ..device import resolve_device
 from ..models.gpt import (GPT, Params, compute_params, decode_step_paged,
+                          decode_window_paged, mixed_window_paged,
                           prefill_chunk_paged)
 from ..ops.decode import fused_paged_decode_supported, fused_weights
 from ..ops.paged_attention import (paged_attention_envelope,
@@ -69,6 +98,15 @@ from .requests import (FINISH_CANCELLED, FINISH_DEADLINE, FINISH_EOS,
                        FINISH_LENGTH_CAP, FINISH_MAX_TOKENS,
                        REJECT_BAD_REQUEST, Request, RequestResult)
 from .scheduler import Scheduler
+
+#: the window-size autotuner (``EngineConfig.decode_window_auto``):
+#: every this many windows, climb one bucket while the host's launch time
+#: is still more than this share of the windows' wall
+WINDOW_AUTOTUNE_INTERVAL = 8
+WINDOW_AUTOTUNE_HOST_FRAC = 0.05
+
+#: the ROADMAP.md item a windowed engine on a serving mesh waits for
+MESH_WINDOW_ITEM = "queue A item 14 (decode windows on a serving mesh)"
 
 log = logging.getLogger(__name__)
 
@@ -95,6 +133,13 @@ class EngineConfig:
                                       # row and head ('head')
     mesh_data: int = 1          # 'data' axis: the pool's physical pages
     mesh_model: int = 1         # 'model' axis: heads, pool channels, TP
+    decode_window: int = 1      # decode steps enqueued as one window (the
+                                # --decode-window knob): 1 = the blocked
+                                # step-per-read loop; > 1 the continuous
+                                # double-buffered windows (1x1 mesh)
+    decode_window_auto: bool = False  # climb window_buckets() from the
+                                      # live host-vs-wall split, capped
+                                      # at decode_window
 
     @property
     def mesh_shape(self) -> tuple:
@@ -108,6 +153,27 @@ class EngineConfig:
     def chunk(self, block_size: int) -> int:
         return prefill_chunk_size(self.prefill_chunk, block_size)
 
+    def window_buckets(self) -> tuple:
+        """The window sizes this engine may launch, smallest first: the
+        powers of two below ``decode_window`` and ``decode_window``
+        itself when auto-tuned, else ``decode_window`` alone."""
+        W = max(int(self.decode_window), 1)
+        if W <= 1:
+            return (1,)
+        if not self.decode_window_auto:
+            return (W,)
+        out, b = [], 2
+        while b < W:
+            out.append(b)
+            b *= 2
+        return tuple(out) + (W,)
+
+    def warmup_tokens(self) -> int:
+        """Tokens a warmup request generates so that it drives the steady
+        window path past its admission's mixed window (one definition for
+        every warmup)."""
+        return 1 if self.decode_window <= 1 else 2 * self.decode_window + 2
+
 
 @dataclass(frozen=True)
 class KernelRoute:
@@ -117,9 +183,11 @@ class KernelRoute:
     ``fused_paged_decode_layers`` call), "kernel" (attention per layer
     through ``paged_window_attention``) or "gather" (scatter, gather the
     logical view, attend); on the card the first two are the CUDA
-    kernels, on the CPU their plain versions. ``window`` is "none"
-    because this engine runs no windowed step; ``reasons`` names every
-    failed gate."""
+    kernels, on the CPU their plain versions. ``window`` is the mixed
+    prefill+decode windows' route: "kernel" (``paged_window_attention``
+    at W = the prefill chunk) or "gather", and "none" on an engine that
+    runs no window (``decode_window`` 1). ``reasons`` names every failed
+    gate."""
 
     decode: str
     window: str
@@ -147,7 +215,11 @@ def decide_kernel_route(cfg: ModelConfig, ecfg: EngineConfig,
     where ``paged_kernel_mesh_ok`` holds for the pool's ``n_pages``),
     else the gather route. ``itemsize`` is the POOL's element size (1
     for int8/fp8), as the JAX engine passes it, so an int8 pool can
-    admit the f32 fused route that an f32 pool misses."""
+    admit the f32 fused route that an f32 pool misses. A windowed
+    engine's mixed windows take the per-layer kernel wherever the same
+    gates hold and its envelope takes W = the prefill chunk
+    (``window_*`` reasons otherwise), as JAX's
+    ``mixed_step_kernel_ok``."""
     q = ecfg.quant()
     d, m = ecfg.mesh_shape
     reasons = []
@@ -166,7 +238,16 @@ def decide_kernel_route(cfg: ModelConfig, ecfg: EngineConfig,
         cfg, n_slots, page_size, itemsize, kv_quant=q.kv_dtype,
         granularity=q.granularity, max_pages=max_pages)
     decode = "fused" if fused else "gather" if reasons else "kernel"
-    return KernelRoute(decode=decode, window="none", reasons=tuple(reasons),
+    window = "none"
+    if ecfg.decode_window > 1:
+        _, wenv = paged_attention_envelope(
+            h_loc, cfg.head_dim, page_size, itemsize=itemsize,
+            window=ecfg.chunk(cfg.block_size), max_pages=max_pages,
+            kv_quant=q.kv_dtype, granularity=q.granularity)
+        wreasons = [f"window_{r}" for r in wenv if r not in env]
+        reasons.extend(wreasons)
+        window = "gather" if decode == "gather" or wreasons else "kernel"
+    return KernelRoute(decode=decode, window=window, reasons=tuple(reasons),
                        kv_quant=q.kv_dtype, granularity=q.granularity,
                        sharded=d * m > 1 and decode == "kernel",
                        mesh=(d, m))
@@ -184,6 +265,71 @@ class _Active:
     tokens: List[int] = field(default_factory=list)
     t_first_token: float = 0.0
     t_last_token: float = 0.0
+
+
+@dataclass
+class _InFlight:
+    """One enqueued window whose token block has not been read yet.
+    ``block``: its (2, k, B) int32 tokens and emitted mask, in pinned
+    host memory on the card (the copy enqueued at launch, ``event``
+    recorded after it), else the tensor itself."""
+
+    block: torch.Tensor
+    event: Optional[torch.cuda.Event]
+    k: int                        # the window's steps
+    t_wall: float                 # launch time (perf_counter)
+    n_active: int                 # live slots at launch
+    host_s: float = 0.0           # the host's launch time (the
+                                  # autotuner's numerator)
+    #: (slot, request id) of the slots whose in-window prefill completes
+    #: in this window: their radix registration waits for its drain; the
+    #: id guards against a slot recycled since the launch
+    pf_done: List = field(default_factory=list)
+
+
+def _merge_lifecycle(tok, pos, active, budget, life):
+    """Fold a boundary's host-side lifecycle changes into the card's step
+    state at the top of a window (JAX ``_merge_lifecycle``). ``life`` is
+    ONE (5, B) int32 tensor: row 0 the kill flags (cancelled or expired
+    slots go inactive from the window's first step: their writes drop
+    and they emit nothing), row 1 the admission flags, rows 2-4 an
+    admitted slot's token, position and budget (it goes active)."""
+    kill, adm = life[0].bool(), life[1].bool()
+    tok = torch.where(adm, life[2], tok)
+    pos = torch.where(adm, life[3], pos)
+    budget = torch.where(adm, life[4], budget)
+    return tok, pos, (active | adm) & ~kill, budget
+
+
+def _engine_decode_window(params, state, eos, life, tables, cache,
+                          cfg: ModelConfig, *, k: int, sample_fn,
+                          max_pos, use_kernel: bool = False,
+                          use_fused: bool = False, fused_blocks=None):
+    """The steady window: the lifecycle merge, then ``k`` decode steps
+    (``models.gpt.decode_window_paged``). ``state``: (tok, pos, active,
+    budget) on the card. Returns ``(toks, emitted, tok, pos, active,
+    budget)``."""
+    tok, pos, active, budget = _merge_lifecycle(*state, life)
+    return decode_window_paged(params, tok, pos, active, budget, eos,
+                               tables, cache, cfg, sample_fn=sample_fn,
+                               length=k, use_kernel=use_kernel,
+                               use_fused=use_fused,
+                               fused_blocks=fused_blocks, max_pos=max_pos)
+
+
+def _engine_mixed_window(params, state, eos, life, pfc, pf_toks, tables,
+                         cache, cfg: ModelConfig, *, k: int, sample_fn,
+                         max_pos, use_kernel: bool = False):
+    """The window launched while a slot still has prompt chunks to
+    write: the lifecycle merge, then ``models.gpt.mixed_window_paged``.
+    ``pfc``: the (3, B) prefill cursors in one tensor (chunks this
+    window, next write position, prompt length); ``pf_toks`` (k, B,
+    chunk) the chunks."""
+    tok, pos, active, budget = _merge_lifecycle(*state, life)
+    return mixed_window_paged(params, tok, pos, active, budget, eos,
+                              pfc[0], pfc[1], pfc[2], pf_toks, tables,
+                              cache, cfg, sample_fn=sample_fn, length=k,
+                              use_kernel=use_kernel, max_pos=max_pos)
 
 
 class Engine:
@@ -205,6 +351,12 @@ class Engine:
                  clock: Callable[[], float] = time.monotonic,
                  device: Optional[Union[str, torch.device]] = None):
         cfg.validate()
+        if ecfg.decode_window > 1 and ecfg.mesh_data * ecfg.mesh_model > 1:
+            raise ValueError(
+                f"decode_window={ecfg.decode_window} on a "
+                f"{ecfg.mesh_data}x{ecfg.mesh_model} serving mesh is not "
+                f"implemented in replicatinggpt_tpu_torch yet: ROADMAP.md "
+                f"{MESH_WINDOW_ITEM}")
         self.device = dev = resolve_device(device)
         self.cfg = cfg
         self.ecfg = ecfg
@@ -236,16 +388,26 @@ class Engine:
         self.step_timer = StepTimer(dev)
         P = ecfg.pool_size
         self._chunk = ecfg.chunk(cfg.block_size)
+        # the window sizes and the autotuner's cursor and accumulators
+        # (host launch time vs window wall since its last decision)
+        self._window = max(int(ecfg.decode_window), 1)
+        self._buckets = ecfg.window_buckets()
+        self._wk = 0
+        self._window_cur = self._buckets[0]
+        self._at_host = self._at_wall = 0.0
+        self._at_n = 0
         self.kernel_route = decide_kernel_route(
             cfg, ecfg, self.pool.page_size, self.pool.max_pages,
             self.pool.itemsize, P, self.pool.n_pages)
         self._use_kernel = self.kernel_route.decode == "kernel"
         self._use_fused = self.kernel_route.decode == "fused"
+        self._use_window_kernel = self.kernel_route.window == "kernel"
         # the fused kernel's blocks, every one in the compute dtype
         self._fused_blocks = (fused_weights(self.params["blocks"],
                                             cfg.compute_dtype)
                               if self._use_fused else None)
-        log.info("kernel route: %s%s", self.kernel_route.decode,
+        log.info("kernel route: %s, window %s%s", self.kernel_route.decode,
+                 self.kernel_route.window,
                  (" reasons=" + ",".join(self.kernel_route.reasons)
                   if self.kernel_route.reasons else ""))
         self._tok = np.zeros((P,), np.int32)
@@ -261,12 +423,36 @@ class Engine:
         self._greedy = np.zeros((P,), bool)
         # per-slot sampling streams, reseeded at admission
         self._gens = [torch.Generator(device=dev) for _ in range(P)]
-        # device copies of the page tables and sampling params, rebuilt
-        # only after an admission or finish changed them (None = stale)
+        # device copies of the eos ids, page tables and sampling params,
+        # rebuilt only after an admission or finish changed them
         self._li = None
+        # lifecycle masks of the windows: request id -> kill reason, and
+        # the slots admitted since the last launch (_merge_lifecycle)
+        self._kill: Dict[str, str] = {}
+        self._adm_mask = np.zeros((P,), bool)
+        # in-window prefill cursors: chunks left to launch, next write
+        # position, prompt length, and the padded prompt tails; a window
+        # consumes min(k, chunks left), so the host advances them at
+        # launch without reading the card
+        self._pf_left = np.zeros((P,), np.int32)
+        self._pf_off = np.zeros((P,), np.int32)
+        self._pf_limit = np.zeros((P,), np.int32)
+        self._pf_tail: Dict[int, np.ndarray] = {}
+        # the launched windows' schedule: each slot's budget left and
+        # position after them (the card's, unless an eos ended it sooner)
+        self._sched_budget = np.zeros((P,), np.int32)
+        self._sched_pos = np.zeros((P,), np.int32)
+        # the card's (tok, pos, active, budget) between windows (None:
+        # upload the host mirrors at the next launch), the window whose
+        # token block is unread, and the quiet boundaries' lifecycle pack
+        self._dev_state = None
+        self._inflight: Optional[_InFlight] = None
+        self._z_life = torch.zeros((5, P), dtype=torch.int32, device=dev)
         self._slots: Dict[int, _Active] = {}
         self._pending: List[RequestResult] = []
         self.n_steps = 0
+        if self._window > 1:
+            self._warm_windows()
 
     # ---------------------------------------------------------------- API
 
@@ -291,7 +477,15 @@ class Engine:
 
     def cancel(self, request_id: str) -> bool:
         """Cancel a queued or running request; its terminal result (with
-        any tokens produced) surfaces from the next ``step()``."""
+        any tokens produced) surfaces from the next ``step()``.
+
+        On a windowed engine a cancel is a lifecycle mask: the kill flag
+        rides the next window, which deactivates the slot on the card
+        from its first step (the slot emits nothing after it lands), and
+        the slot and its pages free at that boundary, after the window
+        in flight is read (its tokens ride the result). A cancel racing
+        a window that already finished the request surfaces the natural
+        finish."""
         now = self.clock()
         if self.scheduler.cancel(request_id):
             self.metrics.inc("finished_" + FINISH_CANCELLED)
@@ -301,30 +495,50 @@ class Engine:
         slot = self.pool.slot_of(request_id)
         if slot is None:
             return False
+        if self._window > 1:
+            self._kill[request_id] = FINISH_CANCELLED
+            return True
         self._pending.append(self._finish_slot(slot, FINISH_CANCELLED, now))
         return True
 
     @property
     def idle(self) -> bool:
         return (not self._active.any() and len(self.scheduler) == 0
-                and not self._pending)
+                and not self._pending and self._inflight is None)
 
     def step(self) -> List[RequestResult]:
-        """One scheduling iteration: expire -> admit -> decode."""
+        """One scheduling iteration: expire -> admit -> decode. On a
+        windowed engine the decode phase is one window boundary
+        (``_window_step``): admissions are host bookkeeping whose prompt
+        chunks ride the next window, expired and cancelled slots ride it
+        as kill flags, and the next window is enqueued before the one in
+        flight is read."""
         finished: List[RequestResult] = self._pending
         self._pending = []
         now = self.clock()
         for req, t_submit, reason in self.scheduler.drain_expired(now):
             finished.append(self._finish_unstarted(req, t_submit, reason,
                                                    now))
-        for slot in np.flatnonzero(self._active & (self._deadline <= now)):
-            finished.append(self._finish_slot(int(slot), FINISH_DEADLINE,
-                                              now))
-        self._admit_queue(now, finished)
-        self.metrics.gauge("queue_depth", self.scheduler.depth)
-        self.metrics.gauge("slots_active", int(self._active.sum()))
-        self.metrics.gauge("slot_occupancy", self.pool.occupancy)
-        self.metrics.gauge("pages_in_use", self.pool.alloc.pages_in_use)
+        expired = [int(s) for s in
+                   np.flatnonzero(self._active & (self._deadline <= now))
+                   if int(s) in self._slots]
+        if self._window > 1:
+            if (self._active.any() or self._kill or expired
+                    or self._head_admissible()):
+                for slot in expired:
+                    self._kill.setdefault(self._slots[slot].req.id,
+                                          FINISH_DEADLINE)
+                self._window_step(now, finished)
+            elif self._inflight is not None:
+                # every slot finished while a window flew: read it (it
+                # emits nothing) so that drain() reaches idle
+                finished.extend(self._drain_pending())
+            self._gauges()
+            return finished
+        for slot in expired:
+            finished.append(self._finish_slot(slot, FINISH_DEADLINE, now))
+        self._admit_queue(now, finished, self._admit)
+        self._gauges()
         if self._active.any():
             finished.extend(self._decode_once())
         return finished
@@ -343,9 +557,45 @@ class Engine:
         s["n_steps"] = self.n_steps
         s["kernel_route"] = self.kernel_route.summary()
         s["pages"] = self.pool.stats()
+        # the host's launch time per launch and per token (a window's
+        # launch is its enqueue, before any wait on the card; a blocked
+        # step's the same up to its token read)
+        c = self.metrics.counters
+        disp = self.metrics.hist_summary("decode_dispatch_s")
+        n_disp = int(c.get("decode_dispatches", 0))
+        tokens = int(c.get("dispatch_tokens", 0))
+        mean_ms = disp["mean"] * 1e3
+        s["dispatch"] = {
+            "window_k": self._window_cur,
+            "window_k_max": self._window,
+            "autotune": bool(self.ecfg.decode_window_auto),
+            "autotune_increases": int(c.get("autotune_window_increases",
+                                            0)),
+            "dispatches": n_disp,
+            "mean_dispatch_ms": round(mean_ms, 4),
+            "host_dispatch_ms_per_token": (round(mean_ms * n_disp / tokens,
+                                                 4) if tokens else 0.0),
+            "decode_windows": int(c.get("decode_windows", 0)),
+            "mixed_windows": int(c.get("mixed_windows", 0)),
+            "decode_window_steps": int(c.get("decode_window_steps", 0)),
+            "mixed_window_steps": int(c.get("mixed_window_steps", 0)),
+        }
+        # the host mutations that make a windowed engine read the window
+        # in flight early and leave the window path, the JAX engine's
+        # keys: admissions, deadlines and cancels ride the windows here
+        # and the speculative modes are not ported, so none moves
+        s["window_breaks"] = {
+            r: int(c.get("window_breaks_" + r, 0))
+            for r in ("admit", "deadline", "cancel", "spec", "reprobe")}
         return s
 
     # ----------------------------------------------------------- internals
+
+    def _gauges(self) -> None:
+        self.metrics.gauge("queue_depth", self.scheduler.depth)
+        self.metrics.gauge("slots_active", int(self._active.sum()))
+        self.metrics.gauge("slot_occupancy", self.pool.occupancy)
+        self.metrics.gauge("pages_in_use", self.pool.alloc.pages_in_use)
 
     def _cap(self, req: Request) -> int:
         """Decode budget: decode step i runs at position P-1+i (the first
@@ -359,7 +609,19 @@ class Engine:
         lifetime, reserved at admission."""
         return self.pool.can_admit(req.prompt, self._cap(req))
 
+    def _padded_tail(self, req: Request, claimed: int) -> np.ndarray:
+        """The prompt's uncached tail, zero-padded to whole chunks."""
+        P = int(req.prompt.size)
+        if P > self.pool.seq_len:
+            raise IndexError(f"prefill of a {P}-token prompt past "
+                             f"{self.pool.seq_len}")
+        chunk = self._chunk
+        padded = np.zeros((-(-(P - claimed) // chunk) * chunk,), np.int32)
+        padded[:P - claimed] = req.prompt[claimed:]
+        return padded
+
     def _admit(self, req: Request, t_submit: float, now: float) -> None:
+        """Blocked admission: claim, copy-on-write, prefill now."""
         P = int(req.prompt.size)
         cap = self._cap(req)
         # claims the longest cached prefix, reserves the remaining pages
@@ -373,16 +635,11 @@ class Engine:
         claimed = adm.claimed
         if claimed < P:
             chunk = self._chunk
-            n_chunks = -(-(P - claimed) // chunk)
-            if P > self.pool.seq_len:
-                raise IndexError(f"prefill of a {P}-token prompt past "
-                                 f"{self.pool.seq_len}")
-            padded = np.zeros((n_chunks * chunk,), np.int64)
-            padded[:P - claimed] = req.prompt[claimed:]
+            padded = self._padded_tail(req, claimed)
             dev = self.device
-            toks = torch.tensor(padded, device=dev)
+            toks = torch.tensor(padded.astype(np.int64), device=dev)
             table_row = torch.tensor(self.pool.tables[slot], device=dev)
-            for c in range(n_chunks):
+            for c in range(padded.size // chunk):
                 prefill_chunk_paged(
                     self.params, toks[None, c * chunk:(c + 1) * chunk],
                     claimed + c * chunk, P, table_row, self.pool.cache,
@@ -391,9 +648,47 @@ class Engine:
         # registration AFTER the prefill wrote the pages: a same-step
         # neighbor may claim them the moment they hit the radix
         self.pool.commit_admission(slot)
+        self._admit_finalize(req, t_submit, now, slot, cap, claimed)
+
+    def _admit_windowed(self, req: Request, t_submit: float, now: float
+                        ) -> None:
+        """Admission at a window boundary: ``_admit``'s claim and
+        copy-on-write (enqueued behind the window in flight), but the
+        prompt's uncached tail goes onto the prefill cursors and rides
+        the next (mixed) window, and the slot enters the card's state
+        through the admission mask. Its radix registration waits for the
+        drain of the window that finishes its prefill
+        (``_InFlight.pf_done``): pages a window in flight is writing must
+        not be claimable."""
+        P = int(req.prompt.size)
+        cap = self._cap(req)
+        adm = self.pool.acquire(req.id, req.prompt, cap, defer_commit=True)
+        assert adm is not None, "scheduler admitted past pool capacity"
+        slot = adm.slot
+        for src, dst in adm.cow:
+            self.pool.copy_page(src, dst)
+        claimed = adm.claimed
+        if claimed < P:
+            padded = self._padded_tail(req, claimed)
+            self._pf_tail[slot] = padded
+            self._pf_left[slot] = padded.size // self._chunk
+            self._pf_off[slot] = claimed
+            self._pf_limit[slot] = P
+        else:
+            # a fully cached prompt (copy-on-write aside) writes nothing:
+            # its pages were written and registered by earlier owners
+            self.pool.commit_admission(slot)
+        self._adm_mask[slot] = True
+        self._admit_finalize(req, t_submit, now, slot, cap, claimed)
+
+    def _admit_finalize(self, req: Request, t_submit: float, now: float,
+                        slot: int, cap: int, claimed: int) -> None:
+        """The slot mirrors and records both admissions share."""
+        P = int(req.prompt.size)
         self._tok[slot] = req.prompt[-1]
         self._active[slot] = True
-        self._budget[slot] = cap
+        self._budget[slot] = self._sched_budget[slot] = cap
+        self._sched_pos[slot] = P - 1
         self._eos[slot] = (-1 if req.eos_token_id is None
                            else int(req.eos_token_id))
         self._deadline[slot] = (np.inf if req.deadline is None
@@ -413,8 +708,8 @@ class Engine:
         self.metrics.inc("prefix_hit_tokens", claimed)
         self.metrics.observe("queue_wait_s", now - t_submit)
 
-    def _admit_queue(self, now: float, finished: List[RequestResult]
-                     ) -> None:
+    def _admit_queue(self, now: float, finished: List[RequestResult],
+                     admit_fn) -> None:
         """One-at-a-time FIFO admission: each admission changes page
         availability, so the fits check sees fresh allocator state, and
         a head that does not fit BLOCKS the queue (no starvation)."""
@@ -427,25 +722,51 @@ class Engine:
             if not admitted:
                 break
             req, t_submit = admitted[0]
-            self._admit(req, t_submit, now)
+            admit_fn(req, t_submit, now)
+
+    def _head_admissible(self) -> bool:
+        """Whether this step could admit: a free slot and a queued head
+        that fits. While it cannot, a backlog waits for a window
+        boundary that frees room."""
+        if self.pool.n_free <= 0:
+            return False
+        head = self.scheduler.peek()
+        return head is not None and self._fits(head[0])
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device. On the card: through
+        pinned memory, enqueued without waiting, so that a window
+        boundary never blocks the host on the card."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t.clone()
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _launch_inputs(self) -> tuple:
+        """The eos ids, page tables and sampling params on the device,
+        uploaded again only after an admission or finish changed them."""
         if self._li is None:
-            dev = self.device
-            self._li = tuple(torch.tensor(a, device=dev) for a in (
-                self.pool.tables, self._temp, self._top_k, self._top_p,
-                self._greedy))
+            self._li = tuple(self._upload(a) for a in (
+                self._eos, self.pool.tables, self._temp, self._top_k,
+                self._top_p, self._greedy))
             if self.group is not None:
-                self.group.broadcast_(self._li[:1])   # rank 0's tables
+                self.group.broadcast_(self._li[1:2])  # rank 0's tables
         return self._li
 
     def _decode_once(self) -> List[RequestResult]:
-        """One decode step over every slot, fetched at once (the write
-        positions are bounds-checked inside ``decode_step_paged``)."""
+        """One blocked decode step over every slot, its tokens read at
+        once. The host mirror bounds the write positions and sizes the
+        kernels' split."""
         self.step_timer.start()
+        t_wall = time.perf_counter()
         n_active = int(self._active.sum())
         dev = self.device
-        tables, temp, top_k, top_p, greedy = self._launch_inputs()
+        _, tables, temp, top_k, top_p, greedy = self._launch_inputs()
+        pe = np.where(self._active, self._pos, 0)
+        cap = self.pool.max_pages * self.pool.page_size
+        if pe.min() < 0 or pe.max() >= cap:
+            raise IndexError(f"paged decode write: [{pe.min()}, "
+                             f"{pe.max() + 1}) outside [0, {cap})")
         state = torch.from_numpy(np.stack(
             [self._tok, self._pos, self._active.astype(np.int32)])).to(dev)
         if self.group is not None:
@@ -457,12 +778,14 @@ class Engine:
                                       use_fused=self._use_fused,
                                       fused_blocks=self._fused_blocks,
                                       group=self.group,
-                                      host_tables=self.pool.tables)
+                                      host_tables=self.pool.tables,
+                                      max_pos=int(pe.max()))
         gens = [g if a and not gr else None
                 for g, a, gr in zip(self._gens, self._active, self._greedy)]
         nxt = sample_tokens_batched(gens, logits, temp, top_k, top_p, greedy)
         if self.group is not None:
             self.group.broadcast_([nxt])     # rank 0's samples
+        host_s = time.perf_counter() - t_wall
         toks = nxt.cpu().numpy()
         self.step_timer.lap()
         now = self.clock()
@@ -473,37 +796,336 @@ class Engine:
                              n_active / self.ecfg.pool_size)
         self.metrics.inc("decode_steps")
         self.metrics.inc("decode_tokens", n_tok)
+        self.metrics.inc("decode_dispatches")
+        self.metrics.observe("decode_dispatch_s", host_s)
+        self.metrics.inc("dispatch_tokens", n_tok)
         finished: List[RequestResult] = []
         for slot in list(self._slots):
             if not emitted[slot]:
                 continue
             st = self._slots[slot]
-            first = not st.tokens
-            st.tokens.append(int(toks[slot]))
-            if first:
-                st.t_first_token = now
-                self.metrics.observe("ttft_s", now - st.t_submit)
-            st.t_last_token = now
-            self._tok[slot] = st.tokens[-1]
-            self._pos[slot] += 1
-            self._budget[slot] = st.cap - len(st.tokens)
-            eos = int(self._eos[slot])
-            if eos >= 0 and st.tokens[-1] == eos:
-                finished.append(self._finish_slot(slot, FINISH_EOS, now))
-            elif self._budget[slot] <= 0:
-                reason = (FINISH_LENGTH_CAP if st.capped
-                          else FINISH_MAX_TOKENS)
-                finished.append(self._finish_slot(slot, reason, now))
+            self._commit_tokens(slot, st, [int(toks[slot])], now)
+            finished.extend(self._finish_if_done(slot, st, now))
         # the full prompt page holding position P-1 becomes shareable
         # once the decode frontier passed it
         self.pool.flush_pending()
         return finished
 
-    def _finish_slot(self, slot: int, reason: str,
-                     now: float) -> RequestResult:
+    # ------------------------------------------------------------ windows
+
+    def _window_step(self, now: float, finished: List[RequestResult]
+                     ) -> None:
+        """One window boundary: resolve pending kills into this launch's
+        flags, admit the queue head(s) as host bookkeeping (their chunks
+        ride the launch), launch window N, read window N-1, then finish
+        the killed slots, whose pages may free while window N flies: the
+        kill flag deactivated them on the card before it started (writes
+        dropped, nothing emitted)."""
+        k = self._window_cur
+        kill = np.zeros((self.ecfg.pool_size,), bool)
+        kills = []
+        for rid, reason in self._kill.items():
+            slot = self.pool.slot_of(rid)
+            if slot is not None and slot in self._slots:
+                kill[slot] = True
+                kills.append((slot, reason))
+        # slots this boundary's kills free are admissible at the next one
+        self._admit_queue(now, finished, self._admit_windowed)
+        live = self._active & ~kill
+        if kills or self._adm_mask.any():
+            if live.any():
+                nxt = self._launch(k, kill)
+                finished.extend(self._drain_pending())
+                for slot, reason in kills:
+                    if slot in self._slots:   # it may have ended in N-1
+                        finished.append(self._finish_slot(
+                            slot, reason, now, masked=True))
+                self._inflight = nxt
+            else:
+                # the kills empty the engine: no window would carry the
+                # mask, so they finish on the host (the card's state is
+                # then rebuilt from the mirrors at the next launch)
+                finished.extend(self._drain_pending())
+                for slot, reason in kills:
+                    if slot in self._slots:
+                        finished.append(self._finish_slot(slot, reason,
+                                                          now))
+            self._kill.clear()
+        elif live.any():
+            # each slot's work left in window steps: prefill chunks and
+            # its budget; when all of it fits one window, that window is
+            # the last (an eos only ends sooner)
+            rem = np.where(live, self._pf_left + self._budget, 0)
+            last = int(rem.max()) <= k
+            if self._inflight is not None and last:
+                finished.extend(self._drain_pending())
+            elif last:
+                finished.extend(self._drain_window(self._launch(k)))
+            else:
+                # double buffering: launch window N before reading N-1
+                nxt = self._launch(k)
+                finished.extend(self._drain_pending())
+                self._inflight = nxt
+        else:
+            finished.extend(self._drain_pending())
+            self._kill.clear()   # ids whose requests already ended
+
+    def _window_plan(self, k: int, live: np.ndarray) -> tuple:
+        """The host's schedule of a k-step window over the ``live``
+        slots: (prefill chunks of each slot, its decode steps after
+        them, per step the bound on every live slot's row base that
+        sizes the kernels' split, per step the slots that draw). A slot
+        decodes within the budget the launched windows left it; the
+        bound is a prefilling slot's chunk start, a decoding slot's
+        position after its decode steps so far."""
+        n_pf = np.where(live, np.minimum(self._pf_left, k), 0)
+        n_dec = np.where(live, np.clip(k - n_pf, 0, self._sched_budget), 0)
+        over = (n_dec > 0) & (self._sched_pos + n_dec > self.pool.seq_len)
+        if over.any():
+            raise IndexError(f"decode window writes past position "
+                             f"{self.pool.seq_len - 1} in slots "
+                             f"{np.flatnonzero(over).tolist()}")
+        t = np.arange(k)[:, None]
+        base = np.where(t < n_pf, self._pf_off + t * self._chunk,
+                        self._sched_pos + np.clip(t - n_pf, 0, n_dec))
+        bounds = [int(b) for b in np.where(live, base, 0).max(1)]
+        draws = ((t >= n_pf) & (t < n_pf + n_dec)
+                 & (live & ~self._greedy))
+        return n_pf, n_dec, bounds, draws
+
+    def _launch(self, k: int, kill: Optional[np.ndarray] = None
+                ) -> _InFlight:
+        """Enqueue one k-step window without reading it: the decode
+        window, or the mixed window while a slot has prompt chunks left.
+        The card's state from the window before feeds it; kills and
+        admissions ride it as one (5, B) upload (a quiet boundary uploads
+        nothing); its token block's copy to pinned host memory is
+        enqueued behind it, with an event that ``_drain_window`` waits
+        on. No host read happens here."""
+        t_wall = time.perf_counter()
+        P = self.ecfg.pool_size
+        if kill is None:
+            kill = np.zeros((P,), bool)
+        live = self._active & ~kill
+        if self._dev_state is None:
+            st = self._upload(np.stack([self._tok, self._pos,
+                                        self._active.astype(np.int32),
+                                        self._budget]))
+            state = (st[0], st[1], st[2].bool(), st[3])
+        else:
+            state = self._dev_state
+        eos_d, tables_d, *sample = self._launch_inputs()
+        if kill.any() or self._adm_mask.any():
+            life = self._upload(np.stack(
+                [kill, self._adm_mask, self._tok, self._pos,
+                 self._budget]).astype(np.int32))
+        else:
+            life = self._z_life
+        n_pf, n_dec, bounds, draws = self._window_plan(k, live)
+        gens = self._gens
+
+        def sample_fn(t, logits):
+            return sample_tokens_batched(
+                [g if d else None for g, d in zip(gens, draws[t])], logits,
+                *sample)
+
+        pf = np.flatnonzero(n_pf)
+        pf_done = []
+        if pf.size:
+            chunk = self._chunk
+            pf_toks = np.zeros((k, P, chunk), np.int32)
+            for slot in pf:
+                n = int(n_pf[slot])
+                pf_toks[:n, slot] = \
+                    self._pf_tail[slot][:n * chunk].reshape(n, chunk)
+            up = self._upload(np.concatenate([
+                np.stack([n_pf, self._pf_off, self._pf_limit]).ravel(),
+                pf_toks.ravel()]).astype(np.int32))
+            out = _engine_mixed_window(
+                self.params, state, eos_d, life, up[:3 * P].view(3, P),
+                up[3 * P:].view(k, P, chunk), tables_d, self.pool.cache,
+                self.cfg, k=k, sample_fn=sample_fn, max_pos=bounds,
+                use_kernel=self._use_window_kernel)
+            for slot in pf:
+                n = int(n_pf[slot])
+                self._pf_left[slot] -= n
+                self._pf_off[slot] += n * chunk
+                if self._pf_left[slot] == 0:
+                    self._pf_tail.pop(slot)
+                    pf_done.append((int(slot), self._slots[slot].req.id))
+                else:
+                    self._pf_tail[slot] = self._pf_tail[slot][n * chunk:]
+            self.metrics.inc("mixed_windows")
+            self.metrics.inc("mixed_window_steps", k)
+        else:
+            out = _engine_decode_window(
+                self.params, state, eos_d, life, tables_d, self.pool.cache,
+                self.cfg, k=k, sample_fn=sample_fn, max_pos=bounds,
+                use_kernel=self._use_kernel, use_fused=self._use_fused,
+                fused_blocks=self._fused_blocks)
+            self.metrics.inc("decode_windows")
+            self.metrics.inc("decode_window_steps", k)
+        toks, emitted, tok, pos, active, budget = out
+        self._dev_state = (tok, pos, active, budget)
+        self._adm_mask[:] = False       # the merge rides this launch
+        self._sched_budget -= n_dec.astype(np.int32)
+        self._sched_pos += n_dec.astype(np.int32)
+        block = torch.stack([toks, emitted.to(torch.int32)])
+        event = None
+        if block.is_cuda:
+            host = torch.empty(block.shape, dtype=block.dtype,
+                               pin_memory=True)
+            host.copy_(block, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            block = host
+        host_s = time.perf_counter() - t_wall
+        self.metrics.inc("decode_dispatches")
+        self.metrics.observe("decode_dispatch_s", host_s)
+        return _InFlight(block=block, event=event, k=k, t_wall=t_wall,
+                         n_active=int(live.sum()), host_s=host_s,
+                         pf_done=pf_done)
+
+    def _drain_pending(self) -> List[RequestResult]:
+        """Read the window in flight, if any."""
+        if self._inflight is None:
+            return []
+        w, self._inflight = self._inflight, None
+        return self._drain_window(w)
+
+    def _drain_window(self, w: _InFlight) -> List[RequestResult]:
+        """Read one window's token block (its one host read) and do the
+        host bookkeeping: commit each slot's emitted tokens, finish the
+        slots whose eos or budget stopped them on the card (their slot
+        and pages free here), register the prompt pages its prefill
+        completed and the pages its decode passed."""
+        if w.event is not None:
+            w.event.synchronize()
+        blk = w.block.numpy()
+        toks, emitted = blk[0], blk[1].astype(bool)
+        now = self.clock()
+        self.n_steps += 1
+        self.step_timer.laps.append(time.perf_counter() - w.t_wall)
+        n_tok = int(emitted.sum())
+        self.metrics.observe("batch_fill_ratio",
+                             w.n_active / self.ecfg.pool_size)
+        self.metrics.inc("decode_steps")
+        self.metrics.inc("decode_tokens", n_tok)
+        self.metrics.inc("dispatch_tokens", n_tok)
+        for slot, rid in w.pf_done:
+            st = self._slots.get(slot)
+            if st is not None and st.req.id == rid:
+                self.pool.commit_admission(slot)
+        finished: List[RequestResult] = []
+        for slot in list(self._slots):
+            # a run: False while the slot prefills, True from its first
+            # decode step until it stops; commit by the mask
+            mask = emitted[:, slot]
+            if not mask.any():
+                continue
+            st = self._slots[slot]
+            self._commit_tokens(slot, st, [int(t) for t in toks[mask, slot]],
+                                now)
+            finished.extend(self._finish_if_done(slot, st, now,
+                                                 device_stopped=True))
+        self.pool.flush_pending()
+        if w.k > 1:
+            self._at_host += w.host_s
+            self._at_wall += self.step_timer.laps[-1]
+            self._at_n += 1
+            self._maybe_autotune()
+        return finished
+
+    def _maybe_autotune(self) -> None:
+        """Bounded additive increase: every ``WINDOW_AUTOTUNE_INTERVAL``
+        windows, while the host's launch time is more than
+        ``WINDOW_AUTOTUNE_HOST_FRAC`` of the windows' wall, move one
+        bucket up (never down, never past ``decode_window``)."""
+        if (not self.ecfg.decode_window_auto
+                or self._wk >= len(self._buckets) - 1
+                or self._at_n < WINDOW_AUTOTUNE_INTERVAL):
+            return
+        host_frac = self._at_host / max(self._at_wall, 1e-9)
+        if host_frac > WINDOW_AUTOTUNE_HOST_FRAC:
+            self._wk += 1
+            self._window_cur = self._buckets[self._wk]
+            self.metrics.inc("autotune_window_increases")
+            self.metrics.gauge("decode_window_k", self._window_cur)
+        self._at_host = self._at_wall = 0.0
+        self._at_n = 0
+
+    def _warm_windows(self) -> None:
+        """One masked no-op window of each kind at construction, every
+        slot inactive (writes dropped, nothing emitted, nothing drawn):
+        on the card it builds and loads the kernels the windows launch
+        before the first request does. A window's shapes do not depend
+        on its k, so one step of each kind covers every bucket."""
+        P = self.ecfg.pool_size
+        zeros = torch.zeros((P,), dtype=torch.int32, device=self.device)
+        state = (zeros, zeros, zeros.bool(), zeros)
+        eos_d, tables_d, *sample = self._launch_inputs()
+
+        def no_draw(t, logits):
+            return sample_tokens_batched([None] * P, logits, *sample)
+
+        _engine_decode_window(
+            self.params, state, eos_d, self._z_life, tables_d,
+            self.pool.cache, self.cfg, k=1, sample_fn=no_draw, max_pos=[0],
+            use_kernel=self._use_kernel, use_fused=self._use_fused,
+            fused_blocks=self._fused_blocks)
+        _engine_mixed_window(
+            self.params, state, eos_d, self._z_life, self._z_life[:3],
+            torch.zeros((1, P, self._chunk), dtype=torch.int32,
+                        device=self.device), tables_d, self.pool.cache,
+            self.cfg, k=1, sample_fn=no_draw, max_pos=[0],
+            use_kernel=self._use_window_kernel)
+
+    # --------------------------------------------------------- bookkeeping
+
+    def _commit_tokens(self, slot: int, st: _Active, committed: List[int],
+                       now: float) -> None:
+        """Append a step's or window's tokens to a slot's record: TTFT on
+        the first, and the token, position and budget mirrors."""
+        first = not st.tokens
+        st.tokens.extend(committed)
+        if first:
+            st.t_first_token = now
+            self.metrics.observe("ttft_s", now - st.t_submit)
+        st.t_last_token = now
+        self._tok[slot] = st.tokens[-1]
+        self._pos[slot] += len(committed)
+        self._budget[slot] = st.cap - len(st.tokens)
+
+    def _finish_if_done(self, slot: int, st: _Active, now: float,
+                        device_stopped: bool = False) -> List[RequestResult]:
+        """Finish the slot if its last token is its eos or its budget is
+        spent."""
+        eos = int(self._eos[slot])
+        if eos >= 0 and st.tokens[-1] == eos:
+            return [self._finish_slot(slot, FINISH_EOS, now,
+                                      device_stopped=device_stopped)]
+        if self._budget[slot] <= 0:
+            reason = FINISH_LENGTH_CAP if st.capped else FINISH_MAX_TOKENS
+            return [self._finish_slot(slot, reason, now,
+                                      device_stopped=device_stopped)]
+        return []
+
+    def _finish_slot(self, slot: int, reason: str, now: float,
+                     device_stopped: bool = False,
+                     masked: bool = False) -> RequestResult:
+        """Free the slot and its pages and build its result. A finish the
+        card already knows of (its eos or budget stopped the slot there,
+        ``device_stopped``, or a kill flag in a launched window,
+        ``masked``) keeps the card's window state; any other makes the
+        next launch upload the host mirrors."""
         st = self._slots.pop(slot)
         self._active[slot] = False
         self._deadline[slot] = np.inf
+        self._adm_mask[slot] = False
+        self._pf_left[slot] = self._pf_off[slot] = self._pf_limit[slot] = 0
+        self._pf_tail.pop(slot, None)
+        if not (device_stopped or masked):
+            self._dev_state = None
         self._li = None           # release zeroes the slot's table row
         self.pool.release(slot)
         n = len(st.tokens)
@@ -526,4 +1148,3 @@ class Engine:
         return RequestResult(id=req.id, tokens=[], finish_reason=reason,
                              queue_wait_s=now - t_submit,
                              total_s=now - t_submit)
-

@@ -422,6 +422,10 @@ class PagedCachePool:
         self._owner: Dict[int, str] = {}
         self._slot_by_request: Dict[str, int] = {}   # reverse index: O(1)
         self._claims: Dict[int, PageClaim] = {}
+        # slots admitted with defer_commit=True (in-window prefill): out
+        # of radix registration, flush_pending's included, until
+        # commit_admission, which the engine calls once the writes landed
+        self._deferred: set = set()
 
     # ---------------------------------------------------------- geometry
 
@@ -457,13 +461,21 @@ class PagedCachePool:
             np.asarray(prompt, np.int32), cap)
 
     def acquire(self, request_id: str, prompt: np.ndarray,
-                cap: int) -> Optional[Admission]:
+                cap: int, defer_commit: bool = False
+                ) -> Optional[Admission]:
+        """``defer_commit=True`` (the engine's windowed admission) holds
+        the slot out of radix registration, ``flush_pending`` included,
+        until ``commit_admission``: a window in flight is still writing
+        its prompt pages, and a prefix hit must never claim a page before
+        its writes have landed in stream order."""
         if not self._free_slots:
             return None
         claim = self.alloc.acquire(prompt, cap)
         if claim is None:
             return None
         slot = self._free_slots.pop()
+        if defer_commit:
+            self._deferred.add(slot)
         self._owner[slot] = request_id
         self._slot_by_request[request_id] = slot
         self._claims[slot] = claim
@@ -489,19 +501,25 @@ class PagedCachePool:
     def commit_admission(self, slot: int) -> None:
         """Register the slot's already-final full prompt pages (called
         after prefill wrote them — registration order is what lets a
-        same-step neighbor claim them safely)."""
+        same-step neighbor claim them safely). Lifts a ``defer_commit``
+        hold."""
+        self._deferred.discard(slot)
         self.alloc.register(self._claims[slot], int(self.positions[slot]))
 
     def flush_pending(self) -> None:
         """Advance deferred registrations (the page containing prompt
         position P-1 becomes shareable once the first decode write
         passed it). Called once per engine step — cheap: at most one
-        page per slot ever waits."""
+        page per slot ever waits. Slots under a ``defer_commit`` hold
+        are skipped: their prompt writes may still be in flight."""
         for slot, claim in self._claims.items():
+            if slot in self._deferred:
+                continue
             if self.alloc.pending_registration(claim):
                 self.alloc.register(claim, int(self.positions[slot]))
 
     def release(self, slot: int) -> None:
+        self._deferred.discard(slot)
         owner = self._owner.pop(slot, None)
         assert owner is not None, f"slot {slot} double-free"
         if self._slot_by_request.get(owner) == slot:

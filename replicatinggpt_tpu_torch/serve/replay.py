@@ -3,7 +3,9 @@ engine (port of ``replicatinggpt_tpu/serve/replay.py``).
 
 ``make_trace`` is numpy only, so the same ``ReplayConfig`` gives the same
 trace, bit for bit, as the JAX package's. ``run_replay`` warms a
-throwaway engine first (which also builds the CUDA kernel) and then
+throwaway engine first (which also builds the CUDA kernels) with one
+request of ``EngineConfig.warmup_tokens()`` tokens, which drives a
+windowed engine through its mixed and its steady windows, and then
 replays the trace in wall-clock time.
 """
 
@@ -89,12 +91,16 @@ def run_replay(model, mcfg: ModelConfig, rcfg: ReplayConfig,
     request's token stream. ``kernel_launches`` counts the per-layer
     paged attention kernel's launches during the timed replay alone,
     ``partials_launches`` its partials mode's (a mesh's kernel route),
-    ``fused_launches`` the fused all-layers kernel's. The clock is the
+    ``kernel_launches_by_window`` the first by window width W (1 in the
+    decode steps, the prefill chunk in a windowed engine's mixed
+    windows), ``fused_launches`` the fused all-layers kernel's. The
+    clock is the
     engine's: under ``torchrun``, rank 0's on every rank, so that every
     rank submits the same requests at the same steps."""
     w = Engine(model, mcfg, ecfg, device=device)
     w.submit(Request(id="warmup", prompt=np.zeros((1,), np.int32),
-                     max_new_tokens=1, sampling=SamplingParams(greedy=True)))
+                     max_new_tokens=ecfg.warmup_tokens(),
+                     sampling=SamplingParams(greedy=True)))
     w.drain()
     del w
     engine = Engine(model, mcfg, ecfg, device=device)
@@ -103,6 +109,7 @@ def run_replay(model, mcfg: ModelConfig, rcfg: ReplayConfig,
     results: List[RequestResult] = []
     i = 0
     launches0 = paged_window_attention.launches
+    by_w0 = dict(paged_window_attention.launches_by_window)
     partials0 = paged_window_attention.partials_launches
     fused0 = fused_paged_decode_layers.launches
     t0 = clock()
@@ -138,6 +145,10 @@ def run_replay(model, mcfg: ModelConfig, rcfg: ReplayConfig,
         "aggregate_tokens_per_s": round(gen_tokens / wall_s, 1)
         if wall_s > 0 else 0.0,
         "kernel_launches": paged_window_attention.launches - launches0,
+        "kernel_launches_by_window": {
+            str(w): n - by_w0.get(w, 0) for w, n in
+            sorted(paged_window_attention.launches_by_window.items())
+            if n > by_w0.get(w, 0)},
         "partials_launches":
             paged_window_attention.partials_launches - partials0,
         "fused_launches": fused_paged_decode_layers.launches - fused0,
@@ -159,6 +170,21 @@ def format_summary(s: dict) -> str:
     sl = s["step_latency"]
     pg = s["pages"]
     kr = s["kernel_route"]
+    dp = s["dispatch"]
+    window = []
+    if dp["window_k_max"] > 1:
+        auto = (f" (autotuned up to {dp['window_k_max']}, "
+                f"{dp['autotune_increases']} increase(s))"
+                if dp["autotune"] else "")
+        window = [
+            f"dispatch split: window k={dp['window_k']}{auto}, "
+            f"{dp['dispatches']} dispatches ({dp['decode_windows']} decode "
+            f"+ {dp['mixed_windows']} mixed windows), host "
+            f"{dp['mean_dispatch_ms']:.3f} ms/dispatch -> "
+            f"{dp['host_dispatch_ms_per_token']:.3f} ms/token",
+            "window breaks: " + " ".join(
+                f"{r}={n}" for r, n in s["window_breaks"].items())]
+    by_w = s.get("kernel_launches_by_window") or {}
     mesh = []
     if pg["mesh_shape"] != [1, 1]:
         d, m = pg["mesh_shape"]
@@ -188,15 +214,20 @@ def format_summary(s: dict) -> str:
         f"TTFT: {pct('ttft_s', 1e3, ' ms')}",
         f"decode rate/request: {pct('decode_tokens_per_s', 1.0, ' tok/s')}",
         f"step latency: p50 {sl['p50_s'] * 1e3:.2f} ms / "
-        f"p90 {sl['p90_s'] * 1e3:.2f} ms over {s['n_steps']} steps",
+        f"p90 {sl['p90_s'] * 1e3:.2f} ms over {s['n_steps']} steps"
+        + (" (a step is one window)" if window else ""),
+        *window,
         f"batch fill: mean {h.get('batch_fill_ratio', {}).get('mean', 0):.2f}"
         f" (pool), queue wait {pct('queue_wait_s', 1e3, ' ms')}",
         f"kernel route: decode={kr['decode']}"
+        + (f", window={kr['window']}" if kr["window"] != "none" else "")
         + (f" (reasons: {','.join(kr['reasons'])})" if kr["reasons"]
            else "")
         + (f", sharded over {kr['mesh'][0]}x{kr['mesh'][1]}"
            if kr["sharded"] else "")
-        + f", {s['kernel_launches']} per-layer, "
-        f"{s['partials_launches']} partials and {s['fused_launches']} "
+        + f", {s['kernel_launches']} per-layer"
+        + (" (" + ", ".join(f"{n} at W={w}" for w, n in by_w.items()) + ")"
+           if len(by_w) > 1 else "")
+        + f", {s['partials_launches']} partials and {s['fused_launches']} "
         f"fused kernel launches",
     ])

@@ -43,6 +43,11 @@ class Scheduler:
         check; O(queue), which is bounded by max_queue)."""
         return any(req.id == request_id for req, _ in self._queue)
 
+    def peek(self) -> Optional[Tuple[Request, float]]:
+        """The queue head without popping it: the windowed engine asks
+        whether this step could admit (strict FIFO, as in ``admit``)."""
+        return self._queue[0] if self._queue else None
+
     def submit(self, req: Request) -> Optional[str]:
         """Enqueue ``req``; returns None on acceptance or a rejection
         reason (backpressure / validation) — the caller must surface

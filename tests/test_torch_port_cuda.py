@@ -88,14 +88,15 @@ def test_paged_attention_kernel_rejects_what_it_does_not_take(card):
         pa.paged_window_attention(strided, *args[1:], n_head=H)
 
 
-def _edge_inputs(W, dtype, kv_dtype, gran, mp, seed=0):
+def _edge_inputs(W, dtype, kv_dtype, gran, mp, seed=0, stale=False):
     """Slots at pos 0, 1, psz - 1, psz, psz + 1 and mp * psz - 1 beside
     an empty one; table entries past each live frontier point past the
-    pool; the pool rows at positions >= pos inside each slot's last live
-    page hold NaN (a quantized pool: their scales). Returns the kernel's
-    (args, kw) and the plain version's, whose pool has those rows finite:
-    the kernel must not read them, and the plain version masks them
-    without selecting (0 x NaN)."""
+    pool (with ``stale``, the empty slot's table is the longest slot's:
+    the pages another slot owns); the pool rows at positions >= pos
+    inside each slot's last live page hold NaN (a quantized pool: their
+    scales). Returns the kernel's (args, kw) and the plain version's,
+    whose pool has those rows finite: the kernel must not read them, and
+    the plain version masks them without selecting (0 x NaN)."""
     from replicatinggpt_tpu_torch.quant.kv import (fake_quantize_rows,
                                                    quantize_rows)
     rng = np.random.default_rng(seed)
@@ -105,6 +106,8 @@ def _edge_inputs(W, dtype, kv_dtype, gran, mp, seed=0):
     tables = rng.permutation(n)[:B * mp].reshape(B, mp).astype(np.int32)
     live = (pos + PSZ - 1) // PSZ
     tables[np.arange(mp)[None, :] >= live[:, None]] = n + 5
+    if stale:
+        tables[-1] = tables[-2]
     mk = lambda *s: torch.from_numpy(  # noqa: E731
         rng.standard_normal(s).astype(np.float32)).cuda()
     q, kn, vn, kp, vp = mk(B, W, C), mk(B, W, C), mk(B, W, C), \
@@ -172,6 +175,115 @@ def test_paged_attention_kernel_edge_positions(card, mp, max_pos, ranks, W,
     assert torch.isfinite(got).all()
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [2, 5, 8, 64])
+@pytest.mark.parametrize("span", ["tight", "table"])
+@pytest.mark.parametrize("dtype,kv_dtype,gran", EDGE_POOLS)
+def test_paged_attention_kernel_wide_windows(card, W, span, dtype, kv_dtype,
+                                             gran):
+    """Row #1 at the mixed window's widths (W = 5 is not a multiple of
+    the 4 rows a pass holds; 64 is the 124M prefill chunk, 16 passes):
+    every pool type, slots at every page edge and at the table's last
+    row (its window rows run past the table), an inactive slot at pos 0
+    whose stale table names the longest slot's pages (it must read
+    none), NaN past pos; the split sized from the longest pos (the
+    engine's bound) or from the whole table (a bound above every pos:
+    only slower). Held to the plain version at the W in {1, 4}
+    tolerances; two launches give the same bits."""
+    mp = 8
+    (args, kw), (ref_args, ref_kw) = _edge_inputs(W, dtype, kv_dtype, gran,
+                                                  mp, stale=True)
+    if span == "tight":
+        kw = {**kw, "max_pos": int(args[6].max())}
+    before = pa.paged_window_attention.launches_by_window.get(W, 0)
+    got = pa.paged_window_attention(*args, **kw)
+    again = pa.paged_window_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert pa.paged_window_attention.launches_by_window[W] == before + 2
+    assert torch.equal(got, again) and torch.isfinite(got).all()
+    ref = pa.paged_window_attention_ref(*ref_args, **ref_kw)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_batched_sampler_draws_multinomials_tokens(card):
+    """The engine's sampler, which reads nothing back, draws what
+    ``torch.multinomial`` draws from the same CUDA generator state."""
+    from replicatinggpt_tpu_torch.sample.generate import (
+        filter_logits_batched, sample_tokens_batched)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn((4, 1000), generator=g, device="cuda") * 3
+    temp = torch.tensor([1.0, 0.7, 1.3, 1.0], device="cuda")
+    top_k = torch.tensor([0, 20, 50, 0], device="cuda", dtype=torch.int32)
+    top_p = torch.tensor([0.0, 0.0, 0.9, 0.5], device="cuda")
+    greedy = torch.zeros(4, dtype=torch.bool, device="cuda")
+    probs = torch.softmax(filter_logits_batched(logits, temp, top_k, top_p),
+                          -1)
+    for seed in range(8):
+        gens = [torch.Generator(device="cuda").manual_seed(seed * 4 + b)
+                for b in range(4)]
+        twins = [torch.Generator(device="cuda").manual_seed(seed * 4 + b)
+                 for b in range(4)]
+        for _ in range(3):
+            got = sample_tokens_batched(gens, logits, temp, top_k, top_p,
+                                        greedy)
+            want = [int(torch.multinomial(probs[b], 1, generator=t)[0])
+                    for b, t in enumerate(twins)]
+            assert got.tolist() == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["kernel", "fused", "gather"])
+def test_window_launch_reads_nothing_back(card, route):
+    """A windowed engine's launch enqueues its window without one host
+    sync (``torch.cuda.set_sync_debug_mode('error')``): a steady decode
+    window, and a mixed window right after an admission (its uploads,
+    the prefill chunks, the lifecycle pack, the page tables)."""
+    from replicatinggpt_tpu_torch.config import ModelConfig
+    from replicatinggpt_tpu_torch.models.gpt import init_params
+    from replicatinggpt_tpu_torch.serve import (Engine, EngineConfig,
+                                                Request, SamplingParams)
+    cfg = ModelConfig(vocab_size=65, block_size=64, n_layer=2, n_head=2,
+                      n_embd=64, dtype="float32",
+                      decode_cache_layout="packed")
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    eng = Engine(model, cfg, EngineConfig(
+        pool_size=4, page_size=8, paged_kernel=route != "gather",
+        decode_window=4), device="cuda")
+    if route == "kernel":
+        eng._use_fused, eng._use_kernel = False, True
+    assert eng.kernel_route.decode == route or route == "kernel"
+    rng = np.random.default_rng(0)
+
+    def req(i, greedy):
+        return Request(id=f"r{i}", prompt=rng.integers(0, 65, (9,)),
+                       max_new_tokens=40, rng_seed=i,
+                       sampling=SamplingParams(greedy=greedy, top_k=10))
+    for i in range(2):
+        assert eng.submit(req(i, i == 0)) is None
+    for _ in range(3):
+        eng.step()
+    assert eng._inflight is not None and not eng._pf_left.any()
+    for admit in (False, True):
+        if admit:
+            assert eng.submit(req(2, False)) is None
+            eng._admit_queue(eng.clock(), [], eng._admit_windowed)
+            assert eng._pf_left.any() and eng._li is None
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            w = eng._launch(eng._window_cur)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        eng._drain_pending()
+        eng._inflight = w
+    out = {r.id: r for r in eng.drain()}
+    assert set(out) == {"r0", "r1", "r2"}
+    assert all(len(r.tokens) == 40 for r in out.values())
 
 
 def _partials_inputs(B, dtype, kv_dtype, gran, seed=0, mp=128):

@@ -179,7 +179,7 @@ def test_serve_replay_cli_on_cpu():
     assert summary["kernel_route"]["decode"] == "kernel"
     assert summary["pages"]["prefix_hits"] > 0
     with pytest.raises(SystemExit, match="ROADMAP"):
-        cli.main(argv + ["--decode-window", "4"])
+        cli.main(argv + ["--spec", "ngram"])
 
 
 def _imports(path):

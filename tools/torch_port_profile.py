@@ -4,17 +4,19 @@ time, on one NVIDIA card.
 
     python3 tools/torch_port_profile.py [--preset gpt2-small|char-gpt]
         [--kv-quant none|int8|fp8] [--mesh-shape 1x1|2x2|...]
-        [--steps 20] [--out PATH]
+        [--decode-window K] [--steps 20] [--out PATH]
 
 Builds a ``serve-replay`` slice's engine (random init, bf16, packed pool,
 8 slots, pages of 16; ``gpt2-small`` takes the per-layer kernel route,
 ``char-gpt`` the fused all-layers kernel route; with ``--mesh-shape``
 all shards of that mesh in this process, the kernel route then the
-partials mode per data shard), fills every slot from
+partials mode per data shard; with ``--decode-window K`` each engine
+step is a window of K decode steps), fills every slot from
 one greedy shared-prefix trace, and then, for the paged-kernel route and
 the gather route in turns (kernel, gather, gather, kernel), times
-``--steps`` decode steps with the host clock (each step ends in the
-token fetch, a device sync) and traces the same number with
+``--steps`` engine steps with the host clock (a blocked step ends in
+the token fetch, a device sync; a window step enqueues the next window
+and reads the one before) and traces the same number with
 ``torch.profiler``. From the trace: the device's busy time (the union of
 kernel intervals), its idle share of the traced window, kernels per
 step and device time by kernel name. Prints one JSON object per
@@ -53,13 +55,14 @@ def card() -> str:
 
 
 def filled_engine(model, mcfg, kernel: bool, kv_quant: str,
-                  mesh=(1, 1)) -> Engine:
+                  mesh=(1, 1), window: int = 1) -> Engine:
     """An engine whose 8 slots all decode: an 8-request greedy trace
     submitted at once, stepped until no slot is left to admit and the
-    first decode step is behind it."""
+    first decode step (window) is behind it."""
     eng = Engine(model, mcfg, EngineConfig(
         pool_size=8, page_size=16, paged_kernel=kernel, kv_quant=kv_quant,
-        mesh_data=mesh[0], mesh_model=mesh[1]), device="cuda")
+        mesh_data=mesh[0], mesh_model=mesh[1], decode_window=window),
+        device="cuda")
     trace = make_trace(mcfg, ReplayConfig(
         n_requests=8, seed=0, prompt_len_max=min(512, mcfg.block_size // 2),
         prompt_mode="shared_prefix", max_new_tokens=400, greedy=True))
@@ -122,8 +125,11 @@ def measure(eng: Engine, steps: int, cardname: str) -> dict:
     by_name = us_by_name(kernels)
     busy_ms = busy_us(kernels) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    window = eng.ecfg.decode_window
     return {
         "route": eng.kernel_route.decode, "card": cardname, "steps": steps,
+        "decode_window": window,
+        "step_wall_ms_per_token_step": round(wall_ms / window, 4),
         "mesh": list(eng.ecfg.mesh_shape),
         "kv_quant": eng.kernel_route.kv_quant,
         "granularity": eng.kernel_route.granularity,
@@ -148,6 +154,8 @@ def main() -> int:
                    choices=["none", "int8", "fp8"])
     p.add_argument("--mesh-shape", default="1x1",
                    help="serve mesh DATAxMODEL, all shards in this process")
+    p.add_argument("--decode-window", type=int, default=1,
+                   help="decode steps a window (a step of the engine)")
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--out", default=None,
                    help="also write the rows here as one JSON list")
@@ -162,7 +170,8 @@ def main() -> int:
                         device="cuda")
     mesh = parse_mesh_shape(args.mesh_shape)
     engines = {r: filled_engine(model, mcfg, r == "kernel", args.kv_quant,
-                                mesh) for r in ("kernel", "gather")}
+                                mesh, args.decode_window)
+               for r in ("kernel", "gather")}
     for eng in engines.values():           # warm both routes
         eng.step()
     rows = [measure(engines[r], args.steps, cardname)
