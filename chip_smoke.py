@@ -213,7 +213,31 @@ and fails (non-zero exit) on the first phase that fails:
    host ms a token beside the k = 1 slice's (row #1's ``launches`` and
    ``launches_by_window`` are this run's; ``launches_k1`` phase 6's);
 33. idle phase: the device's idle share at k = 1 and k = 8 (124M, bf16,
-   8 decoding slots, ``tools/torch_port_profile.py``'s measure).
+   8 decoding slots, ``tools/torch_port_profile.py``'s measure);
+34. checkpoint slice (a main path, run after phase 19; its directories
+   in a temporary one, removed at the end): ``train()`` of GPT-2 124M
+   (the preset's bf16, T=1024, B=32) for 6 steps with a checkpoint every
+   3, uninterrupted and then stopped at step 3 (SIGTERM through the
+   ``train/step`` seam to a handler that sets the stop event) and resumed
+   into a fresh state and model: the losses of steps 3-5, the weights,
+   AdamW's moments and count and both dropout streams equal the
+   uninterrupted run's bit for bit (PyTorch's default algorithms: no
+   step of either model differs between two runs); the same for char-gpt
+   with dropout 0.2 (each block's seed, hence its residual masks and rows
+   #5-#6's hashed mask, comes from the restored ``seeds`` stream);
+   save and restore seconds, bytes and GB/s, the crc32 pass alone; a copy
+   of the newest step with 8 bytes flipped raises
+   ``CorruptCheckpointError`` naming it and ``restore_latest`` falls back
+   to step 3; then from the 124M checkpoint ``eval --checkpoint-dir``
+   (losses finite, below ln 50257), ``serve-replay --checkpoint-dir
+   --paged-kernel`` (row #1 12 times a step; every engine's weights the
+   checkpoint's cast to the compute dtype, bit for bit), ``generate
+   --checkpoint-dir --decode-cache-layout packed`` (row #4, 12 a token;
+   it samples the corpus BPE's 1024 ids of the 50257 rows and decodes
+   them) and ``export-torch`` (every tensor the checkpoint's weight,
+   f32); ``generate --checkpoint-dir`` from the char-gpt checkpoint
+   (row #3 once a character, 256). The kernels line's
+   ``launches_checkpoint`` fields are this slice's.
 
 Every flash row of the ``{"kernels": [...]}`` line also carries the
 achieved rate (``tflops``: the bound's operation count over the kernel's
@@ -228,6 +252,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import gc
 import importlib.util
 import io
 import json
@@ -2806,6 +2831,296 @@ def window_idle_phase(card: str) -> None:
               f"a step")
 
 
+# the checkpoint slice: GPT-2 124M (the preset's bf16, T=1024, B=32) and
+# char-gpt (dropout 0.2) trained 6 steps with a checkpoint every 3, and a
+# run stopped at step 3 and resumed into a fresh state
+CKPT_STEPS, CKPT_EVERY, CKPT_STOP = 6, 3, 3
+
+
+def ckpt_config(preset: str):
+    cfg = get_config(preset)
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, max_iters=CKPT_STEPS, eval_interval=0, eval_iters=1,
+        log_interval=1, checkpoint_every=CKPT_EVERY))
+
+
+def ckpt_train(cfg, ck=None, stop_at=None, resume=False) -> tuple:
+    """``train()`` on the card: (result, {step: loss}, its log). With
+    ``stop_at``, a SIGTERM raised through the ``train/step`` seam at that
+    step reaches a handler that sets the stop event, as the CLI's does."""
+    import signal
+    import threading
+    from replicatinggpt_tpu_torch.faults import Fault, FaultPlan, installed
+    from replicatinggpt_tpu_torch.train.runner import train
+    from replicatinggpt_tpu_torch.utils.logging import StepLogger
+    out = io.StringIO()
+    stop = threading.Event()
+    plan = FaultPlan(*([] if stop_at is None else
+                       [Fault(site="train/step", kind="sigterm",
+                              at=stop_at)]))
+    prev = signal.signal(signal.SIGTERM, lambda s, f: stop.set())
+    try:
+        with installed(plan):
+            res = train(cfg, device="cuda", logger=StepLogger(stream=out),
+                        checkpoint_manager=ck, resume=resume,
+                        stop_event=stop)
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    losses = {int(i): float(x) for i, x in re.findall(
+        r"^Step (\d+), Loss: (\S+) \|", out.getvalue(), re.M)}
+    assert losses and all(math.isfinite(x) for x in losses.values())
+    return res, losses, out.getvalue()
+
+
+def io_line(what: str, t: dict, card: str) -> None:
+    gb = t["bytes"] / 1e9
+    move = {k: v for k, v in t.items() if k not in ("bytes", "total_s")}
+    print(f"checkpoint {what} ({gb:.3f} GB) on {card}: {t['total_s']:.3f} s, "
+          f"{gb / t['total_s']:.3f} GB/s with the crc32 pass; crc32 alone "
+          f"{t['crc_s']:.3f} s ({gb / t['crc_s']:.3f} GB/s); by phase "
+          + ", ".join(f"{k} {v:.3f}" for k, v in move.items()))
+
+
+def resume_phase(preset: str, root: str, card: str) -> dict:
+    """Train ``preset`` 6 steps uninterrupted, then stopped at step 3 and
+    resumed into a fresh state and model from its checkpoint: the losses
+    of steps 3-5, the weights, AdamW's moments and count and both dropout
+    streams equal bit for bit. Returns the flash launches (forward,
+    backward) of the three runs, the checkpoint directory and timings."""
+    from replicatinggpt_tpu_torch.train.checkpoint import CheckpointManager
+    from replicatinggpt_tpu_torch.train.state import weights_state
+    cfg = ckpt_config(preset)
+    ck_dir = os.path.join(root, preset)
+    fp.flash_packed_fwd.launches = fp.flash_packed_bwd.launches = 0
+    full, want, _ = ckpt_train(cfg)
+    ck = CheckpointManager(ck_dir)
+    stopped, head, log = ckpt_train(cfg, ck, stop_at=CKPT_STOP)
+    assert f"stop requested at step {CKPT_STOP}" in log, log
+    assert stopped.state.step == CKPT_STOP and ck.all_steps() == [CKPT_STOP]
+    save = dict(ck.timings["save"])
+    del stopped
+    ck = CheckpointManager(ck_dir)
+    resumed, tail, log = ckpt_train(cfg, ck, resume=True)
+    launches = (fp.flash_packed_fwd.launches, fp.flash_packed_bwd.launches)
+    assert f"resumed from step {CKPT_STOP}" in log, log
+    restore = dict(ck.timings["restore"])
+    assert head == {i: want[i] for i in range(CKPT_STOP)}, (head, want)
+    assert tail == {i: want[i] for i in range(CKPT_STOP, CKPT_STEPS)}, (
+        tail, want)
+    a, b = full.state.state_dict(), resumed.state.state_dict()
+    assert sorted(a) == sorted(b)
+    bad = [k for k in a if not torch.equal(a[k].cpu(), b[k].cpu())]
+    assert not bad, bad
+    assert ck.all_steps() == [CKPT_STOP, CKPT_STEPS]
+    n_opt = sum(1 for k in a if k.startswith("opt/"))
+    mcfg = resumed.state.model.cfg
+    L = mcfg.n_layer
+    # 6 + 3 + 3 steps, and each run's final estimate: one batch a split
+    assert launches == (L * (2 * CKPT_STEPS + 6), L * 2 * CKPT_STEPS), (
+        launches)
+    # the step-3 manifest verifies (a weights-only restore reads the whole
+    # payload and checks every crc32 on the way)
+    ck.restore(CKPT_STOP, weights_state(mcfg, 0, "cuda"))
+    print(f"resume ({preset}: {mcfg.n_layer}L/{mcfg.n_head}H/"
+          f"{mcfg.n_embd}C, T={mcfg.block_size}, B={cfg.train.batch_size}, "
+          f"{mcfg.dtype}, dropout {mcfg.dropout}, {CKPT_STEPS} steps, "
+          f"checkpoint every {CKPT_EVERY}, stopped at {CKPT_STOP}) on "
+          f"{card}: losses of steps {CKPT_STOP}-{CKPT_STEPS - 1} "
+          f"{[tail[i] for i in sorted(tail)]} equal the uninterrupted run's "
+          f"bit for bit, and so do {len(a)} state arrays ({n_opt} of AdamW, "
+          f"count {resumed.state.optimizer.count}); step {CKPT_STOP}'s "
+          f"manifest verifies; {launches[0]} forward / {launches[1]} "
+          f"backward flash launches over the three runs")
+    io_line(f"save ({preset}, step {CKPT_STOP})", save, card)
+    io_line(f"restore ({preset}, step {CKPT_STOP} onto the card)", restore,
+            card)
+    del full, resumed
+    torch.cuda.empty_cache()
+    return {"dir": ck_dir, "launches": launches, "save": save,
+            "restore": restore}
+
+
+def corruption_phase(ck_dir: str, root: str) -> None:
+    """Flip bytes in a copy of the newest step (its older step linked
+    beside it): restoring it raises CorruptCheckpointError naming it, and
+    restore_latest falls back to step 3."""
+    import shutil
+    from replicatinggpt_tpu_torch.faults.inject import corrupt_step_dir
+    from replicatinggpt_tpu_torch.train.checkpoint import (
+        CheckpointManager, CorruptCheckpointError)
+    from replicatinggpt_tpu_torch.train.state import weights_state
+    bad_dir = os.path.join(root, "corrupted")
+    os.makedirs(bad_dir)
+    for name in os.listdir(ck_dir):
+        src = os.path.join(ck_dir, name)
+        if name == str(CKPT_STEPS):
+            shutil.copytree(src, os.path.join(bad_dir, name))
+        elif os.path.isdir(src):
+            shutil.copytree(src, os.path.join(bad_dir, name),
+                            copy_function=os.link)
+        else:
+            shutil.copy(src, os.path.join(bad_dir, name))
+    hit = corrupt_step_dir(bad_dir, CKPT_STEPS, "corrupt",
+                           np.random.default_rng(0))
+    ck = CheckpointManager(bad_dir)
+    mcfg = get_config("gpt2-small").model
+    try:
+        ck.restore(CKPT_STEPS, weights_state(mcfg, 0, "cuda"))
+        raise AssertionError("a corrupted step restored")
+    except CorruptCheckpointError as e:
+        named = str(e)
+    assert f"step {CKPT_STEPS} is corrupt" in named, named
+    state = weights_state(mcfg, 0, "cuda")
+    assert ck.restore_latest(state) is state and state.step == CKPT_STOP
+    assert ck.recovery["ckpt_fallbacks"] == 1, ck.recovery
+    print(f"corruption: 8 bytes flipped in {os.path.relpath(hit, root)}; "
+          f"restore raised \"{named}\"; restore_latest fell back to step "
+          f"{state.step} (ckpt_fallbacks 1)")
+    shutil.rmtree(bad_dir)
+
+
+def from_checkpoint_phase(ck_dir: str, char_dir: str, root: str,
+                          card: str) -> dict:
+    """The CLI entry points on the card from the 124M checkpoint (newest
+    step 6): eval, serve-replay with the per-layer kernel, generate
+    (row #4), export-torch; generate from the char-gpt checkpoint (row
+    #3). Returns each path's launches."""
+    from replicatinggpt_tpu_torch.serve import replay as replay_mod
+    arrays = torch.load(os.path.join(ck_dir, str(CKPT_STEPS), "state.pt"),
+                        map_location="cpu", weights_only=True)
+    small = get_config("gpt2-small")
+    V, L = small.model.vocab_size, small.model.n_layer
+    out = {}
+    # eval
+    fp.flash_packed_fwd.launches = 0
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        assert cli.main(["eval", "--preset", "gpt2-small", "--eval-iters",
+                         "2", "--checkpoint-dir", ck_dir]) == 0
+    tr, va = map(float, re.fullmatch(
+        r"train loss (\S+), val loss = (\S+)\n", text.getvalue()).groups())
+    out["eval"] = fp.flash_packed_fwd.launches
+    assert all(math.isfinite(x) and x < math.log(V) for x in (tr, va)), (
+        tr, va)
+    assert out["eval"] == L * 2 * 2, out["eval"]
+    print(f"eval --checkpoint-dir (gpt2-small, step {CKPT_STEPS}) on "
+          f"{card}: {text.getvalue().strip()} (ln {V} = "
+          f"{math.log(V):.4f}), {out['eval']} forward flash launches")
+    # serve-replay: the engine's weights are the checkpoint's
+    made = []
+
+    class Recording(replay_mod.Engine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    replay_mod.Engine = Recording
+    pa.paged_window_attention.launches = 0
+    try:
+        s = replay(["--n-requests", "8", "--greedy", "--checkpoint-dir",
+                    ck_dir])
+    finally:
+        replay_mod.Engine = Recording.__mro__[1]
+    # the replay's warm-up engine launches too: whole steps of L each
+    out["serve"] = pa.paged_window_attention.launches
+    assert out["serve"] >= s["kernel_launches"] == L * s["n_steps"] > 0 \
+        and out["serve"] % L == 0, (out["serve"], s["n_steps"])
+    cd = small.model.compute_dtype
+    leaves = [k[len("params/"):] for k in arrays if k.startswith("params/")]
+    for eng in made:
+        tree = eng.params
+        assert len(tree) - 1 + len(tree["blocks"]) == len(leaves)
+        for k in leaves:
+            got = (tree["blocks"][k[len("blocks/"):]]
+                   if k.startswith("blocks/") else tree[k])
+            want = arrays[f"params/{k}"].to(got.device,
+                                            None if "ln" in k else cd)
+            assert torch.equal(got, want), k
+    print(f"serve-replay --checkpoint-dir (gpt2-small, step {CKPT_STEPS}, "
+          f"8 greedy requests) on {card}: {s['aggregate_tokens_per_s']} "
+          f"tok/s over {s['n_steps']} steps, {out['serve']} row #1 "
+          f"launches; the engines' weights ({len(made)}, the warm-up's "
+          f"included) equal the checkpoint's bit for bit")
+    # generate through the CLI at 124M: row #4, drawing only the corpus
+    # BPE's 1024 ids from the 50257 rows
+    dec.packed_decode_attention.launches = 0
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        assert cli.main(["generate", "--preset", "gpt2-small",
+                         "--decode-cache-layout", "packed",
+                         "--checkpoint-dir", ck_dir, "--sample-tokens", "64",
+                         "--top-k", "50"]) == 0
+    big_sample = text.getvalue()[:-1]
+    out["generate"] = dec.packed_decode_attention.launches
+    # one segment of 64 steps from the one-token start
+    assert out["generate"] == L * 64, out["generate"]
+    assert big_sample, big_sample
+    # generate through the CLI from the char-gpt checkpoint: row #3
+    dec.fused_decode_layers.launches = 0
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        assert cli.main(["generate", "--preset", "char-gpt",
+                         "--checkpoint-dir", char_dir, "--sample-tokens",
+                         "256", "--top-k", "20"]) == 0
+    sample = text.getvalue()[:-1]
+    out["generate_cli"] = dec.fused_decode_layers.launches
+    assert len(sample) == 256 and set(sample) <= set(
+        open(CORPUS, encoding="utf-8").read()), sample
+    # one segment of 256 steps fills the 256-row cache from one token
+    assert out["generate_cli"] == 256, out["generate_cli"]
+    print(f"generate --checkpoint-dir from the checkpoints on {card}: "
+          f"gpt2-small step {CKPT_STEPS} (64 BPE tokens, packed cache, "
+          f"{out['generate']} row #4 launches): {big_sample[:60]!r}...; "
+          f"char-gpt step {CKPT_STEPS} (256 characters, "
+          f"{out['generate_cli']} row #3 launches): {sample[:60]!r}...")
+    # export-torch: the file's tensors are the checkpoint's weights as f32
+    path = os.path.join(root, "model.pth")
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert cli.main(["export-torch", "--preset", "gpt2-small",
+                         "--checkpoint-dir", ck_dir, "--out", path]) == 0
+    sd = torch.load(path, weights_only=True)
+    n = 0
+    for name, t in sd.items():
+        if name.startswith("blocks."):
+            _, i, leaf = name.split(".")
+            want = arrays[f"params/blocks/{leaf}"][int(i)]
+        else:
+            want = arrays[f"params/{name}"]
+        assert t.dtype == torch.float32 and torch.equal(t, want), name
+        n += t.numel()
+    assert n == sum(v.numel() for k, v in arrays.items()
+                    if k.startswith("params/"))
+    print(f"export-torch --checkpoint-dir (gpt2-small): {len(sd)} tensors, "
+          f"{n:,} f32 parameters equal to the checkpoint's")
+    os.unlink(path)
+    return out
+
+
+def checkpoint_slice(card: str) -> dict:
+    """The checkpoint main path: resume at 124M and at char-gpt with
+    dropout, at PyTorch's default algorithms, corruption and fallback,
+    then eval, generate, serve and export from the checkpoint. The
+    directories live in a temporary one, removed at the end."""
+    import shutil
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ckpt-smoke-")
+    try:
+        big = resume_phase("gpt2-small", root, card)
+        char = resume_phase("char-gpt", root, card)
+        corruption_phase(big["dir"], root)
+        launches = from_checkpoint_phase(big["dir"], char["dir"], root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # the replay's engines hold their pools in reference cycles: collect
+    # them so the later phases' peak memory is their own
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["train_124m"], launches["train_char"] = (big["launches"],
+                                                      char["launches"])
+    print(f"checkpoint slice: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def build_kernels() -> None:
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
@@ -2899,6 +3214,14 @@ def main() -> int:
     group_rows[0]["launches"], group_rows[1]["launches"] = \
         gpt2_slice_phase(card)
     gpt2_shakespeare_phase(card)
+    ck = checkpoint_slice(card)
+    group_rows[0]["launches_checkpoint"] = ck["train_124m"][0] + ck["eval"]
+    group_rows[1]["launches_checkpoint"] = ck["train_124m"][1]
+    flash_rows[0]["launches_checkpoint"] = ck["train_char"][0]
+    flash_rows[1]["launches_checkpoint"] = ck["train_char"][1]
+    row["launches_checkpoint"] = ck["serve"]
+    packed_row["launches_checkpoint"] = ck["generate"]
+    fused_row["launches_checkpoint"] = ck["generate_cli"]
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     heads_rows = heads_flash_phase(flush)
     del flush

@@ -2,6 +2,12 @@
 
     python -m replicatinggpt_tpu_torch train --preset char-gpt
     python -m replicatinggpt_tpu_torch train --preset gpt2-small
+    python -m replicatinggpt_tpu_torch train --preset gpt2-small \
+        --checkpoint-dir ck [--resume]
+    python -m replicatinggpt_tpu_torch eval --preset gpt2-small \
+        --checkpoint-dir ck
+    python -m replicatinggpt_tpu_torch export-torch --preset gpt2-small \
+        --checkpoint-dir ck --out model.pth
     python -m replicatinggpt_tpu_torch train --preset gpt2-xl --sp 4
     torchrun --nproc-per-node 4 -m replicatinggpt_tpu_torch train \\
         --preset gpt2-xl --sp 4
@@ -31,13 +37,21 @@ refused with ROADMAP.md queue A item 11. ``serve-replay --mesh-shape DxM``
 serves on a (data, model) mesh likewise: all D x M shards in one process,
 or one a process under ``torchrun`` (D x M processes), with one step a
 token read; ``--decode-window`` > 1 on such a mesh is refused with queue
-A item 14.
+A item 14. ``train --checkpoint-dir D`` saves the whole training state
+(``train/checkpoint.py``) and, with ``--resume``, continues from its
+newest step that verifies; a first SIGTERM or SIGINT saves and exits 0
+(in one process; under ``torchrun`` the stop is off).
+``generate``, ``serve-replay``, ``eval`` and ``export-torch`` take
+``--checkpoint-dir D`` to use the weights of its newest verified step
+(random init from the seed only when D holds no step); under
+``torchrun``, ``train --checkpoint-dir`` is refused with queue A item 11.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import torch
@@ -67,16 +81,11 @@ UNPORTED_FLAGS = (
      "queue A item 12 (telemetry)"),
     ("--profile-steps", "profile_steps", None,
      "queue A item 12 (telemetry)"),
-    ("--checkpoint-dir", "checkpoint_dir", None,
-     "queue A item 4 (checkpoints)"),
 )
 
 
 #: the train subcommand's unported flags, in the same form
 TRAIN_UNPORTED_FLAGS = (
-    ("--checkpoint-dir", "checkpoint_dir", None,
-     "queue A item 4 (checkpoints)"),
-    ("--resume", "resume", False, "queue A item 4 (checkpoints)"),
     ("--mesh-shape", "mesh_shape", "1x1", "queue A item 11 (meshes)"),
     ("--trace-out", "trace_out", None, "queue A item 12 (telemetry)"),
     ("--profile-dir", "profile_dir", None, "queue A item 12 (telemetry)"),
@@ -210,21 +219,47 @@ def engine_config_from_args(args: argparse.Namespace):
                         decode_window_auto=args.decode_window_auto)
 
 
+def add_checkpoint_dir_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="use the weights of the newest step under this "
+                        "directory that verifies (train/checkpoint.py)")
+
+
+def load_weights(cfg, checkpoint_dir, device, what: str):
+    """The model of ``cfg`` on ``device``: the newest verified step under
+    ``checkpoint_dir``, or the random init from the seed when no
+    directory is given or it holds no step (said on stderr). A directory
+    that does not exist, or a step that fails verification, raises."""
+    from .train.checkpoint import CheckpointManager
+    from .train.state import weights_state
+    if checkpoint_dir is not None and not os.path.isdir(checkpoint_dir):
+        raise SystemExit(f"--checkpoint-dir {checkpoint_dir}: no such "
+                         f"directory")
+    state = weights_state(cfg.model, cfg.seed, device)
+    if checkpoint_dir is None or CheckpointManager(
+            checkpoint_dir).restore_latest(state) is None:
+        print(f"no checkpoint found; {what} random init", file=sys.stderr)
+    else:
+        print(f"restored step {state.step} from {checkpoint_dir}",
+              file=sys.stderr)
+    return state
+
+
 def cmd_serve_replay(args) -> int:
-    """Replay a synthetic Poisson request trace through the engine at
-    random-init weights and print the serving metrics summary (on rank 0
-    of a launch, whose ranks start from its weights)."""
+    """Replay a synthetic Poisson request trace through the engine and
+    print the serving metrics summary (on rank 0 of a launch, whose ranks
+    start from its weights): the weights of ``--checkpoint-dir``'s newest
+    verified step, else the random init (the token ids are synthetic
+    either way)."""
     check_unported(args)
     import torch.distributed as dist
 
-    from .models.gpt import init_params
     from .parallel.distributed import setup_serve
     from .serve.replay import ReplayConfig, format_summary, run_replay
     cfg = config_from_args(args)
     ecfg = engine_config_from_args(args)
     dev = setup_serve(ecfg.mesh_shape, args.device)
-    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-    model = init_params(cfg.model, gen, device=dev)
+    model = load_weights(cfg, args.checkpoint_dir, dev, "serving").model
     launched = dist.is_initialized()
     if launched:
         with torch.no_grad():
@@ -260,16 +295,43 @@ def cmd_serve_replay(args) -> int:
 
 def cmd_train(args) -> int:
     """Train a preset on the corpus and print the reference's log lines
-    (and, with ``--sample-after``, a sample from the trained weights)."""
+    (and, with ``--sample-after``, a sample from the trained weights).
+    A first SIGTERM or SIGINT finishes the step in flight, saves (with
+    ``--checkpoint-dir``) and exits 0; a second SIGINT raises
+    KeyboardInterrupt. Under ``torchrun`` the first signal is ignored
+    (``train`` says why)."""
     check_unported(args, TRAIN_UNPORTED_FLAGS, TRAIN_UNPORTED_VALUES)
+    import signal
+    import threading
+
+    from .train.checkpoint import CheckpointManager
     from .train.runner import train
     from .utils.logging import StepLogger
+    if args.resume and not args.checkpoint_dir:
+        raise SystemExit("--resume needs --checkpoint-dir")
     cfg = config_from_args(args)
+    ck = (CheckpointManager(args.checkpoint_dir) if args.checkpoint_dir
+          else None)
+    stop = threading.Event()
+
+    def _on_signal(signum, frame):
+        if stop.is_set() and signum == signal.SIGINT:
+            # a second Ctrl+C: out now
+            signal.signal(signal.SIGINT, signal.default_int_handler)
+            raise KeyboardInterrupt
+        stop.set()
+
+    prev = {sig: signal.signal(sig, _on_signal)
+            for sig in (signal.SIGTERM, signal.SIGINT)}
     logger = StepLogger(jsonl_path=args.log_jsonl)
     try:
-        res = train(cfg, device=args.device, logger=logger)
+        res = train(cfg, device=args.device, logger=logger,
+                    checkpoint_manager=ck, resume=args.resume,
+                    stop_event=stop)
     finally:
         logger.close()
+        for sig, h in prev.items():
+            signal.signal(sig, h)
     if args.sample_after and res.main:
         model = res.state.model
         _sample(model, model.cfg, res.tokenizer, args.sample_tokens,
@@ -279,8 +341,6 @@ def cmd_train(args) -> int:
 
 #: the generate subcommand's unported flags
 GENERATE_UNPORTED_FLAGS = (
-    ("--checkpoint-dir", "checkpoint_dir", None,
-     "queue A item 4 (checkpoints)"),
     ("--mesh-shape", "mesh_shape", "1x1", "queue A item 11 (meshes)"),
 )
 
@@ -289,37 +349,78 @@ def _sample(model, mcfg, tokenizer, n_tokens: int, prompt_text=None,
             top_k: int = 0, top_p: float = 0.0, temperature: float = 1.0,
             device=None) -> None:
     """Print ``n_tokens`` sampled after ``prompt_text`` (default: the
-    reference's zero-context start, one 0 token, GPT1.py:235)."""
+    reference's zero-context start, one 0 token, GPT1.py:235), drawn
+    from the tokenizer's ids only: a GPT-2 preset's 50257 rows outnumber
+    the corpus BPE's 1024 ids, which are all it can decode."""
     from .sample.generate import GenerateConfig, generate
     ids = tokenizer.encode(prompt_text) if prompt_text else [0]
     toks = generate(model, [ids], mcfg,
                     GenerateConfig(max_new_tokens=n_tokens, top_k=top_k,
-                                   top_p=top_p, temperature=temperature),
+                                   top_p=top_p, temperature=temperature,
+                                   vocab_limit=tokenizer.vocab_size),
                     device=device)
     print(tokenizer.decode(toks[0].tolist()))
 
 
-def cmd_generate(args) -> int:
-    """Sample from a preset's model. Checkpoints are not ported yet, so
-    the weights are the random init from the preset's seed."""
-    check_unported(args, GENERATE_UNPORTED_FLAGS)
+def _tokenized_config(args):
+    """(config with the tokenizer's vocabulary, tokenizer, corpus text)."""
     from .data.dataset import load_corpus
-    from .device import resolve_device
-    from .models.gpt import init_params
     from .tokenizers import get_tokenizer
     from .train.runner import _resolve_vocab
     cfg = config_from_args(args)
+    text = load_corpus(cfg.dataset)
+    tokenizer = get_tokenizer(cfg.tokenizer, corpus_text=text)
+    return _resolve_vocab(cfg, tokenizer), tokenizer, text
+
+
+def cmd_generate(args) -> int:
+    """Sample from the weights of ``--checkpoint-dir``'s newest verified
+    step, else from the random init of the preset's seed."""
+    check_unported(args, GENERATE_UNPORTED_FLAGS)
+    from .device import resolve_device
     dev = resolve_device(args.device)
-    tokenizer = get_tokenizer(cfg.tokenizer,
-                              corpus_text=load_corpus(cfg.dataset))
-    cfg = _resolve_vocab(cfg, tokenizer)
-    model = init_params(cfg.model,
-                        torch.Generator(device=dev).manual_seed(cfg.seed),
-                        device=dev)
-    print("no checkpoint found; sampling from random init", file=sys.stderr)
+    cfg, tokenizer, _ = _tokenized_config(args)
+    model = load_weights(cfg, args.checkpoint_dir, dev, "sampling from").model
     _sample(model, cfg.model, tokenizer, args.sample_tokens,
             prompt_text=args.prompt, top_k=args.top_k, top_p=args.top_p,
             temperature=args.temperature, device=dev)
+    return 0
+
+
+def cmd_eval(args) -> int:
+    """Estimate the train and val loss of ``--checkpoint-dir``'s newest
+    verified step (else the random init) over ``--eval-iters`` batches of
+    each split, drawn from seeds 1 and 2 as the JAX package draws them."""
+    from .data.dataset import TokenDataset
+    from .data.loader import make_batcher
+    from .device import resolve_device
+    from .train.steps import estimate_loss, make_eval_step
+    dev = resolve_device(args.device)
+    cfg, tokenizer, text = _tokenized_config(args)
+    state = load_weights(cfg, args.checkpoint_dir, dev, "evaluating")
+    ds = TokenDataset.from_text(text, tokenizer, cfg.train.val_fraction)
+    B, T = cfg.train.batch_size, cfg.model.block_size
+    batchers = {"train": make_batcher("random", ds.train, B, T, seed=1),
+                "val": make_batcher("random", ds.val, B, T, seed=2)}
+    out = estimate_loss(state.model.tree(), batchers,
+                        make_eval_step(cfg.model), cfg.train.eval_iters, dev)
+    print(f"train loss {out['train']:.4f}, val loss = {out['val']:.4f}")
+    return 0
+
+
+def cmd_export_torch(args) -> int:
+    """Write the reference's artifact, a ``torch.save``d ``state_dict``
+    in ``RefGPT``'s layout (``models.gpt.reference_state_dict``: f32 CPU
+    tensors, (in, out) kernels), from ``--checkpoint-dir``'s newest
+    verified step (else the random init)."""
+    from .models.gpt import reference_state_dict
+    cfg, _, _ = _tokenized_config(args)
+    state = load_weights(cfg, args.checkpoint_dir, "cpu", "exporting")
+    sd = reference_state_dict(state.model)
+    with open(args.out, "wb") as f:
+        torch.save(sd, f)
+    print(f"exported {sum(t.numel() for t in sd.values()):,} params (step "
+          f"{state.step}) to {args.out}")
     return 0
 
 
@@ -337,6 +438,13 @@ def main(argv=None) -> int:
     pt.add_argument("--sample-after", action="store_true",
                     help="print a sample after training (GPT1.py:235-236)")
     pt.add_argument("--sample-tokens", type=int, default=500)
+    pt.add_argument("--checkpoint-dir", default=None,
+                    help="save the whole training state here every "
+                         "checkpoint_every steps, at the end and on "
+                         "SIGTERM/SIGINT")
+    pt.add_argument("--resume", action="store_true",
+                    help="continue from the newest step under "
+                         "--checkpoint-dir that verifies")
     _add_unported_flags(pt, TRAIN_UNPORTED_FLAGS)
     pt.set_defaults(fn=cmd_train)
     pg = sub.add_parser("generate", help="sample from a model")
@@ -352,8 +460,30 @@ def main(argv=None) -> int:
     pg.add_argument("--top-p", type=float, default=0.0,
                     help="nucleus sampling mass; 0 = off")
     pg.add_argument("--temperature", type=float, default=1.0)
+    add_checkpoint_dir_flag(pg)
     _add_unported_flags(pg, GENERATE_UNPORTED_FLAGS)
     pg.set_defaults(fn=cmd_generate)
+    pe = sub.add_parser("eval", help="estimate train/val loss")
+    add_config_flags(pe)
+    pe.add_argument("--batch-size", type=int, default=None)
+    pe.add_argument("--eval-iters", type=int, default=None,
+                    help="batches of each split")
+    pe.add_argument("--tokenizer", default=None)
+    pe.add_argument("--dataset", default=None)
+    pe.add_argument("--device", default=None,
+                    help="'cuda' (default; fails without a card) or 'cpu'")
+    add_checkpoint_dir_flag(pe)
+    pe.set_defaults(fn=cmd_eval)
+    px = sub.add_parser("export-torch",
+                        help="write a checkpoint's weights as a torch "
+                             "state_dict in the reference layout")
+    add_config_flags(px)
+    px.add_argument("--tokenizer", default=None)
+    px.add_argument("--dataset", default=None,
+                    help="corpus the tokenizer's vocabulary comes from")
+    add_checkpoint_dir_flag(px)
+    px.add_argument("--out", default="model.pth")
+    px.set_defaults(fn=cmd_export_torch)
     ps = sub.add_parser("serve-replay",
                         help="replay a synthetic Poisson request trace "
                              "through the paged serving engine and report "
@@ -382,6 +512,7 @@ def main(argv=None) -> int:
                     choices=["random", "repeat", "shared_prefix"])
     ps.add_argument("--json", action="store_true",
                     help="also print the summary as one JSON line")
+    add_checkpoint_dir_flag(ps)
     _add_unported_flags(ps)
     ps.set_defaults(fn=cmd_serve_replay)
     args = p.parse_args(argv)

@@ -118,7 +118,8 @@ class MeshConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Optimization and loop schedule (the JAX ``TrainConfig`` without
-    its TPU dispatch and checkpoint fields)."""
+    its TPU dispatch fields; the checkpoint directory is the CLI's
+    ``--checkpoint-dir``)."""
 
     batch_size: int = 64
     lr: float = 2e-4
@@ -136,6 +137,7 @@ class TrainConfig:
     seed: int = 1337
     sampling: str = "random"         # 'random' | 'sequential'
     val_fraction: float = 0.1        # 90/10 split
+    checkpoint_every: int = 0        # 0 = only at the end
 
 
 @dataclass(frozen=True)

@@ -11,6 +11,9 @@
   background thread, ``depth`` ahead. On a CUDA device each batch is
   pinned and copied ``non_blocking`` on a side stream; the consumer's
   stream waits on the copy's event before it reads the batch.
+
+Both batchers have the JAX ``state()`` / ``restore()`` dicts, which a
+checkpoint stores as its data cursor.
 """
 
 from __future__ import annotations
@@ -58,6 +61,14 @@ class RandomBatcher:
         while True:
             yield self.next_batch()
 
+    # random windows have no cursor: the generator's state is the resume
+    # state
+    def state(self) -> dict:
+        return {"bit_generator": self.rng.bit_generator.state}
+
+    def restore(self, state: dict) -> None:
+        self.rng.bit_generator.state = state["bit_generator"]
+
 
 class SequentialBatcher:
     """Contiguous windows with a wraparound cursor."""
@@ -83,6 +94,12 @@ class SequentialBatcher:
         while True:
             yield self.next_batch()
 
+    def state(self) -> dict:
+        return {"position": self.position}
+
+    def restore(self, state: dict) -> None:
+        self.position = int(state["position"])
+
 
 def make_batcher(kind: str, data: np.ndarray, batch_size: int,
                  block_size: int, seed: int = 0):
@@ -96,9 +113,10 @@ def make_batcher(kind: str, data: np.ndarray, batch_size: int,
 def prefetch(batches: Iterator[Batch], device,
              depth: int = 2) -> Iterator[Tuple[torch.Tensor, ...]]:
     """Yield the items of ``batches`` (tuples of NumPy arrays) as tensors
-    on ``device``, placed by a background thread ``depth`` items ahead.
-    The thread stops when the consumer stops; a failure in the producer
-    is raised in the consumer."""
+    on ``device``, placed by a background thread ``depth`` items ahead;
+    an element that is not an array (a batcher's state snapshot) rides
+    beside them unchanged. The thread stops when the consumer stops; a
+    failure in the producer is raised in the consumer."""
     dev = torch.device(device)
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
     q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -116,11 +134,13 @@ def prefetch(batches: Iterator[Batch], device,
         return False
 
     def _place(b):
-        ts = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in b)
+        ts = tuple(torch.from_numpy(np.ascontiguousarray(a))
+                   if isinstance(a, np.ndarray) else a for a in b)
         if side is None:
             return ts, None
         with torch.cuda.stream(side):
-            ts = tuple(t.pin_memory().to(dev, non_blocking=True) for t in ts)
+            ts = tuple(t.pin_memory().to(dev, non_blocking=True)
+                       if isinstance(t, torch.Tensor) else t for t in ts)
             done = torch.cuda.Event()
             done.record(side)
         return ts, done
@@ -148,7 +168,8 @@ def prefetch(batches: Iterator[Batch], device,
                 cur = torch.cuda.current_stream(dev)
                 cur.wait_event(done)
                 for x in ts:   # the side stream's memory is read on cur
-                    x.record_stream(cur)
+                    if isinstance(x, torch.Tensor):
+                        x.record_stream(cur)
             yield ts
     finally:
         stop.set()

@@ -156,6 +156,24 @@ def params_from_numpy(tree: Params, cfg: ModelConfig, device=None,
     return model
 
 
+def reference_state_dict(model: GPT) -> Dict[str, torch.Tensor]:
+    """The weights in the JAX package's torch reference layout
+    (``RefGPT``'s ``state_dict``: ``wte``, ``wpe``, ``ln_f_scale``,
+    ``ln_f_bias``, ``lm_head`` when the head is untied, then
+    ``blocks.<i>.<name>`` for each name of ``BLOCK_SHAPES``): f32 CPU
+    tensors, kernels (in, out), applied as ``x @ W``."""
+    def f32(t):
+        return t.detach().to("cpu", torch.float32).clone()
+
+    tree = model.tree()
+    out = {n: f32(tree[n]) for n in ("wte", "wpe", "ln_f_scale",
+                                     "ln_f_bias", "lm_head") if n in tree}
+    for i in range(model.cfg.n_layer):
+        for name in BLOCK_SHAPES:
+            out[f"blocks.{i}.{name}"] = f32(tree["blocks"][name][i])
+    return out
+
+
 def _copy_leaf(dst: torch.Tensor, src, name: str) -> None:
     arr = np.array(src, np.float32)   # a writable copy
     if tuple(arr.shape) != tuple(dst.shape):

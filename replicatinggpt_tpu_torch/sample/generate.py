@@ -42,6 +42,7 @@ class GenerateConfig:
     top_k: int = 0          # 0 = full multinomial
     top_p: float = 0.0      # 0 = off; (0, 1) = nucleus (after top-k)
     greedy: bool = False
+    vocab_limit: int = 0    # 0 = off; else only ids below it are drawn
 
 
 def batched_top_k_filter(logits: torch.Tensor, k: torch.Tensor
@@ -120,7 +121,11 @@ def sample_tokens_batched(generators: Sequence[Optional[torch.Generator]],
 def _sample_token(generator: Optional[torch.Generator], logits: torch.Tensor,
                   gcfg: GenerateConfig) -> torch.Tensor:
     """(B, V) f32 logits -> (B,) int32: greedy argmax, or temperature ->
-    top-k -> top-p -> one draw per row from ``generator``."""
+    top-k -> top-p -> one draw per row from ``generator``, over the
+    first ``gcfg.vocab_limit`` ids when that is set (a tokenizer with
+    fewer ids than the model's vocabulary)."""
+    if 0 < gcfg.vocab_limit < logits.shape[-1]:
+        logits = logits[:, :gcfg.vocab_limit]
     if gcfg.greedy:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     B, V = logits.shape

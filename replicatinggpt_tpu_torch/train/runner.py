@@ -8,9 +8,14 @@ tokens/s. With a seq axis (``--sp``) every sequence splits into shards
 whose attention is the ring (``parallel/``): all of them in this process,
 or one per ``torchrun`` process, where every rank draws the same batches
 and keeps its columns, only rank 0 logs, and tokens/s counts the global
-batch. The other mesh axes, fault supervision, the profiler, telemetry
-and checkpoints are not in this port yet (ROADMAP.md queue A items 4, 11
-and 12).
+batch. With a ``CheckpointManager`` the run saves its whole state every
+``checkpoint_every`` steps and at the end, resumes from the newest step
+that verifies (``resume=True``), stops at a step boundary on
+``stop_event`` after saving, and under a ``SupervisionConfig`` reads the
+loss every ``check_every`` steps for ``faults.supervised_train``'s
+rollback. Checkpoints under a ``torchrun`` launch, the other mesh axes,
+the profiler and telemetry are not in this port yet (ROADMAP.md queue A
+items 11 and 12).
 """
 
 from __future__ import annotations
@@ -28,6 +33,10 @@ import torch.distributed as dist
 from ..config import Config
 from ..data.dataset import TokenDataset, load_corpus
 from ..data.loader import make_batcher, prefetch
+from ..faults.inject import (apply_loss_fault, apply_train_state_fault,
+                             fire as fault_fire)
+from ..faults.supervise import (LossTracker, NonFiniteLossError,
+                                SupervisionConfig)
 from ..models.gpt import param_count
 from ..ops.flash_attention import describe_route
 from ..parallel import (describe_ring_route, distributed,
@@ -65,24 +74,73 @@ def _wire_dtype(vocab_size: int):
             else np.int16 if vocab_size <= 0x7fff else np.int32)
 
 
+#: where checkpoints of a launch across processes come from
+LAUNCH_CHECKPOINT_ITEM = ("queue A item 11 (sharded training state comes "
+                          "with data parallelism and FSDP)")
+
+
+class _ConsumedCursor:
+    """Batcher-shaped view of the snapshot taken with the last consumed
+    batch: the prefetch thread draws ahead, so a checkpoint saves this,
+    not the batcher's live state."""
+
+    def __init__(self, snap: dict):
+        self.snap = snap
+
+    def state(self) -> dict:
+        return self.snap
+
+
 def train(cfg: Config, *, device=None,
-          logger: Optional[StepLogger] = None) -> TrainResult:
+          logger: Optional[StepLogger] = None, checkpoint_manager=None,
+          resume: bool = False, stop_event=None,
+          supervision: Optional[SupervisionConfig] = None,
+          skip_data_steps: int = 0) -> TrainResult:
     """Train ``cfg`` on ``device`` (None = the card; raises without one;
-    under ``torchrun``, the card of the process's ``LOCAL_RANK``)."""
+    under ``torchrun``, the card of the process's ``LOCAL_RANK``).
+
+    ``checkpoint_manager`` (``train.checkpoint.CheckpointManager``) saves
+    every ``cfg.train.checkpoint_every`` steps and at the end; with
+    ``resume`` the run first restores its newest verified step (weights,
+    optimizer, dropout streams, data cursor) and trains on from there.
+    ``stop_event`` (a ``threading.Event``) stops the run at the next step
+    boundary: it saves, runs a short final estimate and returns. Under a
+    launch across processes it is ignored (logged): a signal reaches the
+    ranks at different steps, and a rank that left the loop alone would
+    wait in the final estimate's collectives for the others' steps.
+    ``supervision`` reads the loss every ``check_every`` steps and raises
+    ``NonFiniteLossError`` / ``LossSpikeError`` for
+    ``faults.supervised_train``; ``skip_data_steps`` (the supervisor's)
+    draws and discards that many steps' batches after the restore."""
+    if checkpoint_manager is not None and distributed.world_size() > 1:
+        raise NotImplementedError(
+            f"checkpoints of a run launched across processes are not "
+            f"implemented in replicatinggpt_tpu_torch yet: ROADMAP.md "
+            f"{LAUNCH_CHECKPOINT_ITEM}")
     joined = dist.is_initialized()
     dev, group = distributed.setup(cfg.mesh.validate().seq, device)
     try:
-        return _train(cfg, dev, group, logger or StepLogger())
+        return _train(cfg, dev, group, logger or StepLogger(),
+                      checkpoint_manager, resume, stop_event, supervision,
+                      skip_data_steps)
     finally:
         if dist.is_initialized() and not joined:
             dist.destroy_process_group()
 
 
-def _train(cfg: Config, dev: torch.device, group,
-           logger: StepLogger) -> TrainResult:
+def _train(cfg: Config, dev: torch.device, group, logger: StepLogger,
+           checkpoint_manager, resume: bool, stop_event,
+           supervision: Optional[SupervisionConfig],
+           skip_data_steps: int) -> TrainResult:
     main = group is None or group.is_main
     if not main:
         logger = StepLogger(stream=io.StringIO())   # only rank 0 logs
+    if stop_event is not None and distributed.world_size() > 1:
+        # no agreed step to stop at: checkpoints, which would give one,
+        # are refused under a launch
+        logger.log(f"note: graceful stop disabled (a run launched across "
+                   f"processes; ROADMAP.md {LAUNCH_CHECKPOINT_ITEM})")
+        stop_event = None
     text = load_corpus(cfg.dataset)
     t0 = time.perf_counter()
     tokenizer = get_tokenizer(cfg.tokenizer, corpus_text=text)
@@ -122,6 +180,12 @@ def _train(cfg: Config, dev: torch.device, group,
         logger.log(f"attention: {describe_ring_route(T, group)}")
     train_step = make_train_step(mcfg, tcfg, attention_fn, group)
     eval_step = make_eval_step(mcfg, attention_fn, group)
+    start_step = 0
+    if checkpoint_manager is not None and resume:
+        if checkpoint_manager.restore_latest(state,
+                                             train_batcher) is not None:
+            start_step = state.step
+            logger.log(f"resumed from step {start_step}")
 
     accum = max(tcfg.grad_accum_steps, 1)
     if accum > 1:
@@ -131,14 +195,24 @@ def _train(cfg: Config, dev: torch.device, group,
     chips = 1 if group is None else group.size // len(group.shards)
     wire = _wire_dtype(mcfg.vocab_size)
 
+    if skip_data_steps:
+        # the supervisor's recovery: the same window failed twice, so the
+        # resumed run trains past it
+        for _ in range(skip_data_steps * accum):
+            train_batcher.next_batch()
+        logger.log(f"supervisor: data cursor advanced {skip_data_steps} "
+                   f"optimizer step(s) past the offending window")
+
     def feed():
-        for _ in range(tcfg.max_iters):
+        # each item carries the batcher's state as of its draw, which a
+        # checkpoint saves once the step has consumed it
+        for _ in range(start_step, tcfg.max_iters):
             if accum == 1:
                 x, y = train_batcher.next_batch()
             else:
                 x, y = (np.stack(a) for a in zip(
                     *(train_batcher.next_batch() for _ in range(accum))))
-            yield x.astype(wire), y.astype(wire)
+            yield x.astype(wire), y.astype(wire), train_batcher.state()
 
     schedule = state.optimizer.schedule
     lr_at = schedule if callable(schedule) else (lambda step: None)
@@ -146,42 +220,75 @@ def _train(cfg: Config, dev: torch.device, group,
     history = []
     times = StepTimes(dev)
     tokens_seen = tokens_since_log = 0
+    tracker = None
+    if supervision is not None:
+        tracker = LossTracker(supervision)
+        logger.log(f"supervision: loss checked every "
+                   f"{supervision.check_every} step(s)"
+                   + (f", spike budget {supervision.spike_factor:.1f}x EMA"
+                      if supervision.spike_factor else ""))
+    cursor = _ConsumedCursor(train_batcher.state())
+    stopped_early = False
     batches = prefetch(feed(), dev)
     t0 = time.perf_counter()
     logger.reset_timer()
     try:
-        it = 0
+        it = start_step
         while it < tcfg.max_iters:
+            # chaos seam (no-op without an installed FaultPlan)
+            flt = fault_fire("train/step", index=it)
+            if flt is not None:
+                apply_train_state_fault(flt, state)
+            if stop_event is not None and stop_event.is_set():
+                stopped_early = True
+                logger.log(f"stop requested at step {it}; "
+                           "checkpointing and exiting")
+                if checkpoint_manager is not None:
+                    checkpoint_manager.save(state, cursor)
+                break
             if tcfg.eval_interval and it % tcfg.eval_interval == 0:
                 losses = estimate_loss(params, eval_batchers, eval_step,
                                        tcfg.eval_iters, dev)
                 logger.log_eval(it, losses["train"], losses["val"])
                 history.append((it, losses["train"], losses["val"]))
                 logger.reset_timer()
-            batch = next(batches)
+            *batch, cursor.snap = next(batches)
             times.start()
             loss = train_step(state, batch)
             times.stop()
             it += 1
             tokens_seen += tokens_per_batch
             tokens_since_log += tokens_per_batch
+            if (tracker is not None
+                    and (it - start_step) % supervision.check_every == 0):
+                sup_loss = float(loss)   # one sync per supervised step
+                flt = fault_fire("train/loss", index=it - 1)
+                if flt is not None:
+                    sup_loss = apply_loss_fault(flt, sup_loss)
+                tracker.check(it - 1, sup_loss)
             if tcfg.log_interval and it % tcfg.log_interval == 0:
                 loss_val = float(loss)   # one sync per log boundary
                 if not np.isfinite(loss_val):
-                    raise FloatingPointError(
-                        f"non-finite train loss {loss_val} at step {it - 1}")
+                    raise NonFiniteLossError(it - 1, loss_val)
                 logger.log_step(it - 1, loss_val, tokens_since_log, chips,
                                 lr=lr_at(it - 1))
                 tokens_since_log = 0
+            if (checkpoint_manager is not None and tcfg.checkpoint_every
+                    and it % tcfg.checkpoint_every == 0):
+                checkpoint_manager.save(state, cursor)
     finally:
         batches.close()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
+    # a stop keeps its epilogue short: the checkpoint is already written
     final_eval = estimate_loss(params, eval_batchers, eval_step,
-                               tcfg.eval_iters, dev)
+                               min(tcfg.eval_iters, 8) if stopped_early
+                               else tcfg.eval_iters, dev)
     logger.log_eval(state.step, final_eval["train"], final_eval["val"])
     history.append((state.step, final_eval["train"], final_eval["val"]))
+    if checkpoint_manager is not None and not stopped_early:
+        checkpoint_manager.save(state, cursor)
     tps = tokens_seen / wall if wall > 0 else 0.0
     # the first step pays the kernels' build and first-launch costs
     step_times = times.summary(skip=1 if len(times.pairs) > 1 else 0)

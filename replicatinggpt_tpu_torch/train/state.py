@@ -1,6 +1,14 @@
 """Train state: the model's f32 masters, the optimizer, the step and the
 dropout streams (a port of ``replicatinggpt_tpu/train/state.py``).
 
+``TrainState.state_dict`` / ``load_state_dict`` carry the resume state
+as flat named arrays (what ``train/checkpoint.py`` writes): the
+parameters in the JAX tree's names (``params/blocks/qkv_kernel``),
+AdamW's moments and per-leaf step (``opt/exp_avg/<leaf>``, ...) and its
+update ``count``, the states of both dropout generators and ``step``.
+JAX draws a step's dropout from a key folded with the step; the port's
+streams are stateful, so their states are part of the resume state.
+
 The optimizer keeps optax's semantics: ``optax.chain(
 clip_by_global_norm(grad_clip), adamw(schedule, b1, b2, weight_decay))``
 with eps 1e-8, eps_root 0, weight decay on every leaf (layernorm and
@@ -15,7 +23,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Iterable, List, Optional, Union
+from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
@@ -106,12 +114,104 @@ def make_optimizer(params: Iterable[torch.nn.Parameter],
     return AdamW(params, tcfg)
 
 
+def param_leaves(model: GPT) -> List[Tuple[str, torch.nn.Parameter]]:
+    """(name, parameter) in the JAX tree's names: ``wte``, ...,
+    ``blocks/<name>`` for the stacked per-layer leaves."""
+    out = []
+    for name, t in model.tree().items():
+        if name == "blocks":
+            out += [(f"blocks/{bn}", bt) for bn, bt in t.items()]
+        else:
+            out.append((name, t))
+    return out
+
+
+def _scalar(x: int) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.int64)
+
+
 @dataclass
 class TrainState:
+    """The resume state. A template with no ``optimizer`` and no ``rng``
+    (``weights_state``) restores the weights and the step only."""
+
     step: int
     model: GPT
-    optimizer: AdamW
-    rng: DropoutRNG
+    optimizer: Optional[AdamW]
+    rng: Optional[DropoutRNG]
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """Every array of the state, flat and named, on the devices where
+        it lives (no copies): ``params/<leaf>``, ``opt/<slot>/<leaf>`` and
+        ``opt/count``, ``rng/bits/<device type>`` and ``rng/seeds``
+        (``Generator.get_state()``), ``step``."""
+        leaves = param_leaves(self.model)
+        out = {f"params/{k}": p.detach() for k, p in leaves}
+        if self.optimizer is not None:
+            out["opt/count"] = _scalar(self.optimizer.count)
+            st = self.optimizer.opt.state
+            for k, p in leaves:
+                for slot, v in st.get(p, {}).items():
+                    out[f"opt/{slot}/{k}"] = v
+        if self.rng is not None:
+            bits = self.rng.bits
+            out[f"rng/bits/{bits.device.type}"] = bits.get_state()
+            out["rng/seeds"] = self.rng.seeds.get_state()
+        out["step"] = _scalar(self.step)
+        return out
+
+    def load_state_dict(self, arrays: Dict[str, torch.Tensor]) -> None:
+        """Copy ``arrays`` (``state_dict``'s names, on any device) into
+        this state in place. The template's structure decides what is
+        read; a leaf it has and ``arrays`` lacks, or of another shape,
+        raises ValueError, and so does a device generator drawn on another
+        device type (its stream cannot continue there)."""
+        leaves = param_leaves(self.model)
+        want = {f"params/{k}" for k, _ in leaves}
+        have = {k for k in arrays if k.startswith("params/")}
+        if want != have:
+            raise ValueError(f"checkpoint parameters {sorted(have ^ want)} "
+                             f"do not match this model's")
+        with torch.no_grad():
+            for k, p in leaves:
+                src = arrays[f"params/{k}"]
+                if src.shape != p.shape or src.dtype != p.dtype:
+                    raise ValueError(
+                        f"checkpoint leaf {k} is {src.dtype} "
+                        f"{tuple(src.shape)}, this model's {p.dtype} "
+                        f"{tuple(p.shape)}")
+                p.copy_(src)
+        if self.optimizer is not None:
+            self._load_optimizer(arrays, leaves)
+        if self.rng is not None:
+            dev = self.rng.bits.device.type
+            saved = [k for k in arrays if k.startswith("rng/bits/")]
+            if saved != [f"rng/bits/{dev}"]:
+                raise ValueError(
+                    f"checkpoint dropout stream {saved} cannot continue on "
+                    f"a {dev} device: resume on the device type it was "
+                    f"written on (weights alone restore anywhere)")
+            self.rng.bits.set_state(arrays[saved[0]])
+            self.rng.seeds.set_state(arrays["rng/seeds"])
+        self.step = int(arrays["step"])
+
+    def _load_optimizer(self, arrays, leaves) -> None:
+        if "opt/count" not in arrays:
+            raise ValueError("checkpoint holds no optimizer state")
+        opt = self.optimizer
+        index = {p: i for i, p in enumerate(opt.params)}
+        leaf_index = {k: index[p] for k, p in leaves}
+        state: Dict[int, Dict[str, torch.Tensor]] = {}
+        for key, v in arrays.items():
+            if key.startswith("opt/") and key != "opt/count":
+                _, slot, leaf = key.split("/", 2)
+                state.setdefault(leaf_index[leaf], {})[slot] = v
+        # torch's own loader places each moment on its parameter's device
+        # and keeps the per-leaf step where torch keeps it
+        opt.opt.load_state_dict({"state": state,
+                                 "param_groups": opt.opt.state_dict()[
+                                     "param_groups"]})
+        opt.count = int(arrays["opt/count"])
 
 
 def create_train_state(mcfg: ModelConfig, tcfg: TrainConfig, device,
@@ -128,3 +228,15 @@ def create_train_state(mcfg: ModelConfig, tcfg: TrainConfig, device,
     return TrainState(step=0, model=model,
                       optimizer=make_optimizer(model.parameters(), tcfg),
                       rng=DropoutRNG(tcfg.seed + 1, dev, stream))
+
+
+def weights_state(mcfg: ModelConfig, seed: int, device) -> TrainState:
+    """The random init from ``seed`` as a template that restores the
+    weights and the step only (``eval``, ``generate``, ``serve-replay``,
+    ``export-torch``): no optimizer moments in memory and no dropout
+    streams, so a checkpoint written on the card restores on the CPU and
+    the other way round."""
+    dev = torch.device(device)
+    model = init_params(mcfg, torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    return TrainState(step=0, model=model, optimizer=None, rng=None)

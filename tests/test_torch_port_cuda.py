@@ -1172,3 +1172,66 @@ def test_quantized_paged_attention_kernel_matches_ref(card, W, kv_dtype, gran,
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
     with pytest.raises(TypeError):          # int8 pages without scales
         pa.paged_window_attention(*args, n_head=H)
+
+
+def _ckpt_state(device, steps=2, rng=True, optimizer=True):
+    """A small training state on ``device``, trained ``steps`` steps with
+    dropout (each block's masks from a device generator seeded from the
+    state's CPU ``seeds`` stream)."""
+    import dataclasses
+
+    from replicatinggpt_tpu_torch.config import get_config
+    from replicatinggpt_tpu_torch.train import state as st
+    from replicatinggpt_tpu_torch.train.steps import make_train_step
+    cfg = get_config("test-tiny")
+    mcfg = dataclasses.replace(cfg.model, dropout=0.2, attn_dropout=0.2)
+    state = st.create_train_state(mcfg, cfg.train, device)
+    x = torch.randint(0, 65, (8, 32), generator=torch.Generator()
+                      .manual_seed(1)).to(device)
+    step = make_train_step(mcfg, cfg.train)
+    for _ in range(steps):
+        step(state, (x, x))
+    if not rng:
+        state.rng = None
+    if not optimizer:
+        state.optimizer = None
+    return state
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_the_card_is_bitwise(card, tmp_path):
+    """The whole state, the card's dropout generator included, restores
+    into a fresh card state bit for bit."""
+    from replicatinggpt_tpu_torch.train.checkpoint import CheckpointManager
+    state = _ckpt_state("cuda")
+    ck = CheckpointManager(str(tmp_path))
+    ck.save(state)
+    fresh = _ckpt_state("cuda", steps=0)
+    ck.restore_latest(fresh)
+    a, b = state.state_dict(), fresh.state_dict()
+    assert sorted(a) == sorted(b) and "rng/bits/cuda" in a
+    for k in a:
+        assert torch.equal(a[k].cpu(), b[k].cpu()), k
+        assert a[k].device == b[k].device, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", [("cuda", "cpu"), ("cpu", "cuda")])
+def test_checkpoint_crosses_devices(card, tmp_path, src, dst):
+    """Written on one device, the weights, AdamW's moments and count
+    restore onto the other (on the template's device); the device dropout
+    stream cannot continue there, and says so."""
+    from replicatinggpt_tpu_torch.train.checkpoint import CheckpointManager
+    state = _ckpt_state(src)
+    ck = CheckpointManager(str(tmp_path))
+    ck.save(state)
+    fresh = _ckpt_state(dst, steps=0, rng=False)
+    ck.restore_latest(fresh)
+    a, b = state.state_dict(), fresh.state_dict()
+    assert {k for k in a if not k.startswith("rng/")} == set(b)
+    for k in b:
+        assert torch.equal(a[k].cpu(), b[k].cpu()), k
+    assert fresh.model.wte.device.type == dst
+    assert fresh.optimizer.count == state.optimizer.count == 2
+    with pytest.raises(ValueError, match="cannot continue"):
+        ck.restore_latest(_ckpt_state(dst, steps=0))

@@ -356,7 +356,28 @@ def test_train_sample_after_samples_the_trained_weights():
     assert len(sample) == 25 and set(sample) <= _vocab()
 
 
+def test_generate_cli_draws_only_the_tokenizers_ids(capsys):
+    """A model with more vocabulary rows than the tokenizer has ids (a
+    GPT-2 preset over the corpus BPE) samples only ids it can decode;
+    where the two agree the stream is the unlimited one."""
+    text = _run_cli(["generate", "--preset", "test-tiny", "--device", "cpu",
+                     "--vocab-size", "1024", "--sample-tokens", "60"])
+    sample = text[:-1]
+    assert len(sample) == 60 and set(sample) <= _vocab()
+    cfg = get_config("test-tiny").model
+    model = tgpt.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    runs = [tgen.generate(model, [[0]], cfg, tgen.GenerateConfig(
+        max_new_tokens=30, vocab_limit=n), device="cpu") for n in (0, 65)]
+    assert torch.equal(runs[0], runs[1])
+    capped = tgen.generate(model, [[0]], cfg, tgen.GenerateConfig(
+        max_new_tokens=30, vocab_limit=7), device="cpu")
+    assert int(capped.max()) < 7
+
+
 def test_generate_cli_refuses_checkpoints():
-    with pytest.raises(SystemExit, match="queue A item 4"):
+    """generate takes --checkpoint-dir now (tests/test_torch_port_
+    checkpoint.py); a flag it still refuses is the mesh (item 11)."""
+    with pytest.raises(SystemExit, match="queue A item 11"):
         cli.main(["generate", "--preset", "test-tiny", "--device", "cpu",
-                  "--checkpoint-dir", "/nonexistent"])
+                  "--mesh-shape", "2x2"])
