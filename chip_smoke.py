@@ -14,15 +14,19 @@ and fails (non-zero exit) on the first phase that fails:
    instructions of each bf16 flash kernel (evidence, gating nothing);
 3. kernel phase: ``paged_window_attention`` against its plain PyTorch
    version at the serving path's shapes (GPT-2 124M: C=768, H=12,
-   page 16, 64 pages per slot, 512 pages, 8 slots), W in {1, 4}, bf16
+   page 16, 64 pages per slot, 512 pages, 8 slots), W in {1, 4, 5} (5:
+   the speculative verify window at k = 4, two passes of 4 rows), bf16
    (atol = rtol = 2e-2: bf16 output rounding and another summation
-   order) and f32 (1e-4); then CUDA-event timings of the kernel, the
-   plain version and ``F.scaled_dot_product_attention`` over the same
-   K/V gathered dense (the library yardstick, used nowhere in the port;
+   order) and f32 (1e-4); then, at W=1 and at W=5 (the split sized from
+   the longest pos, as the engine's verify sizes it), CUDA-event timings
+   of the kernel, the plain version and
+   ``F.scaled_dot_product_attention`` over the same K/V gathered dense
+   with the same mask (the library yardstick, used nowhere in the port;
    after half a second of launches to settle the clocks, the kernel and
    the library timed in turns and each averaged over its two turns),
    the kernel's rate (the bound's bytes over its time) and its split
-   (CTAs of a cluster, grid, tile rows);
+   (CTAs of a cluster, grid, tile rows, passes); row #1's ``w5_*``
+   fields;
 4. flash kernel phase: ``flash_packed_fwd`` / ``flash_packed_bwd``
    against their plain versions at the training path's shapes (char-GPT:
    B=64, T=256, C=384, H=6), bf16 and f32 (``FLASH_TOL``: one bf16 ulp,
@@ -238,6 +242,27 @@ and fails (non-zero exit) on the first phase that fails:
    f32); ``generate --checkpoint-dir`` from the char-gpt checkpoint
    (row #3 once a character, 256). The kernels line's
    ``launches_checkpoint`` fields are this slice's.
+35. speculative parity phase (run after phase 33): f32 greedy streams of
+   GPT-2 124M width cut to 2 layers, repeat-mode prompts, k = 4: the
+   engine with the n-gram drafter and with a model drafter of the
+   target's weights, on the kernel route and on the gather route, equals
+   the plain engine on the kernel route; on the kernel route row #1 runs
+   at W = 5 only, 2 launches a verify step; the model drafter's accept
+   rate >= 0.99 (printed);
+36. speculative serving slice (this slice's main path): ``serve-replay
+   --preset gpt2-small --decode-cache-layout packed --paged-kernel
+   --spec ngram --spec-k 4 --prompt-mode repeat --greedy`` (16 requests),
+   the same trace without ``--spec`` and ``--spec model --draft-model
+   char-gpt --spec-k 4`` (8 sampled requests), full width and depth,
+   bf16, row #1's counts set to 0 before each and read after: every
+   request completes, every token is in the vocabulary, row #1 runs 12
+   times a verify step at W = 5 and at no other W; accept rate, tokens
+   a slot-step, draft overhead p50, tokens/s and TTFT p50 beside the
+   plain run's tokens/s (row #1's ``launches_spec``);
+37. speculative resilience phase: the ``spec/draft`` collapse fault on
+   the card (124M width, 2 layers, f32, model drafter of the target's
+   weights): one disable, one re-probe, speculation active again at the
+   end, the greedy streams the plain engine's.
 
 Every flash row of the ``{"kernels": [...]}`` line also carries the
 achieved rate (``tflops``: the bound's operation count over the kernel's
@@ -270,7 +295,7 @@ import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend
 
-from replicatinggpt_tpu_torch import cli
+from replicatinggpt_tpu_torch import cli, faults
 from replicatinggpt_tpu_torch.config import get_config
 from replicatinggpt_tpu_torch.data.loader import RandomBatcher
 from replicatinggpt_tpu_torch.models import gpt
@@ -292,6 +317,7 @@ from replicatinggpt_tpu_torch.parallel.serve_group import LocalServeGroup
 from replicatinggpt_tpu_torch.quant.kv import fake_quantize_rows, quantize_rows
 from replicatinggpt_tpu_torch.serve import engine as engine_mod
 from replicatinggpt_tpu_torch.serve import (Engine, EngineConfig,
+                                            ModelDrafter, NGramDrafter,
                                             ReplayConfig, make_trace)
 from replicatinggpt_tpu_torch.sample.generate import (GenerateConfig,
                                                      generate)
@@ -389,6 +415,8 @@ BF16_FLOPS = 989e12                # dense tensor-core bf16
 F32_FLOPS = 67e12                  # f32 outside the tensor cores
 C, H, PSZ, MP, N, B = 768, 12, 16, 64, 512, 8
 POS = [0, 1, 15, 16, 17, 333, 777, 1000]
+SPEC_K = 4                # the speculative slice's drafts a step
+SPEC_W = SPEC_K + 1       # its verify window: row #1's W
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # the flash kernels and their plain versions sum in f32 in different
 # orders and round once to the output's type: bf16 o and d(qkv) agree to
@@ -522,11 +550,62 @@ def sdpa_inputs(args, W: int):
     return heads(q, W), k, v, mask
 
 
+def time_row1(W: int, flush: torch.Tensor, max_pos=None) -> dict:
+    """Row #1 at width W, bf16: CUDA-event times of the kernel and of
+    ``F.scaled_dot_product_attention`` over the same K/V gathered dense
+    with the same mask (after half a second of launches to settle the
+    clocks, timed in turns and each averaged over its two turns), the
+    plain version's, the bound, the rate and the split. ``max_pos``: the
+    engine's bound on the positions (the split's span), None for the
+    whole table."""
+    args = paged_inputs(W, torch.bfloat16)
+    sq, sk, sv, mask = sdpa_inputs(args, W)
+
+    def kernel():
+        return pa.paged_window_attention(*args, n_head=H, max_pos=max_pos)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask)
+
+    settle(kernel, sdpa)
+    ms_a, lib_a, lib_b, ms_b = (time_ms(f, flush)
+                                for f in (kernel, sdpa, sdpa, kernel))
+    ms, library_ms = (ms_a + ms_b) / 2, (lib_a + lib_b) / 2
+    plain_ms = time_ms(
+        lambda: pa.paged_window_attention_ref(*args, n_head=H), flush)
+    b_ms, b_by = bound_ms(args, W)
+    rate = gbps(paged_bytes(args, W), ms)
+    ranks = pa.cluster_ranks(W, C // H, MP, PSZ, 2, False, max_pos)
+    split = {"cluster_ranks": ranks, "tile_rows": pa.tile_rows(W, C // H, MP,
+                                                                2),
+             "grid": [ranks, H, B], "passes": -(-W // (1 if W == 1 else 4))}
+    print(f"kernel timing (bf16, W={W}, B={B}, pos {POS}, span "
+          f"{max_pos or MP * PSZ}): kernel {ms * 1e3:.1f} us "
+          f"({ms_a * 1e3:.1f} / {ms_b * 1e3:.1f}; {rate:.0f} GB/s of the "
+          f"bound's bytes), plain {plain_ms * 1e3:.1f} us, sdpa "
+          f"{library_ms * 1e3:.1f} us ({lib_a * 1e3:.1f} / "
+          f"{lib_b * 1e3:.1f}), bound {b_ms * 1e3:.2f} us ({b_by}); kernel "
+          f"/ sdpa {ms / library_ms:.2f}; split: clusters of "
+          f"{split['cluster_ranks']} CTAs, grid {split['grid']}, "
+          f"{split['tile_rows']}-row tiles, {split['passes']} pass(es)")
+    if ms >= library_ms:
+        print(f"kernel note: the kernel at W={W} ({ms * 1e3:.1f} us) is not "
+              f"below sdpa ({library_ms * 1e3:.1f} us) in this call")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms, "gbps": rate,
+            "split": split}
+
+
 def kernel_phase() -> dict:
+    """Row #1 against its plain version at W in {1, 4, 5} (5 = k+1 of the
+    speculative verify at the default k = 4, the first W that takes two
+    passes of 4 rows), bf16 and f32; then its times at W=1 (the decode
+    step) and W=5 (the verify step, split sized from the longest pos as
+    the engine sizes it)."""
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for W in (1, 4):
+        for W in (1, 4, SPEC_W):
             args = paged_inputs(W, dtype)
             got = pa.paged_window_attention(*args, n_head=H)
             torch.cuda.synchronize()
@@ -538,45 +617,20 @@ def kernel_phase() -> dict:
             errs[(dtype, W)] = err
             print(f"kernel check: {str(dtype)[6:]} W={W} max_abs_err "
                   f"{err:.3e} (atol=rtol={tol})")
-    args = paged_inputs(1, torch.bfloat16)
-    sq, sk, sv, mask = sdpa_inputs(args, 1)
-
-    def kernel():
-        return pa.paged_window_attention(*args, n_head=H)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask)
-
-    # the card comes out of the builds idle: settle its clocks, then time
-    # the kernel and the library in turns (kernel, sdpa, sdpa, kernel)
-    settle(kernel, sdpa)
-    ms_a, lib_a, lib_b, ms_b = (time_ms(f, flush)
-                                for f in (kernel, sdpa, sdpa, kernel))
-    ms, library_ms = (ms_a + ms_b) / 2, (lib_a + lib_b) / 2
-    plain_ms = time_ms(
-        lambda: pa.paged_window_attention_ref(*args, n_head=H), flush)
-    b_ms, b_by = bound_ms(args, 1)
-    rate = gbps(paged_bytes(args, 1), ms)
-    split = {"cluster_ranks": pa.cluster_ranks(1, C // H, MP, PSZ, 2),
-             "tile_rows": pa.tile_rows(1, C // H, MP, 2),
-             "grid": [pa.cluster_ranks(1, C // H, MP, PSZ, 2), H, B]}
-    print(f"kernel timing (bf16, W=1, B={B}, pos {POS}): kernel "
-          f"{ms * 1e3:.1f} us ({ms_a * 1e3:.1f} / {ms_b * 1e3:.1f}; "
-          f"{rate:.0f} GB/s of the bound's bytes), plain "
-          f"{plain_ms * 1e3:.1f} us, sdpa {library_ms * 1e3:.1f} us "
-          f"({lib_a * 1e3:.1f} / {lib_b * 1e3:.1f}), bound "
-          f"{b_ms * 1e3:.2f} us ({b_by}); split: clusters of "
-          f"{split['cluster_ranks']} CTAs, grid {split['grid']}, "
-          f"{split['tile_rows']}-row tiles")
-    if ms >= library_ms:
-        print(f"kernel note: the kernel ({ms * 1e3:.1f} us) is not below "
-              f"sdpa ({library_ms * 1e3:.1f} us) in this call")
+    t1 = time_row1(1, flush)
+    t5 = time_row1(SPEC_W, flush, max_pos=max(POS))
+    print(f"kernel timing: W={SPEC_W} / W=1 {t5['ms'] / t1['ms']:.2f}")
     return {"name": "paged_window_attention", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-            "max_abs_err": errs[(torch.bfloat16, 1)], "ms": ms,
-            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms, "gbps": rate,
-            "split": split}
+            "max_abs_err": errs[(torch.bfloat16, 1)], "ms": t1["ms"],
+            "kernel_ms": t1["ms"], "plain_ms": t1["plain_ms"],
+            "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
+            "library_ms": t1["library_ms"], "gbps": t1["gbps"],
+            "split": t1["split"],
+            "w5_max_abs_err": {str(dt)[6:]: errs[(dt, SPEC_W)]
+                               for dt in (torch.bfloat16, torch.float32)},
+            **{f"w5_{k}": v for k, v in t5.items()},
+            "w5_vs_w1": t5["ms"] / t1["ms"]}
 
 
 def flash_inputs(dtype: torch.dtype, seed: int = 0, shape=(FB, FT, FC),
@@ -2831,6 +2885,198 @@ def window_idle_phase(card: str) -> None:
               f"a step")
 
 
+# ------------------------------------------------------------ speculative
+
+
+def spec_streams(model, mcfg, ecfg, trace, drafter=None, rcfg=None,
+                 plan=None) -> tuple:
+    """Drain ``trace`` (submitted at once) through an engine with
+    ``drafter`` and ``rcfg``, under the fault ``plan`` if one is given.
+    Returns (results by id, the engine, row #1's launches by W)."""
+    eng = Engine(model, mcfg, ecfg, device="cuda", drafter=drafter,
+                 rcfg=rcfg)
+    by_w0 = dict(pa.paged_window_attention.launches_by_window)
+    for _, req in trace:
+        assert eng.submit(req) is None
+    with faults.installed(plan) if plan else contextlib.nullcontext():
+        res = {r.id: r for r in eng.drain()}
+    by_w = {w: n - by_w0.get(w, 0) for w, n in
+            pa.paged_window_attention.launches_by_window.items()
+            if n > by_w0.get(w, 0)}
+    return res, eng, by_w
+
+
+def first_difference(a: dict, b: dict, what: str) -> None:
+    for rid in sorted(b):
+        if a[rid] != b[rid]:
+            i = next((j for j, (x, y) in enumerate(zip(a[rid], b[rid]))
+                      if x != y), min(len(a[rid]), len(b[rid])))
+            raise AssertionError(f"{what}: {rid} differs at token {i}")
+
+
+def spec_model(n_layer: int, dtype: str):
+    mcfg = dataclasses.replace(get_config("gpt2-small").model,
+                               n_layer=n_layer, dtype=dtype,
+                               decode_cache_layout="packed")
+    return mcfg, init_params(mcfg, torch.Generator(device="cuda")
+                             .manual_seed(0), device="cuda")
+
+
+def spec_parity_phase() -> None:
+    """f32 greedy streams of GPT-2 124M width cut to 2 layers, repeat-mode
+    prompts: the speculative engine (n-gram drafter, and a model drafter
+    with the target's weights; k = 4) on the kernel route and on the
+    gather route equals the plain engine on the kernel route, token for
+    token; on the kernel route row #1 runs at W = 5, 2 launches (layers)
+    a verify step and nothing else; the model drafter accepts >= 0.99 of
+    its drafts."""
+    mcfg, model = spec_model(2, "float32")
+    trace = make_trace(mcfg, ReplayConfig(
+        n_requests=8, seed=2, prompt_len_max=200, prompt_mode="repeat",
+        max_new_tokens=40, greedy=True))
+
+    def ecfg(kernel):
+        return EngineConfig(pool_size=8, page_size=16, paged_kernel=kernel)
+
+    base, eng, _ = spec_streams(model, mcfg, ecfg(True), trace)
+    assert eng.kernel_route.decode == "kernel", eng.kernel_route
+    want = {rid: r.tokens for rid, r in base.items()}
+    for kind in ("ngram", "model"):
+        for kernel in (True, False):
+            drafter = (NGramDrafter(SPEC_K) if kind == "ngram" else
+                       ModelDrafter(model, mcfg, SPEC_K, 8, device="cuda"))
+            res, eng, by_w = spec_streams(model, mcfg, ecfg(kernel), trace,
+                                          drafter)
+            route = "kernel" if kernel else "gather"
+            assert eng.kernel_route.verify == route, eng.kernel_route
+            first_difference({rid: r.tokens for rid, r in res.items()},
+                             want, f"spec parity ({kind}, {route})")
+            sp = eng.metrics_summary()["speculative"]
+            assert by_w == ({SPEC_W: 2 * sp["verify_steps"]} if kernel
+                            else {}), (by_w, sp["verify_steps"])
+            if kind == "model":
+                assert sp["accept_rate"] >= 0.99, sp
+            n = sum(len(r.tokens) for r in res.values())
+            print(f"spec parity ({kind} drafter, k={SPEC_K}, {route} route, "
+                  f"GPT-2 width, 2 layers, f32): {len(res)} greedy streams, "
+                  f"{n} tokens equal the plain kernel route's; accept rate "
+                  f"{sp['accept_rate']}, {sp['mean_tokens_per_step']} "
+                  f"tokens/slot-step over {sp['verify_steps']} verify "
+                  f"steps, row #1 launches by W {by_w}")
+
+
+def spec_replay(extra) -> tuple:
+    """``serve-replay --preset gpt2-small --decode-cache-layout packed
+    --paged-kernel`` with ``extra`` at full width and depth, bf16, with
+    row #1's counts set to 0 just before it and read just after. Every
+    request completes with tokens in the vocabulary; with a drafter, row
+    #1 runs 12 times a verify step of the replay at W = 5 and at no other
+    W, and the warm-up adds one verify step (W = 5) and one plain decode
+    step (W = 1; ``run_replay`` warms the path an auto-disable would
+    take). Returns (the summary, row #1's launches by W)."""
+    argv = ["serve-replay", "--preset", "gpt2-small",
+            "--decode-cache-layout", "packed", "--paged-kernel",
+            "--rate", "1000", "--pool-size", "8", "--page-size", "16",
+            "--prompt-mode", "repeat", "--prompt-len-max", "256",
+            "--request-max-new-tokens", "64", "--json", *extra]
+    pa.paged_window_attention.launches = 0
+    pa.paged_window_attention.launches_by_window = {}
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli.main(argv) == 0
+    by_w = dict(pa.paged_window_attention.launches_by_window)
+    lines = out.getvalue().strip().splitlines()
+    print("\n".join(lines[:-1]))
+    s = json.loads(lines[-1])
+    mcfg = get_config("gpt2-small").model
+    assert s["n_completed"] == s["n_requests"], s["n_completed"]
+    toks = [t for st in s["streams"].values() for t in st]
+    assert toks and all(0 <= t < mcfg.vocab_size for t in toks)
+    sp = s.get("speculative")
+    if sp:
+        L = mcfg.n_layer
+        assert s["kernel_route"]["verify"] == "kernel", s["kernel_route"]
+        assert sp["verify_steps"] == s["n_steps"] > 0
+        assert s["kernel_launches_by_window"] == {
+            str(SPEC_W): L * sp["verify_steps"]}, (
+            s["kernel_launches_by_window"], sp["verify_steps"])
+        assert by_w == {SPEC_W: L * (sp["verify_steps"] + 1), 1: L}, (
+            by_w, sp["verify_steps"])
+    return s, by_w
+
+
+def spec_line(name: str, s: dict, card: str) -> None:
+    h, sp = s["histograms"], s.get("speculative")
+    spec = (f"accept rate {sp['accept_rate']}, "
+            f"{sp['mean_tokens_per_step']} tokens/slot-step, draft "
+            f"overhead p50 {sp['draft_overhead_s']['p50'] * 1e3:.3f} ms, "
+            if sp else "")
+    print(f"spec slice {name} on {card}: {spec}"
+          f"{s['aggregate_tokens_per_s']} tok/s, TTFT p50 "
+          f"{h['ttft_s']['p50'] * 1e3:.2f} ms, step p50 "
+          f"{s['step_latency']['p50_s'] * 1e3:.3f} ms over {s['n_steps']} "
+          f"steps, row #1 launches by W {s['kernel_launches_by_window']}")
+
+
+def spec_slice_phase(card: str) -> dict:
+    """The speculative serving slice (this slice's main path): GPT-2 124M
+    at full width and depth, bf16, random init, the kernel route:
+    ``--spec ngram --spec-k 4 --prompt-mode repeat --greedy`` (16
+    requests), the same trace without a drafter (the same call's plain
+    tokens/s), and ``--spec model --draft-model char-gpt --spec-k 4``
+    (8 sampled requests). Returns row #1's launches by W of each
+    speculative run."""
+    ngram, by_ngram = spec_replay(["--n-requests", "16", "--greedy",
+                                   "--spec", "ngram", "--spec-k",
+                                   str(SPEC_K)])
+    plain, _ = spec_replay(["--n-requests", "16", "--greedy"])
+    model, by_model = spec_replay(["--n-requests", "8", "--spec", "model",
+                                   "--draft-model", "char-gpt", "--spec-k",
+                                   str(SPEC_K), "--top-k", "50",
+                                   "--temperature", "0.8"])
+    for name, s in (("ngram greedy", ngram), ("plain greedy", plain),
+                    ("model sampled", model)):
+        spec_line(name, s, card)
+    ratio = (ngram["aggregate_tokens_per_s"]
+             / plain["aggregate_tokens_per_s"])
+    print(f"spec slice: ngram / plain tokens/s on the same trace "
+          f"{ratio:.3f}")
+    return {"ngram": {str(w): n for w, n in by_ngram.items()},
+            "model": {str(w): n for w, n in by_model.items()}}
+
+
+def spec_resilience_phase(card: str) -> None:
+    """The accept-collapse fault on the card (GPT-2 124M width, 2 layers,
+    f32, a model drafter with the target's weights, k = 4): the
+    ``spec/draft`` seam garbles the first 3 drafts, the engine disables
+    speculation once, re-probes once and finds the drafter healthy, and
+    the greedy streams equal the plain engine's."""
+    mcfg, model = spec_model(2, "float32")
+    trace = make_trace(mcfg, ReplayConfig(
+        n_requests=4, seed=3, prompt_len_max=120, prompt_mode="repeat",
+        max_new_tokens=48, greedy=True))
+    ecfg = EngineConfig(pool_size=8, page_size=16, paged_kernel=True)
+    base, _, _ = spec_streams(model, mcfg, ecfg, trace)
+    rcfg = faults.ResilienceConfig(spec_disable_threshold=0.4, spec_window=3,
+                                   spec_reprobe_after=4)
+    plan = faults.FaultPlan(faults.Fault(site="spec/draft", kind="collapse",
+                                         times=3))
+    res, eng, by_w = spec_streams(
+        model, mcfg, ecfg, trace,
+        ModelDrafter(model, mcfg, SPEC_K, 8, device="cuda"), rcfg, plan)
+    rec = eng.metrics_summary()["recovery"]
+    first_difference({rid: r.tokens for rid, r in res.items()},
+                     {rid: r.tokens for rid, r in base.items()},
+                     "spec resilience")
+    assert (rec["spec_disables"], rec["spec_reprobes"]) == (1, 1), rec
+    assert eng.spec_active and by_w.get(1) and by_w.get(SPEC_W), by_w
+    print(f"spec resilience on {card}: collapse fault -> "
+          f"{rec['spec_disables']} disable, {rec['spec_reprobes']} "
+          f"re-probe, speculation active again; streams equal the plain "
+          f"engine's; row #1 launches by W {by_w} (W=1: the degraded "
+          f"decode steps); events {rec['events']}")
+
+
 # the checkpoint slice: GPT-2 124M (the preset's bf16, T=1024, B=32) and
 # char-gpt (dropout 0.2) trained 6 steps with a checkpoint every 3, and a
 # run stopped at step 3 and resumed into a fresh state
@@ -3189,6 +3435,9 @@ def main() -> int:
         ws["kernel_launches_by_window"][str(MIXED_W)]
         / ws["dispatch"]["mixed_window_steps"])
     window_idle_phase(card)
+    spec_parity_phase()
+    row["launches_spec"] = spec_slice_phase(card)
+    spec_resilience_phase(card)
     fused_paged_row = fused_paged_kernel_phase(flush)
     row["quantized"] = quantized_paged_phase(flush)
     row["int8_ms"] = row["quantized"]["int8-page"]["ms"]

@@ -23,6 +23,12 @@
     torchrun --nproc-per-node 4 -m replicatinggpt_tpu_torch serve-replay \\
         --preset gpt2-small --decode-cache-layout packed --paged-kernel \\
         --mesh-shape 2x2
+    python -m replicatinggpt_tpu_torch serve-replay --preset gpt2-small \\
+        --decode-cache-layout packed --paged-kernel --spec ngram \\
+        --spec-k 4 --prompt-mode repeat --greedy
+    python -m replicatinggpt_tpu_torch serve-replay --preset gpt2-small \\
+        --decode-cache-layout packed --paged-kernel --spec model \\
+        --draft-model char-gpt --spec-k 4
 
 Every subcommand runs on the card unless given ``--device cpu``, and takes
 the JAX subcommands' flags. Those this port does not implement yet are
@@ -37,10 +43,15 @@ refused with ROADMAP.md queue A item 11. ``serve-replay --mesh-shape DxM``
 serves on a (data, model) mesh likewise: all D x M shards in one process,
 or one a process under ``torchrun`` (D x M processes), with one step a
 token read; ``--decode-window`` > 1 on such a mesh is refused with queue
-A item 14. ``train --checkpoint-dir D`` saves the whole training state
-(``train/checkpoint.py``) and, with ``--resume``, continues from its
-newest step that verifies; a first SIGTERM or SIGINT saves and exits 0
-(in one process; under ``torchrun`` the stop is off).
+A item 14, and ``--spec`` on it with queue A item 16. ``serve-replay
+--spec ngram|model`` decodes speculatively (``--spec-k`` drafts a slot a
+step; ``--spec model`` drafts with the ``--draft-model`` preset's stack,
+its vocabulary, block, dtype and cache layout the target's, random init
+from the seed + 1); with ``--decode-window`` > 1 the windows run only
+while speculation is off. ``train --checkpoint-dir D`` saves the whole
+training state (``train/checkpoint.py``) and, with ``--resume``, continues
+from its newest step that verifies; a first SIGTERM or SIGINT saves and
+exits 0 (in one process; under ``torchrun`` the stop is off).
 ``generate``, ``serve-replay``, ``eval`` and ``export-torch`` take
 ``--checkpoint-dir D`` to use the weights of its newest verified step
 (random init from the seed only when D holds no step); under
@@ -60,12 +71,6 @@ from .config import add_config_flags, add_train_flags, config_from_args
 
 #: (flag, dest, value that means "off", ROADMAP.md item that brings it)
 UNPORTED_FLAGS = (
-    ("--spec", "spec", "off", "queue A item 9(c) (speculative decoding)"),
-    ("--spec-k", "spec_k", None, "queue A item 9(c) (speculative decoding)"),
-    ("--spec-ngram", "spec_ngram", None,
-     "queue A item 9(c) (speculative decoding)"),
-    ("--draft-model", "draft_model", None,
-     "queue A item 9(c) (speculative decoding)"),
     ("--weight-quant", "weight_quant", "none",
      "queue A item 8 (weight quantization)"),
     ("--act-quant", "act_quant", "none",
@@ -199,13 +204,18 @@ def add_engine_flags(p: argparse.ArgumentParser) -> None:
 
 def engine_config_from_args(args: argparse.Namespace):
     from .parallel.mesh import parse_mesh_shape
-    from .serve.engine import MESH_WINDOW_ITEM, EngineConfig
+    from .serve.engine import MESH_SPEC_ITEM, MESH_WINDOW_ITEM, EngineConfig
     d, m = parse_mesh_shape(args.mesh_shape)
     if args.decode_window > 1 and d * m > 1:
         raise SystemExit(
             f"--decode-window {args.decode_window} with --mesh-shape "
             f"{args.mesh_shape} is not implemented in "
             f"replicatinggpt_tpu_torch yet: ROADMAP.md {MESH_WINDOW_ITEM}")
+    if getattr(args, "spec", "off") != "off" and d * m > 1:
+        raise SystemExit(
+            f"--spec {args.spec} with --mesh-shape {args.mesh_shape} is not "
+            f"implemented in replicatinggpt_tpu_torch yet: ROADMAP.md "
+            f"{MESH_SPEC_ITEM}")
     return EngineConfig(pool_size=args.pool_size, max_queue=args.max_queue,
                         prefill_chunk=args.prefill_chunk,
                         page_size=args.page_size, max_pages=args.max_pages,
@@ -265,6 +275,18 @@ def cmd_serve_replay(args) -> int:
         with torch.no_grad():
             for p in model.parameters():
                 dist.broadcast(p, 0)
+    draft_model = draft_cfg = None
+    if args.spec == "model":
+        from .models.gpt import init_params
+        from .serve.speculative import draft_config_from_preset
+        draft_cfg = draft_config_from_preset(cfg.model, args.draft_model)
+        draft_model = init_params(
+            draft_cfg, torch.Generator(device=dev).manual_seed(cfg.seed + 1),
+            device=dev)
+        print(f"draft model: {args.draft_model} -> {draft_cfg.n_layer}L/"
+              f"{draft_cfg.n_head}H/{draft_cfg.n_embd}C "
+              f"({sum(p.numel() for p in draft_model.parameters()):,} "
+              f"params, random init)", file=sys.stderr)
     rcfg = ReplayConfig(
         n_requests=args.n_requests, rate=args.rate, seed=args.seed or 0,
         prompt_len_min=args.prompt_len_min,
@@ -272,18 +294,21 @@ def cmd_serve_replay(args) -> int:
         max_new_tokens=args.request_max_new_tokens, greedy=args.greedy,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         deadline_s=args.deadline_s, prompt_mode=args.prompt_mode,
-        shared_prefix_len=args.shared_prefix_len)
+        shared_prefix_len=args.shared_prefix_len, spec=args.spec,
+        spec_k=args.spec_k, spec_ngram=args.spec_ngram)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     m = cfg.model
     main = not launched or dist.get_rank() == 0
     procs = f" over {dist.get_world_size()} processes" if launched else ""
     if main:
         print(f"serve-replay: {rcfg.n_requests} requests @ {rcfg.rate}/s, "
-              f"pool {ecfg.pool_size}, queue {ecfg.max_queue}, mesh "
+              f"pool {ecfg.pool_size}, queue {ecfg.max_queue}, spec "
+              f"{rcfg.spec} (k={rcfg.spec_k}), mesh "
               f"{ecfg.mesh_data}x{ecfg.mesh_model}{procs}, model "
               f"{m.n_layer}L/{m.n_head}H/{m.n_embd}C {m.dtype} on {dev} "
               f"({name})", file=sys.stderr)
-    summary = run_replay(model, cfg.model, rcfg, ecfg, device=dev)
+    summary = run_replay(model, cfg.model, rcfg, ecfg, device=dev,
+                         draft_model=draft_model, draft_cfg=draft_cfg)
     if main:
         print(format_summary(summary))
         if args.json:
@@ -509,7 +534,25 @@ def main(argv=None) -> int:
     ps.add_argument("--deadline-s", type=float, default=0.0,
                     help="per-request deadline after arrival (0 = none)")
     ps.add_argument("--prompt-mode", default="random",
-                    choices=["random", "repeat", "shared_prefix"])
+                    choices=["random", "repeat", "shared_prefix"],
+                    help="'repeat' tiles small patterns (the speculative-"
+                         "friendly repetitive trace); 'shared_prefix' gives "
+                         "every prompt one common prefix")
+    ps.add_argument("--spec", default="off",
+                    choices=["off", "ngram", "model"],
+                    help="speculative decoding drafter: host-side n-gram "
+                         "prompt lookup (no parameters) or a small "
+                         "random-init draft model (--draft-model preset); "
+                         "verify through the paged kernel at W = k+1 on "
+                         "the kernel route")
+    ps.add_argument("--spec-k", type=int, default=4,
+                    help="drafted tokens per slot per step")
+    ps.add_argument("--spec-ngram", type=int, default=3,
+                    help="n-gram drafter match width")
+    ps.add_argument("--draft-model", default="test-tiny",
+                    help="--spec model: preset whose architecture sizes the "
+                         "draft model (vocab/block/dtype/cache layout "
+                         "forced to the target's)")
     ps.add_argument("--json", action="store_true",
                     help="also print the summary as one JSON line")
     add_checkpoint_dir_flag(ps)

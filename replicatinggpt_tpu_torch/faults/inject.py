@@ -26,10 +26,15 @@ site                      kind            effect at the seam
 ``train/step``            ``nan_params``  scale one parameter by NaN
 ``train/loss``            ``nan``         the observed loss becomes NaN
 ``train/loss``            ``spike``       the observed loss times ``arg``
+``serve/step``            ``delay``       sleep ``arg`` seconds in the
+                                          engine step (the watchdog's
+                                          stall)
+``spec/draft``            ``collapse``    shift every drafted token by
+                                          one, mod the vocabulary (the
+                                          accept rate collapses)
 ========================  ==============  ===============================
 
-The serving and fleet sites come with ROADMAP.md queue A items 9(d) and
-10.
+The fleet sites come with ROADMAP.md queue A item 10.
 """
 
 from __future__ import annotations

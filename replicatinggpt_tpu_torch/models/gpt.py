@@ -32,7 +32,12 @@ A port of ``replicatinggpt_tpu/models/gpt.py``:
 - the contiguous cache of ``generate()`` (``init_kv_cache``,
   ``cache_seq_axis``), ``decode_step`` with its three routes (the fused
   all-layers kernel at B=1, the packed decode attention kernel, the
-  plain heads route) and ``prefill``.
+  plain heads route) and ``prefill``;
+- the multi-slot steps on a contiguous pool of per-slot buffers (the
+  speculative model drafter's cache, ``serve/speculative.py``), in plain
+  PyTorch as JAX runs them without a kernel: ``decode_step_multi``
+  (per-slot positions), ``verify_step_multi`` (a window a slot) and
+  ``prefill_chunk_into_slot``.
 
 JAX's cache and pool updates are functional; here they are updated IN
 PLACE (one allocation per pool or generation segment) and the steps
@@ -1361,5 +1366,131 @@ def prefill(params: Params, idx: torch.Tensor, cache: Dict[str, torch.Tensor],
             ck[:, :, :P] = k.to(ck.dtype)
             cv[:, :, :P] = v.to(cv.dtype)
         attn = full_causal_attention(q, k, v)
+        x = _block_tail(x, _merge_heads(attn), lp, cfg)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# multi-slot steps on the contiguous pool (the model drafter's cache)
+# ---------------------------------------------------------------------------
+
+def _slot_drop(cache, rows, woff, valid, packed: bool) -> _DropPlan:
+    """``_drop_plan`` over a contiguous (L, B, S, ...) pool: a slot's
+    buffer is one page of S rows, so the page of row (b, s) is b and its
+    offset s. Rows outside ``valid`` write nothing (JAX's ``mode='drop'``
+    for positions at or past S)."""
+    S = cache["k"].shape[2 if packed else 3]
+    return _drop_plan(cache, rows, woff.clamp(0, S - 1), valid, packed)
+
+
+def decode_step_multi(params: Params, idx_t: torch.Tensor, pos: torch.Tensor,
+                      cache: Dict[str, torch.Tensor], cfg: ModelConfig
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One step of B cache slots at PER-SLOT positions (JAX
+    ``decode_step_multi``): idx_t, pos (B,). Slot b's K/V lands at (b,
+    pos[b]) and its query attends positions <= pos[b]
+    (``cached_attention`` with a (B,) position). A slot at a position
+    past the buffer writes nothing (dropped on the device, as JAX's
+    scatter drops an out-of-bounds update) and reads its position
+    embedding at the last row (JAX's clamped gather). The plain PyTorch
+    path: JAX runs no kernel here, since its decode kernels assume one
+    shared position. Returns ((B, V) f32 logits, the cache, updated in
+    place)."""
+    B = idx_t.shape[0]
+    packed = cfg.decode_cache_layout == "packed"
+    H, C = cfg.n_head, cfg.n_embd
+    S = cache["k"].shape[cache_seq_axis(cfg)]
+    pos = pos.long()
+    x = (params["wte"][idx_t.long()]
+         + params["wpe"][pos.clamp(0, cfg.block_size - 1)])[:, None, :]
+    rows = torch.arange(B, device=pos.device)
+    drop = _slot_drop(cache, rows, pos, pos < S, packed)
+    for i in range(cfg.n_layer):
+        lp = _layer(params, i)
+        q_m, k_m, v_m = _cached_qkv_merged(x, lp, cfg)          # (B, 1, C)
+        _scatter_kv(cache, i, rows, pos, k_m.reshape(B, C),
+                    v_m.reshape(B, C), packed, H, drop=drop)
+        ck, cv = cache["k"][i], cache["v"][i]
+        if packed:
+            ck, cv = _split_heads(ck, H), _split_heads(cv, H)
+        attn = cached_attention(_split_heads(q_m, H), ck, cv, pos)
+        x = _block_tail(x, _merge_heads(attn), lp, cfg)
+    return _decode_head(x, params, cfg), cache
+
+
+def verify_step_multi(params: Params, window: torch.Tensor, pos: torch.Tensor,
+                      n_valid: torch.Tensor, cache: Dict[str, torch.Tensor],
+                      cfg: ModelConfig
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """A (B, W) token window per slot in one pass over the contiguous pool
+    (JAX ``verify_step_multi``): window token j of slot b sits at position
+    ``pos[b] + j`` and attends positions <= its own
+    (``windowed_cached_attention``, write-then-attend). Rows j >
+    ``n_valid[b]`` and rows at or past the buffer write nothing (dropped
+    on the device, JAX's writes to position S under ``mode='drop'``);
+    their logits are garbage the caller discards. Returns ((B, W, V) f32
+    logits, the cache, updated in place)."""
+    B, W = window.shape
+    packed = cfg.decode_cache_layout == "packed"
+    H, C = cfg.n_head, cfg.n_embd
+    S = cache["k"].shape[cache_seq_axis(cfg)]
+    pos = pos.long()
+    offs = torch.arange(W, device=pos.device)[None, :]
+    abs_pos = pos[:, None] + offs                               # (B, W)
+    x = (params["wte"][window.long()]
+         + params["wpe"][abs_pos.clamp(0, min(S, cfg.block_size) - 1)])
+    valid = (offs <= n_valid.long()[:, None]) & (abs_pos < S)
+    rows = torch.arange(B, device=pos.device)[:, None].expand(B, W)
+    drop = _slot_drop(cache, rows, abs_pos, valid, packed)
+    for i in range(cfg.n_layer):
+        lp = _layer(params, i)
+        q_m, k_m, v_m = _cached_qkv_merged(x, lp, cfg)          # (B, W, C)
+        _scatter_kv(cache, i, rows, abs_pos, k_m.reshape(B * W, C),
+                    v_m.reshape(B * W, C), packed, H, drop=drop)
+        ck, cv = cache["k"][i], cache["v"][i]
+        if packed:
+            ck, cv = _split_heads(ck, H), _split_heads(cv, H)
+        attn = windowed_cached_attention(_split_heads(q_m, H), ck, cv, pos)
+        x = _block_tail(x, _merge_heads(attn), lp, cfg)
+    x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"],
+                    cfg.layernorm_eps)
+    head = params["wte"].T if cfg.tied_head else params["lm_head"]
+    return (x @ head).float(), cache
+
+
+def prefill_chunk_into_slot(params: Params, idx: torch.Tensor, offset: int,
+                            slot: int, cache: Dict[str, torch.Tensor],
+                            cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Chunked prefill into ONE slot of the contiguous pool (JAX
+    ``prefill_chunk_into_slot``): idx (1, Pc) is a prompt chunk whose
+    first position is the host int ``offset``. Writes its K/V at
+    ``cache[:, slot, offset:offset + Pc]`` and runs the blocks with query
+    i attending the slot's buffer at positions <= offset + i, so chunk 2
+    sees chunk 1's K/V. Positions of a right-padded final chunk past the
+    prompt hold padding K/V, which a decode step overwrites before it
+    attends them. Returns the cache, updated in place."""
+    Pc = idx.shape[1]
+    packed = cfg.decode_cache_layout == "packed"
+    H = cfg.n_head
+    S = cache["k"].shape[cache_seq_axis(cfg)]
+    _check_in_bounds(offset, offset + Pc, S, "prefill chunk write")
+    _check_in_bounds(slot, slot + 1, cache["k"].shape[1],
+                     "prefill slot index")
+    x = params["wte"][idx.long()] + params["wpe"][offset:offset + Pc]
+    base = torch.tensor([offset], device=idx.device)
+    for i in range(cfg.n_layer):
+        lp = _layer(params, i)
+        q_m, k_m, v_m = _cached_qkv_merged(x, lp, cfg)          # (1, Pc, C)
+        ck, cv = cache["k"][i][slot], cache["v"][i][slot]
+        if packed:
+            ck[offset:offset + Pc] = k_m[0].to(ck.dtype)
+            cv[offset:offset + Pc] = v_m[0].to(cv.dtype)
+            k_h, v_h = _split_heads(ck[None], H), _split_heads(cv[None], H)
+        else:
+            ck[:, offset:offset + Pc] = _split_heads(k_m, H)[0].to(ck.dtype)
+            cv[:, offset:offset + Pc] = _split_heads(v_m, H)[0].to(cv.dtype)
+            k_h, v_h = ck[None], cv[None]
+        attn = windowed_cached_attention(_split_heads(q_m, H), k_h, v_h,
+                                         base)
         x = _block_tail(x, _merge_heads(attn), lp, cfg)
     return cache

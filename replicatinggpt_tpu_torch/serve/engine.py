@@ -63,8 +63,22 @@ active mask, tables and sampled tokens are rank 0's, broadcast. A mesh
 runs the blocked loop only: its step plans on the host every step
 (ROADMAP.md queue A item 14).
 
-Speculative verify, weight quantization and telemetry are not ported yet
-(see ROADMAP.md).
+Speculative decoding (``drafter=``, serve/speculative.py): each step a
+drafter proposes up to k tokens a slot, bounded on the host by the slot's
+room and budget, and ONE ``models.gpt.verify_step_paged`` pass scores the
+(k+1)-token windows (``paged_window_attention`` at W = k+1 on the kernel
+route, the ``verify`` route of ``decide_kernel_route``); the acceptance
+commits 1..k+1 tokens a slot, exact for every sampling mode. While a
+drafter is active no decode window runs: a speculative step first reads
+the window in flight and completes any in-window prefill on the host,
+as JAX does. Self-healing (``rcfg=``, ``faults.watchdog``): a stall
+watchdog over step wall times, speculative auto-disable with backed-off
+re-probes (an operator's ``set_spec_active(False)`` pins it), and load
+shedding at the queue; ``journal=`` (serve/journal.py) records every
+accepted and finished request for restart recovery. A drafter on a
+serving mesh is ROADMAP.md queue A item 16.
+
+Weight quantization and telemetry are not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -79,9 +93,12 @@ import torch
 
 from ..config import ModelConfig
 from ..device import resolve_device
+from ..faults.inject import fire as fault_fire
+from ..faults.watchdog import (LoadShedder, ResilienceConfig, SpecHealth,
+                               StepWatchdog)
 from ..models.gpt import (GPT, Params, compute_params, decode_step_paged,
                           decode_window_paged, mixed_window_paged,
-                          prefill_chunk_paged)
+                          prefill_chunk_paged, verify_step_paged)
 from ..ops.decode import fused_paged_decode_supported, fused_weights
 from ..ops.paged_attention import (paged_attention_envelope,
                                    paged_kernel_mesh_ok)
@@ -95,9 +112,11 @@ from ..utils.profiling import StepTimer
 from .cache_pool import prefill_chunk_size
 from .pages import PagedCachePool, pool_geometry
 from .requests import (FINISH_CANCELLED, FINISH_DEADLINE, FINISH_EOS,
-                       FINISH_LENGTH_CAP, FINISH_MAX_TOKENS,
+                       FINISH_LENGTH_CAP, FINISH_MAX_TOKENS, FINISH_SHED,
                        REJECT_BAD_REQUEST, Request, RequestResult)
 from .scheduler import Scheduler
+from .speculative import (DraftContext, Drafter, spec_accept_and_sample,
+                          spec_noise, timed_draft)
 
 #: the window-size autotuner (``EngineConfig.decode_window_auto``):
 #: every this many windows, climb one bucket while the host's launch time
@@ -107,6 +126,8 @@ WINDOW_AUTOTUNE_HOST_FRAC = 0.05
 
 #: the ROADMAP.md item a windowed engine on a serving mesh waits for
 MESH_WINDOW_ITEM = "queue A item 14 (decode windows on a serving mesh)"
+#: and the one a drafter on a serving mesh waits for
+MESH_SPEC_ITEM = "queue A item 16 (speculative decoding on a serving mesh)"
 
 log = logging.getLogger(__name__)
 
@@ -186,12 +207,15 @@ class KernelRoute:
     kernels, on the CPU their plain versions. ``window`` is the mixed
     prefill+decode windows' route: "kernel" (``paged_window_attention``
     at W = the prefill chunk) or "gather", and "none" on an engine that
-    runs no window (``decode_window`` 1). ``reasons`` names every failed
-    gate."""
+    runs no window (``decode_window`` 1). ``verify`` is the speculative
+    verify step's: "kernel" (``paged_window_attention`` at W = k+1),
+    "gather", or "none" without a drafter. ``reasons`` names every
+    failed gate."""
 
     decode: str
     window: str
     reasons: tuple
+    verify: str = "none"
     kv_quant: str = "none"
     granularity: str = "page"
     sharded: bool = False         # the kernel runs per data shard
@@ -199,7 +223,8 @@ class KernelRoute:
 
     def summary(self) -> dict:
         return {"route": self.decode, "decode": self.decode,
-                "window": self.window, "sharded": self.sharded,
+                "window": self.window, "verify": self.verify,
+                "sharded": self.sharded,
                 "mesh": list(self.mesh),
                 "kv_quant": self.kv_quant, "weight_quant": "none",
                 "granularity": self.granularity, "act_quant": "none",
@@ -208,7 +233,8 @@ class KernelRoute:
 
 def decide_kernel_route(cfg: ModelConfig, ecfg: EngineConfig,
                         page_size: int, max_pages: int, itemsize: int,
-                        n_slots: int, n_pages: int = 0) -> KernelRoute:
+                        n_slots: int, n_pages: int = 0,
+                        spec_k: int = 0) -> KernelRoute:
     """The JAX engine's rule: the fused all-layers kernel whenever
     ``fused_paged_decode_supported`` holds on a 1x1 mesh, else the
     per-layer kernel inside its envelope (on a mesh, per data shard,
@@ -219,7 +245,9 @@ def decide_kernel_route(cfg: ModelConfig, ecfg: EngineConfig,
     engine's mixed windows take the per-layer kernel wherever the same
     gates hold and its envelope takes W = the prefill chunk
     (``window_*`` reasons otherwise), as JAX's
-    ``mixed_step_kernel_ok``."""
+    ``mixed_step_kernel_ok``; so does the speculative verify step of an
+    engine with a drafter of ``spec_k`` drafts, at W = spec_k + 1
+    (``verify_*`` reasons otherwise), as JAX routes it with its windows."""
     q = ecfg.quant()
     d, m = ecfg.mesh_shape
     reasons = []
@@ -247,7 +275,17 @@ def decide_kernel_route(cfg: ModelConfig, ecfg: EngineConfig,
         wreasons = [f"window_{r}" for r in wenv if r not in env]
         reasons.extend(wreasons)
         window = "gather" if decode == "gather" or wreasons else "kernel"
-    return KernelRoute(decode=decode, window=window, reasons=tuple(reasons),
+    verify = "none"
+    if spec_k > 0:
+        _, venv = paged_attention_envelope(
+            h_loc, cfg.head_dim, page_size, itemsize=itemsize,
+            window=spec_k + 1, max_pages=max_pages, kv_quant=q.kv_dtype,
+            granularity=q.granularity)
+        vreasons = [f"verify_{r}" for r in venv if r not in env]
+        reasons.extend(vreasons)
+        verify = "gather" if decode == "gather" or vreasons else "kernel"
+    return KernelRoute(decode=decode, window=window, verify=verify,
+                       reasons=tuple(reasons),
                        kv_quant=q.kv_dtype, granularity=q.granularity,
                        sharded=d * m > 1 and decode == "kernel",
                        mesh=(d, m))
@@ -344,12 +382,20 @@ class Engine:
     casts it once to the compute dtype on ``device`` (default: the
     card) and, on a mesh, splits it for the shards this process holds:
     all of them in one process, this rank's under ``torchrun`` (the
-    launch's process group, joined before the engine is made)."""
+    launch's process group, joined before the engine is made).
+
+    ``drafter`` (serve/speculative.py) turns on speculative decoding;
+    ``rcfg`` (``faults.watchdog.ResilienceConfig``) opts into the
+    self-healing policies, None or all-zero changing nothing;
+    ``journal`` (``serve.journal.RequestJournal``) records accepted and
+    finished requests."""
 
     def __init__(self, model: GPT, cfg: ModelConfig,
                  ecfg: EngineConfig = EngineConfig(),
                  clock: Callable[[], float] = time.monotonic,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 drafter: Optional[Drafter] = None,
+                 rcfg: Optional[ResilienceConfig] = None, journal=None):
         cfg.validate()
         if ecfg.decode_window > 1 and ecfg.mesh_data * ecfg.mesh_model > 1:
             raise ValueError(
@@ -357,6 +403,20 @@ class Engine:
                 f"{ecfg.mesh_data}x{ecfg.mesh_model} serving mesh is not "
                 f"implemented in replicatinggpt_tpu_torch yet: ROADMAP.md "
                 f"{MESH_WINDOW_ITEM}")
+        if drafter is not None and ecfg.mesh_data * ecfg.mesh_model > 1:
+            raise ValueError(
+                f"a drafter on a {ecfg.mesh_data}x{ecfg.mesh_model} serving "
+                f"mesh is not implemented in replicatinggpt_tpu_torch yet: "
+                f"ROADMAP.md {MESH_SPEC_ITEM}")
+        dcfg = getattr(drafter, "cfg", None)
+        if dcfg is not None:           # model drafter: pools must line up
+            assert dcfg.vocab_size == cfg.vocab_size, \
+                "draft model must share the target vocab"
+            assert dcfg.block_size == cfg.block_size, \
+                "draft model must share the target block_size"
+            assert drafter.pool_size == ecfg.pool_size, \
+                "draft pool must match the engine pool"
+        self.drafter = drafter
         self.device = dev = resolve_device(device)
         self.cfg = cfg
         self.ecfg = ecfg
@@ -398,17 +458,21 @@ class Engine:
         self._at_n = 0
         self.kernel_route = decide_kernel_route(
             cfg, ecfg, self.pool.page_size, self.pool.max_pages,
-            self.pool.itemsize, P, self.pool.n_pages)
+            self.pool.itemsize, P, self.pool.n_pages,
+            spec_k=drafter.k if drafter is not None else 0)
         self._use_kernel = self.kernel_route.decode == "kernel"
         self._use_fused = self.kernel_route.decode == "fused"
         self._use_window_kernel = self.kernel_route.window == "kernel"
+        self._use_verify_kernel = self.kernel_route.verify == "kernel"
         # the fused kernel's blocks, every one in the compute dtype
         self._fused_blocks = (fused_weights(self.params["blocks"],
                                             cfg.compute_dtype)
                               if self._use_fused else None)
         log.info("kernel route: %s, window %s%s", self.kernel_route.decode,
                  self.kernel_route.window,
-                 (" reasons=" + ",".join(self.kernel_route.reasons)
+                 (f", verify {self.kernel_route.verify}"
+                  if drafter is not None else "")
+                 + (" reasons=" + ",".join(self.kernel_route.reasons)
                   if self.kernel_route.reasons else ""))
         self._tok = np.zeros((P,), np.int32)
         # ALIAS of pool.positions: the engine advances it in place
@@ -453,6 +517,21 @@ class Engine:
         self.n_steps = 0
         if self._window > 1:
             self._warm_windows()
+        # self-healing (faults.watchdog), every policy opt-in through rcfg
+        self.rcfg = rcfg or ResilienceConfig()
+        self.journal = journal
+        self._spec_active = drafter is not None
+        self._watchdog = (StepWatchdog(self.rcfg)
+                          if self.rcfg.watchdog_on else None)
+        self._spec_health = (SpecHealth(self.rcfg)
+                             if self.rcfg.spec_guard_on
+                             and drafter is not None else None)
+        self._shedder = (LoadShedder(self.rcfg)
+                         if self.rcfg.shed_on else None)
+        self._probe_pending = False
+        self._spec_pinned = False     # operator pin (set_spec_active)
+        #: host-side log of resilience events, the newest 256
+        self.events: List[str] = []
 
     # ---------------------------------------------------------------- API
 
@@ -473,6 +552,8 @@ class Engine:
             self.metrics.inc("finished_" + reason
                              if reason == FINISH_DEADLINE else reason)
             return RequestResult(id=req.id, tokens=[], finish_reason=reason)
+        if self.journal is not None:
+            self.journal.record_submit(req)
         return None
 
     def cancel(self, request_id: str) -> bool:
@@ -489,6 +570,7 @@ class Engine:
         now = self.clock()
         if self.scheduler.cancel(request_id):
             self.metrics.inc("finished_" + FINISH_CANCELLED)
+            self._journal_finish(request_id, FINISH_CANCELLED)
             self._pending.append(RequestResult(
                 id=request_id, tokens=[], finish_reason=FINISH_CANCELLED))
             return True
@@ -507,41 +589,136 @@ class Engine:
                 and not self._pending and self._inflight is None)
 
     def step(self) -> List[RequestResult]:
-        """One scheduling iteration: expire -> admit -> decode. On a
-        windowed engine the decode phase is one window boundary
+        """One scheduling iteration: expire -> shed -> admit -> decode, with
+        the self-healing policies around the decode phase when configured.
+        On a windowed engine the decode phase is one window boundary
         (``_window_step``): admissions are host bookkeeping whose prompt
         chunks ride the next window, expired and cancelled slots ride it
         as kill flags, and the next window is enqueued before the one in
-        flight is read."""
+        flight is read. A speculative step (a drafter active, or its
+        re-probe due) leaves the window path: it reads the window in
+        flight, completes any in-window prefill, admits and verifies."""
         finished: List[RequestResult] = self._pending
         self._pending = []
         now = self.clock()
+        t_wall = time.perf_counter()
         for req, t_submit, reason in self.scheduler.drain_expired(now):
             finished.append(self._finish_unstarted(req, t_submit, reason,
                                                    now))
+        if self._shedder is not None:
+            n_shed = self._shedder.observe(self.scheduler.depth,
+                                           self.ecfg.max_queue)
+            if n_shed:
+                for req, t_submit in self.scheduler.shed(n_shed):
+                    finished.append(self._finish_unstarted(
+                        req, t_submit, FINISH_SHED, now))
+                self.metrics.inc("shed_requests", n_shed)
+                self._event(f"step {self.n_steps}: shed {n_shed} queued "
+                            f"request(s) under sustained overload")
         expired = [int(s) for s in
                    np.flatnonzero(self._active & (self._deadline <= now))
                    if int(s) in self._slots]
-        if self._window > 1:
-            if (self._active.any() or self._kill or expired
-                    or self._head_admissible()):
-                for slot in expired:
-                    self._kill.setdefault(self._slots[slot].req.id,
-                                          FINISH_DEADLINE)
-                self._window_step(now, finished)
-            elif self._inflight is not None:
+        # the re-probe countdown while auto-disabled (an operator's pin
+        # through set_spec_active(False) sticks)
+        reprobe = False
+        if (self.drafter is not None and not self._spec_active
+                and not self._spec_pinned and self._spec_health is not None
+                and self._active.any()):
+            reprobe = self._spec_health.tick_disabled()
+        use_spec = self.drafter is not None and (self._spec_active
+                                                 or reprobe)
+        windowed = self._window > 1 and not use_spec
+        busy = windowed and bool(self._active.any() or self._kill or expired
+                                 or self._head_admissible())
+        if busy:
+            for slot in expired:
+                self._kill.setdefault(self._slots[slot].req.id,
+                                      FINISH_DEADLINE)
+        elif not windowed:
+            # a speculative step on a windowed engine reads the window in
+            # flight first (its tokens commit, its finished slots free)
+            # and writes any prompt chunks the abandoned windows still
+            # owed: the verify step attends every admitted prompt whole
+            finished.extend(self._drain_pending(
+                "reprobe" if reprobe else "spec"))
+            self._flush_prefill()
+            for rid, reason in list(self._kill.items()):
+                slot = self.pool.slot_of(rid)
+                if slot is not None and slot in self._slots:
+                    finished.append(self._finish_slot(slot, reason, now))
+            self._kill.clear()
+            for slot in expired:
+                if slot in self._slots:   # it may have ended in the drain
+                    finished.append(self._finish_slot(slot, FINISH_DEADLINE,
+                                                      now))
+            if reprobe:
+                self.set_spec_active(True)
+                self._probe_pending = True
+                self.metrics.inc("spec_reprobes")
+                self._event(f"step {self.n_steps}: re-probing speculative "
+                            f"decoding")
+            self._admit_queue(now, finished, self._admit)
+        self._gauges()
+        # fault seam: an artificially slow step (no-op without a plan),
+        # what the watchdog must catch
+        flt = fault_fire("serve/step", index=self.n_steps)
+        if flt is not None and flt.kind == "delay":
+            time.sleep(flt.arg)
+        ran = False
+        if busy:
+            self._window_step(now, finished)
+            ran = True
+        elif windowed:
+            if self._inflight is not None:
                 # every slot finished while a window flew: read it (it
                 # emits nothing) so that drain() reaches idle
                 finished.extend(self._drain_pending())
-            self._gauges()
-            return finished
-        for slot in expired:
-            finished.append(self._finish_slot(slot, FINISH_DEADLINE, now))
-        self._admit_queue(now, finished, self._admit)
-        self._gauges()
-        if self._active.any():
-            finished.extend(self._decode_once())
+        elif self._active.any():
+            finished.extend(self._verify_once()
+                            if self.drafter is not None and self._spec_active
+                            else self._decode_once())
+            ran = True
+        if ran and self._watchdog is not None:
+            dur = time.perf_counter() - t_wall
+            if self._watchdog.observe(dur):
+                self.metrics.inc("watchdog_stalls")
+                self.metrics.gauge("last_stall_s", dur)
+                self._event(f"step {self.n_steps}: stall, {dur * 1e3:.1f} ms "
+                            f"step against a p99-derived budget")
         return finished
+
+    def set_spec_active(self, active: bool) -> None:
+        """Switch speculative decoding between its verify step and the
+        plain decode path. Turning it on resyncs a stateful drafter from
+        the host's histories (tokens committed meanwhile never went
+        through its cache), after reading the window in flight and
+        completing any in-window prefill. Turning it off here PINS the
+        plain path: the auto re-probe leaves it alone until
+        ``set_spec_active(True)`` (the auto-disable flips ``_spec_active``
+        itself and stays re-probeable)."""
+        active = active and self.drafter is not None
+        if active and not self._spec_active:
+            self._pending.extend(self._drain_pending("spec"))
+            self._flush_prefill()
+            hists = self._histories()
+            for slot in self._slots:
+                if self._active[slot] and hists[slot] is not None:
+                    self.drafter.resync(slot, hists[slot])
+        self._spec_pinned = not active and self.drafter is not None
+        self._spec_active = active
+
+    @property
+    def spec_active(self) -> bool:
+        return self._spec_active
+
+    def _journal_finish(self, request_id: str, reason: str) -> None:
+        if self.journal is not None:
+            self.journal.record_finish(request_id, reason)
+
+    def _event(self, msg: str) -> None:
+        self.events.append(msg)
+        if len(self.events) > 256:
+            del self.events[:len(self.events) - 256]
 
     def drain(self, max_steps: int = 1_000_000) -> List[RequestResult]:
         out: List[RequestResult] = []
@@ -582,11 +759,34 @@ class Engine:
         }
         # the host mutations that make a windowed engine read the window
         # in flight early and leave the window path, the JAX engine's
-        # keys: admissions, deadlines and cancels ride the windows here
-        # and the speculative modes are not ported, so none moves
+        # keys: admissions, deadlines and cancels ride the windows here,
+        # so only a speculative step ('spec') or re-probe moves them
         s["window_breaks"] = {
             r: int(c.get("window_breaks_" + r, 0))
             for r in ("admit", "deadline", "cancel", "spec", "reprobe")}
+        s["recovery"] = {
+            "watchdog_stalls": int(c.get("watchdog_stalls", 0)),
+            "spec_disables": int(c.get("spec_disables", 0)),
+            "spec_reprobes": int(c.get("spec_reprobes", 0)),
+            "shed_requests": int(c.get("shed_requests", 0)),
+            "spec_active": self._spec_active,
+            "events": list(self.events[-32:]),
+        }
+        if self.drafter is not None:
+            drafted = c.get("spec_draft_tokens", 0)
+            slot_steps = c.get("slot_steps", 0)
+            s["speculative"] = {
+                "drafter": self.drafter.name,
+                "k": self.drafter.k,
+                "accept_rate": (round(c.get("spec_accepted_tokens", 0)
+                                      / drafted, 4) if drafted else 0.0),
+                "mean_tokens_per_step": (round(c.get("spec_tokens", 0)
+                                               / slot_steps, 3)
+                                         if slot_steps else 0.0),
+                "verify_steps": int(c.get("verify_steps", 0)),
+                "draft_overhead_s":
+                    self.metrics.hist_summary("draft_overhead_s"),
+            }
         return s
 
     # ----------------------------------------------------------- internals
@@ -685,6 +885,10 @@ class Engine:
                         slot: int, cap: int, claimed: int) -> None:
         """The slot mirrors and records both admissions share."""
         P = int(req.prompt.size)
+        if self.drafter is not None:
+            # a drafter keeps its own cache and sees the whole prompt:
+            # prefix reuse is the target pool's
+            self.drafter.on_admit(slot, req.prompt)
         self._tok[slot] = req.prompt[-1]
         self._active[slot] = True
         self._budget[slot] = self._sched_budget[slot] = cap
@@ -810,6 +1014,158 @@ class Engine:
         # once the decode frontier passed it
         self.pool.flush_pending()
         return finished
+
+    # -------------------------------------------------------- speculative
+
+    def _histories(self) -> List[Optional[np.ndarray]]:
+        """Per-slot prompt+generated history: host data (the engine
+        appends every committed token), so a drafter never reads the
+        device for it."""
+        out: List[Optional[np.ndarray]] = [None] * self.ecfg.pool_size
+        for slot, st in self._slots.items():
+            out[slot] = np.concatenate(
+                [st.req.prompt,
+                 np.fromiter(st.tokens, np.int32, len(st.tokens))])
+        return out
+
+    def _verify_once(self) -> List[RequestResult]:
+        """One speculative step: the host's draft, ONE verify pass over
+        every slot's (k+1)-token window, and the commit of 1..k+1 tokens a
+        slot. Each slot's drafts are bounded on the host by its room (the
+        window's last real position stays inside the slot) and its
+        remaining budget; the window's real writes are checked against the
+        slot's positions before the launch, and the accepted counts and
+        tokens are read back in one copy."""
+        k = self.drafter.k
+        S = self.pool.seq_len
+        P = self.ecfg.pool_size
+        # verify works off the host mirrors and advances them: the card's
+        # window state, if any, is stale after this step
+        self._dev_state = None
+        ctx = DraftContext(
+            tok=self._tok, pos=self._pos, active=self._active,
+            histories=(self._histories() if self.drafter.needs_history
+                       else None))
+        draft_toks, draft_len, dt = timed_draft(self.drafter, ctx,
+                                                self.cfg.vocab_size)
+        self.metrics.observe("draft_overhead_s", dt)
+        m = np.zeros((P,), np.int32)
+        for slot, st in self._slots.items():
+            if not self._active[slot]:
+                continue
+            room = S - 1 - int(self._pos[slot])
+            budget = st.cap - len(st.tokens) - 1
+            m[slot] = max(0, min(int(draft_len[slot]), k, room, budget))
+        pe = np.where(self._active, self._pos + m, 0)
+        if pe.min() < 0 or pe.max() >= S:
+            raise IndexError(f"speculative verify window: [{pe.min()}, "
+                             f"{pe.max() + 1}) outside [0, {S})")
+        window = np.zeros((P, k + 1), np.int32)
+        window[:, 0] = self._tok
+        window[:, 1:] = draft_toks
+        self.step_timer.start()
+        up = self._upload(np.concatenate(
+            [window, np.stack([self._pos, m, self._active.astype(np.int32)],
+                              1)], 1))
+        window_d, pos, n_valid = up[:, :k + 1], up[:, k + 1], up[:, k + 2]
+        active = up[:, k + 3].bool()
+        _, tables, temp, top_k, top_p, greedy = self._launch_inputs()
+        logits, _ = verify_step_paged(
+            self.params, window_d, pos, n_valid, active, tables,
+            self.pool.cache, self.cfg, use_kernel=self._use_verify_kernel,
+            max_pos=int(np.where(self._active, self._pos, 0).max()))
+        gens = [g if a and not gr else None
+                for g, a, gr in zip(self._gens, self._active, self._greedy)]
+        noise = spec_noise(gens, P, k + 1, self.cfg.vocab_size, self.device)
+        n_acc, out = spec_accept_and_sample(logits, window_d, n_valid, temp,
+                                            top_k, top_p, greedy, noise)
+        res = torch.cat([n_acc[:, None], out], 1).cpu().numpy()
+        self.step_timer.lap()
+        n_acc_h, out_h = res[:, 0], res[:, 1:]
+        now = self.clock()
+        self.n_steps += 1
+        n_active = int(self._active.sum())
+        drafted = int(m[self._active].sum())
+        accepted = int(n_acc_h[self._active].sum())
+        emitted = accepted + n_active         # + the correction or bonus
+        self.metrics.observe("batch_fill_ratio", n_active / P)
+        self.metrics.inc("decode_steps")
+        self.metrics.inc("verify_steps")
+        self.metrics.inc("slot_steps", n_active)
+        self.metrics.inc("spec_draft_tokens", drafted)
+        self.metrics.inc("spec_accepted_tokens", accepted)
+        self.metrics.inc("spec_tokens", emitted)
+        if drafted:
+            self.metrics.observe("accept_rate", accepted / drafted)
+        self.metrics.observe("tokens_per_slot_step", emitted / n_active)
+        if self._spec_health is not None:
+            if self._spec_health.observe(drafted, accepted):
+                # at this accept rate the drafter is a pure tax: back to
+                # plain decode, and a re-probe later with backoff
+                self._spec_active = False
+                self._probe_pending = False
+                self._spec_health.on_disable()
+                self.metrics.inc("spec_disables")
+                self._event(f"step {self.n_steps}: speculative decoding "
+                            f"disabled (windowed accept rate below "
+                            f"{self.rcfg.spec_disable_threshold})")
+            elif (self._probe_pending and len(self._spec_health.window)
+                  >= self.rcfg.spec_window):
+                self._probe_pending = False
+                self._spec_health.on_reenable()
+                self._event(f"step {self.n_steps}: speculative re-probe "
+                            f"healthy; backoff reset")
+        finished: List[RequestResult] = []
+        n_tok = 0
+        for slot in list(self._slots):
+            if not self._active[slot]:
+                continue
+            st = self._slots[slot]
+            committed = [int(t) for t in out_h[slot, :int(n_acc_h[slot]) + 1]]
+            eos = int(self._eos[slot])
+            if eos >= 0 and eos in committed:
+                # an accepted eos ends the stream there: drop what the
+                # window committed past it
+                committed = committed[:committed.index(eos) + 1]
+            n_tok += len(committed)
+            self._commit_tokens(slot, st, committed, now)
+            finished.extend(self._finish_if_done(slot, st, now))
+        # decode_tokens counts the verify commits too; dispatch_tokens, the
+        # denominator of the host's launch time a token, does not
+        self.metrics.inc("decode_tokens", n_tok)
+        # a windowed engine's launch schedule restarts from the mirrors
+        self._sched_budget[:] = self._budget
+        self._sched_pos[:] = self._pos
+        self.pool.flush_pending()
+        return finished
+
+    def _flush_prefill(self) -> None:
+        """Write, through the blocked prefill, the prompt chunks that
+        in-window prefills still owe, and register their pages: called
+        when the engine leaves the window path with chunks outstanding
+        (a speculative step), since the verify and decode paths attend
+        each admitted slot's whole prompt."""
+        for slot in np.flatnonzero(self._pf_left > 0):
+            slot = int(slot)
+            chunk = self._chunk
+            tail = self._pf_tail.pop(slot)
+            n = int(self._pf_left[slot])
+            off = int(self._pf_off[slot])
+            limit = int(self._pf_limit[slot])
+            toks = torch.tensor(tail[:n * chunk].astype(np.int64),
+                                device=self.device)
+            table_row = torch.tensor(self.pool.tables[slot],
+                                     device=self.device)
+            for c in range(n):
+                prefill_chunk_paged(
+                    self.params, toks[None, c * chunk:(c + 1) * chunk],
+                    off + c * chunk, limit, table_row, self.pool.cache,
+                    self.cfg, group=self.group,
+                    host_row=self.pool.tables[slot])
+            self._pf_left[slot] = self._pf_off[slot] = 0
+            self._pf_limit[slot] = 0
+            if slot in self._slots:
+                self.pool.commit_admission(slot)
 
     # ------------------------------------------------------------ windows
 
@@ -986,10 +1342,15 @@ class Engine:
                          n_active=int(live.sum()), host_s=host_s,
                          pf_done=pf_done)
 
-    def _drain_pending(self) -> List[RequestResult]:
-        """Read the window in flight, if any."""
+    def _drain_pending(self, break_reason: str = "") -> List[RequestResult]:
+        """Read the window in flight, if any. A ``break_reason`` marks the
+        read as a window break (the engine leaves the window path for a
+        speculative step, 'spec', or re-probe, 'reprobe'), counted in
+        ``window_breaks_{reason}``."""
         if self._inflight is None:
             return []
+        if break_reason:
+            self.metrics.inc("window_breaks_" + break_reason)
         w, self._inflight = self._inflight, None
         return self._drain_window(w)
 
@@ -1128,6 +1489,8 @@ class Engine:
             self._dev_state = None
         self._li = None           # release zeroes the slot's table row
         self.pool.release(slot)
+        if self.drafter is not None:
+            self.drafter.on_release(slot)
         n = len(st.tokens)
         decode_tps = 0.0
         if n > 1 and st.t_last_token > st.t_first_token:
@@ -1138,6 +1501,7 @@ class Engine:
             ttft_s=(st.t_first_token - st.t_submit) if n else 0.0,
             decode_tokens_per_s=decode_tps, total_s=now - st.t_submit)
         self.metrics.inc(f"finished_{reason}")
+        self._journal_finish(st.req.id, reason)
         if decode_tps:
             self.metrics.observe("decode_tokens_per_s", decode_tps)
         return res
@@ -1145,6 +1509,7 @@ class Engine:
     def _finish_unstarted(self, req: Request, t_submit: float, reason: str,
                           now: float) -> RequestResult:
         self.metrics.inc(f"finished_{reason}")
+        self._journal_finish(req.id, reason)
         return RequestResult(id=req.id, tokens=[], finish_reason=reason,
                              queue_wait_s=now - t_submit,
                              total_s=now - t_submit)

@@ -5,15 +5,17 @@ engine (port of ``replicatinggpt_tpu/serve/replay.py``).
 trace, bit for bit, as the JAX package's. ``run_replay`` warms a
 throwaway engine first (which also builds the CUDA kernels) with one
 request of ``EngineConfig.warmup_tokens()`` tokens, which drives a
-windowed engine through its mixed and its steady windows, and then
-replays the trace in wall-clock time.
+windowed engine through its mixed and its steady windows (with a
+drafter: its verify step, and then its plain decode path, which an
+auto-disable may switch to mid-replay), and then replays the trace in
+wall-clock time.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -22,6 +24,7 @@ from ..ops.decode import fused_paged_decode_layers
 from ..ops.paged_attention import paged_window_attention
 from .engine import Engine, EngineConfig
 from .requests import Request, RequestResult, SamplingParams
+from .speculative import make_drafter
 
 
 @dataclass(frozen=True)
@@ -37,9 +40,14 @@ class ReplayConfig:
     top_k: int = 20
     top_p: float = 0.0
     deadline_s: float = 0.0        # per-request deadline after arrival; 0=off
-    prompt_mode: str = "random"    # 'random' | 'repeat' | 'shared_prefix'
+    prompt_mode: str = "random"    # 'random' | 'repeat' (tiled small
+                                   # patterns: the speculative trace) |
+                                   # 'shared_prefix'
     shared_prefix_len: int = 0     # 'shared_prefix' common-prefix length;
                                    # 0 = prompt_len_max // 2
+    spec: str = "off"              # drafter: 'off' | 'ngram' | 'model'
+    spec_k: int = 4                # drafted tokens per slot per step
+    spec_ngram: int = 3            # n-gram drafter match width
 
 
 def make_trace(mcfg: ModelConfig, rcfg: ReplayConfig
@@ -84,12 +92,19 @@ def make_trace(mcfg: ModelConfig, rcfg: ReplayConfig
 
 
 def run_replay(model, mcfg: ModelConfig, rcfg: ReplayConfig,
-               ecfg: EngineConfig, device=None) -> dict:
+               ecfg: EngineConfig, device=None, draft_model=None,
+               draft_cfg: Optional[ModelConfig] = None, resilience=None,
+               journal=None) -> dict:
     """Replay the trace in wall-clock time, after one request through a
     throwaway engine of the same shapes (which also builds the kernel);
     returns the engine's metrics summary plus replay totals and each
-    request's token stream. ``kernel_launches`` counts the per-layer
-    paged attention kernel's launches during the timed replay alone,
+    request's token stream. ``rcfg.spec`` selects a drafter, one an
+    engine (drafters hold per-slot state); 'model' needs ``draft_model``
+    and ``draft_cfg`` (``speculative.draft_config_from_preset``).
+    ``resilience`` (``faults.watchdog.ResilienceConfig``) and ``journal``
+    (``serve.journal.RequestJournal``) go to the replay's engine.
+    ``kernel_launches`` counts the per-layer paged attention kernel's
+    launches during the timed replay alone,
     ``partials_launches`` its partials mode's (a mesh's kernel route),
     ``kernel_launches_by_window`` the first by window width W (1 in the
     decode steps, the prefill chunk in a windowed engine's mixed
@@ -97,13 +112,27 @@ def run_replay(model, mcfg: ModelConfig, rcfg: ReplayConfig,
     clock is the
     engine's: under ``torchrun``, rank 0's on every rank, so that every
     rank submits the same requests at the same steps."""
-    w = Engine(model, mcfg, ecfg, device=device)
-    w.submit(Request(id="warmup", prompt=np.zeros((1,), np.int32),
-                     max_new_tokens=ecfg.warmup_tokens(),
-                     sampling=SamplingParams(greedy=True)))
+    def drafter():
+        return make_drafter(rcfg.spec, rcfg.spec_k, rcfg.spec_ngram,
+                            ecfg.pool_size, draft_model, draft_cfg,
+                            ecfg.prefill_chunk, device=device)
+
+    def tiny(rid):
+        return Request(id=rid, prompt=np.zeros((1,), np.int32),
+                       max_new_tokens=ecfg.warmup_tokens(),
+                       sampling=SamplingParams(greedy=True))
+
+    w = Engine(model, mcfg, ecfg, device=device, drafter=drafter())
+    w.submit(tiny("warmup"))
     w.drain()
+    if w.drafter is not None:
+        # the plain decode path too, which an auto-disable may switch to
+        w.set_spec_active(False)
+        w.submit(tiny("warmup-degraded"))
+        w.drain()
     del w
-    engine = Engine(model, mcfg, ecfg, device=device)
+    engine = Engine(model, mcfg, ecfg, device=device, drafter=drafter(),
+                    rcfg=resilience, journal=journal)
     clock = engine.clock
     trace = make_trace(mcfg, rcfg)
     results: List[RequestResult] = []
@@ -193,9 +222,24 @@ def format_summary(s: dict) -> str:
                 f"{pg['effective_mesh_shape'][1]}), {pg['pages_per_chip']} "
                 f"pages/chip of {pg['aggregate_pages']} aggregate, per-chip "
                 f"in use {pg['pages_in_use_by_chip']}"]
+    sp = s.get("speculative")
+    spec = []
+    if sp:
+        rec = s["recovery"]
+        spec = [
+            f"speculative ({sp['drafter']}, k={sp['k']}): accept rate "
+            f"{sp['accept_rate']:.3f}, {sp['mean_tokens_per_step']:.2f} "
+            f"tokens/slot-step over {sp['verify_steps']} verify steps, "
+            f"draft overhead p50 "
+            f"{sp['draft_overhead_s'].get('p50', 0) * 1e3:.2f} ms",
+            f"recovery: {rec['spec_disables']} speculative disable(s), "
+            f"{rec['spec_reprobes']} re-probe(s), "
+            f"{rec['watchdog_stalls']} stall(s), {rec['shed_requests']} "
+            f"shed"]
     return "\n".join([
         f"requests: {s['n_requests']} submitted, {s['n_completed']} "
         f"completed, {s['n_rejected']} rejected",
+        *spec,
         f"tokens: {s['generated_tokens']} generated in {s['wall_s']}s "
         f"-> {s['aggregate_tokens_per_s']} tok/s aggregate "
         f"on {s['device']}",
@@ -221,6 +265,7 @@ def format_summary(s: dict) -> str:
         f" (pool), queue wait {pct('queue_wait_s', 1e3, ' ms')}",
         f"kernel route: decode={kr['decode']}"
         + (f", window={kr['window']}" if kr["window"] != "none" else "")
+        + (f", verify={kr['verify']}" if kr["verify"] != "none" else "")
         + (f" (reasons: {','.join(kr['reasons'])})" if kr["reasons"]
            else "")
         + (f", sharded over {kr['mesh'][0]}x{kr['mesh'][1]}"

@@ -44,6 +44,8 @@ FINISH_EOS = "eos"                      # sampled request.eos_token_id (the
 FINISH_DEADLINE = "deadline"            # deadline expired (at submit,
                                         # queued, or active)
 FINISH_CANCELLED = "cancelled"          # caller cancelled (queued or active)
+FINISH_SHED = "shed"                    # dropped by overload shedding
+                                        # (faults.watchdog.LoadShedder)
 REJECT_QUEUE_FULL = "rejected_queue_full"      # backpressure at submit
 REJECT_PROMPT_TOO_LONG = "rejected_prompt_too_long"  # prompt > block_size
 REJECT_BAD_REQUEST = "rejected_bad_request"    # empty prompt / bad lengths

@@ -65,6 +65,16 @@ class Scheduler:
         self._queue.append((req, self.clock()))
         return None
 
+    def shed(self, n: int) -> List[Tuple[Request, float]]:
+        """Drop up to ``n`` requests from the queue TAIL (newest first:
+        the oldest are closest to service and fresh arrivals are the
+        cheapest to turn away). ``faults.watchdog.LoadShedder`` drives
+        the policy."""
+        out: List[Tuple[Request, float]] = []
+        while self._queue and len(out) < n:
+            out.append(self._queue.pop())
+        return out
+
     def cancel(self, request_id: str) -> bool:
         """Remove a still-queued request; True if it was found (an
         already-admitted request is the engine's to cancel)."""

@@ -536,8 +536,8 @@ def test_autotune_climbs_buckets(weights):
 
 def test_windowed_cli_and_refusals():
     """``--decode-window 8`` and ``--decode-window-auto`` run through the
-    CLI on the CPU; a window on a mesh and ``--spec`` are refused with
-    their ROADMAP items."""
+    CLI on the CPU; a window on a mesh is refused with its ROADMAP item;
+    ``--spec`` beside a window runs speculatively, no window launched."""
     argv = ["serve-replay", "--preset", "test-tiny", "--device", "cpu",
             "--decode-cache-layout", "packed", "--paged-kernel",
             "--n-requests", "6", "--rate", "1000", "--greedy",
@@ -556,8 +556,12 @@ def test_windowed_cli_and_refusals():
         assert any(line.startswith("dispatch split") for line in lines)
     with pytest.raises(SystemExit, match="ROADMAP.md queue A item 14"):
         cli.main(argv + ["--mesh-shape", "2x2"])
-    with pytest.raises(SystemExit, match=r"ROADMAP.md queue A item 9\(c\)"):
-        cli.main(argv + ["--spec", "ngram"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli.main(argv + ["--spec", "ngram"]) == 0
+    s = json.loads(out.getvalue().strip().splitlines()[-1])
+    assert s["n_completed"] == 6 and s["speculative"]["verify_steps"] > 0
+    assert s["dispatch"]["decode_windows"] == 0
     model = tgpt.init_params(TCFG, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(ValueError, match="item 14"):
         Engine(model, TCFG, EngineConfig(decode_window=4, mesh_data=2),
