@@ -264,6 +264,29 @@ and fails (non-zero exit) on the first phase that fails:
    weights): one disable, one re-probe, speculation active again at the
    end, the greedy streams the plain engine's.
 
+38. DP parity phase (run after phase 34): ``LocalDataGroup(2)`` at GPT-2
+   124M width (2 layers, T=1024, f32, sequential windows), 3 steps of 2
+   accumulated micro-batches of 4 rows with clip 1.0, FSDP off and on,
+   against the plain step (losses to 1e-5 relative, weights and both
+   moments to 1e-5; 12 + 12 packed flash launches a step at B=2); then
+   with attention dropout 0.1 through the kernels against two one-shard
+   runs fed each shard's rows and streams, bit for bit (with FSDP, whose
+   clip sums the shards' squares in another order, to 1e-5);
+39. rank flash phase: rows #7-#12's packed kernels at the DP slice's rank
+   shapes (B=8, T=1024, C=768, H=12, bf16), checked at dropout 0 and
+   0.1 and timed beside their plain versions, SDPA and the bound (the
+   gpt2-small flash rows' ``rank_shape``);
+40. DP slice (this slice's main path): ``train --preset gpt2-small --dp 4
+   --batch-size 32`` through the CLI in one process (4 shards of 8 rows),
+   20 steps, evals at 0 and 20: losses finite, exactly 4 x 12 forward and
+   4 x 12 backward packed flash launches a step (and 4 x 12 forward an
+   eval batch), tokens/s and step p50 beside phase 19's unsharded slice
+   (the gpt2-small flash rows' ``launches_dp``);
+41. FSDP slice: ``train --preset gpt2-medium --dp 4 --fsdp`` (350M, B=64
+   as 4 shards of 16, remat full), 3 steps in one process, and the same
+   without FSDP: flash launches (4 x 24 x 2 forward a step with the
+   recompute), peak memory allocated and step p50 of each.
+
 Every flash row of the ``{"kernels": [...]}`` line also carries the
 achieved rate (``tflops``: the bound's operation count over the kernel's
 time) and ``vs_library`` (kernel time over the library call's). Prints
@@ -296,8 +319,9 @@ import torch.nn.functional as F
 from torch.nn.attention import SDPBackend
 
 from replicatinggpt_tpu_torch import cli, faults
-from replicatinggpt_tpu_torch.config import get_config
-from replicatinggpt_tpu_torch.data.loader import RandomBatcher
+from replicatinggpt_tpu_torch.config import config_from_args, get_config
+from replicatinggpt_tpu_torch.data.loader import (RandomBatcher,
+                                                  SequentialBatcher)
 from replicatinggpt_tpu_torch.models import gpt
 from replicatinggpt_tpu_torch.models.gpt import (BLOCK_SHAPES,
                                                 compute_params, decode_step,
@@ -310,9 +334,12 @@ from replicatinggpt_tpu_torch.ops import flash_packed as fp
 from replicatinggpt_tpu_torch.ops import paged_attention as pa
 from replicatinggpt_tpu_torch.ops.attention import full_causal_attention
 from replicatinggpt_tpu_torch.ops.flash_attention import packed_qkv_attention
-from replicatinggpt_tpu_torch.parallel import (LocalSeqGroup,
+from replicatinggpt_tpu_torch.parallel import (LocalDataGroup,
+                                               LocalSeqGroup,
                                                make_ring_attention_fn,
                                                ring_attention)
+from replicatinggpt_tpu_torch.parallel.sharded_flash import (
+    shard_dropout_rng)
 from replicatinggpt_tpu_torch.parallel.serve_group import LocalServeGroup
 from replicatinggpt_tpu_torch.quant.kv import fake_quantize_rows, quantize_rows
 from replicatinggpt_tpu_torch.serve import engine as engine_mod
@@ -322,8 +349,10 @@ from replicatinggpt_tpu_torch.serve import (Engine, EngineConfig,
 from replicatinggpt_tpu_torch.sample.generate import (GenerateConfig,
                                                      generate)
 from replicatinggpt_tpu_torch.tokenizers import CharTokenizer
+from replicatinggpt_tpu_torch.train.runner import train
 from replicatinggpt_tpu_torch.train.state import create_train_state
-from replicatinggpt_tpu_torch.train.steps import make_train_step
+from replicatinggpt_tpu_torch.train.steps import loss_fn, make_train_step
+from replicatinggpt_tpu_torch.utils.logging import StepLogger
 
 KERNEL_SOURCE = "replicatinggpt_tpu_torch/csrc/paged_window_attention.cu"
 KERNEL_REPLACES = "replicatinggpt_tpu/ops/paged_pallas.py:202"
@@ -1976,7 +2005,7 @@ def gpt2_slice_phase(card: str) -> tuple:
           f"{info['p50_ms']:.3f} ms (mean {info['mean_ms']:.3f}), val loss "
           f"{last:.4f} at step {steps} (step 0: {first:.4f}), {fwd} forward / "
           f"{bwd} backward kernel launches ({L} per step and eval batch)")
-    return fwd, bwd
+    return fwd, bwd, info
 
 
 def gpt2_shakespeare_phase(card: str) -> None:
@@ -3367,6 +3396,245 @@ def checkpoint_slice(card: str) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# data parallelism and FSDP in training: the one-process group at GPT-2
+# widths (each data shard's rows through the kernels at a rank's shapes)
+# --------------------------------------------------------------------------
+
+DP = 4                     # the data slices' shards (one process)
+DP_STEPS, DP_EVAL_ITERS = 20, 2
+FSDP_STEPS = 3
+
+
+def dp_runs(mcfg, tcfg, tokens, group, steps: int = 3) -> tuple:
+    """``steps`` train steps of ``group`` (None: the plain step) on the
+    sequential windows of ``tokens``: (losses, the gathered state)."""
+    state = create_train_state(mcfg, tcfg, "cuda", group=group)
+    step = make_train_step(mcfg, tcfg, None, group)
+    batcher = SequentialBatcher(tokens, tcfg.batch_size, GT)
+    losses = []
+    for _ in range(steps):
+        xs, ys = zip(*(batcher.next_batch()
+                       for _ in range(tcfg.grad_accum_steps)))
+        batch = tuple(torch.from_numpy(np.stack(a)).cuda() for a in (xs, ys))
+        losses.append(float(step(state, batch)))
+    return losses, state.state_dict()
+
+
+def two_shard_runs(mcfg, tcfg, tokens, steps: int = 3) -> tuple:
+    """What two processes of ``--dp 2`` compute, in one: each shard's
+    rows with its own dropout streams (``shard_dropout_rng``) through the
+    plain loss and backward, summed over the micro-batches, then the two
+    shards' gradients summed in shard order and averaged, the clip and
+    AdamW; (losses, the state)."""
+    state = create_train_state(mcfg, tcfg, "cuda")
+    rngs = [shard_dropout_rng(tcfg.seed + 1, d, 0, "cuda") for d in (0, 1)]
+    batcher = SequentialBatcher(tokens, tcfg.batch_size, GT)
+    A, b = tcfg.grad_accum_steps, tcfg.batch_size // 2
+    params = list(state.model.parameters())
+    losses = []
+    for _ in range(steps):
+        batches = [tuple(torch.from_numpy(a).cuda()
+                         for a in batcher.next_batch()) for _ in range(A)]
+        state.optimizer.zero_grad()
+        shard_grads, shard_losses = [], []
+        for d in (0, 1):
+            total = None
+            for x, y in batches:
+                loss = loss_fn(state.model.tree(),
+                               (x[d * b:(d + 1) * b], y[d * b:(d + 1) * b]),
+                               mcfg, rng=rngs[d], train=True)
+                (loss / A).backward()
+                total = loss.detach() if total is None else \
+                    total + loss.detach()
+            shard_losses.append(total / A)
+            shard_grads.append([p.grad for p in params])
+            state.optimizer.zero_grad()
+        for p, g0, g1 in zip(params, *shard_grads):
+            p.grad = (g0 + g1) / 2
+        state.optimizer.step()
+        state.step += 1
+        losses.append(float((shard_losses[0] + shard_losses[1]) / 2))
+    return losses, state.state_dict()
+
+
+def dp_parity_phase() -> None:
+    """``LocalDataGroup(2)`` at GPT-2 124M width (2 layers, T=1024, f32,
+    the kernel route, sequential windows), 3 steps of 2 accumulated
+    micro-batches of 4 rows, clip 1.0: with and without FSDP against the
+    plain step (losses to 1e-5 relative, weights and both AdamW moments
+    to 1e-5); then with attention dropout 0.1 through the kernels, the
+    group against two one-shard runs (``two_shard_runs``): losses, weights
+    and moments bit for bit (deterministic algorithms on: the embedding's
+    index backward is atomic otherwise), and with FSDP to 1e-5."""
+    base = get_config("gpt2-small")
+    mcfg = dataclasses.replace(base.model, n_layer=2, dtype="float32")
+    tcfg = dataclasses.replace(base.train, batch_size=4, grad_accum_steps=2,
+                               grad_clip=1.0, warmup_iters=1, max_iters=3)
+    tokens = np.random.default_rng(11).integers(0, 1024, 64 * GT)
+    names = None
+    plain_l, plain = dp_runs(mcfg, tcfg, tokens, None)
+    report = []
+    for fsdp in (False, True):
+        fp.flash_packed_fwd.launches = fp.flash_packed_bwd.launches = 0
+        got_l, got = dp_runs(mcfg, tcfg, tokens, LocalDataGroup(2, fsdp=fsdp))
+        want = (2 * 2 * 2 * 3, 2 * 2 * 2 * 3)     # layers x shards x A x steps
+        launches = (fp.flash_packed_fwd.launches, fp.flash_packed_bwd.launches)
+        if launches != want:
+            raise AssertionError(f"dp parity (fsdp {fsdp}): packed flash "
+                                 f"launches {launches}, want {want}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got_l, plain_l))
+        names = [k for k in plain if k.startswith(("params/", "opt/exp"))]
+        err = max((got[k] - plain[k]).abs().max().item() for k in names)
+        if not (rel <= 1e-5 and err <= 1e-5):
+            raise AssertionError(f"dp parity (fsdp {fsdp}): losses {got_l} "
+                                 f"vs {plain_l} (rel {rel:.2e}), weights and "
+                                 f"moments max abs diff {err:.3e}")
+        report.append(f"FSDP {'on' if fsdp else 'off'}: loss rel {rel:.2e}, "
+                      f"weights/moments {err:.2e}")
+    drop = dataclasses.replace(mcfg, attn_dropout=0.1)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        got_l, got = dp_runs(drop, tcfg, tokens, LocalDataGroup(2))
+        want_l, want = two_shard_runs(drop, tcfg, tokens)
+        fsdp_l, fsdp = dp_runs(drop, tcfg, tokens,
+                               LocalDataGroup(2, fsdp=True))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    differ = [k for k in names if not torch.equal(got[k], want[k])]
+    if got_l != want_l or differ:
+        raise AssertionError(f"dp dropout parity: losses {got_l} vs {want_l}"
+                             f", arrays that differ {differ[:5]}")
+    # FSDP draws the same masks; its clip sums the shards' squares in
+    # another order, so it holds the tolerance, not the bits
+    f_rel = max(abs(a - b) / abs(b) for a, b in zip(fsdp_l, got_l))
+    f_err = max((fsdp[k] - got[k]).abs().max().item() for k in names)
+    if not (f_rel <= 1e-5 and f_err <= 1e-5):
+        raise AssertionError(f"dp dropout parity (FSDP): losses {fsdp_l} vs "
+                             f"{got_l}, weights/moments {f_err:.3e}")
+    print(f"dp parity (LocalDataGroup(2), f32, 2 layers, C={GC}, H={GH}, "
+          f"T={GT}, 2 x B=4, clip 1.0, 3 steps, 12 + 12 packed flash "
+          f"launches a step) vs the plain step: {'; '.join(report)} (limits "
+          f"1e-5); attention dropout 0.1 vs two one-shard runs: 3 losses "
+          f"{got_l[0]:.6f} -> {got_l[-1]:.6f} and {len(names)} weight and "
+          f"moment arrays bit for bit; with FSDP loss rel {f_rel:.2e}, "
+          f"weights/moments {f_err:.2e} (limits 1e-5)")
+
+
+def rank_flash_phase(flush: torch.Tensor) -> dict:
+    """The packed flash kernels at the DP slice's rank shapes (B=8 of the
+    global 32, T=1024, C=768, H=12, bf16): checks at dropout 0 and 0.1,
+    timings at 0 beside the plain versions, SDPA and the bound."""
+    seed = 7_654_321
+    qkv, do = flash_inputs(torch.bfloat16, shape=(GB // DP, GT, GC),
+                           scale=QKV_SCALE)
+    errs = {rate: check_flash(qkv, do, GH, seed, rate)
+            for rate in (0.0, GROUP_RATE)}
+    ms, plain, library, backend = time_flash(qkv, do, GH, seed, 0.0, flush,
+                                             n=10)
+    out = {}
+    for which, err in (("fwd", "o"), ("bwd", "dqkv")):
+        b_ms, b_by, b_ops = flash_bound_ms(qkv, GH, which)
+        r = rates(ms[which], b_ops, library[which])
+        print(f"flash {which} at a rank's shapes (bf16, B={GB // DP}, T={GT}, "
+              f"C={GC}, H={GH}): max_abs_err "
+              + ", ".join(f"rate {k} {v[err]:.3e}" for k, v in errs.items())
+              + f"; kernel {ms[which]:.3f} ms, plain {plain[which]:.3f} ms, "
+              f"sdpa ({backend}) {library[which]:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}); {rates_text(r)}")
+        out[which] = {"shapes": f"B={GB // DP}, T={GT}, C={GC}, H={GH}, bf16",
+                      "max_abs_err": errs[0.0][err], "ms": ms[which],
+                      "plain_ms": plain[which], "library_ms": library[which],
+                      "library": f"sdpa {backend}", "bound_ms": b_ms,
+                      "bound_by": b_by, **r}
+    return out
+
+
+def dp_slice_phase(card: str, gpt2_info: dict) -> tuple:
+    """The data-parallel GPT-2 124M main path: ``train --preset gpt2-small
+    --dp 4 --batch-size 32`` through the CLI in one process, 20 steps,
+    evals at 0 and 20 over 2 batches a split; every step 4 shards x 12
+    forward and 4 x 12 backward packed flash launches at B=8."""
+    L = get_config("gpt2-small").model.n_layer
+    text, events, (fwd, bwd), heads, chunk = run_train_cli(
+        ["--preset", "gpt2-small", "--dp", str(DP), "--batch-size", str(GB),
+         "--max-iters", str(DP_STEPS), "--eval-interval", str(DP_STEPS),
+         "--eval-iters", str(DP_EVAL_ITERS)])
+    print(text, end="")
+    line = (f"data parallelism: data axis {DP}, FSDP off, one process "
+            f"holding all {DP} shards")
+    if line not in text:
+        raise AssertionError(f"dp slice: no line {line!r}")
+    evals = [e for e in events if e["event"] == "eval"]
+    losses = [e["loss"] for e in events if e["event"] == "step"]
+    losses += [e[k] for e in evals for k in ("train_loss", "val_loss")]
+    assert losses and all(math.isfinite(x) for x in losses), losses
+    assert [e["step"] for e in evals] == [0, DP_STEPS], evals
+    want = (L * DP * (DP_STEPS + 2 * 2 * DP_EVAL_ITERS), L * DP * DP_STEPS)
+    if (fwd, bwd, *heads, *chunk) != (*want, 0, 0, 0, 0):
+        raise AssertionError(f"dp slice launches: packed {fwd} / {bwd} (want "
+                             f"{want[0]} / {want[1]}), heads {heads}, chunk "
+                             f"{chunk}")
+    info = {k: v for e in events if e["event"] == "info" for k, v in e.items()}
+    print(f"gpt2-small --dp {DP} slice ({DP_STEPS} steps, B={GB} as {DP} "
+          f"shards of {GB // DP}, T={GT}, bf16, one process) on {card}: "
+          f"{info['tokens_per_sec']:.0f} tok/s, train step p50 "
+          f"{info['p50_ms']:.3f} ms (mean {info['mean_ms']:.3f}) against the "
+          f"unsharded slice's {gpt2_info['tokens_per_sec']:.0f} tok/s and "
+          f"{gpt2_info['p50_ms']:.3f} ms; val loss {evals[-1]['val_loss']:.4f}"
+          f" at step {DP_STEPS}; {fwd} forward / {bwd} backward packed flash "
+          f"launches ({L} x {DP} a step and eval batch)")
+    return fwd, bwd
+
+
+def fsdp_slice_phase(card: str) -> None:
+    """``train --preset gpt2-medium --dp 4 --fsdp`` (350M, B=64 as 4
+    shards of 16, T=1024, bf16, remat full), 3 steps in one process, and
+    the same run without FSDP: peak memory and step p50 of each."""
+    L = get_config("gpt2-medium").model.n_layer
+    argv = ["train", "--preset", "gpt2-medium", "--dp", str(DP),
+            "--max-iters", str(FSDP_STEPS), "--eval-interval", "0",
+            "--eval-iters", "1", "--log-interval", "1"]
+    out = {}
+    for fsdp in (True, False):
+        args = cli.build_parser().parse_args(
+            argv + (["--fsdp"] if fsdp else []))
+        cfg = config_from_args(args)
+        cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh,
+                                                                fsdp=fsdp))
+        log = io.StringIO()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fp.flash_packed_fwd.launches = fp.flash_packed_bwd.launches = 0
+        res = train(cfg, device="cuda", logger=StepLogger(stream=log))
+        peak = torch.cuda.max_memory_allocated()
+        launches = (fp.flash_packed_fwd.launches,
+                    fp.flash_packed_bwd.launches)
+        want = (L * DP * (2 * FSDP_STEPS + 2), L * DP * FSDP_STEPS)
+        if launches != want:
+            raise AssertionError(f"fsdp slice ({fsdp}): packed flash launches "
+                                 f"{launches}, want {want} (remat recomputes "
+                                 f"each forward)\n{log.getvalue()}")
+        line = (f"data parallelism: data axis {DP}, FSDP "
+                f"{'on' if fsdp else 'off'}, one process holding all {DP} "
+                f"shards")
+        if line not in log.getvalue():
+            raise AssertionError(f"fsdp slice: no line {line!r}\n"
+                                 f"{log.getvalue()}")
+        if not all(math.isfinite(v) for v in res.final_eval.values()):
+            raise AssertionError(f"fsdp slice: eval {res.final_eval}")
+        out[fsdp] = (peak, res.step_times["p50_ms"], res.final_eval["val"])
+        del res
+    print(f"gpt2-medium --dp {DP} slice (350M, B=64 as {DP} shards of 16, "
+          f"T={GT}, bf16, remat full, {FSDP_STEPS} steps, one process) on "
+          f"{card}: --fsdp peak memory allocated {out[True][0] / 1e9:.3f} GB, "
+          f"step p50 {out[True][1]:.3f} ms; without FSDP "
+          f"{out[False][0] / 1e9:.3f} GB, {out[False][1]:.3f} ms (one process "
+          f"holds every shard, so the sum of the four cards' shares); val "
+          f"loss {out[True][2]:.4f} / {out[False][2]:.4f}")
+
+
 def build_kernels() -> None:
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
@@ -3460,7 +3728,7 @@ def main() -> int:
     group_rows = group_flash_phase(flush)
     del flush
     gpt2_parity_phase()
-    group_rows[0]["launches"], group_rows[1]["launches"] = \
+    group_rows[0]["launches"], group_rows[1]["launches"], gpt2_info = \
         gpt2_slice_phase(card)
     gpt2_shakespeare_phase(card)
     ck = checkpoint_slice(card)
@@ -3471,6 +3739,15 @@ def main() -> int:
     row["launches_checkpoint"] = ck["serve"]
     packed_row["launches_checkpoint"] = ck["generate"]
     fused_row["launches_checkpoint"] = ck["generate_cli"]
+    dp_parity_phase()
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rank = rank_flash_phase(flush)
+    del flush
+    group_rows[0]["rank_shape"], group_rows[1]["rank_shape"] = (
+        rank["fwd"], rank["bwd"])
+    group_rows[0]["launches_dp"], group_rows[1]["launches_dp"] = \
+        dp_slice_phase(card, gpt2_info)
+    fsdp_slice_phase(card)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     heads_rows = heads_flash_phase(flush)
     del flush

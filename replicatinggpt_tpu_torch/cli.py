@@ -11,6 +11,16 @@
     python -m replicatinggpt_tpu_torch train --preset gpt2-xl --sp 4
     torchrun --nproc-per-node 4 -m replicatinggpt_tpu_torch train \\
         --preset gpt2-xl --sp 4
+    python -m replicatinggpt_tpu_torch train --preset gpt2-small --dp 4 \\
+        --batch-size 128
+    torchrun --nproc-per-node 4 -m replicatinggpt_tpu_torch train \\
+        --preset gpt2-small --dp 4 --batch-size 128
+    torchrun --nproc-per-node 4 -m replicatinggpt_tpu_torch train \\
+        --preset gpt2-medium --dp 4 --fsdp
+    torchrun --nproc-per-node 4 -m replicatinggpt_tpu_torch train \\
+        --preset gpt2-small --dp 2 --sp 2
+    torchrun --nproc-per-node 4 -m replicatinggpt_tpu_torch train \\
+        --preset gpt2-small --dp 4 --checkpoint-dir ck [--resume]
     python -m replicatinggpt_tpu_torch generate --preset char-gpt \\
         --prompt "ROMEO:" --sample-tokens 500 --top-k 20
     python -m replicatinggpt_tpu_torch serve-replay --preset gpt2-small \\
@@ -34,11 +44,15 @@ Every subcommand runs on the card unless given ``--device cpu``, and takes
 the JAX subcommands' flags. Those this port does not implement yet are
 still accepted by the parser, so that a command written for the JAX
 package fails with the ROADMAP item that will bring the feature, instead
-of being half-run or silently ignored. ``train --sp N`` is sequence
-parallelism through the ring: all N shards in one process without a
-launcher, one shard a process under ``torchrun`` (N processes); the
-other mesh axes (``--dp``, ``--tp``, ``--pp``, ``--fsdp``,
-``--microbatches``, ``--mesh-shape``) and ``--attention ulysses`` are
+of being half-run or silently ignored. ``train --dp N`` is data
+parallelism (``--fsdp``: the masters and moments sharded too), ``train
+--sp N`` sequence parallelism through the ring: all shards in one
+process without a launcher, one shard a process under ``torchrun``
+(data x seq processes); ``train --mesh-shape DxM`` is ``--dp D`` with a
+model axis M, which must be 1. A preset's own mesh (gpt2-small's 8-way
+data axis, the larger presets' 16-way FSDP) runs only where a launch
+fills it, and unsharded elsewhere, with a warning. The other mesh axes
+(``--tp``, ``--pp``, ``--microbatches``) and ``--attention ulysses`` are
 refused with ROADMAP.md queue A item 11. ``serve-replay --mesh-shape DxM``
 serves on a (data, model) mesh likewise: all D x M shards in one process,
 or one a process under ``torchrun`` (D x M processes), with one step a
@@ -49,13 +63,14 @@ step; ``--spec model`` drafts with the ``--draft-model`` preset's stack,
 its vocabulary, block, dtype and cache layout the target's, random init
 from the seed + 1); with ``--decode-window`` > 1 the windows run only
 while speculation is off. ``train --checkpoint-dir D`` saves the whole
-training state (``train/checkpoint.py``) and, with ``--resume``, continues
-from its newest step that verifies; a first SIGTERM or SIGINT saves and
-exits 0 (in one process; under ``torchrun`` the stop is off).
-``generate``, ``serve-replay``, ``eval`` and ``export-torch`` take
-``--checkpoint-dir D`` to use the weights of its newest verified step
-(random init from the seed only when D holds no step); under
-``torchrun``, ``train --checkpoint-dir`` is refused with queue A item 11.
+training state (``train/checkpoint.py``; under ``torchrun`` gathered and
+written by rank 0) and, with ``--resume``, continues from its newest step
+that verifies; a first SIGTERM or SIGINT saves and exits 0 (under
+``torchrun`` at the next checkpoint boundary on rank 0's signal, and not
+at all without ``checkpoint_every``). ``generate``, ``serve-replay``,
+``eval`` and ``export-torch`` take ``--checkpoint-dir D`` to use the
+weights of its newest verified step (random init from the seed only when
+D holds no step).
 """
 
 from __future__ import annotations
@@ -91,7 +106,6 @@ UNPORTED_FLAGS = (
 
 #: the train subcommand's unported flags, in the same form
 TRAIN_UNPORTED_FLAGS = (
-    ("--mesh-shape", "mesh_shape", "1x1", "queue A item 11 (meshes)"),
     ("--trace-out", "trace_out", None, "queue A item 12 (telemetry)"),
     ("--profile-dir", "profile_dir", None, "queue A item 12 (telemetry)"),
     ("--profile-start", "profile_start", None,
@@ -102,12 +116,10 @@ TRAIN_UNPORTED_FLAGS = (
     ("--steps-per-dispatch", "steps_per_dispatch", 1,
      "ground rules (the K-step dispatch scan is TPU scaffolding; each "
      "step is one dispatch here)"),
-    ("--dp", "dp", 1, "queue A item 11 (data parallelism)"),
     ("--tp", "tp", 1, "queue A item 11 (tensor parallelism)"),
     ("--pp", "pp", 1, "queue A item 11 (pipeline parallelism)"),
     ("--microbatches", "microbatches", 0,
      "queue A item 11 (pipeline parallelism)"),
-    ("--fsdp", "fsdp", False, "queue A item 11 (FSDP)"),
 )
 
 #: (flag, dest, refused value, ROADMAP.md item): ported flags with a value
@@ -323,8 +335,8 @@ def cmd_train(args) -> int:
     (and, with ``--sample-after``, a sample from the trained weights).
     A first SIGTERM or SIGINT finishes the step in flight, saves (with
     ``--checkpoint-dir``) and exits 0; a second SIGINT raises
-    KeyboardInterrupt. Under ``torchrun`` the first signal is ignored
-    (``train`` says why)."""
+    KeyboardInterrupt. Under ``torchrun`` the ranks stop at a checkpoint
+    boundary on rank 0's signal (``train`` says when)."""
     check_unported(args, TRAIN_UNPORTED_FLAGS, TRAIN_UNPORTED_VALUES)
     import signal
     import threading
@@ -334,6 +346,18 @@ def cmd_train(args) -> int:
     from .utils.logging import StepLogger
     if args.resume and not args.checkpoint_dir:
         raise SystemExit("--resume needs --checkpoint-dir")
+    if args.mesh_shape is not None:
+        from .parallel.mesh import parse_mesh_shape
+        d, m = parse_mesh_shape(args.mesh_shape)
+        if m > 1:
+            raise SystemExit(
+                f"--mesh-shape {args.mesh_shape}: a model axis in training "
+                f"(tensor parallelism) is not implemented in "
+                f"replicatinggpt_tpu_torch yet: ROADMAP.md queue A item 11")
+        if args.dp is not None and args.dp != d:
+            raise SystemExit(f"--mesh-shape {args.mesh_shape} and --dp "
+                             f"{args.dp} disagree")
+        args.dp = d
     cfg = config_from_args(args)
     ck = (CheckpointManager(args.checkpoint_dir) if args.checkpoint_dir
           else None)
@@ -449,7 +473,8 @@ def cmd_export_torch(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
+    """The CLI's parser: every subcommand with its flags."""
     p = argparse.ArgumentParser(prog="replicatinggpt_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     pt = sub.add_parser("train", help="train a model")
@@ -470,6 +495,9 @@ def main(argv=None) -> int:
     pt.add_argument("--resume", action="store_true",
                     help="continue from the newest step under "
                          "--checkpoint-dir that verifies")
+    pt.add_argument("--mesh-shape", default=None,
+                    help="training mesh DATAxMODEL: --dp DATA; the model "
+                         "axis (tensor parallelism) must be 1")
     _add_unported_flags(pt, TRAIN_UNPORTED_FLAGS)
     pt.set_defaults(fn=cmd_train)
     pg = sub.add_parser("generate", help="sample from a model")
@@ -558,5 +586,9 @@ def main(argv=None) -> int:
     add_checkpoint_dir_flag(ps)
     _add_unported_flags(ps)
     ps.set_defaults(fn=cmd_serve_replay)
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     return args.fn(args)

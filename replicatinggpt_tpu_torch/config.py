@@ -8,8 +8,9 @@ optimization schedule, the presets (the GPT-2 ladder ``gpt2-small``,
 ``remat`` / ``remat_policy`` are the memory trade the larger presets
 need (``torch.utils.checkpoint`` per block, ``models/gpt.py``).
 ``MeshConfig`` (``Config.mesh``) carries the JAX mesh axes; this port
-runs the seq axis (``--sp``, ring attention, ``parallel/``) and refuses
-the others (ROADMAP.md queue A item 11). ``attention_impl`` picks the
+runs the data axis (``--dp``, with ``--fsdp``) and the seq axis
+(``--sp``, ring attention), ``parallel/``, and refuses the others
+(ROADMAP.md queue A item 11). ``attention_impl`` picks the
 core on a seq axis by the JAX rule (``parallel.select_attention_fn``);
 without one, the port's own route rule (``ops/flash_attention.py``)
 stands whatever it says. TPU dispatch knobs (``use_layer_scan``,
@@ -94,7 +95,14 @@ ATTENTION_IMPLS = ("auto", "einsum", "flash", "ring", "ulysses")
 class MeshConfig:
     """The JAX package's logical mesh (``data``, ``seq``, ``model``,
     ``pipe`` axes, ``fsdp``, pipeline ``microbatches``). This port runs
-    the ``seq`` axis only: ``validate`` refuses the others."""
+    the ``data`` axis (with ``fsdp``: ZeRO-3 over it) and the ``seq``
+    axis; ``validate`` refuses the others.
+
+    ``preset``: the data axis and FSDP came from a preset, not from the
+    command line. A launch that cannot fill such a mesh (``data x seq``
+    processes; one without a launcher) runs without them, as the JAX
+    CLI's ``_build_mesh_if_needed`` degrades a mesh its devices cannot
+    hold (``resolve_mesh``)."""
 
     data: int = 1
     seq: int = 1
@@ -102,17 +110,36 @@ class MeshConfig:
     pipe: int = 1
     fsdp: bool = False
     microbatches: int = 0
+    preset: bool = False
+
+    @property
+    def n_devices(self) -> int:
+        return self.data * self.seq * self.model * self.pipe
 
     def validate(self) -> "MeshConfig":
         if min(self.data, self.seq, self.model, self.pipe) < 1:
             raise ValueError(f"mesh axes must be >= 1: {self}")
-        if (self.data, self.model, self.pipe, self.fsdp,
-                self.microbatches) != (1, 1, 1, False, 0):
+        if (self.model, self.pipe, self.microbatches) != (1, 1, 0):
             raise NotImplementedError(
-                f"mesh {self}: data, tensor and pipeline parallelism and "
-                f"FSDP are not in replicatinggpt_tpu_torch yet: ROADMAP.md "
-                f"queue A item 11 (only the seq axis, --sp, runs)")
+                f"mesh {self}: tensor and pipeline parallelism in training "
+                f"are not in replicatinggpt_tpu_torch yet: ROADMAP.md queue "
+                f"A item 11 (the data axis, --dp/--fsdp, and the seq axis, "
+                f"--sp, run)")
         return self
+
+
+def resolve_mesh(mesh: MeshConfig, devices: int, warn=None) -> MeshConfig:
+    """The mesh a run of ``devices`` processes trains on: a preset's data
+    axis (and its FSDP) that ``data x seq`` processes would have to fill
+    and this launch does not is dropped with the JAX CLI's warning ("mesh
+    wants N devices, have M; running unsharded"); an axis given on the
+    command line is kept (one process then holds all its shards)."""
+    if mesh.preset and mesh.data > 1 and mesh.n_devices != devices:
+        if warn is not None:
+            warn(f"mesh wants {mesh.n_devices} devices, have {devices}; "
+                 f"running unsharded")
+        return dataclasses.replace(mesh, data=1, fsdp=False, preset=False)
+    return mesh
 
 
 @dataclass(frozen=True)
@@ -171,30 +198,31 @@ def _gpt2_ladder(n_layer: int, n_head: int, n_embd: int,
 
 PRESETS = {
     # GPT-2 124M (vocab 50257, context 1024), the JAX preset of the
-    # same name; its 8-way data mesh waits for ROADMAP.md queue A item
-    # 11, so the global batch of 32 runs on one card.
+    # same name (BASELINE config 3) with its 8-way data mesh; a launch of
+    # another size runs it unsharded (``resolve_mesh``), so one card
+    # trains the global batch of 32 alone.
     "gpt2-small": Config(
         name="gpt2-small", model=_gpt2_ladder(12, 12, 768),
         train=TrainConfig(batch_size=32, lr=3e-4, max_iters=1000,
                           sampling="sequential", lr_schedule="cosine",
                           warmup_iters=100, grad_clip=1.0),
-        tokenizer="bpe"),
+        mesh=MeshConfig(data=8, preset=True), tokenizer="bpe"),
     # GPT-2 350M (BASELINE config 4), 774M and 1.558B, the JAX presets of
-    # the same names; their 16-way FSDP meshes wait for ROADMAP.md queue
-    # A item 11, so the global batch runs on one card (gradient
-    # accumulation sizes it to the card's memory)
+    # the same names with their 16-way FSDP meshes (unsharded on a launch
+    # of another size; gradient accumulation then sizes the global batch
+    # to one card's memory)
     "gpt2-medium": Config(
         name="gpt2-medium", model=_gpt2_ladder(24, 16, 1024, remat=True),
         train=TrainConfig(batch_size=64, lr=3e-4, max_iters=1000,
                           sampling="sequential", lr_schedule="cosine",
                           warmup_iters=100, grad_clip=1.0),
-        tokenizer="bpe"),
+        mesh=MeshConfig(data=16, fsdp=True, preset=True), tokenizer="bpe"),
     "gpt2-large": Config(
         name="gpt2-large", model=_gpt2_ladder(36, 20, 1280, remat=True),
-        tokenizer="bpe"),
+        mesh=MeshConfig(data=16, fsdp=True, preset=True), tokenizer="bpe"),
     "gpt2-xl": Config(
         name="gpt2-xl", model=_gpt2_ladder(48, 25, 1600, remat=True),
-        tokenizer="bpe"),
+        mesh=MeshConfig(data=16, fsdp=True, preset=True), tokenizer="bpe"),
     # the reference's GPT-2.py training run (B=4, lr 3e-4, 50 steps,
     # sequential batches, a loss line every step, no periodic eval), at
     # T=256 and the BPE's vocabulary padded to 50304: the JAX preset of
@@ -314,6 +342,15 @@ def add_train_flags(p: argparse.ArgumentParser) -> None:
                    choices=["constant", "cosine"])
     p.add_argument("--tokenizer", default=None)
     p.add_argument("--dataset", default=None)
+    p.add_argument("--dp", type=int, default=None,
+                   help="mesh data axis size: split every batch's rows into "
+                        "this many shards (all in this process, or one per "
+                        "torchrun process) and average their gradients")
+    p.add_argument("--fsdp", action="store_true", default=None,
+                   help="also shard the f32 masters and AdamW's moments "
+                        "over the data axis (ZeRO-3): each block's weights "
+                        "gathered for its forward and backward, gradients "
+                        "reduce-scattered to their shards")
     p.add_argument("--sp", type=int, default=None,
                    help="mesh seq axis size: split every sequence into this "
                         "many shards, their attention the ring (all in this "
@@ -345,6 +382,10 @@ def config_from_args(args: argparse.Namespace) -> Config:
     mesh = cfg.mesh
     if getattr(args, "sp", None) is not None:
         mesh = dataclasses.replace(mesh, seq=args.sp)
+    if getattr(args, "dp", None) is not None:
+        mesh = dataclasses.replace(mesh, data=args.dp, preset=False)
+    if getattr(args, "fsdp", None):
+        mesh = dataclasses.replace(mesh, fsdp=True)
     return dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model, **mk).validate(),
         train=dataclasses.replace(cfg.train, **tk), mesh=mesh.validate(),

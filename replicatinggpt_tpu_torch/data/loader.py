@@ -6,7 +6,11 @@
   stream as the JAX batcher and gathers them with NumPy, so a seed gives
   the JAX package's batches.
 - ``SequentialBatcher``: contiguous ``B*T+1`` windows with a wraparound
-  cursor.
+  cursor; ``shard=(i, n)`` makes it data shard i of n across processes,
+  serving the i-th B*T slice of each global (n*B*T)-token window, so the
+  processes together see one process's token stream, and the cursor
+  (global state, the same on every shard) does not depend on the
+  process count.
 - ``prefetch``: assembles and copies batches to the device on a
   background thread, ``depth`` ahead. On a CUDA device each batch is
   pinned and copied ``non_blocking`` on a side stream; the consumer's
@@ -71,22 +75,28 @@ class RandomBatcher:
 
 
 class SequentialBatcher:
-    """Contiguous windows with a wraparound cursor."""
+    """Contiguous windows with a wraparound cursor (shard i of n: the
+    i-th ``B*T`` slice of each global window)."""
 
-    def __init__(self, data: np.ndarray, batch_size: int, block_size: int):
-        if len(data) < batch_size * block_size + 1:
+    def __init__(self, data: np.ndarray, batch_size: int, block_size: int,
+                 shard: Tuple[int, int] = (0, 1)):
+        self.shard_index, self.num_shards = shard
+        need = self.num_shards * batch_size * block_size + 1
+        if len(data) < need:
             raise ValueError(f"corpus of {len(data)} tokens cannot fill one "
-                             f"{batch_size * block_size + 1}-token window")
+                             f"{need}-token window")
         self.data = data
         self.B, self.T = batch_size, block_size
         self.position = 0
 
     def next_batch(self) -> Batch:
         B, T = self.B, self.T
-        if self.position + B * T + 1 > len(self.data):
+        stride = self.num_shards * B * T
+        if self.position + stride + 1 > len(self.data):
             self.position = 0
-        buf = self.data[self.position:self.position + B * T + 1]
-        self.position += B * T
+        start = self.position + self.shard_index * B * T
+        buf = self.data[start:start + B * T + 1]
+        self.position += stride
         return (buf[:-1].reshape(B, T).astype(np.int32),
                 buf[1:].reshape(B, T).astype(np.int32))
 
@@ -102,11 +112,12 @@ class SequentialBatcher:
 
 
 def make_batcher(kind: str, data: np.ndarray, batch_size: int,
-                 block_size: int, seed: int = 0):
+                 block_size: int, seed: int = 0,
+                 shard: Tuple[int, int] = (0, 1)):
     if kind == "random":
         return RandomBatcher(data, batch_size, block_size, seed)
     if kind == "sequential":
-        return SequentialBatcher(data, batch_size, block_size)
+        return SequentialBatcher(data, batch_size, block_size, shard=shard)
     raise ValueError(f"unknown sampling kind {kind!r}")
 
 

@@ -46,6 +46,7 @@ return them for symmetry with the JAX signatures.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
@@ -191,12 +192,18 @@ def param_count(model: GPT) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
+def leaf_dtype(name: str, cd: torch.dtype) -> Optional[torch.dtype]:
+    """The dtype the forward reads leaf ``name`` in: ``cd`` for matrices,
+    biases and embeddings; None (the master dtype) for layernorm
+    parameters, as JAX's ``_layer_norm`` reads them in f32."""
+    return None if "ln" in name else cd
+
+
 def _cast_tree(tree: Params, cd: torch.dtype, device=None) -> Params:
-    """Matrices, biases and embeddings in ``cd``; layernorm parameters
-    stay in the master dtype, as JAX's ``_layer_norm`` reads them in
-    f32. Differentiable: the casts carry gradients back to ``tree``."""
+    """Each leaf in its ``leaf_dtype``. Differentiable: the casts carry
+    gradients back to ``tree``."""
     def cast(name, t):
-        return t.to(device, None if "ln" in name else cd)
+        return t.to(device, leaf_dtype(name, cd))
 
     out = {n: cast(n, t) for n, t in tree.items() if n != "blocks"}
     out["blocks"] = {n: cast(n, t) for n, t in tree["blocks"].items()}
@@ -362,23 +369,56 @@ def _remat_context(policy: str):
     return functools.partial(create_selective_checkpoint_contexts, fn)
 
 
-def _run_blocks(x, p: Params, cfg: ModelConfig, *,
+class CastWeights:
+    """The forward's weights from a master dict (``GPT.tree()``): each
+    leaf in its ``leaf_dtype``, cast once a forward, and the stacked block
+    leaves split once (``_layers``). The weight providers of
+    ``parallel.data_parallel`` have the same three methods: ``top()`` (the
+    non-block leaves), ``layer(i)`` (block i's, called inside the block,
+    so a recompute under checkpointing calls it again) and ``scope(i)``
+    (a context around block i's forward)."""
+
+    def __init__(self, tree: Params, cd: torch.dtype, n_layer: int):
+        self.p = _cast_tree(tree, cd)
+        self.layers = _layers(self.p, n_layer)
+
+    def top(self) -> Params:
+        return self.p
+
+    def layer(self, i: int) -> Dict[str, torch.Tensor]:
+        return self.layers[i]
+
+    def scope(self, i: int):
+        return contextlib.nullcontext()
+
+
+def _provided_block(x, weights, i: int, cfg: ModelConfig,
+                    seed: Optional[int], train: bool,
+                    attention_fn: AttentionFn, stream: int = 0):
+    """``_seeded_block`` over block i's weights from ``weights``."""
+    return _seeded_block(x, weights.layer(i), cfg, seed, train, attention_fn,
+                         stream)
+
+
+def _run_blocks(x, weights, cfg: ModelConfig, *,
                 rng: Optional[DropoutRNG], train: bool,
                 attention_fn: AttentionFn):
-    """The L blocks, each recomputed in the backward when ``cfg.remat``.
-    Each block's dropout seed is drawn from ``rng`` before the block runs
+    """The L blocks over ``weights`` (a ``CastWeights`` or a provider
+    like it), each recomputed in the backward when ``cfg.remat``. Each
+    block's dropout seed is drawn from ``rng`` before the block runs
     (JAX's ``fold_in(rng, layer_idx)``), with or without remat, so both
     give the same masks."""
     context = _remat_context(cfg.remat_policy) if cfg.remat else None
     stream = rng.stream if rng is not None else 0
-    for lp in _layers(p, cfg.n_layer):
+    for i in range(cfg.n_layer):
         seed = rng.kernel_seed() if rng is not None else None
-        if cfg.remat:
-            x = checkpoint(_seeded_block, x, lp, cfg, seed, train,
-                           attention_fn, stream, use_reentrant=False,
-                           preserve_rng_state=False, context_fn=context)
-        else:
-            x = _seeded_block(x, lp, cfg, seed, train, attention_fn, stream)
+        args = (x, weights, i, cfg, seed, train, attention_fn, stream)
+        with weights.scope(i):
+            if cfg.remat:
+                x = checkpoint(_provided_block, *args, use_reentrant=False,
+                               preserve_rng_state=False, context_fn=context)
+            else:
+                x = _provided_block(*args)
     return x
 
 
@@ -388,9 +428,10 @@ def forward(params: Params, idx: torch.Tensor, cfg: ModelConfig, *,
             attention_fn: Optional[AttentionFn] = None, pos_offset: int = 0
             ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Full-sequence forward over the master weights ``params`` (the
-    ``GPT.tree()`` dict). idx: (B, T) token ids of any integer dtype, at
-    global positions ``pos_offset ... pos_offset + T - 1`` (a sequence
-    shard of a process group starts past 0).
+    ``GPT.tree()`` dict, or a provider of them like ``CastWeights``, as
+    ``parallel.data_parallel``'s are). idx: (B, T) token ids of any
+    integer dtype, at global positions ``pos_offset ... pos_offset + T -
+    1`` (a sequence shard of a process group starts past 0).
 
     Returns ``(logits, loss)``: (B, T, V) f32 logits (the compute-dtype
     product, cast) and the mean f32 cross-entropy, or None without
@@ -398,13 +439,16 @@ def forward(params: Params, idx: torch.Tensor, cfg: ModelConfig, *,
     ``(None, loss)``. ``attention_fn(qkv, cfg, rng, train)`` replaces the
     attention core (default: ``attention_for``'s route)."""
     B, T = idx.shape
-    p = _cast_tree(params, cfg.compute_dtype)
+    weights = CastWeights(params, cfg.compute_dtype, cfg.n_layer) \
+        if isinstance(params, dict) else params
+    p = weights.top()
     attend = attention_fn or attention_for(cfg, T)
     if pos_offset + T > cfg.block_size:
         raise ValueError(f"positions {pos_offset}..{pos_offset + T - 1} "
                          f"past block_size={cfg.block_size}")
     x = p["wte"][idx.long()] + p["wpe"][pos_offset:pos_offset + T]
-    x = _run_blocks(x, p, cfg, rng=rng, train=train, attention_fn=attend)
+    x = _run_blocks(x, weights, cfg, rng=rng, train=train,
+                    attention_fn=attend)
     x = _layer_norm(x, p["ln_f_scale"], p["ln_f_bias"], cfg.layernorm_eps)
     head = p["wte"].T if cfg.tied_head else p["lm_head"]
     if targets is not None and cfg.loss_chunk:

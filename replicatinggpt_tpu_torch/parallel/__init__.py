@@ -1,23 +1,31 @@
-"""Sequence parallelism and the serving mesh (a port of part of
-``replicatinggpt_tpu/parallel``).
+"""Data and sequence parallelism in training and the serving mesh (a
+port of part of ``replicatinggpt_tpu/parallel``).
 
-``--sp N`` splits every sequence into N shards whose causal attention is
-the ring (``ring_attention``), over a seq group of ``mesh``: all shards
-in one process, or one per ``torchrun`` process (``distributed``).
-``serve-replay --mesh-shape DxM`` serves on a (data, model) mesh: the
-layout rules and the TP split of the weights in ``mesh``, the shards'
-group in ``serve_group`` (one process, or one shard per ``torchrun``
-process). Data, tensor and pipeline parallelism in training, FSDP and
-Ulysses attention are not in this port yet (ROADMAP.md queue A item 11).
+``--dp N`` splits every global batch into N data shards, each a forward
+and backward of its rows whose gradients are averaged
+(``data_parallel``: bucketed all-reduces; with ``--fsdp`` the masters
+and AdamW's moments sharded too, weights gathered per block and
+gradients reduce-scattered), each shard's dropout its own
+(``sharded_flash``). ``--sp N`` splits every sequence into N shards
+whose causal attention is the ring (``ring_attention``). The groups are
+in ``mesh``: all shards in one process, or one per ``torchrun`` process
+(``distributed``). ``serve-replay --mesh-shape DxM`` serves on a (data,
+model) mesh: the layout rules and the TP split of the weights in
+``mesh``, the shards' group in ``serve_group`` (one process, or one
+shard per ``torchrun`` process). Tensor and pipeline parallelism in
+training and Ulysses attention are not in this port yet (ROADMAP.md
+queue A item 11).
 """
 
-from .mesh import (LocalSeqGroup, ProcessSeqGroup, parse_mesh_shape,
+from .mesh import (LocalDataGroup, LocalSeqGroup, ProcessDataGroup,
+                   ProcessSeqGroup, fsdp_shard_dim, parse_mesh_shape,
                    shard_serve_params)
 from .ring_attention import (describe_ring_route, make_ring_attention_fn,
                              ring_attention)
 from .serve_group import LocalServeGroup, ProcessServeGroup, serve_group
 
-__all__ = ["LocalSeqGroup", "ProcessSeqGroup", "ring_attention",
+__all__ = ["LocalDataGroup", "ProcessDataGroup", "fsdp_shard_dim",
+           "LocalSeqGroup", "ProcessSeqGroup", "ring_attention",
            "make_ring_attention_fn", "describe_ring_route",
            "select_attention_fn", "LocalServeGroup", "ProcessServeGroup",
            "serve_group", "parse_mesh_shape", "shard_serve_params"]

@@ -4,14 +4,22 @@ The counterpart of ``replicatinggpt_tpu/parallel/distributed.py`` for
 ``torchrun``: one process per card. Without a launcher (``WORLD_SIZE``
 unset or 1) the run is one process and every shard lives in it.
 
-- Training with a seq axis: each process holds one shard of every
-  sequence (``parallel.mesh.ProcessSeqGroup``; ``LocalSeqGroup`` in one
-  process). Data parallelism in training is not in this port yet, so
-  ``WORLD_SIZE`` must equal ``--sp``.
+- Training: each process holds one data shard (its B/data rows of every
+  global batch, ``parallel.mesh.ProcessDataGroup``) and, with a seq axis,
+  one shard of each of those sequences (``ProcessSeqGroup`` over its data
+  row's subgroup); without a launcher one process holds every shard
+  (``LocalDataGroup``, ``LocalSeqGroup``). ``WORLD_SIZE`` must equal
+  data x seq. Each process draws its own rows: ``local_batch_slice``,
+  and for random windows ``per_process_seed`` (the JAX package's
+  functions of the same names).
 - Serving on a (data, model) mesh: each process holds one shard
   (``parallel.serve_group.ProcessServeGroup``; ``LocalServeGroup`` in one
   process), so ``WORLD_SIZE`` must equal data x model.
 
+    torchrun --nproc-per-node 4 -m replicatinggpt_tpu_torch train \\
+        --preset gpt2-small --dp 4 --batch-size 128
+    torchrun --nproc-per-node 4 -m replicatinggpt_tpu_torch train \\
+        --preset gpt2-medium --dp 4 --fsdp
     torchrun --nproc-per-node 4 -m replicatinggpt_tpu_torch train \\
         --preset gpt2-xl --sp 4
     torchrun --nproc-per-node 4 -m replicatinggpt_tpu_torch serve-replay \\
@@ -28,7 +36,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
-from .mesh import LocalSeqGroup, ProcessSeqGroup
+from .mesh import LocalDataGroup, LocalSeqGroup, ProcessDataGroup
 
 
 def world_size() -> int:
@@ -37,19 +45,20 @@ def world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
-def initialize(device=None, sp: Optional[int] = None,
+def initialize(device=None, data: int = 1, seq: Optional[int] = None,
                mesh: Optional[Tuple[int, int]] = None) -> torch.device:
     """Join the launch's process group (``torchrun``'s ``RANK``,
     ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``):
     NCCL on the card ``cuda:LOCAL_RANK``, or gloo when ``device`` is the
     CPU. Returns the process's device. Raises when ``WORLD_SIZE`` is not
-    ``sp`` (data parallelism in training is ROADMAP.md queue A item 11),
-    or not data x model for a serving ``mesh``."""
+    ``data`` x ``seq`` for training, or not data x model for a serving
+    ``mesh``."""
     n = world_size()
-    if sp is not None and n != sp:
-        raise ValueError(f"{n} processes for --sp {sp}: every process is "
-                         f"one sequence shard here (data parallelism across "
-                         f"processes is ROADMAP.md queue A item 11)")
+    if seq is not None and n != data * seq:
+        raise ValueError(f"{n} processes for data {data} x seq {seq}: "
+                         f"every process is one shard of the training "
+                         f"mesh, so launch {data * seq} (or --dp / --sp to "
+                         f"match)")
     if mesh is not None and n != mesh[0] * mesh[1]:
         raise ValueError(f"{n} processes for --mesh-shape {mesh[0]}x"
                          f"{mesh[1]}: every process is one shard of the "
@@ -81,18 +90,42 @@ def local_seq_slice(T: int) -> slice:
     return slice(r * T // n, (r + 1) * T // n)
 
 
-def setup(seq: int, device=None) -> Tuple[torch.device,
-                                         Union[LocalSeqGroup,
-                                               ProcessSeqGroup, None]]:
-    """(device, seq group) of a run with a seq axis of ``seq``: under a
-    launcher, the process group (joined here) with one shard a process;
-    without one, ``device`` (the card unless the CPU is asked for) and all
-    shards in this process (None when ``seq`` is 1)."""
+def local_batch_slice(global_batch_size: int, n: int, index: int) -> slice:
+    """Rows of the global (B, T) batch that data shard ``index`` of ``n``
+    owns (the JAX ``local_batch_slice``; B must divide by n)."""
+    if global_batch_size % n:
+        raise ValueError(f"global batch {global_batch_size} not divisible "
+                         f"by {n} processes")
+    per = global_batch_size // n
+    return slice(index * per, (index + 1) * per)
+
+
+def per_process_seed(seed: int, index: int) -> int:
+    """The random batchers' seed of data shard ``index`` under a launch
+    (the JAX ``per_process_seed``): spaced 16 apart, so the eval
+    batchers' seed + 1 and + 2 never meet a neighbour's."""
+    return seed * 1000003 + 16 * index
+
+
+Group = Union[LocalDataGroup, ProcessDataGroup, None]
+
+
+def setup(data: int, seq: int = 1, device=None,
+          fsdp: bool = False) -> Tuple[torch.device, Group]:
+    """(device, group) of a training run on a ``data`` x ``seq`` mesh:
+    under a launcher, the process group (joined here) with one shard a
+    process (``ProcessDataGroup``); without one, ``device`` (the card
+    unless the CPU is asked for) and every shard in this process
+    (``LocalDataGroup`` over a ``LocalSeqGroup``). None for the plain run
+    (1 x 1 without FSDP)."""
     if world_size() > 1:
-        dev = initialize(device, sp=seq)
-        return dev, ProcessSeqGroup()
+        dev = initialize(device, data=data, seq=seq)
+        return dev, ProcessDataGroup(data, seq, fsdp)
     dev = resolve_device(device)
-    return dev, (LocalSeqGroup(seq) if seq > 1 else None)
+    if (data, seq, fsdp) == (1, 1, False):
+        return dev, None
+    return dev, LocalDataGroup(data, LocalSeqGroup(seq) if seq > 1
+                               else None, fsdp)
 
 
 def setup_serve(mesh: Tuple[int, int], device=None) -> torch.device:

@@ -30,6 +30,15 @@ data cursor (the batcher's ``state()``):
   backoff (``save_retries``, ``restore_retries``).
 - ``max_to_keep`` steps are kept; older steps and their manifests go.
 
+Under a launch (``torchrun``) every rank calls ``save``: the state's
+arrays are gathered one at a time (``TrainState.state_items``: the full
+leaves whatever the shards, every rank's dropout streams), rank 0 copying
+each to the host and the others dropping it, with the batchers' cursors
+(one, when the ranks' agree, as sequential windows' global cursor does;
+else each rank's), rank 0 writes the step, and all ranks wait for it at
+a barrier. Every rank restores (reading the same files, so the same
+fallbacks) and keeps its own shards and cursor.
+
 Fault seams (``faults/inject.py``): ``ckpt/save`` and ``ckpt/restore``
 (``io``), ``ckpt/finalize`` (``corrupt``, ``truncate``,
 ``drop_manifest`` after a completed save).
@@ -49,6 +58,7 @@ import zlib
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..faults.inject import active, corrupt_step_dir, fire
 from .state import TrainState
@@ -220,11 +230,24 @@ class CheckpointManager:
         if step in self.all_steps():
             return step
         t0 = time.perf_counter()
-        arrays = {k: v.detach().cpu() for k, v in state.state_dict().items()}
+        launched = dist.is_initialized()
+        writer = not launched or dist.get_rank() == 0
+        # the other ranks take part in each leaf's gather and drop it
+        arrays = {k: v.detach().cpu() for k, v in state.state_items()
+                  if writer}
+        cursor = None if batcher is None else batcher.state()
+        if launched and cursor is not None:
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, cursor)
+            cursor = every[0] if all(c == every[0] for c in every) else {
+                "ranks": every}
+        if not writer:
+            dist.barrier()
+            return step
         t1 = time.perf_counter()
         record = _fingerprint(arrays)
         t2 = time.perf_counter()
-        data = None if batcher is None else json.dumps(batcher.state())
+        data = None if cursor is None else json.dumps(cursor)
 
         def _do_save():
             f = fire("ckpt/save", index=step)
@@ -265,6 +288,8 @@ class CheckpointManager:
                 plan = active()
                 corrupt_step_dir(self.directory, step, f.kind,
                                  plan.rng("ckpt/finalize"))
+        if launched:
+            dist.barrier()
         return step
 
     def restore(self, step: int, state: TrainState,
@@ -313,6 +338,15 @@ class CheckpointManager:
         t2 = time.perf_counter()
         state.load_state_dict(arrays)
         if batcher is not None and data is not None:
+            if "ranks" in data:
+                ranks = data["ranks"]
+                n = dist.get_world_size() if dist.is_initialized() else 1
+                if len(ranks) != n:
+                    raise ValueError(
+                        f"checkpoint step {step} holds the data cursors of "
+                        f"{len(ranks)} processes (random windows drawn per "
+                        f"process); resume it on {len(ranks)}")
+                data = ranks[dist.get_rank() if n > 1 else 0]
             batcher.restore(data)
         t3 = time.perf_counter()
         self.timings["restore"] = {

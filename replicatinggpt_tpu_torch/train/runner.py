@@ -4,24 +4,31 @@ Corpus -> the preset's tokenizer (char, or the byte-level BPE trained at
 first use and cached) -> 90/10 split -> random or sequential windows
 prefetched to the device -> the train loop with the periodic train/val
 estimate and the reference's log lines -> a final estimate and the
-tokens/s. With a seq axis (``--sp``) every sequence splits into shards
-whose attention is the ring (``parallel/``): all of them in this process,
-or one per ``torchrun`` process, where every rank draws the same batches
-and keeps its columns, only rank 0 logs, and tokens/s counts the global
-batch. With a ``CheckpointManager`` the run saves its whole state every
-``checkpoint_every`` steps and at the end, resumes from the newest step
+tokens/s. On a mesh (``parallel/``) every global batch splits into data
+shards (``--dp``; with ``--fsdp`` the masters and moments too) and every
+sequence into seq shards whose attention is the ring (``--sp``): all of
+them in this process, or one per ``torchrun`` process (data x seq
+ranks), where each rank draws its data shard's rows (sequential windows
+sliced from the global stream, random ones from a per-process seed),
+only rank 0 logs, and tokens/s counts the global batch over the chips. A
+preset's mesh that the launch cannot fill runs unsharded
+(``config.resolve_mesh``). With a ``CheckpointManager`` the run saves
+its whole state every ``checkpoint_every`` steps and at the end (under a
+launch, gathered and written by rank 0), resumes from the newest step
 that verifies (``resume=True``), stops at a step boundary on
-``stop_event`` after saving, and under a ``SupervisionConfig`` reads the
-loss every ``check_every`` steps for ``faults.supervised_train``'s
-rollback. Checkpoints under a ``torchrun`` launch, the other mesh axes,
-the profiler and telemetry are not in this port yet (ROADMAP.md queue A
-items 11 and 12).
+``stop_event`` after saving (under a launch, at a checkpoint boundary, on
+rank 0's flag), and under a ``SupervisionConfig`` reads the loss every
+``check_every`` steps for ``faults.supervised_train``'s rollback. The
+other mesh axes, the profiler and telemetry are not in this port yet
+(ROADMAP.md queue A items 11 and 12).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import io
+import os
+import sys
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
@@ -30,17 +37,17 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..config import Config
+from ..config import Config, resolve_mesh
 from ..data.dataset import TokenDataset, load_corpus
 from ..data.loader import make_batcher, prefetch
 from ..faults.inject import (apply_loss_fault, apply_train_state_fault,
                              fire as fault_fire)
 from ..faults.supervise import (LossTracker, NonFiniteLossError,
                                 SupervisionConfig)
-from ..models.gpt import param_count
 from ..ops.flash_attention import describe_route
 from ..parallel import (describe_ring_route, distributed,
                         select_attention_fn)
+from ..parallel.sharded_flash import describe_sharded_route
 from ..tokenizers import get_tokenizer
 from ..utils.logging import StepLogger
 from ..utils.profiling import StepTimes
@@ -74,11 +81,6 @@ def _wire_dtype(vocab_size: int):
             else np.int16 if vocab_size <= 0x7fff else np.int32)
 
 
-#: where checkpoints of a launch across processes come from
-LAUNCH_CHECKPOINT_ITEM = ("queue A item 11 (sharded training state comes "
-                          "with data parallelism and FSDP)")
-
-
 class _ConsumedCursor:
     """Batcher-shaped view of the snapshot taken with the last consumed
     batch: the prefetch thread draws ahead, so a checkpoint saves this,
@@ -105,20 +107,23 @@ def train(cfg: Config, *, device=None,
     optimizer, dropout streams, data cursor) and trains on from there.
     ``stop_event`` (a ``threading.Event``) stops the run at the next step
     boundary: it saves, runs a short final estimate and returns. Under a
-    launch across processes it is ignored (logged): a signal reaches the
-    ranks at different steps, and a rank that left the loop alone would
-    wait in the final estimate's collectives for the others' steps.
+    launch across processes the ranks agree on rank 0's flag, and only at
+    checkpoint boundaries (a signal reaches the ranks at different steps;
+    a rank that left the loop alone would wait in the others'
+    collectives); without ``checkpoint_every`` the stop is off (logged).
     ``supervision`` reads the loss every ``check_every`` steps and raises
     ``NonFiniteLossError`` / ``LossSpikeError`` for
     ``faults.supervised_train``; ``skip_data_steps`` (the supervisor's)
     draws and discards that many steps' batches after the restore."""
-    if checkpoint_manager is not None and distributed.world_size() > 1:
-        raise NotImplementedError(
-            f"checkpoints of a run launched across processes are not "
-            f"implemented in replicatinggpt_tpu_torch yet: ROADMAP.md "
-            f"{LAUNCH_CHECKPOINT_ITEM}")
     joined = dist.is_initialized()
-    dev, group = distributed.setup(cfg.mesh.validate().seq, device)
+
+    def warn(msg: str) -> None:
+        if os.environ.get("RANK", "0") == "0":
+            print(f"warning: {msg}", file=sys.stderr)
+
+    mesh = resolve_mesh(cfg.mesh.validate(), distributed.world_size(), warn)
+    cfg = dataclasses.replace(cfg, mesh=mesh)
+    dev, group = distributed.setup(mesh.data, mesh.seq, device, mesh.fsdp)
     try:
         return _train(cfg, dev, group, logger or StepLogger(),
                       checkpoint_manager, resume, stop_event, supervision,
@@ -128,6 +133,22 @@ def train(cfg: Config, *, device=None,
             dist.destroy_process_group()
 
 
+def _agreed_stop(stop_event, it: int, start_step: int, every: int,
+                 group) -> bool:
+    """Whether the run stops before step ``it``: the event in one process;
+    under a launch rank 0's flag, broadcast at checkpoint boundaries."""
+    if stop_event is None:
+        return False
+    if group is None or group.comm is None:
+        return stop_event.is_set()
+    if not (every and it > start_step and it % every == 0):
+        return False
+    flag = torch.tensor([int(stop_event.is_set())],
+                        device="cuda" if group.backend == "nccl" else "cpu")
+    dist.broadcast(flag, 0, group=group.comm)
+    return bool(flag.item())
+
+
 def _train(cfg: Config, dev: torch.device, group, logger: StepLogger,
            checkpoint_manager, resume: bool, stop_event,
            supervision: Optional[SupervisionConfig],
@@ -135,11 +156,12 @@ def _train(cfg: Config, dev: torch.device, group, logger: StepLogger,
     main = group is None or group.is_main
     if not main:
         logger = StepLogger(stream=io.StringIO())   # only rank 0 logs
-    if stop_event is not None and distributed.world_size() > 1:
-        # no agreed step to stop at: checkpoints, which would give one,
-        # are refused under a launch
-        logger.log(f"note: graceful stop disabled (a run launched across "
-                   f"processes; ROADMAP.md {LAUNCH_CHECKPOINT_ITEM})")
+    launched = group is not None and group.comm is not None
+    if stop_event is not None and launched \
+            and not cfg.train.checkpoint_every:
+        logger.log("note: graceful stop disabled (a run launched across "
+                   "processes without checkpoint_every: no agreed boundary "
+                   "to stop at)")
         stop_event = None
     text = load_corpus(cfg.dataset)
     t0 = time.perf_counter()
@@ -153,31 +175,48 @@ def _train(cfg: Config, dev: torch.device, group, logger: StepLogger,
     ds = TokenDataset.from_text(text, tokenizer, tcfg.val_fraction)
     logger.log(f"dataset: {len(ds.train):,} train / {len(ds.val):,} val "
                f"tokens, vocab {tokenizer.vocab_size}")
-    train_batcher = make_batcher(tcfg.sampling, ds.train, B, T,
-                                 seed=tcfg.seed)
+    # each process draws its data shard's rows: a slice of the global
+    # sequential stream, or random windows from its own seed (JAX's
+    # local_batch_slice / per_process_seed); in one process the global
+    # batch, whose rows the step splits
+    n_data = cfg.mesh.data
+    d = group.data_rank if launched and n_data > 1 else None
+    rows = distributed.local_batch_slice(B, n_data, d or 0)  # B % data == 0
+    shard, seed, local_bs = (0, 1), tcfg.seed, B
+    if d is not None:
+        local_bs = rows.stop - rows.start
+        shard, seed = (d, n_data), distributed.per_process_seed(tcfg.seed, d)
+    train_batcher = make_batcher(tcfg.sampling, ds.train, local_bs, T,
+                                 seed=seed, shard=shard)
     eval_batchers = {
-        "train": make_batcher("random", ds.train, B, T, seed=tcfg.seed + 1),
-        "val": make_batcher("random", ds.val, B, T, seed=tcfg.seed + 2),
+        "train": make_batcher("random", ds.train, local_bs, T,
+                              seed=seed + 1),
+        "val": make_batcher("random", ds.val, local_bs, T, seed=seed + 2),
     }
-    state = create_train_state(mcfg, tcfg, dev,
-                               stream=0 if group is None else group.rank)
+    state = create_train_state(mcfg, tcfg, dev, group=group)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     remat = f", remat={mcfg.remat_policy}" if mcfg.remat else ""
-    logger.log(f"model: {param_count(state.model):,} params "
+    logger.log(f"model: {state.param_count():,} params "
                f"({mcfg.n_layer}L/{mcfg.n_head}H/{mcfg.n_embd}C, "
                f"dtype={mcfg.dtype}{remat}) on {dev} ({name})")
     attention_fn = None
     if group is None:
         logger.log(f"attention: {describe_route(mcfg, T)}")
     else:
-        # every rank drew the same weights from the seed; rank 0's are
-        # the run's all the same
-        group.broadcast_(list(state.model.parameters()))
-        attention_fn = select_attention_fn(mcfg, cfg.mesh, group)
-        logger.log(f"sequence parallelism: seq axis {cfg.mesh.seq}, impl "
-                   f"{attention_fn.impl_name!r} (configured "
-                   f"{mcfg.attention_impl!r}), {group.describe()}")
-        logger.log(f"attention: {describe_ring_route(T, group)}")
+        if n_data > 1 or cfg.mesh.fsdp:
+            where = ("one process holding all "
+                     f"{n_data} shards" if not launched else
+                     f"{group.processes} processes ({group.backend})")
+            logger.log(f"data parallelism: data axis {n_data}, FSDP "
+                       f"{'on' if cfg.mesh.fsdp else 'off'}, {where}")
+        if cfg.mesh.seq > 1:
+            attention_fn = select_attention_fn(mcfg, cfg.mesh, group.seq)
+            logger.log(f"sequence parallelism: seq axis {cfg.mesh.seq}, "
+                       f"impl {attention_fn.impl_name!r} (configured "
+                       f"{mcfg.attention_impl!r}), {group.seq.describe()}")
+            logger.log(f"attention: {describe_ring_route(T, group.seq)}")
+        else:
+            logger.log(describe_sharded_route(mcfg, T, n_data))
     train_step = make_train_step(mcfg, tcfg, attention_fn, group)
     eval_step = make_eval_step(mcfg, attention_fn, group)
     start_step = 0
@@ -192,7 +231,7 @@ def _train(cfg: Config, dev: torch.device, group, logger: StepLogger,
         logger.log(f"gradient accumulation: {accum} x {B} rows/optimizer "
                    f"step (effective batch {accum * B})")
     tokens_per_batch = B * T * accum   # the global batch, on every rank
-    chips = 1 if group is None else group.size // len(group.shards)
+    chips = 1 if group is None else group.processes
     wire = _wire_dtype(mcfg.vocab_size)
 
     if skip_data_steps:
@@ -216,7 +255,7 @@ def _train(cfg: Config, dev: torch.device, group, logger: StepLogger,
 
     schedule = state.optimizer.schedule
     lr_at = schedule if callable(schedule) else (lambda step: None)
-    params = state.model.tree()
+    params = state.eval_params(mcfg)
     history = []
     times = StepTimes(dev)
     tokens_seen = tokens_since_log = 0
@@ -239,7 +278,8 @@ def _train(cfg: Config, dev: torch.device, group, logger: StepLogger,
             flt = fault_fire("train/step", index=it)
             if flt is not None:
                 apply_train_state_fault(flt, state)
-            if stop_event is not None and stop_event.is_set():
+            if _agreed_stop(stop_event, it, start_step,
+                            tcfg.checkpoint_every, group):
                 stopped_early = True
                 logger.log(f"stop requested at step {it}; "
                            "checkpointing and exiting")
@@ -289,6 +329,10 @@ def _train(cfg: Config, dev: torch.device, group, logger: StepLogger,
     history.append((state.step, final_eval["train"], final_eval["val"]))
     if checkpoint_manager is not None and not stopped_early:
         checkpoint_manager.save(state, cursor)
+    if state.fsdp is not None:
+        # the trained weights whole, for the rank that samples and
+        # returns them (a collective under a launch: the others drop them)
+        state.model = state.full_model(mcfg, keep=main)
     tps = tokens_seen / wall if wall > 0 else 0.0
     # the first step pays the kernels' build and first-launch costs
     step_times = times.summary(skip=1 if len(times.pairs) > 1 else 0)

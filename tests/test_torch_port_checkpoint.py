@@ -441,10 +441,14 @@ def test_read_only_commands_refuse_a_missing_checkpoint_dir(tmp_path, cmd):
 
 
 def test_checkpoints_under_a_launch_are_refused(tmp_path, monkeypatch):
+    """A launch whose size is not the mesh's (2 processes, no --dp) is
+    refused before it writes a step."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(ValueError, match="2 processes for data 1 x seq 1"):
         cli.main(["train", "--preset", "test-tiny", "--device", "cpu",
                   "--checkpoint-dir", str(tmp_path)])
+    assert CheckpointManager(str(tmp_path)).all_steps() == []
 
 
 # ---------------------------------------------------------------------------

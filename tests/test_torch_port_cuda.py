@@ -1235,3 +1235,41 @@ def test_checkpoint_crosses_devices(card, tmp_path, src, dst):
     assert fresh.optimizer.count == state.optimizer.count == 2
     with pytest.raises(ValueError, match="cannot continue"):
         ck.restore_latest(_ckpt_state(dst, steps=0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fsdp", [False, True])
+def test_local_data_group_step_equals_the_plain_step_on_the_card(card, fsdp):
+    """``LocalDataGroup(2)`` (each shard's rows through the packed flash
+    kernels in turn, the gradients summed in shard order), with and
+    without FSDP (the masters as 2 shards, each layer gathered and its
+    gradients reduce-scattered on the card), against the plain step: f32,
+    3 steps of 2 accumulated micro-batches, clip 1.0."""
+    from replicatinggpt_tpu_torch.config import ModelConfig, TrainConfig
+    from replicatinggpt_tpu_torch.parallel.mesh import LocalDataGroup
+    from replicatinggpt_tpu_torch.train import state as st
+    from replicatinggpt_tpu_torch.train.steps import make_train_step
+    mcfg = ModelConfig(vocab_size=256, block_size=64, n_layer=2, n_head=4,
+                       n_embd=128, dropout=0.0, attn_dropout=0.0,
+                       dtype="float32")
+    tcfg = TrainConfig(batch_size=4, lr=3e-4, grad_clip=1.0,
+                       grad_accum_steps=2)
+    g = torch.Generator().manual_seed(3)
+    batches = [torch.randint(0, 256, (2, 4, 65), generator=g).cuda()
+               for _ in range(3)]
+    out = {}
+    for group in (None, LocalDataGroup(2, fsdp=fsdp)):
+        state = st.create_train_state(mcfg, tcfg, "cuda", group=group)
+        step = make_train_step(mcfg, tcfg, None, group)
+        fp.flash_packed_fwd.launches = 0
+        losses = [float(step(state, (b[..., :-1], b[..., 1:])))
+                  for b in batches]
+        assert fp.flash_packed_fwd.launches == 2 * 2 * 3 * (
+            1 if group is None else 2)
+        out[group is None] = (losses, state.state_dict())
+    (lg, got), (lp, want) = out[False], out[True]
+    np.testing.assert_allclose(lg, lp, rtol=1e-5)
+    for k in want:
+        if k.startswith(("params/", "opt/exp")):
+            torch.testing.assert_close(got[k], want[k], atol=1e-5,
+                                       rtol=1e-5, msg=k)

@@ -19,7 +19,8 @@
   train step on a mesh of seq=2 (4 heads, ``attention_impl='ring'``), both
   from JAX's ``init_params``: the loss and every updated parameter at
   1e-4;
-- the ``ProcessSeqGroup`` train step in 2 gloo processes against the
+- the seq-only launch's train step (``ProcessDataGroup(1, 2)``, one
+  ``ProcessSeqGroup`` shard a process) in 2 gloo processes against the
   one-process group (attention dropout on, so both must hash the same
   masks): loss, gradients and updated weights at 1e-5;
 - the CLI: ``train --sp 2 --attention ring`` runs and logs the
@@ -59,6 +60,7 @@ from replicatinggpt_tpu_torch.ops import flash_chunk as tfc
 from replicatinggpt_tpu_torch.ops.attention import NEG_INF
 from replicatinggpt_tpu_torch.ops.flash_packed import attention_ref
 from replicatinggpt_tpu_torch.parallel import (LocalSeqGroup,
+                                               ProcessDataGroup,
                                                ProcessSeqGroup,
                                                make_ring_attention_fn,
                                                ring_attention,
@@ -288,15 +290,16 @@ GROUP_KW = dict(vocab_size=65, block_size=128, n_layer=2, n_head=2,
 
 
 def _group_step(group, seed: int = 0):
-    """One train step of the GROUP_KW model through ``group``'s ring:
-    (loss, {name: gradient}, {name: updated weight})."""
+    """One train step of the GROUP_KW model through ``group``'s ring (a
+    ``LocalSeqGroup``, or a launch's ``ProcessDataGroup`` of one data
+    shard): (loss, {name: gradient}, {name: updated weight})."""
     torch.set_num_threads(1)
     mcfg, tcfg = ModelConfig(**GROUP_KW), TrainConfig(batch_size=2, lr=1e-3,
                                                       seed=seed)
-    state = tstate.create_train_state(mcfg, tcfg, "cpu",
-                                      stream=group.rank)
+    ring = group.seq if isinstance(group, ProcessDataGroup) else group
+    state = tstate.create_train_state(mcfg, tcfg, "cpu", stream=ring.rank)
     group.broadcast_(list(state.model.parameters()))
-    fn = make_ring_attention_fn(group, dropout_rate=mcfg.attn_dropout)
+    fn = make_ring_attention_fn(ring, dropout_rate=mcfg.attn_dropout)
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.integers(0, 65, (2, 128)))
     loss = tsteps.make_train_step(mcfg, tcfg, fn, group)(
@@ -310,7 +313,7 @@ def _group_worker(rank: int, world: int, init: str, out: str) -> None:
     dist.init_process_group("gloo", init_method=init, rank=rank,
                             world_size=world)
     try:
-        torch.save(_group_step(ProcessSeqGroup()), f"{out}.{rank}")
+        torch.save(_group_step(ProcessDataGroup(1, 2)), f"{out}.{rank}")
     finally:
         dist.destroy_process_group()
 
@@ -365,8 +368,8 @@ def test_train_sp_cli_on_cpu():
     (["--attention", "ulysses"], SystemExit),
     (["--sp", "2"], NotImplementedError),          # 'auto', 2 heads: Ulysses
     (["--sp", "2", "--attention", "einsum"], NotImplementedError),
-    (["--dp", "2"], SystemExit), (["--tp", "2"], SystemExit),
-    (["--pp", "2"], SystemExit), (["--fsdp"], SystemExit),
+    (["--dp", "2", "--tp", "2"], SystemExit), (["--tp", "2"], SystemExit),
+    (["--pp", "2"], SystemExit), (["--fsdp", "--pp", "2"], SystemExit),
     (["--microbatches", "4"], SystemExit)])
 def test_train_refuses_what_is_not_ported(argv, exc):
     with pytest.raises(exc, match="queue A item 11"):
@@ -376,15 +379,15 @@ def test_train_refuses_what_is_not_ported(argv, exc):
 def test_launch_must_match_sp(monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setenv("RANK", "0")
-    with pytest.raises(ValueError, match="queue A item 11"):
-        tdist.setup(4, "cpu")
+    with pytest.raises(ValueError, match="2 processes for data 1 x seq 4"):
+        tdist.setup(1, 4, "cpu")
     assert not dist.is_initialized()
     monkeypatch.delenv("WORLD_SIZE")
-    dev, group = tdist.setup(4, "cpu")
-    assert dev.type == "cpu" and isinstance(group, LocalSeqGroup)
+    dev, group = tdist.setup(1, 4, "cpu")
+    assert dev.type == "cpu" and isinstance(group.seq, LocalSeqGroup)
     assert tdist.local_seq_slice(64) == slice(0, 64)
     with pytest.raises(NotImplementedError, match="queue A item 11"):
-        MeshConfig(data=2).validate()
+        MeshConfig(model=2).validate()
 
 
 def test_group_refuses_tensors_its_backend_cannot_move():

@@ -388,7 +388,7 @@ def test_train_cli_on_cpu(tmp_path):
     events = [json.loads(line) for line in jsonl.read_text().splitlines()]
     assert [e["event"] for e in events].count("step") == 4
     with pytest.raises(SystemExit, match="ROADMAP"):
-        cli.main(argv + ["--dp", "2"])
+        cli.main(argv + ["--tp", "2"])
     with pytest.raises(SystemExit, match="ROADMAP"):
         cli.main(argv + ["--steps-per-dispatch", "4"])
     if not torch.cuda.is_available():
