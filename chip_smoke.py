@@ -286,6 +286,36 @@ and fails (non-zero exit) on the first phase that fails:
    as 4 shards of 16, remat full), 3 steps in one process, and the same
    without FSDP: flash launches (4 x 24 x 2 forward a step with the
    recompute), peak memory allocated and step p50 of each.
+42. fleet parity phase (run after phase 37): GPT-2 124M width cut to 2
+   layers, f32, 20 requests over 2 shared prefixes (16 greedy, 4 sampled
+   with fixed rng_seeds): a ``Router`` of 2 replicas on the kernel route
+   with journals gives one gather-route ``Engine``'s streams; so does it
+   after ``replica_kill`` of replica 0 at router step 4 (every request
+   finishes, requeued from the journal) and through ``replica_wedge`` of
+   replica 0 (0.2 s stalls against a 0.1 s budget: quarantined, its work
+   re-routed with ``cancel(migrated=True)``, rejoined); in every run each
+   id's delivered tokens (``take_new_tokens``) are its final tokens, and
+   no id is active on two live replicas at any step;
+43. front-door slice (this slice's main path): ``ServeApp`` over a
+   ``Router`` of 2 GPT-2 124M replicas (bf16, full width and depth, 8
+   slots, page 16, packed cache, the kernel route) on 127.0.0.1 at an
+   ephemeral port, its clients in a process of their own: ``/readyz`` 503
+   until both replicas are warm, 200 after; 24 sessions of 3 turns over 4
+   system prefixes of 256 tokens (16-48 user tokens and 32 new tokens a
+   turn) from 8 concurrent clients of ``/v1/generate``; row #1 runs
+   exactly 12 x the replicas' decode steps; fleet tokens/s, client TTFT
+   p50 and p99, each replica's step p50, the prefix-hit rate beside the
+   same sessions on 1 replica and without affinity, the ``/metrics``
+   fleet counters; the wedge probe (1 s budget) never trips; then with
+   ``replica_kill`` of replica 1 in turn 2: every session finishes and
+   every SSE stream carries each token of its result once; then a
+   char-gpt fleet (fused route): row #2 once a decode step (row #1's
+   ``launches_front_door``, row #2's);
+44. serve CLI phase: ``python -m replicatinggpt_tpu_torch serve --preset
+   gpt2-small --decode-cache-layout packed --paged-kernel --replicas 2
+   --port 0 --journal-dir D`` as a subprocess: ``/readyz`` 200 once it
+   prints ``serving on``, one ``/v1/generate`` round trip, SIGINT: exit
+   0, the journals closed with no unfinished request.
 
 Every flash row of the ``{"kernels": [...]}`` line also carries the
 achieved rate (``tflops``: the bound's operation count over the kernel's
@@ -296,6 +326,7 @@ that line, the card's name and power limit and, last, the
 
 from __future__ import annotations
 
+import asyncio
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -310,7 +341,9 @@ import re
 import statistics
 import subprocess
 import sys
+import signal
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -345,7 +378,15 @@ from replicatinggpt_tpu_torch.quant.kv import fake_quantize_rows, quantize_rows
 from replicatinggpt_tpu_torch.serve import engine as engine_mod
 from replicatinggpt_tpu_torch.serve import (Engine, EngineConfig,
                                             ModelDrafter, NGramDrafter,
-                                            ReplayConfig, make_trace)
+                                            ReplayConfig, Request,
+                                            RequestJournal, Router,
+                                            RouterConfig, SamplingParams,
+                                            SessionLoadConfig, make_sessions,
+                                            make_trace, session_request)
+from replicatinggpt_tpu_torch.faults.fleet import (FLEET_STEP,
+                                                   KIND_REPLICA_KILL,
+                                                   KIND_REPLICA_WEDGE)
+from replicatinggpt_tpu_torch.serve.http import ServeApp
 from replicatinggpt_tpu_torch.sample.generate import (GenerateConfig,
                                                      generate)
 from replicatinggpt_tpu_torch.tokenizers import CharTokenizer
@@ -3635,6 +3676,497 @@ def fsdp_slice_phase(card: str) -> None:
           f"loss {out[True][2]:.4f} / {out[False][2]:.4f}")
 
 
+# ------------------------------------------------------------------ fleet
+
+#: phase 43's traffic at 124M: 24 sessions of 3 turns over 4 system
+#: prefixes of 256 tokens, 16-48 user tokens and 32 new tokens a turn,
+#: 8 concurrent clients; and the char-gpt fleet's, within its 256 block
+FLEET_LCFG = dict(n_sessions=24, turns=3, n_prefix_groups=4, prefix_len=256,
+                  user_len_min=16, user_len_max=48, max_new_tokens=32,
+                  rate=1e6, seed=11)
+CHAR_FLEET_LCFG = dict(n_sessions=16, turns=3, n_prefix_groups=2,
+                       prefix_len=64, user_len_min=8, user_len_max=16,
+                       max_new_tokens=32, rate=1e6, seed=12)
+FLEET_CLIENTS = 8
+#: phase 42's wedge: replica 0's router steps 6-7 stall 0.2 s against a
+#: 0.1 s budget (a 2-layer step takes milliseconds)
+FLEET_WEDGE = dict(at=6, times=2, arg=0.2, arg2=0)
+
+
+def fleet_requests(mcfg) -> list:
+    """Phase 42's traffic: 16 greedy and 4 sampled requests (fixed
+    rng_seeds), prompts over 2 shared prefixes of 48 tokens."""
+    rng = np.random.default_rng(21)
+    prefixes = [rng.integers(0, mcfg.vocab_size, (48,)) for _ in range(2)]
+    return [Request(
+        id=f"f{i:02d}", prompt=np.concatenate(
+            [prefixes[i % 2],
+             rng.integers(0, mcfg.vocab_size, (int(rng.integers(4, 40)),))]),
+        max_new_tokens=24, rng_seed=1000 + i,
+        sampling=SamplingParams(greedy=i < 16, top_k=50, temperature=0.8))
+        for i in range(20)]
+
+
+def fleet_drive(router, reqs) -> dict:
+    """Submit ``reqs``, step the fleet to idle reading its delivery ledger
+    every step, and close it. Every request must finish by its budget, no
+    id may be active on two live replicas at any step, and each id's
+    delivered tokens must be its final tokens. Returns the tokens by
+    id."""
+    for q in reqs:
+        assert router.submit(q) is None
+    streams, results = {q.id: [] for q in reqs}, {}
+    for _ in range(20_000):
+        if router.idle:
+            break
+        results.update({r.id: r for r in router.step()})
+        for rid in streams:
+            streams[rid].extend(router.take_new_tokens(rid))
+        live = [rid for rep in router.replicas if rep.alive
+                for rid in rep.engine.in_flight_ids()]
+        assert len(live) == len(set(live)), f"an id on two replicas: {live}"
+    router.close()
+    assert sorted(results) == sorted(streams), "a request never finished"
+    bad = {k: r.finish_reason for k, r in results.items() if not r.ok}
+    assert not bad, bad
+    for rid, r in results.items():
+        assert streams[rid] == list(r.tokens), f"{rid}: delivered != final"
+    return {rid: list(r.tokens) for rid, r in results.items()}
+
+
+def fleet_parity_phase(card: str) -> None:
+    """Phase 42: GPT-2 124M width cut to 2 layers, f32, 20 requests (4
+    sampled): a 2-replica fleet on the kernel route, with journals, gives
+    one gather-route engine's streams; so does it after ``replica_kill``
+    of replica 0 at router step 4, and through ``replica_wedge`` of
+    replica 0 (quarantined, its work re-routed, then rejoined)."""
+    mcfg, model = spec_model(2, "float32")
+    reqs = fleet_requests(mcfg)
+    eng = Engine(model, mcfg, EngineConfig(pool_size=8, page_size=16),
+                 device="cuda")
+    assert eng.kernel_route.decode == "gather"
+    for q in reqs:
+        assert eng.submit(q) is None
+    plain = {r.id: list(r.tokens) for r in eng.drain()}
+    del eng
+    ecfg = EngineConfig(pool_size=8, page_size=16, paged_kernel=True)
+    runs, counters = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        for name, fault, rkw in (
+                ("clean", None, {}),
+                ("kill", faults.Fault(site=FLEET_STEP,
+                                      kind=KIND_REPLICA_KILL, at=4, arg=0),
+                 {}),
+                ("wedge", faults.Fault(site=FLEET_STEP,
+                                       kind=KIND_REPLICA_WEDGE,
+                                       **FLEET_WEDGE),
+                 dict(wedge_budget_s=0.1, wedge_patience=2,
+                      quarantine_steps=5))):
+            router = Router(model, mcfg, RouterConfig(
+                n_replicas=2, journal_dir=os.path.join(root, name), **rkw),
+                ecfg, device="cuda")
+            assert all(r.engine.kernel_route.decode == "kernel"
+                       for r in router.replicas)
+            router.warmup()
+            plan = faults.FaultPlan(*([fault] if fault else []))
+            with faults.installed(plan):
+                runs[name] = fleet_drive(router, reqs)
+            counters[name] = dict(router.metrics.counters)
+            counters[name]["alive"] = router.n_alive
+    first_difference(runs["clean"], plain, "fleet clean vs one engine")
+    first_difference(runs["kill"], runs["clean"], "fleet kill vs clean")
+    first_difference(runs["wedge"], runs["clean"], "fleet wedge vs clean")
+    k, w = counters["kill"], counters["wedge"]
+    assert k["fleet_replica_kills"] == 1 and k["alive"] == 1, k
+    assert k.get("fleet_requeued_requests", 0) > 0, k
+    assert w.get("fleet_replica_wedges", 0) >= 1, w
+    assert w.get("fleet_requeued_requests", 0) > 0, w
+    assert w.get("fleet_replica_rejoins", 0) >= 1 and w["alive"] == 2, w
+    assert not counters["clean"].get("fleet_replica_wedges"), counters
+    n = sum(len(t) for t in plain.values())
+    print(f"fleet parity on {card}: 20 streams (16 greedy, 4 sampled), {n} "
+          f"tokens: one gather-route engine = the 2-replica kernel-route "
+          f"fleet clean = after replica 0's kill at step 4 (requeued "
+          f"{k['fleet_requeued_requests']}) = through its 0.2 s wedge "
+          f"(wedges {w['fleet_replica_wedges']}, re-routed "
+          f"{w['fleet_requeued_requests']}, rejoins "
+          f"{w['fleet_replica_rejoins']}); f32, 2 layers, C=768")
+
+
+async def http_call(host: str, port: int, method: str, path: str,
+                    body=None) -> tuple:
+    """One HTTP exchange: (status, JSON or raw body)."""
+    r, w = await asyncio.open_connection(host, port)
+    payload = json.dumps(body).encode() if body is not None else b""
+    w.write(f"{method} {path} HTTP/1.1\r\nHost: smoke\r\nContent-Length: "
+            f"{len(payload)}\r\n\r\n".encode() + payload)
+    await w.drain()
+    data = await r.read()
+    w.close()
+    head, _, rest = data.partition(b"\r\n\r\n")
+    try:
+        return int(head.split(b" ")[1]), json.loads(rest)
+    except ValueError:
+        return int(head.split(b" ")[1]), rest
+
+
+async def sse_generate(host: str, port: int, body: dict) -> dict:
+    """``POST /v1/generate``, read as its events arrive: the tokens, their
+    indices, the done event, the client-side TTFT (request sent to first
+    token event) and total (to the done event)."""
+    t0 = time.perf_counter()
+    r, w = await asyncio.open_connection(host, port)
+    payload = json.dumps(body).encode()
+    w.write(b"POST /v1/generate HTTP/1.1\r\nHost: smoke\r\n"
+            + f"Content-Length: {len(payload)}\r\n\r\n".encode() + payload)
+    await w.drain()
+    head = await r.readuntil(b"\r\n\r\n")
+    assert b" 200 " in head.split(b"\r\n", 1)[0], head
+    out = {"tokens": [], "i": [], "done": None, "ttft_s": None}
+    while True:
+        try:
+            block = (await r.readuntil(b"\n\n")).decode()
+        except asyncio.IncompleteReadError:
+            break
+        ev = "message"
+        for line in block.splitlines():
+            if line.startswith("event: "):
+                ev = line[len("event: "):]
+            elif line.startswith("data: "):
+                data = json.loads(line[len("data: "):])
+                if ev == "done":
+                    out["done"] = data
+                    out["total_s"] = time.perf_counter() - t0
+                elif ev == "message":
+                    if out["ttft_s"] is None:
+                        out["ttft_s"] = time.perf_counter() - t0
+                    out["tokens"].append(data["token"])
+                    out["i"].append(data["i"])
+                else:
+                    raise AssertionError(f"SSE {ev}: {data}")
+    w.close()
+    return out
+
+
+def fleet_clients(jobs, out, events: tuple) -> None:
+    """The clients' process, one for every run of phase 43: for each job
+    ``(host, port, mcfg, lcfg, kill_in_turn)`` from ``jobs`` (None ends
+    it), ``/readyz`` must answer 503 (then ``cold`` is set) until the
+    server sets ``warm``, 200 after; then ``FLEET_CLIENTS`` clients run
+    the sessions of ``lcfg`` through ``/v1/generate``, setting ``turn``
+    when the first request of turn ``kill_in_turn`` (0-based) goes out;
+    last ``/metrics``. Puts ("ok", (responses by id, wall seconds,
+    metrics text)) or ("error", text) on ``out``."""
+    cold, warm, turn = events
+
+    async def client(lc, queue, got, host, port, kill_in_turn):
+        while not queue.empty():
+            sess = queue.get_nowait()
+            while sess.next_turn < lc.turns:
+                req = session_request(sess, lc)
+                if sess.next_turn == kill_in_turn:
+                    turn.set()
+                res = await sse_generate(host, port, {
+                    "id": req.id, "prompt": req.prompt.tolist(),
+                    "max_new_tokens": req.max_new_tokens, "greedy": True,
+                    "rng_seed": req.rng_seed})
+                got[req.id] = res
+                assert res["done"] is not None, req.id
+                assert res["done"]["finish_reason"] == "max_tokens", (
+                    req.id, res["done"])
+                sess.context = np.concatenate(
+                    [sess.context, sess.user_turns[sess.next_turn],
+                     np.asarray(res["tokens"], np.int32)])
+                sess.next_turn += 1
+
+    async def run(host, port, mcfg, lcfg, kill_in_turn):
+        lc = SessionLoadConfig(**lcfg)
+        st, body = await http_call(host, port, "GET", "/readyz")
+        assert st == 503 and body["ready_replicas"] == 0, (st, body)
+        cold.set()
+        assert await asyncio.get_running_loop().run_in_executor(
+            None, warm.wait, 300), "the server never warmed"
+        st, body = await http_call(host, port, "GET", "/readyz")
+        assert st == 200 and body["ready_replicas"] >= 1, body
+        queue: asyncio.Queue = asyncio.Queue()
+        for sess in make_sessions(mcfg, lc):
+            queue.put_nowait(sess)
+        got: dict = {}
+        t0 = time.perf_counter()
+        await asyncio.gather(*[client(lc, queue, got, host, port,
+                                      kill_in_turn)
+                               for _ in range(FLEET_CLIENTS)])
+        wall = time.perf_counter() - t0
+        st, text = await http_call(host, port, "GET", "/metrics")
+        assert st == 200
+        return got, wall, text.decode()
+
+    for job in iter(jobs.get, None):
+        try:
+            out.put(("ok", asyncio.run(run(*job))))
+        except BaseException as e:  # noqa: BLE001 — reported to the server
+            out.put(("error", f"{type(e).__name__}: {e}"))
+
+
+def front_door_run(clients: tuple, model, mcfg, ecfg, n_replicas: int,
+                   affinity: bool, lcfg: dict, root: str,
+                   kill_in_turn: int = -1) -> dict:
+    """The session traffic through ``ServeApp`` over ``Router`` on
+    127.0.0.1 at an ephemeral port, the clients in a process of their own
+    (``fleet_clients``; ``clients`` is (process, jobs, out, events)), as a
+    server's clients are: ``/readyz`` is 503 until the replicas are warm,
+    200 after. Row #1's and row #2's counts are set to 0 after the
+    warm-up, before the clients may start, and read once they are done.
+    With ``kill_in_turn`` >= 0, once a request of that turn went out and
+    replica 1 has requests in flight, ``replica_kill`` of replica 1 is
+    planned for the next router step. Every session must finish every
+    turn, every stream must carry each token of its request's result once
+    (indices 0..n-1, the result's tokens in order), and the wedge probe,
+    at a 1 s budget, must never trip."""
+    proc, jobs, out, events = clients
+    lc = SessionLoadConfig(**lcfg)
+    router = Router(model, mcfg, RouterConfig(
+        n_replicas=n_replicas, affinity=affinity, journal_dir=root,
+        wedge_budget_s=1.0), ecfg, device="cuda")
+    app = ServeApp(router)
+    finals = {}
+    pop = router.pop_result
+
+    def pop_and_keep(rid):
+        res = pop(rid)
+        if res is not None:
+            finals[rid] = list(res.tokens)
+        return res
+
+    router.pop_result = pop_and_keep
+    for e in events:
+        e.clear()
+
+    async def serve():
+        host, port = await app.start(warm=False)
+        jobs.put((host, port, mcfg, lcfg, kill_in_turn))
+        planned = []
+        try:
+            while not events[0].is_set():
+                assert proc.is_alive(), "the clients' process died"
+                if not out.empty():
+                    raise AssertionError(out.get())
+                await asyncio.sleep(0.01)
+            router.warmup()
+            pa.paged_window_attention.launches = 0
+            dec.fused_paged_decode_layers.launches = 0
+            events[1].set()
+            while out.empty():
+                assert proc.is_alive(), "the clients' process died"
+                if (events[2].is_set() and not planned
+                        and router.replicas[1].engine.in_flight_ids()):
+                    planned.append(router.n_steps)
+                    faults.install(faults.FaultPlan(faults.Fault(
+                        site=FLEET_STEP, kind=KIND_REPLICA_KILL,
+                        at=planned[0], arg=1)))
+                await asyncio.sleep(0.002)
+            launches = (pa.paged_window_attention.launches,
+                        dec.fused_paged_decode_layers.launches)
+            status, res = out.get()
+            assert status == "ok", res
+            return res, launches, router.fleet_summary(), planned
+        finally:
+            faults.clear()
+            await app.stop()
+
+    (got, wall, text), launches, summary, planned = asyncio.run(serve())
+    assert len(got) == lc.n_sessions * lc.turns, len(got)
+    for rid, res in got.items():
+        n = res["done"]["n_tokens"]
+        assert res["i"] == list(range(n)), f"{rid}: SSE indices {res['i']}"
+        assert res["tokens"] == finals[rid], f"{rid}: SSE != result"
+        assert n == lc.max_new_tokens, (rid, n)
+    assert not summary["router"].get("fleet_replica_wedges"), summary
+    if kill_in_turn >= 0:
+        assert planned and summary["router"]["fleet_replica_kills"] == 1
+        assert summary["router"].get("fleet_requeued_requests", 0) > 0
+    ttft = sorted(res["ttft_s"] for res in got.values())
+    # what the client waits outside the router's submit-to-finish
+    outside = sorted(res["total_s"] - res["done"]["total_s"]
+                     for res in got.values())
+    fleet = [ln for ln in text.splitlines()
+             if ln.startswith("tpu_gpt_fleet_fleet_")]
+    return {"wall_s": wall, "tokens": sum(len(r["tokens"])
+                                          for r in got.values()),
+            "ttft_p50": ttft[len(ttft) // 2],
+            "ttft_p99": ttft[min(int(0.99 * (len(ttft) - 1) + 0.5),
+                                 len(ttft) - 1)],
+            "outside_p50": outside[len(outside) // 2],
+            "launches": launches, "summary": summary, "metrics": fleet,
+            "streams": {rid: r["tokens"] for rid, r in got.items()},
+            "kill_at": planned[0] if planned else None}
+
+
+def front_door_line(name: str, r: dict, card: str) -> None:
+    s = r["summary"]
+    steps = [(b["n_steps"], b["step_latency"]["p50_s"] * 1e3,
+              b["step_latency"]["p99_s"] * 1e3) for b in s["replicas"]]
+    print(f"front door {name} on {card}: {r['tokens'] / r['wall_s']:.1f} "
+          f"tok/s ({r['tokens']} tokens in {r['wall_s']:.2f} s), client "
+          f"TTFT p50 {r['ttft_p50'] * 1e3:.2f} ms / p99 "
+          f"{r['ttft_p99'] * 1e3:.2f} ms (p50 {r['outside_p50'] * 1e3:.2f} "
+          f"ms of a request's client time outside the router's submit to "
+          f"finish), replica steps and step p50 / p99 "
+          + ", ".join(f"{n} @ {p50:.3f} / {p99:.3f} ms"
+                      for n, p50, p99 in steps)
+          + f", prefix-hit rate {s['aggregate_prefix_hit_rate']}, fleet "
+          f"TTFT p50 {s['fleet_ttft_s']['p50'] * 1e3:.2f} ms, requeued "
+          f"{s['router'].get('fleet_requeued_requests', 0)}, requeue "
+          f"latency p50 {s['requeue_latency_s']['p50'] * 1e3:.2f} ms")
+
+
+def front_door_phase(card: str) -> dict:
+    """Phase 43 (this slice's main path): GPT-2 124M at full width and
+    depth, bf16, random init, 2 replicas of 8 slots, page 16, packed
+    cache, the kernel route, behind ``ServeApp``: the session traffic of
+    ``FLEET_LCFG``; row #1 runs exactly 12 x the replicas' decode steps.
+    The same sessions on 1 replica and with affinity off (their prefix-hit
+    rates beside the fleet's), then with ``replica_kill`` of replica 1 in
+    turn 2. Then a char-gpt fleet (bf16, the fused route): row #2 runs
+    once a decode step. Returns each run's launches."""
+    import multiprocessing as mp
+    mcfg = dataclasses.replace(get_config("gpt2-small").model,
+                               decode_cache_layout="packed")
+    model = init_params(mcfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    ecfg = EngineConfig(pool_size=8, page_size=16, paged_kernel=True)
+    out = {}
+    ctx = mp.get_context("spawn")
+    jobs, results = ctx.Queue(), ctx.Queue()
+    events = (ctx.Event(), ctx.Event(), ctx.Event())
+    proc = ctx.Process(target=fleet_clients, args=(jobs, results, events))
+    proc.start()
+    clients = (proc, jobs, results, events)
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            runs = {}
+            for name, n, aff, kill in (("fleet", 2, True, -1),
+                                       ("one replica", 1, True, -1),
+                                       ("no affinity", 2, False, -1),
+                                       ("kill", 2, True, 1)):
+                runs[name] = r = front_door_run(
+                    clients, model, mcfg, ecfg, n, aff, FLEET_LCFG,
+                    os.path.join(root, name.replace(" ", "_")),
+                    kill_in_turn=kill)
+                steps = sum(b["n_steps"] for b in r["summary"]["replicas"])
+                assert r["launches"] == (mcfg.n_layer * steps, 0), (
+                    r["launches"], steps)
+                front_door_line(name, r, card)
+                out[name] = r["launches"][0]
+                gc.collect()
+                torch.cuda.empty_cache()
+            k = runs["kill"]["summary"]["router"]
+            assert k["fleet_replica_kills"] == 1, k
+            same = sum(runs["kill"]["streams"][rid] == t
+                       for rid, t in runs["fleet"]["streams"].items())
+            print(f"front door kill: replica 1 killed at router step "
+                  f"{runs['kill']['kill_at']}, requeued "
+                  f"{k.get('fleet_requeued_requests', 0)}; every SSE stream "
+                  f"carried its result once; {same} of "
+                  f"{len(runs['fleet']['streams'])} streams equal the clean "
+                  f"fleet's")
+            print("front door /metrics (fleet run): "
+                  + "; ".join(runs["fleet"]["metrics"]))
+            hits = {n: runs[n]["summary"]["aggregate_prefix_hit_rate"]
+                    for n in ("fleet", "one replica", "no affinity")}
+            print(f"front door prefix-hit rate on {card}: 2 replicas with "
+                  f"affinity {hits['fleet']}, 1 replica "
+                  f"{hits['one replica']}, 2 replicas without affinity "
+                  f"{hits['no affinity']}")
+            del model
+            cmcfg = dataclasses.replace(get_config("char-gpt").model,
+                                        decode_cache_layout="packed")
+            cmodel = init_params(cmcfg, torch.Generator(device="cuda")
+                                 .manual_seed(0), device="cuda")
+            r = front_door_run(clients, cmodel, cmcfg, ecfg, 2, True,
+                               CHAR_FLEET_LCFG, os.path.join(root, "char"))
+            routes = {b["kernel_route"]["decode"]
+                      for b in r["summary"]["replicas"]}
+            assert routes == {"fused"}, routes
+            steps = sum(b["n_steps"] for b in r["summary"]["replicas"])
+            assert r["launches"][1] == steps > 0, (r["launches"], steps)
+            front_door_line("char-gpt", r, card)
+            out["char-gpt fused"] = r["launches"][1]
+        jobs.put(None)
+        proc.join(timeout=60)
+        assert proc.exitcode == 0, proc.exitcode
+    finally:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    return out
+
+
+def serve_cli_phase(card: str) -> None:
+    """Phase 44: ``python -m replicatinggpt_tpu_torch serve --preset
+    gpt2-small --decode-cache-layout packed --paged-kernel --replicas 2
+    --port 0 --journal-dir D`` as a subprocess: ``/readyz`` 200 once it
+    says it serves, one ``/v1/generate`` round trip, SIGINT: exit 0, and
+    the journals closed with no unfinished request."""
+    with tempfile.TemporaryDirectory() as jdir:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", "replicatinggpt_tpu_torch", "serve",
+             "--preset", "gpt2-small", "--decode-cache-layout", "packed",
+             "--paged-kernel", "--replicas", "2", "--port", "0",
+             "--journal-dir", jdir], stderr=subprocess.PIPE, text=True)
+        lines: list = []
+        reader = threading.Thread(
+            target=lambda: lines.extend(iter(proc.stderr.readline, "")),
+            daemon=True)
+        reader.start()
+        try:
+            port = None
+            while port is None and time.perf_counter() - t0 < 300:
+                if proc.poll() is not None:
+                    raise AssertionError("serve exited early: "
+                                         + "".join(lines))
+                m = re.search(r"serving on http://[\d.]+:(\d+)",
+                              "".join(lines))
+                port = int(m.group(1)) if m else None
+                time.sleep(0.1)
+            assert port is not None, "no serving banner: " + "".join(lines)
+            t_bound = time.perf_counter() - t0
+
+            async def client():
+                st, body = await http_call("127.0.0.1", port, "GET",
+                                           "/readyz")
+                assert st == 200 and body["ready_replicas"] == 2, body
+                return await sse_generate("127.0.0.1", port, {
+                    "prompt": list(range(1, 40)), "max_new_tokens": 16,
+                    "greedy": True})
+
+            res = asyncio.run(client())
+            assert res["done"]["finish_reason"] == "max_tokens", res
+            assert res["i"] == list(range(16)), res["i"]
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=120)
+            assert rc == 0, (rc, "".join(lines))
+            reader.join(timeout=10)
+            recs, unfinished = 0, 0
+            for i in range(2):
+                path = os.path.join(jdir, f"replica{i}.jsonl")
+                with open(path) as f:
+                    text = f.read()
+                assert not text or text.endswith("\n"), path
+                recs += len(text.splitlines())
+                unfinished += len(RequestJournal.unfinished(path))
+            assert recs == 2 and unfinished == 0, (recs, unfinished)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"serve CLI on {card}: bound after {t_bound:.1f} s (model init, "
+          f"2 replicas warmed), /readyz 200, one /v1/generate of 16 tokens "
+          f"(client TTFT {res['ttft_s'] * 1e3:.2f} ms), SIGINT exit 0, "
+          f"journals closed with {recs} records and no unfinished request")
+
+
 def build_kernels() -> None:
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
@@ -3706,6 +4238,11 @@ def main() -> int:
     spec_parity_phase()
     row["launches_spec"] = spec_slice_phase(card)
     spec_resilience_phase(card)
+    fleet_parity_phase(card)
+    front = front_door_phase(card)
+    row["launches_front_door"] = {k: v for k, v in front.items()
+                                  if k != "char-gpt fused"}
+    serve_cli_phase(card)
     fused_paged_row = fused_paged_kernel_phase(flush)
     row["quantized"] = quantized_paged_phase(flush)
     row["int8_ms"] = row["quantized"]["int8-page"]["ms"]
@@ -3714,6 +4251,7 @@ def main() -> int:
     fused_parity_phase()
     (fused_paged_row["launches"], row["quantized_launches"],
      _) = fused_slice_phase(card)
+    fused_paged_row["launches_front_door"] = front["char-gpt fused"]
     text = open(CORPUS, encoding="utf-8").read()
     train_parity_phase(CharTokenizer.from_text(text).encode_np(text))
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")

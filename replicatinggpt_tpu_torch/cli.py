@@ -39,6 +39,11 @@
     python -m replicatinggpt_tpu_torch serve-replay --preset gpt2-small \\
         --decode-cache-layout packed --paged-kernel --spec model \\
         --draft-model char-gpt --spec-k 4
+    python -m replicatinggpt_tpu_torch serve --preset gpt2-small \\
+        --decode-cache-layout packed --paged-kernel --replicas 2 \\
+        --journal-dir J [--ledger L] [--port 8000] [--checkpoint-dir D]
+    python -m replicatinggpt_tpu_torch serve --preset test-tiny \\
+        --device cpu --replicas 2 --port 0
 
 Every subcommand runs on the card unless given ``--device cpu``, and takes
 the JAX subcommands' flags. Those this port does not implement yet are
@@ -70,7 +75,18 @@ that verifies; a first SIGTERM or SIGINT saves and exits 0 (under
 at all without ``checkpoint_every``). ``generate``, ``serve-replay``,
 ``eval`` and ``export-torch`` take ``--checkpoint-dir D`` to use the
 weights of its newest verified step (random init from the seed only when
-D holds no step).
+D holds no step). ``serve`` runs ``--replicas`` engines in this process
+behind the prefix-affinity router over HTTP/SSE (serve/http.py), the
+replicas warmed before the socket binds (``serving on http://host:port``
+on stderr), SIGINT a clean stop that closes the journals; its worker
+processes (``--multiproc``, ``--restart-budget``, ``--autoscale-*``,
+``--listen-host`` off loopback, ``--step-timeout-s``, ``--no-fsync``, and
+the ``serve-worker`` subcommand) are refused with queue A item 10, a
+serving mesh a replica too, its trace sinks with item 12. ``--rng-impl``
+is refused everywhere by the ground rules (torch generators only), and
+``train``'s ``--coordinator``, ``--num-processes`` and ``--process-id``
+name ``torchrun``; ``--backend`` (JAX's ``jax``) names the JAX package.
+``import-hf`` and ``lint`` exit 2 with items 7 and 12.
 """
 
 from __future__ import annotations
@@ -84,35 +100,51 @@ import torch
 
 from .config import add_config_flags, add_train_flags, config_from_args
 
+#: the reason the port refuses ``--rng-impl``
+RNG_IMPL_REASON = ("ground rules (the TPU 'rbg' generator is TPU "
+                   "scaffolding, and jax.random streams cannot be matched: "
+                   "the port draws from torch generators)")
+#: the reason the port refuses ``--backend`` (the JAX flag takes 'jax')
+BACKEND_REASON = ("ground rules (this package is the PyTorch backend; the "
+                  "JAX backend is python -m replicatinggpt_tpu)")
+#: the ROADMAP.md items the serving fleet's unported parts wait for
+FLEET_ITEM = "queue A item 10 (worker processes behind the router)"
+TELEMETRY_ITEM = "queue A item 12 (telemetry)"
+WEIGHT_QUANT_ITEM = "queue A item 8 (weight quantization)"
+
 #: (flag, dest, value that means "off", ROADMAP.md item that brings it)
 UNPORTED_FLAGS = (
-    ("--weight-quant", "weight_quant", "none",
-     "queue A item 8 (weight quantization)"),
-    ("--act-quant", "act_quant", "none",
-     "queue A item 8 (weight quantization)"),
-    ("--trace-out", "trace_out", None, "queue A item 12 (telemetry)"),
-    ("--metrics-timeline", "metrics_timeline", None,
-     "queue A item 12 (telemetry)"),
+    ("--rng-impl", "rng_impl", None, RNG_IMPL_REASON),
+    ("--weight-quant", "weight_quant", "none", WEIGHT_QUANT_ITEM),
+    ("--act-quant", "act_quant", "none", WEIGHT_QUANT_ITEM),
+    ("--trace-out", "trace_out", None, TELEMETRY_ITEM),
+    ("--metrics-timeline", "metrics_timeline", None, TELEMETRY_ITEM),
     ("--metrics-timeline-interval", "metrics_timeline_interval", None,
-     "queue A item 12 (telemetry)"),
-    ("--metrics-out", "metrics_out", None, "queue A item 12 (telemetry)"),
-    ("--profile-dir", "profile_dir", None, "queue A item 12 (telemetry)"),
-    ("--profile-start", "profile_start", None,
-     "queue A item 12 (telemetry)"),
-    ("--profile-steps", "profile_steps", None,
-     "queue A item 12 (telemetry)"),
+     TELEMETRY_ITEM),
+    ("--metrics-out", "metrics_out", None, TELEMETRY_ITEM),
+    ("--profile-dir", "profile_dir", None, TELEMETRY_ITEM),
+    ("--profile-start", "profile_start", None, TELEMETRY_ITEM),
+    ("--profile-steps", "profile_steps", None, TELEMETRY_ITEM),
 )
 
 
 #: the train subcommand's unported flags, in the same form
 TRAIN_UNPORTED_FLAGS = (
-    ("--trace-out", "trace_out", None, "queue A item 12 (telemetry)"),
-    ("--profile-dir", "profile_dir", None, "queue A item 12 (telemetry)"),
-    ("--profile-start", "profile_start", None,
-     "queue A item 12 (telemetry)"),
-    ("--profile-steps", "profile_steps", None,
-     "queue A item 12 (telemetry)"),
-    ("--profile-port", "profile_port", None, "queue A item 12 (telemetry)"),
+    ("--rng-impl", "rng_impl", None, RNG_IMPL_REASON),
+    ("--backend", "backend", None, BACKEND_REASON),
+    ("--coordinator", "coordinator", None,
+     "ground rules (multi-process training runs under torchrun, which "
+     "sets the rendezvous: torchrun --nproc-per-node N -m "
+     "replicatinggpt_tpu_torch train ...)"),
+    ("--num-processes", "num_processes", None,
+     "ground rules (torchrun --nproc-per-node N sets the process count)"),
+    ("--process-id", "process_id", None,
+     "ground rules (torchrun sets each process's rank)"),
+    ("--trace-out", "trace_out", None, TELEMETRY_ITEM),
+    ("--profile-dir", "profile_dir", None, TELEMETRY_ITEM),
+    ("--profile-start", "profile_start", None, TELEMETRY_ITEM),
+    ("--profile-steps", "profile_steps", None, TELEMETRY_ITEM),
+    ("--profile-port", "profile_port", None, TELEMETRY_ITEM),
     ("--steps-per-dispatch", "steps_per_dispatch", 1,
      "ground rules (the K-step dispatch scan is TPU scaffolding; each "
      "step is one dispatch here)"),
@@ -391,7 +423,44 @@ def cmd_train(args) -> int:
 #: the generate subcommand's unported flags
 GENERATE_UNPORTED_FLAGS = (
     ("--mesh-shape", "mesh_shape", "1x1", "queue A item 11 (meshes)"),
+    ("--rng-impl", "rng_impl", None, RNG_IMPL_REASON),
 )
+
+#: the eval subcommand's unported flags
+EVAL_UNPORTED_FLAGS = (
+    ("--rng-impl", "rng_impl", None, RNG_IMPL_REASON),
+)
+
+#: the serve subcommand's unported flags: the worker processes and their
+#: supervisor, the trace sinks, weight quantization, and the training
+#: flags JAX's serve takes (and ignores) that this port does not implement
+SERVE_UNPORTED_FLAGS = tuple(
+    f for f in TRAIN_UNPORTED_FLAGS
+    if f[0] in ("--steps-per-dispatch", "--tp", "--pp", "--microbatches")) + (
+    ("--rng-impl", "rng_impl", None, RNG_IMPL_REASON),
+    ("--backend", "backend", None, BACKEND_REASON),
+    ("--weight-quant", "weight_quant", "none", WEIGHT_QUANT_ITEM),
+    ("--act-quant", "act_quant", "none", WEIGHT_QUANT_ITEM),
+    ("--trace-out", "trace_out", None, TELEMETRY_ITEM),
+    ("--trace-jsonl", "trace_jsonl", None, TELEMETRY_ITEM),
+    ("--multiproc", "multiproc", False, FLEET_ITEM),
+    ("--restart-budget", "restart_budget", 3, FLEET_ITEM),
+    ("--autoscale-max", "autoscale_max", 0, FLEET_ITEM),
+    ("--autoscale-min", "autoscale_min", 1, FLEET_ITEM),
+    ("--step-timeout-s", "step_timeout_s", 10.0, FLEET_ITEM),
+    ("--no-fsync", "no_fsync", False, FLEET_ITEM),
+)
+
+#: the JAX subcommands this port does not implement yet, with their
+#: ROADMAP.md items
+REFUSED_COMMANDS = {
+    "import-hf": ("import HF GPT-2 weights",
+                  "queue A item 7 (HF GPT-2 import)"),
+    "serve-worker": ("one fleet worker process behind the RPC protocol",
+                     FLEET_ITEM),
+    "lint": ("static analysis of the serve layer's protocol",
+             "queue A item 12 (tooling and telemetry)"),
+}
 
 
 def _sample(model, mcfg, tokenizer, n_tokens: int, prompt_text=None,
@@ -440,6 +509,7 @@ def cmd_eval(args) -> int:
     """Estimate the train and val loss of ``--checkpoint-dir``'s newest
     verified step (else the random init) over ``--eval-iters`` batches of
     each split, drawn from seeds 1 and 2 as the JAX package draws them."""
+    check_unported(args, EVAL_UNPORTED_FLAGS)
     from .data.dataset import TokenDataset
     from .data.loader import make_batcher
     from .device import resolve_device
@@ -471,6 +541,84 @@ def cmd_export_torch(args) -> int:
     print(f"exported {sum(t.numel() for t in sd.values()):,} params (step "
           f"{state.step}) to {args.out}")
     return 0
+
+
+def cmd_serve(args) -> int:
+    """The fleet's front door: ``--replicas`` engine replicas in this
+    process behind the prefix-affinity router (serve/router.py), over
+    HTTP/SSE (serve/http.py), on the weights of ``--checkpoint-dir``'s
+    newest verified step, else the random init. The replicas are warmed
+    (on the card: the kernels built) before the socket binds; the bound
+    address is printed as ``serving on http://host:port``. SIGINT shuts
+    it down and closes the journals."""
+    check_unported(args, SERVE_UNPORTED_FLAGS)
+    if args.listen_host not in ("127.0.0.1", "localhost"):
+        raise SystemExit(
+            f"--listen-host {args.listen_host} (worker registration from "
+            f"other hosts) is not implemented in replicatinggpt_tpu_torch "
+            f"yet: ROADMAP.md {FLEET_ITEM}")
+    import asyncio
+
+    from .device import resolve_device
+    from .serve.http import RateLimitConfig, ServeApp
+    from .serve.router import Router, RouterConfig
+    cfg = config_from_args(args)
+    ecfg = engine_config_from_args(args)
+    if ecfg.mesh_data * ecfg.mesh_model > 1:
+        raise SystemExit(
+            f"--mesh-shape {args.mesh_shape} a replica is not implemented "
+            f"in replicatinggpt_tpu_torch yet: ROADMAP.md {FLEET_ITEM}")
+    dev = resolve_device(args.device)
+    model = load_weights(cfg, args.checkpoint_dir, dev, "serving").model
+    rcfg = RouterConfig(n_replicas=args.replicas,
+                        journal_dir=args.journal_dir,
+                        ledger_path=args.ledger,
+                        ledger_fsync=args.ledger_fsync,
+                        affinity=not args.no_affinity,
+                        wedge_budget_s=args.wedge_budget_s,
+                        wedge_patience=args.wedge_patience)
+    router = Router(model, cfg.model, rcfg, ecfg, device=dev)
+    rate_limit = None
+    if args.rate_limit_rps > 0:
+        rate_limit = RateLimitConfig(rps=args.rate_limit_rps,
+                                     burst=args.rate_limit_burst)
+    app = ServeApp(router, idle_timeout_s=args.idle_timeout_s,
+                   rate_limit=rate_limit)
+    m = cfg.model
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"serve: {rcfg.n_replicas} replica(s) of pool {ecfg.pool_size}, "
+          f"model {m.n_layer}L/{m.n_head}H/{m.n_embd}C {m.dtype} on {dev} "
+          f"({name}); warming the replicas", file=sys.stderr, flush=True)
+    rc = 0
+    try:
+        asyncio.run(app.serve_forever(args.host, args.port))
+    except KeyboardInterrupt:
+        print("shutting down", file=sys.stderr)
+    except asyncio.CancelledError:
+        # the stepping task died: ServeApp printed its traceback and
+        # closed the server under serve_forever
+        rc = 1
+    finally:
+        router.close()
+    return rc
+
+
+class RefusedCommand(SystemExit):
+    """A JAX subcommand this port does not implement yet: exits 2, as a
+    refused command line does, with the ROADMAP.md item in its
+    message."""
+
+    def __init__(self, msg: str):
+        super().__init__(msg)
+        self.code = 2
+
+
+def cmd_refused(args) -> int:
+    what, item = REFUSED_COMMANDS[args.cmd]
+    msg = (f"{args.cmd} ({what}) is not implemented in "
+           f"replicatinggpt_tpu_torch yet: ROADMAP.md {item}")
+    print(msg, file=sys.stderr)
+    raise RefusedCommand(msg)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -526,6 +674,7 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--device", default=None,
                     help="'cuda' (default; fails without a card) or 'cpu'")
     add_checkpoint_dir_flag(pe)
+    _add_unported_flags(pe, EVAL_UNPORTED_FLAGS)
     pe.set_defaults(fn=cmd_eval)
     px = sub.add_parser("export-torch",
                         help="write a checkpoint's weights as a torch "
@@ -586,9 +735,69 @@ def build_parser() -> argparse.ArgumentParser:
     add_checkpoint_dir_flag(ps)
     _add_unported_flags(ps)
     ps.set_defaults(fn=cmd_serve_replay)
+    pv = sub.add_parser("serve",
+                        help="run the HTTP/SSE serving fleet: engine "
+                             "replicas in this process behind the prefix-"
+                             "affinity router, with submit/stream/cancel/"
+                             "healthz/readyz/metrics endpoints")
+    add_config_flags(pv)
+    add_train_flags(pv)      # taken as JAX's serve takes them; unused
+    pv.add_argument("--device", default=None,
+                    help="'cuda' (default; fails without a card) or 'cpu'")
+    add_checkpoint_dir_flag(pv)
+    pv.add_argument("--host", default="127.0.0.1",
+                    help="interface the HTTP server binds")
+    pv.add_argument("--port", type=int, default=8000,
+                    help="HTTP port (0 = ephemeral; the bound one is "
+                         "printed)")
+    pv.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas behind the router")
+    pv.add_argument("--journal-dir", default=None,
+                    help="per-replica crash journals live here "
+                         "(replica{i}.jsonl): a killed replica's "
+                         "unfinished requests requeue from its journal")
+    pv.add_argument("--ledger", default=None,
+                    help="the router's own crash journal: submits at "
+                         "fleet acceptance, finishes at terminal results; "
+                         "a restarted router requeues its unfinished set "
+                         "from here")
+    pv.add_argument("--ledger-fsync", action="store_true",
+                    help="fsync the ledger's finish records")
+    pv.add_argument("--no-affinity", action="store_true",
+                    help="route least-loaded only (no radix-prefix "
+                         "affinity)")
+    pv.add_argument("--wedge-budget-s", type=float, default=0.0,
+                    help="a replica step's budget for the wedge probe (0 = "
+                         "off): over it --wedge-patience times in a row, "
+                         "the replica is quarantined and its in-flight "
+                         "work re-routed")
+    pv.add_argument("--wedge-patience", type=int, default=2)
+    add_engine_flags(pv)
+    pv.add_argument("--listen-host", default="127.0.0.1",
+                    help="worker registration interface (loopback only "
+                         "in this port)")
+    pv.add_argument("--idle-timeout-s", type=float, default=30.0,
+                    help="drop a connection that stalls mid-headers or "
+                         "mid-body, or stops reading its SSE stream, for "
+                         "this long (0 = off)")
+    pv.add_argument("--rate-limit-rps", type=float, default=0.0,
+                    help="per-client submit rate (a token bucket keyed on "
+                         "the x-client-id header; over it, 429 and "
+                         "Retry-After; 0 = off)")
+    pv.add_argument("--rate-limit-burst", type=float, default=10.0,
+                    help="the bucket's capacity")
+    _add_unported_flags(pv, SERVE_UNPORTED_FLAGS)
+    pv.set_defaults(fn=cmd_serve)
+    for name, (what, _) in REFUSED_COMMANDS.items():
+        sub.add_parser(name, help=f"{what} (not in this port yet; see "
+                                  f"ROADMAP.md)").set_defaults(fn=cmd_refused)
     return p
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    p = build_parser()
+    args, rest = p.parse_known_args(argv)
+    if rest and args.fn is not cmd_refused:
+        # the refused JAX subcommands take the JAX flags unread
+        p.error(f"unrecognized arguments: {' '.join(rest)}")
     return args.fn(args)

@@ -1,6 +1,8 @@
-"""Fault injection, the training supervision that survives it, and the
-serving engine's self-healing policies (the training, checkpoint and
-single-engine serving part of ``replicatinggpt_tpu/faults/``)."""
+"""Fault injection, the training supervision that survives it, the
+serving engine's self-healing policies and the in-process fleet's fault
+kinds (the training, checkpoint, serving and in-process fleet part of
+``replicatinggpt_tpu/faults/``; the worker processes' supervisor and the
+network chaos are ROADMAP.md queue A item 10)."""
 
 from .inject import Fault, FaultPlan, active, clear, fire, install, installed
 from .supervise import (LossSpikeError, LossTracker, NonFiniteLossError,

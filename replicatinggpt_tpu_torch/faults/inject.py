@@ -1,5 +1,6 @@
 """Deterministic fault injection behind no-op-by-default seams (a copy of
-the training and checkpoint part of ``replicatinggpt_tpu/faults/inject.py``).
+the training, checkpoint, serving and in-process fleet part of
+``replicatinggpt_tpu/faults/inject.py``).
 
 A :class:`FaultPlan` says which fault fires at which site and index; the
 seams in ``train/runner.py`` and ``train/checkpoint.py`` ask it, through
@@ -32,9 +33,13 @@ site                      kind            effect at the seam
 ``spec/draft``            ``collapse``    shift every drafted token by
                                           one, mod the vocabulary (the
                                           accept rate collapses)
+``fleet/step``            ``replica_kill`` the router abandons replica
+                                          ``arg`` (faults/fleet.py)
+``fleet/step``            ``replica_wedge`` replica ``arg2``'s step
+                                          stalls ``arg`` seconds
+``fleet/session``         ``hot_key_skew`` a session joins prefix group
+                                          0 with probability ``arg``
 ========================  ==============  ===============================
-
-The fleet sites come with ROADMAP.md queue A item 10.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ class Fault:
     at: int = 0
     times: int = 1
     arg: float = 0.0
+    arg2: float = 0.0      # second payload (fleet faults: replica index)
 
 
 class FaultPlan:

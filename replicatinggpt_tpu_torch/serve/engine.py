@@ -113,7 +113,8 @@ from .cache_pool import prefill_chunk_size
 from .pages import PagedCachePool, pool_geometry
 from .requests import (FINISH_CANCELLED, FINISH_DEADLINE, FINISH_EOS,
                        FINISH_LENGTH_CAP, FINISH_MAX_TOKENS, FINISH_SHED,
-                       REJECT_BAD_REQUEST, Request, RequestResult)
+                       REJECT_BAD_REQUEST, Request, RequestResult,
+                       SamplingParams)
 from .scheduler import Scheduler
 from .speculative import (DraftContext, Drafter, spec_accept_and_sample,
                           spec_noise, timed_draft)
@@ -291,6 +292,22 @@ def decide_kernel_route(cfg: ModelConfig, ecfg: EngineConfig,
                        mesh=(d, m))
 
 
+def engine_summary_block(engine: "Engine") -> dict:
+    """One replica's block of the fleet summary
+    (``serve.router.Router.fleet_summary``)."""
+    s = engine.metrics_summary()
+    return {
+        "occupancy_mean": round(
+            s["histograms"].get("batch_fill_ratio", {}).get("mean", 0.0), 4),
+        "n_steps": engine.n_steps,
+        "step_latency": s["step_latency"],
+        "kernel_route": s["kernel_route"],
+        "pages": s["pages"],
+        "finished": {k: int(v) for k, v in engine.metrics.counters.items()
+                     if k.startswith("finished_")},
+    }
+
+
 @dataclass
 class _Active:
     """Host-side record of a request occupying a slot."""
@@ -388,14 +405,17 @@ class Engine:
     ``rcfg`` (``faults.watchdog.ResilienceConfig``) opts into the
     self-healing policies, None or all-zero changing nothing;
     ``journal`` (``serve.journal.RequestJournal``) records accepted and
-    finished requests."""
+    finished requests. ``params`` (``models.gpt.compute_params`` of
+    ``model`` on ``device``) shares one cast copy of the weights between
+    engines, as the fleet's replicas do (1x1 only)."""
 
     def __init__(self, model: GPT, cfg: ModelConfig,
                  ecfg: EngineConfig = EngineConfig(),
                  clock: Callable[[], float] = time.monotonic,
                  device: Optional[Union[str, torch.device]] = None,
                  drafter: Optional[Drafter] = None,
-                 rcfg: Optional[ResilienceConfig] = None, journal=None):
+                 rcfg: Optional[ResilienceConfig] = None, journal=None,
+                 params: Optional[Params] = None):
         cfg.validate()
         if ecfg.decode_window > 1 and ecfg.mesh_data * ecfg.mesh_model > 1:
             raise ValueError(
@@ -420,7 +440,11 @@ class Engine:
         self.device = dev = resolve_device(device)
         self.cfg = cfg
         self.ecfg = ecfg
-        self.params: Params = compute_params(model, dev)
+        if params is not None and ecfg.mesh_data * ecfg.mesh_model > 1:
+            raise ValueError("shared params= are the 1x1 engine's; a "
+                             "serving mesh splits its own from model")
+        self.params: Params = (compute_params(model, dev) if params is None
+                               else params)
         # the serving mesh: the shards' group, the weights split for the
         # model shards it holds, rank 0's clock on every rank
         self.group = None
@@ -556,7 +580,7 @@ class Engine:
             self.journal.record_submit(req)
         return None
 
-    def cancel(self, request_id: str) -> bool:
+    def cancel(self, request_id: str, migrated: bool = False) -> bool:
         """Cancel a queued or running request; its terminal result (with
         any tokens produced) surfaces from the next ``step()``.
 
@@ -566,7 +590,13 @@ class Engine:
         the slot and its pages free at that boundary, after the window
         in flight is read (its tokens ride the result). A cancel racing
         a window that already finished the request surfaces the natural
-        finish."""
+        finish. ``migrated=True`` is the fleet router's re-route: the
+        router resubmits the id elsewhere in the same step, so the slot
+        must be free NOW, not at the next boundary. The window in flight
+        is read (a ``cancel`` window break) and the slot finishes and
+        frees at once, on every engine. Either way the finish is
+        journaled, so that this engine's journal never replays the
+        id."""
         now = self.clock()
         if self.scheduler.cancel(request_id):
             self.metrics.inc("finished_" + FINISH_CANCELLED)
@@ -577,11 +607,60 @@ class Engine:
         slot = self.pool.slot_of(request_id)
         if slot is None:
             return False
-        if self._window > 1:
+        if self._window > 1 and not migrated:
             self._kill[request_id] = FINISH_CANCELLED
+            return True
+        self._kill.pop(request_id, None)
+        self._pending.extend(self._drain_pending("cancel"))
+        slot = self.pool.slot_of(request_id)
+        if slot is None:
+            # the window just read finished it; its result is pending
             return True
         self._pending.append(self._finish_slot(slot, FINISH_CANCELLED, now))
         return True
+
+    def partial_tokens(self, request_id: str) -> Optional[List[int]]:
+        """The tokens committed so far for an active request (a copy);
+        None while it is queued or after it finished. The fleet router's
+        delivery ledger reads this between steps."""
+        slot = self.pool.slot_of(request_id)
+        if slot is None or slot not in self._slots:
+            return None
+        return list(self._slots[slot].tokens)
+
+    def in_flight_ids(self) -> List[str]:
+        """Every accepted-but-unfinished request id: the queued ones in
+        arrival order, then the active slots'."""
+        return self.scheduler.ids() + [self._slots[s].req.id
+                                       for s in sorted(self._slots)]
+
+    def warmup(self) -> None:
+        """Run one throwaway greedy request of ``ecfg.warmup_tokens()``
+        tokens through this engine, its journal detached, so that the
+        first real request builds and loads nothing (on the card: the
+        kernels of every path the engine takes, and their first
+        launches); then reset the counters, timings and page statistics,
+        as if no request had run. The engine must be idle."""
+        if not self.idle:
+            raise RuntimeError("warmup() needs an idle engine")
+        journal, self.journal = self.journal, None
+        try:
+            rej = self.submit(Request(
+                id="__warmup__", prompt=np.zeros((1,), np.int32),
+                max_new_tokens=self.ecfg.warmup_tokens(),
+                sampling=SamplingParams(greedy=True)))
+            if rej is not None:
+                raise RuntimeError(f"warm-up request refused: {rej}")
+            self.drain()
+        finally:
+            self.journal = journal
+        self.metrics = Metrics()
+        self.step_timer = StepTimer(self.device)
+        self.n_steps = 0
+        a = self.pool.alloc
+        a.prefix_lookups = a.prefix_hits = a.prefix_hit_tokens = 0
+        a.prompt_tokens = a.evictions = a.cow_copies = 0
+        self.events.clear()
 
     @property
     def idle(self) -> bool:

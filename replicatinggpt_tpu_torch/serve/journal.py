@@ -21,9 +21,10 @@ kernel drops the lock when its holder dies). Readers never lock, and
 skip the torn final line a crash can leave (and blank lines).
 
 Deadlines are not recovered: they are absolute times on the dead
-engine's clock. A recovered request runs without one. The readers that
-replay a fleet's journals (the router and its workers) come with
-ROADMAP.md queue A item 10.
+engine's clock. A recovered request runs without one. The fleet router
+(serve/router.py) keeps one journal a replica and requeues a dead
+replica's unfinished requests from it, and its own ledger in the same
+format.
 """
 
 from __future__ import annotations
@@ -34,24 +35,8 @@ from typing import Dict, List, Optional, TextIO
 
 import numpy as np
 
+from ..utils.jsonl import load_jsonl_if_exists
 from .requests import Request, SamplingParams
-
-
-def _records(path: str):
-    """The file's JSON lines, skipping blank ones and any that does not
-    parse (the torn final record of a writer that died mid-write); a file
-    that was never created is an empty history."""
-    if not os.path.exists(path):
-        return
-    with open(path) as f:
-        for line in f:
-            line = line.strip()
-            if not line:
-                continue
-            try:
-                yield json.loads(line)
-            except json.JSONDecodeError:
-                continue
 
 
 class JournalBusyError(RuntimeError):
@@ -130,7 +115,7 @@ class RequestJournal:
         Tolerates a torn final line."""
         submits: Dict[str, Request] = {}
         order: List[str] = []
-        for rec in _records(path):
+        for rec in load_jsonl_if_exists(path):
             if rec.get("ev") == "submit":
                 rid = rec["id"]
                 if rid not in submits:

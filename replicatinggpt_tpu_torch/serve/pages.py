@@ -117,6 +117,9 @@ class RadixIndex:
         self._next_id = 1
         self._tick = 0
 
+    def __len__(self) -> int:
+        return len(self.nodes)
+
     def _touch(self, node: _RadixNode) -> None:
         self._tick += 1
         node.last_use = self._tick
@@ -460,6 +463,17 @@ class PagedCachePool:
         return bool(self._free_slots) and self.alloc.can_acquire(
             np.asarray(prompt, np.int32), cap)
 
+    def cached_prefix_tokens(self, prompt: np.ndarray) -> int:
+        """Longest radix-cached prefix of ``prompt`` in tokens, a pure
+        peek (no LRU stamp refreshed, nothing claimed): the fleet
+        router's affinity probe. 0 with the prefix cache off."""
+        if not self.alloc.prefix_cache:
+            return 0
+        chain = self.alloc.radix.lookup(
+            np.asarray(prompt, np.int32).reshape(-1), self.page_size,
+            touch=False)
+        return len(chain) * self.page_size
+
     def acquire(self, request_id: str, prompt: np.ndarray,
                 cap: int, defer_commit: bool = False
                 ) -> Optional[Admission]:
@@ -527,6 +541,9 @@ class PagedCachePool:
         self.alloc.release(self._claims.pop(slot))
         self.tables[slot, :] = 0
         self._free_slots.append(slot)
+
+    def owner(self, slot: int) -> Optional[str]:
+        return self._owner.get(slot)
 
     def slot_of(self, request_id: str) -> Optional[int]:
         return self._slot_by_request.get(request_id)

@@ -49,6 +49,13 @@ FINISH_SHED = "shed"                    # dropped by overload shedding
 REJECT_QUEUE_FULL = "rejected_queue_full"      # backpressure at submit
 REJECT_PROMPT_TOO_LONG = "rejected_prompt_too_long"  # prompt > block_size
 REJECT_BAD_REQUEST = "rejected_bad_request"    # empty prompt / bad lengths
+# the fleet's terminal reasons (serve/router.py, serve/http.py)
+REJECT_FLEET_CAPACITY = "rejected_fleet_capacity"  # the retry ladder ran
+                                                   # out of replicas
+REJECT_REPLICA_TIMEOUT = "rejected_replica_timeout"  # a replica's submit
+                                                     # timed out
+REJECT_REPLICA_DOWN = "rejected_replica_down"  # every candidate replica
+                                               # unreachable
 
 
 @dataclass

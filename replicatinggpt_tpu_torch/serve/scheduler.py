@@ -43,6 +43,11 @@ class Scheduler:
         check; O(queue), which is bounded by max_queue)."""
         return any(req.id == request_id for req, _ in self._queue)
 
+    def ids(self) -> List[str]:
+        """Queued request ids in arrival order (the engine's
+        ``in_flight_ids``)."""
+        return [req.id for req, _ in self._queue]
+
     def peek(self) -> Optional[Tuple[Request, float]]:
         """The queue head without popping it: the windowed engine asks
         whether this step could admit (strict FIFO, as in ``admit``)."""

@@ -1273,3 +1273,66 @@ def test_local_data_group_step_equals_the_plain_step_on_the_card(card, fsdp):
         if k.startswith(("params/", "opt/exp")):
             torch.testing.assert_close(got[k], want[k], atol=1e-5,
                                        rtol=1e-5, msg=k)
+
+
+def _fleet_run(route, tmp_path, kill):
+    """Greedy and sampled requests over 2 prefixes through a 2-replica
+    fleet on ``route`` (per-layer kernel, or gather), f32, with journals,
+    clean or with replica 0 killed at router step 4; returns each id's
+    delivered stream and tokens, and the kernel launches."""
+    from replicatinggpt_tpu_torch.config import ModelConfig
+    from replicatinggpt_tpu_torch.faults import Fault, FaultPlan, installed
+    from replicatinggpt_tpu_torch.models.gpt import init_params
+    from replicatinggpt_tpu_torch.serve import (EngineConfig, Request,
+                                                Router, RouterConfig,
+                                                SamplingParams)
+    cfg = ModelConfig(vocab_size=65, block_size=64, n_layer=2, n_head=2,
+                      n_embd=64, dtype="float32",
+                      decode_cache_layout="packed")
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    faults = (Fault(site="fleet/step", kind="replica_kill", at=4, arg=0),
+              ) if kill else ()
+    rng = np.random.default_rng(1)
+    prefixes = [rng.integers(0, 65, (16,)) for _ in range(2)]
+    reqs = [Request(id=f"r{i}", prompt=np.concatenate(
+        [prefixes[i % 2], rng.integers(0, 65, (3 + i % 5,))]),
+        max_new_tokens=12, rng_seed=i,
+        sampling=SamplingParams(greedy=i % 3 != 0, top_k=10))
+        for i in range(10)]
+    launches = pa.paged_window_attention.launches
+    with installed(FaultPlan(*faults)):
+        r = Router(model, cfg, RouterConfig(n_replicas=2,
+                                            journal_dir=str(tmp_path)),
+                   EngineConfig(pool_size=4, page_size=8,
+                                paged_kernel=route == "kernel"),
+                   device="cuda")
+        for rep in r.replicas:
+            if route == "kernel":
+                rep.engine._use_fused, rep.engine._use_kernel = False, True
+        for q in reqs:
+            assert r.submit(q) is None
+        streams, results = {q.id: [] for q in reqs}, {}
+        while not r.idle:
+            results.update({x.id: x for x in r.step()})
+            for rid in streams:
+                streams[rid].extend(r.take_new_tokens(rid))
+    r.close()
+    assert r.metrics.counters.get("fleet_replica_kills", 0) == int(kill)
+    return ({k: list(v.tokens) for k, v in results.items()}, streams,
+            pa.paged_window_attention.launches - launches)
+
+
+@pytest.mark.cuda
+def test_fleet_on_the_kernel_route_equals_the_plain_route(card, tmp_path):
+    """The in-process fleet's streams on the per-layer kernel route equal
+    the gather route's, clean and after a replica kill (the sampled ones
+    included); each delivered stream is its request's tokens once."""
+    want, wstreams, none = _fleet_run("gather", tmp_path / "g", False)
+    assert none == 0 and wstreams == want
+    for kill in (False, True):
+        got, streams, launched = _fleet_run("kernel", tmp_path / f"k{kill}",
+                                            kill)
+        assert launched > 0
+        assert got == want, kill
+        assert streams == want, kill
