@@ -316,6 +316,37 @@ and fails (non-zero exit) on the first phase that fails:
    --port 0 --journal-dir D`` as a subprocess: ``/readyz`` 200 once it
    prints ``serving on``, one ``/v1/generate`` round trip, SIGINT: exit
    0, the journals closed with no unfinished request.
+45. multiproc parity phase: two ``serve-worker`` processes on the card
+   (GPT-2 124M width cut to 2 layers, f32, the kernel route, phase 42's
+   weights) behind the router and the process supervisor, one fleet
+   through five runs of phase 42's 20 requests (4 sampled), each fault on
+   the worker that holds the run's requests: clean, after ``proc_kill``
+   (a real SIGKILL, a supervised restart, its journal replayed), through
+   ``proc_hang`` (SIGSTOP past the 0.5 s step RPC budget, the wedge, the
+   ``migrated`` re-route, SIGCONT, the rejoin), after ``host_loss`` (its
+   directory deleted, the router's ledger recovering the work) and
+   through a rolling restart
+   (no drop, ``/readyz`` never 503): every run's streams equal one
+   gather-route engine's, each id's delivered tokens are its final
+   tokens, no id is active on two answering workers at any step, row #1
+   runs 2 x each worker's decode steps, and every worker process is gone
+   after;
+46. multiproc front door (this slice's main path): ``python -m
+   replicatinggpt_tpu_torch serve --preset gpt2-small --decode-cache-layout
+   packed --paged-kernel --replicas 2 --multiproc --journal-dir D --port
+   0`` as a subprocess (bf16, full width and depth), phase 43's sessions
+   from its clients' process, beside phase 43's in-process fleet: fleet
+   tokens/s, client TTFT p50 and p99, each worker's step p50 as the router
+   times it, the RPC's share of a step, the step frame bytes (p50, max),
+   the prefix-hit rate, each worker's peak memory, seconds from spawn to
+   registration; then the same sessions with a real SIGKILL in turn 2 of
+   worker 1, or of worker 0 where it holds all the work: every SSE stream
+   carries each token of its result once, the
+   seconds from kill to rejoin, the requeued count and latency; row #1
+   runs exactly 12 x each worker's decode steps, counted in the worker
+   and read from its ``summary`` at exit (row #1's
+   ``launches_multiproc``); SIGINT: exit 0, no worker left, the journals
+   and the router's ledger closed with no unfinished request.
 
 Every flash row of the ``{"kernels": [...]}`` line also carries the
 achieved rate (``tflops``: the bound's operation count over the kernel's
@@ -384,6 +415,9 @@ from replicatinggpt_tpu_torch.serve import (Engine, EngineConfig,
                                             SessionLoadConfig, make_sessions,
                                             make_trace, session_request)
 from replicatinggpt_tpu_torch.faults.fleet import (FLEET_STEP,
+                                                   KIND_HOST_LOSS,
+                                                   KIND_PROC_HANG,
+                                                   KIND_PROC_KILL,
                                                    KIND_REPLICA_KILL,
                                                    KIND_REPLICA_WEDGE)
 from replicatinggpt_tpu_torch.serve.http import ServeApp
@@ -3688,6 +3722,10 @@ CHAR_FLEET_LCFG = dict(n_sessions=16, turns=3, n_prefix_groups=2,
                        prefix_len=64, user_len_min=8, user_len_max=16,
                        max_new_tokens=32, rate=1e6, seed=12)
 FLEET_CLIENTS = 8
+#: client k sends its first request k x this after the first client's,
+#: past a router step: a worker's load as the router sees it is its last
+#: step reply's, so a burst between two steps would all go to one worker
+FLEET_STAGGER_S = 0.1
 #: phase 42's wedge: replica 0's router steps 6-7 stall 0.2 s against a
 #: 0.1 s budget (a 2-layer step takes milliseconds)
 FLEET_WEDGE = dict(at=6, times=2, arg=0.2, arg2=0)
@@ -3849,21 +3887,26 @@ async def sse_generate(host: str, port: int, body: dict) -> dict:
 
 
 def fleet_clients(jobs, out, events: tuple) -> None:
-    """The clients' process, one for every run of phase 43: for each job
-    ``(host, port, mcfg, lcfg, kill_in_turn)`` from ``jobs`` (None ends
-    it), ``/readyz`` must answer 503 (then ``cold`` is set) until the
-    server sets ``warm``, 200 after; then ``FLEET_CLIENTS`` clients run
-    the sessions of ``lcfg`` through ``/v1/generate``, setting ``turn``
-    when the first request of turn ``kill_in_turn`` (0-based) goes out;
-    last ``/metrics``. Puts ("ok", (responses by id, wall seconds,
-    metrics text)) or ("error", text) on ``out``."""
+    """The clients' process, one for every run of phases 43 and 46: for
+    each job ``(host, port, mcfg, lcfg, kill_in_turn[, cold, tag])`` from
+    ``jobs`` (None ends it), with ``cold`` (the default) ``/readyz`` must
+    answer 503 (then ``cold`` is set) until the server sets ``warm``, 200
+    after; without it, 200 at once. Then ``FLEET_CLIENTS`` clients run the
+    sessions of ``lcfg`` through ``/v1/generate`` (request ids prefixed
+    with ``tag``; client k starts ``k * FLEET_STAGGER_S`` after the
+    first), setting ``turn`` when the first request of turn
+    ``kill_in_turn`` (0-based) goes out; last ``/metrics``. Puts ("ok",
+    (responses by id, wall seconds, metrics text)) or ("error", text) on
+    ``out``."""
     cold, warm, turn = events
 
-    async def client(lc, queue, got, host, port, kill_in_turn):
+    async def client(k, lc, queue, got, host, port, kill_in_turn, tag):
+        await asyncio.sleep(k * FLEET_STAGGER_S)
         while not queue.empty():
             sess = queue.get_nowait()
             while sess.next_turn < lc.turns:
                 req = session_request(sess, lc)
+                req.id = tag + req.id
                 if sess.next_turn == kill_in_turn:
                     turn.set()
                 res = await sse_generate(host, port, {
@@ -3879,13 +3922,15 @@ def fleet_clients(jobs, out, events: tuple) -> None:
                      np.asarray(res["tokens"], np.int32)])
                 sess.next_turn += 1
 
-    async def run(host, port, mcfg, lcfg, kill_in_turn):
+    async def run(host, port, mcfg, lcfg, kill_in_turn, is_cold=True,
+                  tag=""):
         lc = SessionLoadConfig(**lcfg)
-        st, body = await http_call(host, port, "GET", "/readyz")
-        assert st == 503 and body["ready_replicas"] == 0, (st, body)
-        cold.set()
-        assert await asyncio.get_running_loop().run_in_executor(
-            None, warm.wait, 300), "the server never warmed"
+        if is_cold:
+            st, body = await http_call(host, port, "GET", "/readyz")
+            assert st == 503 and body["ready_replicas"] == 0, (st, body)
+            cold.set()
+            assert await asyncio.get_running_loop().run_in_executor(
+                None, warm.wait, 300), "the server never warmed"
         st, body = await http_call(host, port, "GET", "/readyz")
         assert st == 200 and body["ready_replicas"] >= 1, body
         queue: asyncio.Queue = asyncio.Queue()
@@ -3893,9 +3938,9 @@ def fleet_clients(jobs, out, events: tuple) -> None:
             queue.put_nowait(sess)
         got: dict = {}
         t0 = time.perf_counter()
-        await asyncio.gather(*[client(lc, queue, got, host, port,
-                                      kill_in_turn)
-                               for _ in range(FLEET_CLIENTS)])
+        await asyncio.gather(*[client(k, lc, queue, got, host, port,
+                                      kill_in_turn, tag)
+                               for k in range(FLEET_CLIENTS)])
         wall = time.perf_counter() - t0
         st, text = await http_call(host, port, "GET", "/metrics")
         assert st == 200
@@ -4028,7 +4073,8 @@ def front_door_phase(card: str) -> dict:
     The same sessions on 1 replica and with affinity off (their prefix-hit
     rates beside the fleet's), then with ``replica_kill`` of replica 1 in
     turn 2. Then a char-gpt fleet (bf16, the fused route): row #2 runs
-    once a decode step. Returns each run's launches."""
+    once a decode step. Returns each run's launches, and the 2-replica
+    run's numbers under ``"fleet run"`` (phase 46 compares with them)."""
     import multiprocessing as mp
     mcfg = dataclasses.replace(get_config("gpt2-small").model,
                                decode_cache_layout="packed")
@@ -4058,6 +4104,10 @@ def front_door_phase(card: str) -> dict:
                     r["launches"], steps)
                 front_door_line(name, r, card)
                 out[name] = r["launches"][0]
+                if name == "fleet":
+                    out["fleet run"] = {k: r[k] for k in (
+                        "wall_s", "tokens", "ttft_p50", "ttft_p99",
+                        "outside_p50")}
                 gc.collect()
                 torch.cuda.empty_cache()
             k = runs["kill"]["summary"]["router"]
@@ -4167,6 +4217,428 @@ def serve_cli_phase(card: str) -> None:
           f"journals closed with {recs} records and no unfinished request")
 
 
+# ------------------------------------------------------------ worker fleet
+
+#: phase 45's workers: GPT-2 124M width cut to 2 layers, f32, the kernel
+#: route, phase 42's weights (seed 0) and engine
+MP_CONFIG_ARGS = ["--preset", "gpt2-small", "--n-layer", "2", "--dtype",
+                  "float32", "--decode-cache-layout", "packed", "--seed", "0"]
+MP_ENGINE_ARGS = ["--pool-size", "8", "--page-size", "16", "--paged-kernel",
+                  "--device", "cuda"]
+#: phase 45's router: a worker step's RPC budget 0.5 s, the wedge probe at
+#: 0.4 s (a 2-layer step takes milliseconds), and proc_hang's SIGSTOP for
+#: 6 supervisor ticks (router steps)
+MP_RCFG = dict(step_timeout_s=0.5, wedge_budget_s=0.4, wedge_patience=2,
+               quarantine_steps=8)
+MP_HANG_TICKS = 6
+#: phase 46's model and route (phase 43's)
+MP_SERVE_ARGS = ["--preset", "gpt2-small", "--decode-cache-layout", "packed",
+                 "--paged-kernel"]
+
+
+def pids_gone(pids) -> bool:
+    """Whether none of ``pids`` is a live process (they were reaped)."""
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            continue
+        return False
+    return True
+
+
+def mp_drive(router, sup, reqs, tag: str, at_step=None,
+             busy=lambda: False, budget_s: float = 300.0) -> dict:
+    """Phase 45's driver: submit ``reqs`` under ids prefixed ``tag``, step
+    the fleet and tick the supervisor until the router is idle and
+    ``busy()`` false, reading the delivery ledger every step;
+    ``at_step(n)`` runs after the n-th step. Every request must finish by
+    its budget, no id may be active on two live workers that answer (not
+    wedged) at any step, and each id's delivered tokens must be its final
+    tokens. Returns the tokens by (untagged) id."""
+    for q in reqs:
+        assert router.submit(dataclasses.replace(q, id=tag + q.id)) is None
+    streams = {tag + q.id: [] for q in reqs}
+    results = {}
+    deadline = time.monotonic() + budget_s
+    n = 0
+    while not router.idle or busy():
+        assert time.monotonic() < deadline, (router.events[-8:],
+                                             sup.events[-8:])
+        results.update({r.id: r for r in router.step()})
+        sup.tick()
+        n += 1
+        if at_step is not None:
+            at_step(n)
+        for rid in streams:
+            streams[rid].extend(router.take_new_tokens(rid))
+        live = [rid for rep in router.replicas
+                if rep.alive and not rep.wedged for rid in rep._partials]
+        assert len(live) == len(set(live)), f"an id on two workers: {live}"
+    assert sorted(results) == sorted(streams), "a request never finished"
+    bad = {k: r.finish_reason for k, r in results.items() if not r.ok}
+    assert not bad, bad
+    for rid, r in results.items():
+        assert streams[rid] == list(r.tokens), f"{rid}: delivered != final"
+    return {rid[len(tag):]: list(r.tokens) for rid, r in results.items()}
+
+
+def multiproc_parity_phase(card: str) -> dict:
+    """Phase 45: two ``serve-worker`` processes on the card (GPT-2 124M
+    width cut to 2 layers, f32, the kernel route) behind the router and
+    the supervisor, phase 42's 20 requests (4 sampled), each fault on the
+    worker holding the run's requests: the streams equal one in-process
+    gather-route engine's clean, after ``proc_kill`` (a real SIGKILL, a
+    supervised restart, a journal replay), through ``proc_hang`` (SIGSTOP
+    past the step RPC's budget, the wedge, the migrated re-route,
+    SIGCONT, the rejoin), after ``host_loss`` (its directory deleted; the
+    router's ledger recovers the work) and through a rolling restart (no
+    drop, /readyz never 503 while a worker serves). Row #1 runs exactly 2
+    x each worker's decode steps. Returns the seconds from spawn to
+    registration and each fault's worker."""
+    from replicatinggpt_tpu_torch.faults.procsup import (
+        SupervisorConfig, make_worker_specs, spawn_fleet)
+    mcfg, model = spec_model(2, "float32")
+    reqs = fleet_requests(mcfg)
+    eng = Engine(model, mcfg, EngineConfig(pool_size=8, page_size=16),
+                 device="cuda")
+    assert eng.kernel_route.decode == "gather"
+    for q in reqs:
+        assert eng.submit(q) is None
+    plain = {r.id: list(r.tokens) for r in eng.drain()}
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="mp45-")
+    rcfg = RouterConfig(n_replicas=2, ledger_path=os.path.join(
+        root, "router_ledger.jsonl"), **MP_RCFG)
+    router = sup = None
+    pids, runs, counters, info = set(), {}, {}, {}
+    try:
+        t0 = time.perf_counter()
+        router, sup = spawn_fleet(
+            make_worker_specs(2, root, MP_CONFIG_ARGS, MP_ENGINE_ARGS),
+            rcfg, SupervisorConfig(backoff_s=0.2, probe_every=0,
+                                   ready_timeout_s=300))
+        info["spawn_s"] = time.perf_counter() - t0
+        assert all(r.alive and r.warmed for r in router.replicas)
+
+        def run(name, kind=None, **kw):
+            """One run; with ``kind``, its fault hits the worker that holds
+            most of the run's requests (the router's cached gauges send a
+            burst of submits to one worker), two steps after the first."""
+            before = dict(router.metrics.counters)
+            pids.update(sup.pids())
+            plan = faults.FaultPlan()
+
+            def plan_fault(n):
+                if n == 1 and kind is not None:
+                    owners = [fi.replica for fi in router._inflight.values()]
+                    victim = max(set(owners), key=owners.count)
+                    info[name] = victim
+                    plan.faults = (faults.Fault(
+                        site=FLEET_STEP, kind=kind, at=router.n_steps + 1,
+                        arg=(MP_HANG_TICKS if kind == KIND_PROC_HANG
+                             else victim), arg2=victim),)
+                if "at_step" in kw:
+                    kw["at_step"](n)
+
+            t = time.perf_counter()
+            with faults.installed(plan):
+                runs[name] = mp_drive(router, sup, reqs, name + "-",
+                                      at_step=plan_fault,
+                                      busy=kw.get("busy", lambda: False))
+            pids.update(sup.pids())
+            assert kind is None or plan.fired, (name, plan.fired)
+            counters[name] = {k: v - before.get(k, 0) for k, v
+                              in router.metrics.counters.items()}
+            counters[name]["s"] = time.perf_counter() - t
+
+        run("clean")
+        run("kill", KIND_PROC_KILL)
+        victim = info["kill"]
+        assert sup.handles[victim].crash_restarts == 1
+        with open(sup.handles[victim].spec.log_path) as f:
+            assert "journal replay:" in f.read(), "no replay after the kill"
+        run("hang", KIND_PROC_HANG)
+        h = counters["hang"]
+        assert h.get("fleet_replica_wedges", 0) >= 1, h
+        assert h.get("fleet_requeued_requests", 0) > 0, h
+        # the rejoin: the quarantine's end, or the worker's own
+        # re-registration after its silence (a re-attach)
+        assert (h.get("fleet_replica_rejoins", 0)
+                + h.get("fleet_replica_attaches", 0)) >= 1, h
+        assert all(r.alive and not r.wedged for r in router.replicas)
+        assert sum(hd.crash_restarts for hd in sup.handles) == 1
+        run("host_loss", KIND_HOST_LOSS)
+        victim = info["host_loss"]
+        gen = sup.handles[victim].gen
+        attach = [e for e in sup.events if f"worker {victim} registered+"
+                  f"attached (gen {gen}" in e]
+        assert attach and "kept 0" in attach[-1], sup.events[-6:]
+        assert counters["host_loss"].get("fleet_requeued_requests", 0) > 0
+        gens = [hd.gen for hd in sup.handles]
+        not_ready = []
+
+        def rolling(n):
+            if n == 3:
+                sup.start_rolling_restart()
+            if n >= 3:
+                not_ready.append(not router.readyz()["ok"])
+
+        run("rolling", at_step=rolling, busy=lambda: sup.rolling_active)
+        assert [hd.gen for hd in sup.handles] == [g + 1 for g in gens]
+        assert not any(not_ready), "/readyz 503 while a worker served"
+        assert counters["rolling"].get("fleet_drains", 0) == 2
+        summary = router.fleet_summary()
+        for b in summary["replicas"]:
+            w = b["worker"]
+            assert w["row1_launches"] == mcfg.n_layer * b["n_steps"], b
+        info["ready_s"] = [hd.ready_s for hd in sup.handles]
+    finally:
+        if sup is not None:
+            sup.stop_all()
+            pids.update(sup.pids())
+        if router is not None:
+            router.close()
+    assert pids and pids_gone(pids), "a worker process outlived the phase"
+    for name, toks in runs.items():
+        first_difference(toks, plain, f"multiproc {name} vs one engine")
+    n = sum(len(t) for t in plain.values())
+    print(f"multiproc parity on {card}: 20 streams (16 greedy, 4 sampled), "
+          f"{n} tokens: one gather-route engine = 2 worker processes clean "
+          f"= after worker {info['kill']}'s SIGKILL (replayed) = through "
+          f"worker {info['hang']}'s SIGSTOP (wedges "
+          f"{counters['hang'].get('fleet_replica_wedges')}, "
+          f"re-routed {counters['hang'].get('fleet_requeued_requests')}, "
+          f"rejoins {counters['hang'].get('fleet_replica_rejoins', 0)}, "
+          f"re-attaches {counters['hang'].get('fleet_replica_attaches', 0)}) "
+          f"= after "
+          f"worker {info['host_loss']}'s host loss (requeued "
+          f"{counters['host_loss'].get('fleet_requeued_requests', 0)}) = "
+          f"through a rolling restart (migrated "
+          f"{counters['rolling'].get('fleet_requeued_requests', 0)}, /readyz "
+          f"200 throughout); spawn to registration {info['spawn_s']:.1f} s, "
+          f"each run's seconds "
+          + ", ".join(f"{k} {v['s']:.1f}" for k, v in counters.items())
+          + f"; registrations (s) {info['ready_s']}; f32, 2 layers, C=768")
+    return info
+
+
+def healthz(port: int) -> dict:
+    return asyncio.run(http_call("127.0.0.1", port, "GET", "/healthz"))[1]
+
+
+def multiproc_front_door_phase(card: str, inproc: dict) -> dict:
+    """Phase 46 (this slice's main path): ``serve --preset gpt2-small
+    --decode-cache-layout packed --paged-kernel --replicas 2 --multiproc``
+    as a subprocess (bf16, full width and depth, 8 slots, page 16): phase
+    43's sessions from its own clients' process, beside phase 43's
+    in-process fleet (``inproc``); then the same sessions again with a
+    real SIGKILL of worker 1 in turn 2, once it holds requests. Measures
+    fleet tokens/s, client TTFT, each worker's step p50 as the router
+    times it, the RPC's share of a step (worker 0's steps over its life,
+    as the router timed them less its own), step frame bytes, the
+    prefix-hit rate, each worker's peak memory, spawn-to-registration and
+    kill-to-rejoin seconds, and checks that both workers took sessions in
+    the clean run, that every SSE stream carries each token of its result
+    once, that row #1 ran in each worker, exactly 12 x its decode steps
+    (counted in the worker), and that SIGINT exits 0 with no worker left
+    and the journals closed with no unfinished request. Returns row #1's
+    launches by worker."""
+    import multiprocessing as mp
+    mcfg = dataclasses.replace(get_config("gpt2-small").model,
+                               decode_cache_layout="packed")
+    jdir = tempfile.mkdtemp(prefix="mp46-")
+    ctx = mp.get_context("spawn")
+    jobs, results = ctx.Queue(), ctx.Queue()
+    events = (ctx.Event(), ctx.Event(), ctx.Event())
+    clients = ctx.Process(target=fleet_clients, args=(jobs, results, events))
+    clients.start()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "replicatinggpt_tpu_torch", "serve",
+         *MP_SERVE_ARGS, "--replicas", "2", "--multiproc", "--journal-dir",
+         jdir, "--port", "0", "--wedge-budget-s", "1.0"],
+        stderr=subprocess.PIPE, text=True)
+    lines: list = []
+    reader = threading.Thread(
+        target=lambda: lines.extend(iter(proc.stderr.readline, "")),
+        daemon=True)
+    reader.start()
+    pids, out = set(), {}
+    try:
+        port = None
+        while port is None and time.perf_counter() - t0 < 400:
+            if proc.poll() is not None:
+                raise AssertionError("serve exited early: " + "".join(lines))
+            m = re.search(r"serving on http://[\d.]+:(\d+)", "".join(lines))
+            port = int(m.group(1)) if m else None
+            time.sleep(0.1)
+        assert port is not None, "no serving banner: " + "".join(lines)
+        t_bound = time.perf_counter() - t0
+        h = healthz(port)
+        pids.update(r["pid"] for r in h["replicas"])
+        runs = {}
+        victim = 1
+        #: the most slots each worker held at once in the clean run
+        held = [0, 0]
+        for name, kill in (("clean", -1), ("kill", victim)):
+            for e in events:
+                e.clear()
+            jobs.put(("127.0.0.1", port, mcfg, FLEET_LCFG, kill, False,
+                      name[0] + "-"))
+            t_kill = t_rejoin = None
+            while results.empty():
+                assert clients.is_alive(), "the clients' process died"
+                assert proc.poll() is None, "serve died: " + "".join(lines)
+                reps = healthz(port)["replicas"]
+                if kill < 0:
+                    held = [max(h, r["slots_active"])
+                            for h, r in zip(held, reps)]
+                elif (t_kill is None and events[2].is_set()
+                        and reps[victim]["slots_active"] > 0):
+                    os.kill(reps[victim]["pid"], signal.SIGKILL)
+                    t_kill = time.perf_counter()
+                elif t_kill is not None and t_rejoin is None:
+                    if reps[victim]["alive"] and reps[victim]["gen"] == 1:
+                        t_rejoin = time.perf_counter()
+                        pids.add(reps[victim]["pid"])
+                time.sleep(0.05)
+            status, res = results.get()
+            assert status == "ok", res
+            runs[name] = (res, t_kill, t_rejoin)
+            assert min(held) > 0, f"a worker took no session: {held}"
+        assert runs["kill"][1] is not None, "worker 1 was never killed"
+        if runs["kill"][2] is None:
+            rep = healthz(port)["replicas"][victim]
+            assert rep["alive"] and rep["gen"] == 1, rep
+            runs["kill"] = (*runs["kill"][:2], time.perf_counter())
+            pids.add(rep["pid"])
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+        reader.join(timeout=10)
+        assert rc == 0, (rc, "".join(lines))
+    finally:
+        jobs.put(None)
+        clients.join(timeout=60)
+        if clients.is_alive():
+            clients.kill()
+            clients.join()
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        for pid in pids:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+    assert pids_gone(pids), "a worker process outlived serve"
+    summary = json.loads(next(ln for ln in lines if ln.startswith(
+        "fleet summary: "))[len("fleet summary: "):])
+    lc = SessionLoadConfig(**FLEET_LCFG)
+    stats = {}
+    for name, ((got, wall, text), _, _) in runs.items():
+        assert len(got) == lc.n_sessions * lc.turns, (name, len(got))
+        for rid, r in got.items():
+            n = r["done"]["n_tokens"]
+            assert r["i"] == list(range(n)), f"{rid}: SSE indices {r['i']}"
+            assert n == lc.max_new_tokens, (rid, n)
+        ttft = sorted(r["ttft_s"] for r in got.values())
+        outside = sorted(r["total_s"] - r["done"]["total_s"]
+                         for r in got.values())
+        stats[name] = {"wall_s": wall, "outside_p50": outside[len(outside)
+                                                              // 2],
+                       "tokens": sum(len(r["tokens"]) for r in got.values()),
+                       "ttft_p50": ttft[len(ttft) // 2],
+                       "ttft_p99": ttft[min(int(0.99 * (len(ttft) - 1) + .5),
+                                           len(ttft) - 1)],
+                       "metrics": text}
+    for rid, r in runs["clean"][0][0].items():
+        assert r["done"]["finish_reason"] == "max_tokens", rid
+    router = summary["router"]
+    assert not router.get("fleet_replica_wedges"), router
+    assert router.get("fleet_replica_downs", 0) >= 1, router
+    for path in [os.path.join(jdir, f"worker{i}", "journal.jsonl")
+                 for i in range(2)] + [os.path.join(jdir,
+                                                    "router_ledger.jsonl")]:
+        with open(path) as f:
+            text = f.read()
+        assert not text or text.endswith("\n"), path
+        assert RequestJournal.unfinished(path) == [], path
+    workers = {}
+    for i, b in enumerate(summary["replicas"]):
+        w = b["worker"]
+        assert w["row1_launches"] > 0, (i, b)
+        assert w["row1_launches"] == mcfg.n_layer * b["n_steps"], (i, b)
+        workers[f"worker{i}"] = w["row1_launches"]
+        out[i] = w
+
+    p50 = '{quantile="0.5"}'
+
+    def metric(text, name, field):
+        m = re.search(rf"^tpu_gpt_fleet_{name}{re.escape(field)} (\S+)$",
+                      text, re.M)
+        return float(m.group(1)) if m else float("nan")
+
+    clean = stats["clean"]
+    text = clean["metrics"]
+    steps = ", ".join(
+        f"worker {i}: router p50 "
+        f"{metric(text, f'replica{i}_step_s', p50) * 1e3:.3f} ms, frame "
+        f"p50 {metric(text, f'replica{i}_step_frame_bytes', p50):.0f} / max "
+        f"{metric(text, f'replica{i}_step_frame_bytes', '_max'):.0f} B"
+        for i in range(2))
+    # the RPC's share of a step: worker 0 (never killed, busy in both
+    # runs) over the same steps, the router's time of each less its own
+    live = 1 - victim
+    w0, timed = out[live], summary["replicas"][live]["router_timed"]
+    assert timed["pid"] == w0["pid"], (timed, w0)
+    assert timed["steps"] == w0["step_calls"] > 0, (timed, w0)
+    rt, rn = timed["step_s_sum"], timed["steps"]
+    share = rt / rn - w0["step_s_sum"] / rn
+    print(f"multiproc front door on {card}: bound after {t_bound:.1f} s "
+          f"(spawn to registration {summary['workers'][0]['ready_s']} / "
+          f"{summary['workers'][1]['ready_s']} s); clean: "
+          f"{clean['tokens'] / clean['wall_s']:.1f} tok/s ({clean['tokens']} "
+          f"tokens in {clean['wall_s']:.2f} s) against the in-process "
+          f"fleet's {inproc['tokens'] / inproc['wall_s']:.1f} (phase 43, "
+          f"{(clean['tokens'] / clean['wall_s']) / (inproc['tokens'] / inproc['wall_s']):.3f}x), "
+          f"client TTFT p50 {clean['ttft_p50'] * 1e3:.2f} ms / p99 "
+          f"{clean['ttft_p99'] * 1e3:.2f} ms (in-process "
+          f"{inproc['ttft_p50'] * 1e3:.2f} / {inproc['ttft_p99'] * 1e3:.2f}), "
+          f"p50 {clean['outside_p50'] * 1e3:.2f} ms of a request's client "
+          f"time outside the router's submit to finish (in-process "
+          f"{inproc['outside_p50'] * 1e3:.2f}); "
+          f"{steps}; worker {live} over both runs: router step mean "
+          f"{rt / rn * 1e3:.3f} ms over {rn} steps, its own step mean "
+          f"{w0['step_s_sum'] / rn * 1e3:.3f} ms over the same steps, p50 "
+          f"{w0['step_s_p50'] * 1e3:.3f} ms: RPC share {share * 1e3:.3f} ms "
+          f"a step; most slots held at once in the clean run {held}; the "
+          f"killed worker "
+          f"{victim}'s restarted incarnation's own step p50 "
+          f"{out[victim]['step_s_p50'] * 1e3:.3f} ms over "
+          f"{out[victim]['step_calls']} steps; prefix-hit rate "
+          f"{summary['aggregate_prefix_hit_rate']}; peak memory allocated "
+          + " / ".join(f"{out[i].get('peak_allocated_bytes', 0) / 1e9:.3f} GB"
+                       for i in range(2)))
+    k = stats["kill"]
+    t_kill, t_rejoin = runs["kill"][1:]
+    print(f"multiproc kill on {card}: worker {victim} SIGKILLed in turn 2, "
+          f"rejoined after {t_rejoin - t_kill:.1f} s (restart "
+          f"{summary['workers'][victim]['ready_s']} s to register), "
+          f"{k['tokens'] / k['wall_s']:.1f} tok/s, requeued "
+          f"{router.get('fleet_requeued_requests', 0)}, requeue latency p50 "
+          f"{summary['requeue_latency_s']['p50'] * 1e3:.2f} ms, replica "
+          f"downs {router.get('fleet_replica_downs', 0)}; every SSE stream "
+          f"carried each token of its result once; row #1 "
+          f"{workers} = 12 x each worker's decode steps; SIGINT exit 0, no "
+          f"worker left, journals closed with no unfinished request")
+    return workers
+
+
 def build_kernels() -> None:
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
@@ -4241,8 +4713,12 @@ def main() -> int:
     fleet_parity_phase(card)
     front = front_door_phase(card)
     row["launches_front_door"] = {k: v for k, v in front.items()
-                                  if k != "char-gpt fused"}
+                                  if k not in ("char-gpt fused",
+                                               "fleet run")}
     serve_cli_phase(card)
+    multiproc_parity_phase(card)
+    row["launches_multiproc"] = multiproc_front_door_phase(card,
+                                                           front["fleet run"])
     fused_paged_row = fused_paged_kernel_phase(flush)
     row["quantized"] = quantized_paged_phase(flush)
     row["int8_ms"] = row["quantized"]["int8-page"]["ms"]

@@ -44,9 +44,18 @@
         --journal-dir J [--ledger L] [--port 8000] [--checkpoint-dir D]
     python -m replicatinggpt_tpu_torch serve --preset test-tiny \\
         --device cpu --replicas 2 --port 0
+    python -m replicatinggpt_tpu_torch serve --preset gpt2-small \\
+        --decode-cache-layout packed --paged-kernel --replicas 2 \\
+        --multiproc --journal-dir J [--restart-budget 3] \\
+        [--step-timeout-s 10] [--autoscale-max N --autoscale-min M]
+    python -m replicatinggpt_tpu_torch serve-worker --preset gpt2-small \\
+        --decode-cache-layout packed --paged-kernel \\
+        --router-addr HOST:PORT --journal P --port 0
 
 Every subcommand runs on the card unless given ``--device cpu``, and takes
-the JAX subcommands' flags. Those this port does not implement yet are
+the JAX subcommands' flags (the training overrides of JAX's
+``add_config_flags`` on every subcommand, parsed and unused where nothing
+trains). Those this port does not implement yet are
 still accepted by the parser, so that a command written for the JAX
 package fails with the ROADMAP item that will bring the feature, instead
 of being half-run or silently ignored. ``train --dp N`` is data
@@ -75,18 +84,27 @@ that verifies; a first SIGTERM or SIGINT saves and exits 0 (under
 at all without ``checkpoint_every``). ``generate``, ``serve-replay``,
 ``eval`` and ``export-torch`` take ``--checkpoint-dir D`` to use the
 weights of its newest verified step (random init from the seed only when
-D holds no step). ``serve`` runs ``--replicas`` engines in this process
-behind the prefix-affinity router over HTTP/SSE (serve/http.py), the
-replicas warmed before the socket binds (``serving on http://host:port``
-on stderr), SIGINT a clean stop that closes the journals; its worker
-processes (``--multiproc``, ``--restart-budget``, ``--autoscale-*``,
-``--listen-host`` off loopback, ``--step-timeout-s``, ``--no-fsync``, and
-the ``serve-worker`` subcommand) are refused with queue A item 10, a
-serving mesh a replica too, its trace sinks with item 12. ``--rng-impl``
-is refused everywhere by the ground rules (torch generators only), and
-``train``'s ``--coordinator``, ``--num-processes`` and ``--process-id``
-name ``torchrun``; ``--backend`` (JAX's ``jax``) names the JAX package.
-``import-hf`` and ``lint`` exit 2 with items 7 and 12.
+D holds no step). ``serve`` runs ``--replicas`` engines behind the
+prefix-affinity router over HTTP/SSE (serve/http.py), in this process
+(warmed before the socket binds) or, with ``--multiproc``, each as a
+``serve-worker`` process under the supervisor (faults/procsup.py:
+restarts with backoff, quarantine past ``--restart-budget``, the
+autoscaler of ``--autoscale-max``), with journals under ``--journal-dir``
+(required) and the router's ledger at ``J/router_ledger.jsonl`` by
+default; the launcher builds the kernels its workers' route loads before
+it spawns them, and binds once every worker registered (``serving on
+http://host:port`` on stderr). SIGINT is a clean stop that closes the
+journals and stops every worker. ``serve-worker`` is one worker: the
+engine ``serve`` would build, its locked journal replayed, registered
+with ``--router-addr`` over RPC (serve/worker.py); ``--tier`` other than
+``mixed`` is refused with queue A item 9(e). The trace sinks are refused
+with item 12, weight quantization with item 8. ``--rng-impl`` is refused
+everywhere by the ground rules (torch generators only), and ``train``'s
+``--coordinator``, ``--num-processes`` and ``--process-id`` name
+``torchrun``; ``--backend`` (JAX's ``jax``) names the JAX package, and
+``--tp``, ``--pp``, ``--microbatches`` and ``--steps-per-dispatch`` are
+refused on every subcommand as ``train`` refuses them. ``import-hf`` and
+``lint`` exit 2 with items 7 and 12.
 """
 
 from __future__ import annotations
@@ -98,7 +116,9 @@ import sys
 
 import torch
 
-from .config import add_config_flags, add_train_flags, config_from_args
+from .config import (add_config_flags, add_train_flags, config_from_args,
+                     config_override_args, flag_args)
+from .serve.rpc import DISAGG_ITEM
 
 #: the reason the port refuses ``--rng-impl``
 RNG_IMPL_REASON = ("ground rules (the TPU 'rbg' generator is TPU "
@@ -107,12 +127,12 @@ RNG_IMPL_REASON = ("ground rules (the TPU 'rbg' generator is TPU "
 #: the reason the port refuses ``--backend`` (the JAX flag takes 'jax')
 BACKEND_REASON = ("ground rules (this package is the PyTorch backend; the "
                   "JAX backend is python -m replicatinggpt_tpu)")
-#: the ROADMAP.md items the serving fleet's unported parts wait for
-FLEET_ITEM = "queue A item 10 (worker processes behind the router)"
+#: the ROADMAP.md items unported flags wait for
 TELEMETRY_ITEM = "queue A item 12 (telemetry)"
 WEIGHT_QUANT_ITEM = "queue A item 8 (weight quantization)"
 
-#: (flag, dest, value that means "off", ROADMAP.md item that brings it)
+#: (flag, dest, value that means "off", ROADMAP.md item that brings it):
+#: the serve-replay subcommand's (CONFIG_UNPORTED_FLAGS join it below)
 UNPORTED_FLAGS = (
     ("--rng-impl", "rng_impl", None, RNG_IMPL_REASON),
     ("--weight-quant", "weight_quant", "none", WEIGHT_QUANT_ITEM),
@@ -153,6 +173,14 @@ TRAIN_UNPORTED_FLAGS = (
     ("--microbatches", "microbatches", 0,
      "queue A item 11 (pipeline parallelism)"),
 )
+
+#: the flags of JAX's add_config_flags that no subcommand of this port
+#: implements (``train`` refuses them in its own list)
+CONFIG_UNPORTED_FLAGS = tuple(
+    f for f in TRAIN_UNPORTED_FLAGS
+    if f[0] in ("--backend", "--steps-per-dispatch", "--tp", "--pp",
+                "--microbatches"))
+UNPORTED_FLAGS += CONFIG_UNPORTED_FLAGS
 
 #: (flag, dest, refused value, ROADMAP.md item): ported flags with a value
 #: this port does not implement yet
@@ -244,6 +272,18 @@ def add_engine_flags(p: argparse.ArgumentParser) -> None:
                    help="auto-tune the window size from the host's share "
                         "of each window's wall: powers of two up to "
                         "--decode-window")
+
+
+def engine_forward_args(args: argparse.Namespace) -> list:
+    """The add_engine_flags arguments of ``args`` and its ``--device``, so
+    that a worker builds the engine the launcher parsed, on the device it
+    was asked for (a CPU launcher never spawns CUDA workers). The model's
+    ``--dtype`` and ``--decode-cache-layout`` ride
+    ``config_override_args``."""
+    out = flag_args(add_engine_flags, args)
+    if getattr(args, "device", None) is not None:
+        out += ["--device", str(args.device)]
+    return out
 
 
 def engine_config_from_args(args: argparse.Namespace):
@@ -424,31 +464,31 @@ def cmd_train(args) -> int:
 GENERATE_UNPORTED_FLAGS = (
     ("--mesh-shape", "mesh_shape", "1x1", "queue A item 11 (meshes)"),
     ("--rng-impl", "rng_impl", None, RNG_IMPL_REASON),
-)
+) + CONFIG_UNPORTED_FLAGS
 
 #: the eval subcommand's unported flags
 EVAL_UNPORTED_FLAGS = (
     ("--rng-impl", "rng_impl", None, RNG_IMPL_REASON),
-)
+) + CONFIG_UNPORTED_FLAGS
 
-#: the serve subcommand's unported flags: the worker processes and their
-#: supervisor, the trace sinks, weight quantization, and the training
-#: flags JAX's serve takes (and ignores) that this port does not implement
-SERVE_UNPORTED_FLAGS = tuple(
-    f for f in TRAIN_UNPORTED_FLAGS
-    if f[0] in ("--steps-per-dispatch", "--tp", "--pp", "--microbatches")) + (
+#: the serve subcommand's unported flags: the trace sinks, weight
+#: quantization, and the training flags JAX's serve takes (and ignores)
+#: that this port does not implement
+SERVE_UNPORTED_FLAGS = CONFIG_UNPORTED_FLAGS + (
     ("--rng-impl", "rng_impl", None, RNG_IMPL_REASON),
-    ("--backend", "backend", None, BACKEND_REASON),
     ("--weight-quant", "weight_quant", "none", WEIGHT_QUANT_ITEM),
     ("--act-quant", "act_quant", "none", WEIGHT_QUANT_ITEM),
     ("--trace-out", "trace_out", None, TELEMETRY_ITEM),
     ("--trace-jsonl", "trace_jsonl", None, TELEMETRY_ITEM),
-    ("--multiproc", "multiproc", False, FLEET_ITEM),
-    ("--restart-budget", "restart_budget", 3, FLEET_ITEM),
-    ("--autoscale-max", "autoscale_max", 0, FLEET_ITEM),
-    ("--autoscale-min", "autoscale_min", 1, FLEET_ITEM),
-    ("--step-timeout-s", "step_timeout_s", 10.0, FLEET_ITEM),
-    ("--no-fsync", "no_fsync", False, FLEET_ITEM),
+)
+
+#: the serve-worker subcommand's unported flags: disaggregation's tiers,
+#: weight quantization, and the training flags no subcommand implements
+SERVE_WORKER_UNPORTED_FLAGS = CONFIG_UNPORTED_FLAGS + (
+    ("--rng-impl", "rng_impl", None, RNG_IMPL_REASON),
+    ("--weight-quant", "weight_quant", "none", WEIGHT_QUANT_ITEM),
+    ("--act-quant", "act_quant", "none", WEIGHT_QUANT_ITEM),
+    ("--tier", "tier", "mixed", DISAGG_ITEM),
 )
 
 #: the JAX subcommands this port does not implement yet, with their
@@ -456,8 +496,6 @@ SERVE_UNPORTED_FLAGS = tuple(
 REFUSED_COMMANDS = {
     "import-hf": ("import HF GPT-2 weights",
                   "queue A item 7 (HF GPT-2 import)"),
-    "serve-worker": ("one fleet worker process behind the RPC protocol",
-                     FLEET_ITEM),
     "lint": ("static analysis of the serve layer's protocol",
              "queue A item 12 (tooling and telemetry)"),
 }
@@ -533,6 +571,7 @@ def cmd_export_torch(args) -> int:
     tensors, (in, out) kernels), from ``--checkpoint-dir``'s newest
     verified step (else the random init)."""
     from .models.gpt import reference_state_dict
+    check_unported(args, CONFIG_UNPORTED_FLAGS)
     cfg, _, _ = _tokenized_config(args)
     state = load_weights(cfg, args.checkpoint_dir, "cpu", "exporting")
     sd = reference_state_dict(state.model)
@@ -544,51 +583,63 @@ def cmd_export_torch(args) -> int:
 
 
 def cmd_serve(args) -> int:
-    """The fleet's front door: ``--replicas`` engine replicas in this
-    process behind the prefix-affinity router (serve/router.py), over
-    HTTP/SSE (serve/http.py), on the weights of ``--checkpoint-dir``'s
-    newest verified step, else the random init. The replicas are warmed
-    (on the card: the kernels built) before the socket binds; the bound
-    address is printed as ``serving on http://host:port``. SIGINT shuts
-    it down and closes the journals."""
+    """The fleet's front door: ``--replicas`` engine replicas behind the
+    prefix-affinity router (serve/router.py), over HTTP/SSE
+    (serve/http.py), on the weights of ``--checkpoint-dir``'s newest
+    verified step, else the random init. In this process the replicas are
+    warmed (on the card: the kernels built) before the socket binds; with
+    ``--multiproc`` each is a ``serve-worker`` process, and the socket
+    binds once all registered. The bound address is printed as ``serving
+    on http://host:port``. SIGINT shuts it down, closes the journals and
+    stops every worker, after printing the fleet summary as one
+    ``fleet summary: {...}`` line on stderr."""
     check_unported(args, SERVE_UNPORTED_FLAGS)
-    if args.listen_host not in ("127.0.0.1", "localhost"):
-        raise SystemExit(
-            f"--listen-host {args.listen_host} (worker registration from "
-            f"other hosts) is not implemented in replicatinggpt_tpu_torch "
-            f"yet: ROADMAP.md {FLEET_ITEM}")
     import asyncio
 
-    from .device import resolve_device
     from .serve.http import RateLimitConfig, ServeApp
-    from .serve.router import Router, RouterConfig
-    cfg = config_from_args(args)
-    ecfg = engine_config_from_args(args)
-    if ecfg.mesh_data * ecfg.mesh_model > 1:
-        raise SystemExit(
-            f"--mesh-shape {args.mesh_shape} a replica is not implemented "
-            f"in replicatinggpt_tpu_torch yet: ROADMAP.md {FLEET_ITEM}")
-    dev = resolve_device(args.device)
-    model = load_weights(cfg, args.checkpoint_dir, dev, "serving").model
+    from .serve.router import RouterConfig
+    ledger = args.ledger
+    if ledger is None and args.multiproc and args.journal_dir:
+        ledger = os.path.join(args.journal_dir, "router_ledger.jsonl")
     rcfg = RouterConfig(n_replicas=args.replicas,
                         journal_dir=args.journal_dir,
-                        ledger_path=args.ledger,
+                        ledger_path=ledger,
                         ledger_fsync=args.ledger_fsync,
                         affinity=not args.no_affinity,
                         wedge_budget_s=args.wedge_budget_s,
-                        wedge_patience=args.wedge_patience)
-    router = Router(model, cfg.model, rcfg, ecfg, device=dev)
+                        wedge_patience=args.wedge_patience,
+                        step_timeout_s=args.step_timeout_s)
+    cfg = config_from_args(args)
+    ecfg = engine_config_from_args(args)
+    m = cfg.model
+    supervisor = None
+    if args.multiproc:
+        if not args.journal_dir:
+            raise SystemExit("--multiproc requires --journal-dir (the base "
+                             "directory of the workers' private journal "
+                             "directories and the router's own ledger)")
+        router, supervisor = _spawn_workers(args, rcfg, cfg, ecfg)
+        where = (f"{args.replicas} worker process(es) of pool "
+                 f"{ecfg.pool_size}, registration on "
+                 f"{supervisor.router_addr}")
+    else:
+        from .device import resolve_device
+        from .serve.router import Router
+        dev = resolve_device(args.device)
+        model = load_weights(cfg, args.checkpoint_dir, dev, "serving").model
+        router = Router(model, cfg.model, rcfg, ecfg, device=dev)
+        name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                else "cpu")
+        where = (f"{rcfg.n_replicas} replica(s) of pool {ecfg.pool_size} "
+                 f"on {dev} ({name}); warming the replicas")
     rate_limit = None
     if args.rate_limit_rps > 0:
         rate_limit = RateLimitConfig(rps=args.rate_limit_rps,
                                      burst=args.rate_limit_burst)
     app = ServeApp(router, idle_timeout_s=args.idle_timeout_s,
-                   rate_limit=rate_limit)
-    m = cfg.model
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"serve: {rcfg.n_replicas} replica(s) of pool {ecfg.pool_size}, "
-          f"model {m.n_layer}L/{m.n_head}H/{m.n_embd}C {m.dtype} on {dev} "
-          f"({name}); warming the replicas", file=sys.stderr, flush=True)
+                   supervisor=supervisor, rate_limit=rate_limit)
+    print(f"serve: model {m.n_layer}L/{m.n_head}H/{m.n_embd}C {m.dtype}, "
+          f"{where}", file=sys.stderr, flush=True)
     rc = 0
     try:
         asyncio.run(app.serve_forever(args.host, args.port))
@@ -599,8 +650,79 @@ def cmd_serve(args) -> int:
         # closed the server under serve_forever
         rc = 1
     finally:
-        router.close()
+        try:
+            if rc == 0:
+                print("fleet summary: " + json.dumps(_fleet_summary(
+                    router, supervisor)), file=sys.stderr, flush=True)
+        finally:
+            if supervisor is not None:
+                supervisor.stop_all()
+            router.close()
     return rc
+
+
+def _spawn_workers(args, rcfg, cfg, ecfg):
+    """``serve --multiproc``: the workers' specs (this parse's model and
+    engine flags, its seed, device and checkpoint), the kernels their
+    route loads built here first (with ``nvcc``: the launcher holds no
+    CUDA context), and the fleet, every worker registered. The fleet's
+    shape hash comes from this process's parse of the same flags."""
+    from .faults.procsup import (AutoscaleConfig, SupervisorConfig,
+                                 make_worker_specs, spawn_fleet,
+                                 worker_spec_factory)
+    from .serve.rpc import engine_shape_hash
+    config_args = ["--preset", args.preset] + config_override_args(args)
+    engine_args = engine_forward_args(args)
+    if args.no_fsync:
+        engine_args.append("--no-fsync")
+    if args.checkpoint_dir:
+        engine_args += ["--checkpoint-dir",
+                        os.path.abspath(args.checkpoint_dir)]
+    if torch.device(args.device or "cuda").type == "cuda":
+        from .ops import _build
+        from .serve.engine import route_kernels
+        for name in route_kernels(cfg.model, ecfg):
+            _build.build(name)
+    specs = make_worker_specs(args.replicas, args.journal_dir, config_args,
+                              engine_args)
+    expect = engine_shape_hash(cfg.model, ecfg)
+    autoscale = spec_factory = None
+    if args.autoscale_max > 0:
+        autoscale = AutoscaleConfig(min_workers=args.autoscale_min,
+                                    max_workers=args.autoscale_max)
+        spec_factory = worker_spec_factory(args.journal_dir, config_args,
+                                           engine_args)
+    print(f"spawning {args.replicas} worker process(es); waiting for "
+          f"warm-up and registration (expect shape {expect})",
+          file=sys.stderr, flush=True)
+    return spawn_fleet(
+        specs, rcfg, SupervisorConfig(restart_budget=args.restart_budget,
+                                      expect_shape_hash=expect),
+        autoscale=autoscale, spec_factory=spec_factory,
+        listen_host=args.listen_host)
+
+
+def _fleet_summary(router, supervisor) -> dict:
+    """The router's fleet summary, and the supervisor's per-worker
+    spawn-to-registration seconds, restarts and events."""
+    out = router.fleet_summary()
+    if supervisor is not None:
+        out["workers"] = [{"idx": h.spec.idx, "state": h.state,
+                           "gen": h.gen, "restarts": h.restarts,
+                           "crash_restarts": h.crash_restarts,
+                           "ready_s": h.ready_s} for h in supervisor.handles]
+        out["supervisor_events"] = supervisor.events[-32:]
+    return out
+
+
+def cmd_serve_worker(args) -> int:
+    """One fleet worker process (serve/worker.py): builds and warms the
+    engine, locks and replays its journal, serves the RPC protocol and
+    registers with ``--router-addr``, until the router shuts it down or
+    something kills it."""
+    check_unported(args, SERVE_WORKER_UNPORTED_FLAGS)
+    from .serve.worker import run_worker
+    return run_worker(args)
 
 
 class RefusedCommand(SystemExit):
@@ -650,9 +772,7 @@ def build_parser() -> argparse.ArgumentParser:
     pt.set_defaults(fn=cmd_train)
     pg = sub.add_parser("generate", help="sample from a model")
     add_config_flags(pg)
-    pg.add_argument("--tokenizer", default=None)
-    pg.add_argument("--dataset", default=None,
-                    help="corpus the tokenizer's vocabulary comes from")
+    add_train_flags(pg)
     pg.add_argument("--device", default=None,
                     help="'cuda' (default; fails without a card) or 'cpu'")
     pg.add_argument("--prompt", default=None)
@@ -664,13 +784,10 @@ def build_parser() -> argparse.ArgumentParser:
     add_checkpoint_dir_flag(pg)
     _add_unported_flags(pg, GENERATE_UNPORTED_FLAGS)
     pg.set_defaults(fn=cmd_generate)
-    pe = sub.add_parser("eval", help="estimate train/val loss")
+    pe = sub.add_parser("eval", help="estimate train/val loss "
+                                     "(--eval-iters batches of each split)")
     add_config_flags(pe)
-    pe.add_argument("--batch-size", type=int, default=None)
-    pe.add_argument("--eval-iters", type=int, default=None,
-                    help="batches of each split")
-    pe.add_argument("--tokenizer", default=None)
-    pe.add_argument("--dataset", default=None)
+    add_train_flags(pe)
     pe.add_argument("--device", default=None,
                     help="'cuda' (default; fails without a card) or 'cpu'")
     add_checkpoint_dir_flag(pe)
@@ -680,17 +797,17 @@ def build_parser() -> argparse.ArgumentParser:
                         help="write a checkpoint's weights as a torch "
                              "state_dict in the reference layout")
     add_config_flags(px)
-    px.add_argument("--tokenizer", default=None)
-    px.add_argument("--dataset", default=None,
-                    help="corpus the tokenizer's vocabulary comes from")
+    add_train_flags(px)
     add_checkpoint_dir_flag(px)
     px.add_argument("--out", default="model.pth")
+    _add_unported_flags(px, CONFIG_UNPORTED_FLAGS)
     px.set_defaults(fn=cmd_export_torch)
     ps = sub.add_parser("serve-replay",
                         help="replay a synthetic Poisson request trace "
                              "through the paged serving engine and report "
                              "TTFT/throughput/occupancy")
     add_config_flags(ps)
+    add_train_flags(ps)
     ps.add_argument("--device", default=None,
                     help="'cuda' (default; fails without a card) or 'cpu'")
     ps.add_argument("--n-requests", type=int, default=64)
@@ -737,13 +854,15 @@ def build_parser() -> argparse.ArgumentParser:
     ps.set_defaults(fn=cmd_serve_replay)
     pv = sub.add_parser("serve",
                         help="run the HTTP/SSE serving fleet: engine "
-                             "replicas in this process behind the prefix-"
-                             "affinity router, with submit/stream/cancel/"
-                             "healthz/readyz/metrics endpoints")
+                             "replicas (in this process, or worker processes "
+                             "with --multiproc) behind the prefix-affinity "
+                             "router, with submit/stream/cancel/healthz/"
+                             "readyz/metrics endpoints")
     add_config_flags(pv)
-    add_train_flags(pv)      # taken as JAX's serve takes them; unused
+    add_train_flags(pv)
     pv.add_argument("--device", default=None,
-                    help="'cuda' (default; fails without a card) or 'cpu'")
+                    help="'cuda' (default; fails without a card) or 'cpu'; "
+                         "a --multiproc launcher passes it to its workers")
     add_checkpoint_dir_flag(pv)
     pv.add_argument("--host", default="127.0.0.1",
                     help="interface the HTTP server binds")
@@ -755,12 +874,16 @@ def build_parser() -> argparse.ArgumentParser:
     pv.add_argument("--journal-dir", default=None,
                     help="per-replica crash journals live here "
                          "(replica{i}.jsonl): a killed replica's "
-                         "unfinished requests requeue from its journal")
+                         "unfinished requests requeue from its journal; "
+                         "with --multiproc (required) the base of each "
+                         "worker's private directory (worker{i}/) and of "
+                         "the router's ledger")
     pv.add_argument("--ledger", default=None,
                     help="the router's own crash journal: submits at "
                          "fleet acceptance, finishes at terminal results; "
                          "a restarted router requeues its unfinished set "
-                         "from here")
+                         "from here (--multiproc default: "
+                         "JOURNAL_DIR/router_ledger.jsonl)")
     pv.add_argument("--ledger-fsync", action="store_true",
                     help="fsync the ledger's finish records")
     pv.add_argument("--no-affinity", action="store_true",
@@ -773,9 +896,29 @@ def build_parser() -> argparse.ArgumentParser:
                          "work re-routed")
     pv.add_argument("--wedge-patience", type=int, default=2)
     add_engine_flags(pv)
+    pv.add_argument("--multiproc", action="store_true",
+                    help="run each replica as a serve-worker process under "
+                         "the supervisor (restarts, quarantine, "
+                         "autoscaling); the router drives them over RPC")
+    pv.add_argument("--restart-budget", type=int, default=3,
+                    help="--multiproc: crash restarts a worker before it "
+                         "is quarantined and its work requeued")
+    pv.add_argument("--autoscale-max", type=int, default=0,
+                    help="--multiproc: grow the fleet on sustained backlog "
+                         "up to this many workers, shrink it on a lull "
+                         "(0 = a fixed fleet)")
+    pv.add_argument("--autoscale-min", type=int, default=1,
+                    help="--multiproc: the autoscaler's floor")
     pv.add_argument("--listen-host", default="127.0.0.1",
-                    help="worker registration interface (loopback only "
-                         "in this port)")
+                    help="--multiproc: the registration listener's "
+                         "interface (0.0.0.0 takes workers from other "
+                         "hosts)")
+    pv.add_argument("--step-timeout-s", type=float, default=10.0,
+                    help="--multiproc: a worker step RPC's budget; past "
+                         "it the step counts as slow for the wedge probe")
+    pv.add_argument("--no-fsync", action="store_true",
+                    help="--multiproc: the workers' journals skip the "
+                         "fsync of each finish record")
     pv.add_argument("--idle-timeout-s", type=float, default=30.0,
                     help="drop a connection that stalls mid-headers or "
                          "mid-body, or stops reading its SSE stream, for "
@@ -788,6 +931,44 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the bucket's capacity")
     _add_unported_flags(pv, SERVE_UNPORTED_FLAGS)
     pv.set_defaults(fn=cmd_serve)
+    pw = sub.add_parser("serve-worker",
+                        help="one fleet worker process: an engine behind "
+                             "the RPC protocol with a locked crash journal "
+                             "replayed at start (spawned by serve "
+                             "--multiproc; runnable by hand)")
+    add_config_flags(pw)
+    add_train_flags(pw)
+    pw.add_argument("--device", default=None,
+                    help="'cuda' (default; fails without a card) or 'cpu'")
+    add_checkpoint_dir_flag(pw)
+    pw.add_argument("--host", default="127.0.0.1",
+                    help="interface the RPC server binds")
+    pw.add_argument("--port", type=int, default=0,
+                    help="RPC port (0 = ephemeral; the bound one goes in "
+                         "the register frame and the stderr banner)")
+    pw.add_argument("--journal", default=None,
+                    help="crash journal path (flock-ed, replayed at start; "
+                         "the router reads it only through the "
+                         "journal_drain RPC)")
+    pw.add_argument("--router-addr", default=None,
+                    help="host:port of the fleet's registration listener: "
+                         "once warm, replayed and bound, the worker "
+                         "registers there (protocol version and engine "
+                         "shape hash; a mismatch exits 3)")
+    pw.add_argument("--worker-idx", type=int, default=-1,
+                    help="the supervisor's replica index (-1: unmanaged, "
+                         "joins as a new replica)")
+    pw.add_argument("--gen", type=int, default=0,
+                    help="spawn generation (the supervisor attaches only "
+                         "the incarnation it launched)")
+    pw.add_argument("--no-fsync", action="store_true",
+                    help="skip the fsync of each journaled finish")
+    pw.add_argument("--reregister-idle-s", type=float, default=5.0,
+                    help="router silence after which the worker sends its "
+                         "register frame again (full-jitter backoff)")
+    add_engine_flags(pw)
+    _add_unported_flags(pw, SERVE_WORKER_UNPORTED_FLAGS)
+    pw.set_defaults(fn=cmd_serve_worker)
     for name, (what, _) in REFUSED_COMMANDS.items():
         sub.add_parser(name, help=f"{what} (not in this port yet; see "
                                   f"ROADMAP.md)").set_defaults(fn=cmd_refused)

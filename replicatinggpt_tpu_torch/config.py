@@ -328,8 +328,10 @@ def add_config_flags(p: argparse.ArgumentParser) -> None:
 
 
 def add_train_flags(p: argparse.ArgumentParser) -> None:
-    """The ``train`` subcommand's overrides (the JAX flags of the same
-    names)."""
+    """The training overrides the JAX ``add_config_flags`` gives every
+    subcommand, under the JAX names. A subcommand that does not train
+    takes them as the JAX one does: parsed into the config, and unused by
+    it."""
     p.add_argument("--dropout", type=float, default=None,
                    help="residual and attention dropout rate")
     p.add_argument("--loss-chunk", dest="loss_chunk", type=int,
@@ -341,7 +343,8 @@ def add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--lr-schedule", dest="lr_schedule", default=None,
                    choices=["constant", "cosine"])
     p.add_argument("--tokenizer", default=None)
-    p.add_argument("--dataset", default=None)
+    p.add_argument("--dataset", default=None,
+                   help="corpus the tokenizer's vocabulary comes from")
     p.add_argument("--dp", type=int, default=None,
                    help="mesh data axis size: split every batch's rows into "
                         "this many shards (all in this process, or one per "
@@ -361,6 +364,40 @@ def add_train_flags(p: argparse.ArgumentParser) -> None:
                         "where the heads divide by --sp, else the ring), "
                         "'ring', 'flash' (= 'auto'); 'ulysses' is not "
                         "ported yet")
+
+
+def flag_args(register, args: argparse.Namespace,
+              skip: Tuple[str, ...] = ()) -> list:
+    """The values on ``args`` of the flags that ``register`` adds to a
+    parser, as command-line arguments that parse back to them: a flag
+    that takes a value when it is set (not None), a switch when ``args``
+    holds the value it stores and not the default. So one process spawns
+    another, a fleet's worker, with what it parsed, each flag defined
+    only where it is registered."""
+    p = argparse.ArgumentParser(add_help=False)
+    register(p)
+    defaults = vars(p.parse_args([]))
+    out: list = []
+    for a in p._actions:
+        if not a.option_strings or a.dest in skip or not hasattr(args,
+                                                                 a.dest):
+            continue
+        v = getattr(args, a.dest)
+        if a.nargs == 0:
+            if v == a.const and v != defaults[a.dest]:
+                out.append(a.option_strings[0])
+        elif v is not None:
+            out += [a.option_strings[0], str(v)]
+    return out
+
+
+def config_override_args(args: argparse.Namespace) -> list:
+    """The flags of ``add_config_flags`` (but ``--preset``) and of
+    ``add_train_flags`` set on ``args``, as command-line arguments: the
+    worker of ``serve --multiproc`` parses them into the launcher's
+    config."""
+    return (flag_args(add_config_flags, args, skip=("preset",))
+            + flag_args(add_train_flags, args))
 
 
 def config_from_args(args: argparse.Namespace) -> Config:

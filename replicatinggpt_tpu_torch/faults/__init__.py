@@ -1,8 +1,8 @@
 """Fault injection, the training supervision that survives it, the
-serving engine's self-healing policies and the in-process fleet's fault
-kinds (the training, checkpoint, serving and in-process fleet part of
-``replicatinggpt_tpu/faults/``; the worker processes' supervisor and the
-network chaos are ROADMAP.md queue A item 10)."""
+serving engine's self-healing policies, the fleet's fault kinds, the
+worker processes' supervisor (``procsup``) and the network chaos
+(``netchaos``): the port of ``replicatinggpt_tpu/faults/``. ``procsup``
+and ``netchaos`` are imported by their users, not here."""
 
 from .inject import Fault, FaultPlan, active, clear, fire, install, installed
 from .supervise import (LossSpikeError, LossTracker, NonFiniteLossError,

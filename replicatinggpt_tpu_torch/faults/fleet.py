@@ -1,7 +1,7 @@
-"""Fleet fault kinds (a copy of the in-process part of
-``replicatinggpt_tpu/faults/fleet.py``): deterministic chaos for the
-serving fleet, on the :class:`~.inject.FaultPlan` machinery (explicit
-step or session indices, one-shot counting, no-op by default).
+"""Fleet fault kinds (a copy of ``replicatinggpt_tpu/faults/fleet.py``
+without the page-transfer seam): deterministic chaos for the serving
+fleet, on the :class:`~.inject.FaultPlan` machinery (explicit step or
+session indices, one-shot counting, no-op by default).
 
 - ``fleet/step``, kind ``replica_kill``: the router abandons replica
   ``int(arg)`` at router step ``at``: it stops stepping it, closes its
@@ -16,11 +16,21 @@ step or session indices, one-shot counting, no-op by default).
   turns a uniform mix into hot-key traffic on one radix subtree and one
   affinity target.
 
-The process kinds ``proc_kill``, ``proc_hang`` and ``host_loss`` need the
-worker processes and their supervisor (ROADMAP.md queue A item 10): the
-in-process router logs ``proc_kill`` and ignores it, as the JAX router
-does without a supervisor, and refuses the other two. ``transfer_kill``
-needs disaggregation (queue A item 9(e)) and is refused too.
+- ``fleet/step``, kind ``proc_kill``: the supervisor (faults/procsup.py)
+  SIGKILLs worker ``int(arg)``'s process at router step ``at``; recovery
+  is a supervised restart and the worker's journal replay (past the
+  restart budget, the router's requeue onto the survivors).
+- ``fleet/step``, kind ``proc_hang``: SIGSTOP worker ``int(arg2)``'s
+  process for ``int(arg)`` supervisor ticks, then SIGCONT. Its RPCs time
+  out while it stays alive: the wedge probe and the hedged re-route see
+  a wedged card.
+- ``fleet/step``, kind ``host_loss``: SIGKILL worker ``int(arg)`` and
+  delete its directory, journal included: the restarted worker replays
+  nothing, and the router's own ledger recovers the work.
+
+A router without a supervisor (the in-process fleet) logs the three
+process kinds and ignores them, as the JAX router does. ``transfer_kill``
+needs disaggregation (queue A item 9(e)) and is refused.
 """
 
 from __future__ import annotations
@@ -42,16 +52,10 @@ KIND_PROC_HANG = "proc_hang"
 KIND_HOST_LOSS = "host_loss"
 KIND_TRANSFER_KILL = "transfer_kill"
 
-#: the kinds the in-process router refuses, with the ROADMAP.md item
-#: that brings each
+#: the kinds the router refuses, with the ROADMAP.md item that brings each
 REFUSED_KINDS = {
-    KIND_PROC_HANG: "queue A item 10 (worker processes and their "
-                    "supervisor)",
-    KIND_HOST_LOSS: "queue A item 10 (worker processes and their "
-                    "supervisor)",
     KIND_TRANSFER_KILL: "queue A item 9(e) (disaggregation)",
 }
-
 
 def fleet_step_fault(step: int) -> Optional[Fault]:
     """The router's per-step seam: at most one fleet fault a step."""

@@ -39,6 +39,16 @@ site                      kind            effect at the seam
                                           stalls ``arg`` seconds
 ``fleet/session``         ``hot_key_skew`` a session joins prefix group
                                           0 with probability ``arg``
+``fleet/step``            ``proc_kill``   SIGKILL worker ``arg``
+                                          (faults/procsup.py)
+``fleet/step``            ``proc_hang``   SIGSTOP worker ``arg2`` for
+                                          ``arg`` ticks
+``fleet/step``            ``host_loss``   SIGKILL worker ``arg`` and
+                                          delete its directory
+``net/{src}->{dst}/{op}`` ``net_*``       a message fault on the fleet's
+                                          RPC (faults/netchaos.py:
+                                          delay, drop, dup, reorder,
+                                          trickle, corrupt, partition)
 ========================  ==============  ===============================
 """
 

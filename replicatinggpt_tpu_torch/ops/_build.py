@@ -7,12 +7,15 @@ repository root (listed in ``.gitignore``), then loaded with ``ctypes``.
 The library's file name carries a hash of the source and the flags, so
 an edited source rebuilds at its next use and an unchanged one loads
 the library already built. Nothing is built at import time: the first
-wrapper call on a CUDA tensor builds.
+wrapper call on a CUDA tensor builds. Processes that build one kernel at
+once (a fleet's cold workers) compile it once: each build takes the
+kernel's ``flock`` and looks for the library again under it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -58,8 +61,17 @@ def build(name: str, verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a temporary name in the same directory, then rename:
-    # a concurrent or interrupted build never leaves a half-written .so
+    with open(BUILD_DIR / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():        # another process built it meanwhile
+            return out
+        _compile(name, out, verbose)
+    return out
+
+
+def _compile(name: str, out: Path, verbose: bool) -> None:
+    # compile to a temporary name in the same directory, then rename: an
+    # interrupted build never leaves a half-written .so
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [nvcc_path(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
@@ -76,7 +88,6 @@ def build(name: str, verbose: bool = False) -> Path:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -292,6 +292,25 @@ def decide_kernel_route(cfg: ModelConfig, ecfg: EngineConfig,
                        mesh=(d, m))
 
 
+def route_kernels(cfg: ModelConfig, ecfg: EngineConfig) -> tuple:
+    """The CUDA kernel sources (``csrc/<name>.cu``) an engine of ``cfg``
+    and ``ecfg`` loads on the card, from its route decision alone, so that
+    a launcher builds them before its workers start (a build needs
+    ``nvcc``, not a card)."""
+    from ..quant.kv import kv_itemsize
+    psz, mp, n_pages = pool_geometry(cfg, ecfg.pool_size, ecfg.page_size,
+                                     ecfg.max_pages, ecfg.n_pages)
+    route = decide_kernel_route(cfg, ecfg, psz, mp,
+                                kv_itemsize(ecfg.kv_quant, cfg),
+                                ecfg.pool_size, n_pages)
+    names = []
+    if route.decode == "fused":
+        names.append("fused_paged_decode_layers")
+    if "kernel" in (route.decode, route.window):
+        names.append("paged_window_attention")
+    return tuple(names)
+
+
 def engine_summary_block(engine: "Engine") -> dict:
     """One replica's block of the fleet summary
     (``serve.router.Router.fleet_summary``)."""

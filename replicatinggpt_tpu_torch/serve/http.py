@@ -14,7 +14,8 @@ Endpoints (JSON unless noted):
   "temperature"?, "top_k"?, "top_p"?, "greedy"?, "rng_seed"?,
   "eos_token_id"?, "deadline_s"?}``; 200 ``{"id", "status": "accepted"}``
   or the status of the rejection (429 backpressure, 400 validation, 413
-  prompt too long, 504 a deadline dead on arrival).
+  prompt too long, 504 a deadline dead on arrival, 503 every replica
+  unreachable).
 - ``GET /v1/stream/{id}``: ``text/event-stream``, one ``data: {"token":
   t, "i": n}`` event a token as steps commit them, then ``event: done``
   with the terminal summary. Exactly once across a replica kill
@@ -26,14 +27,19 @@ Endpoints (JSON unless noted):
 - ``GET /healthz``: liveness, 200 whenever the server answers, with the
   per-replica detail.
 - ``GET /readyz``: readiness, 200 iff at least one routable replica is
-  warm (``Router.warmup``: the server warms every replica before it binds
-  its socket, so that the first step builds no kernel), else 503.
+  warm (``Router.warmup``: the server warms every in-process replica
+  before it binds its socket, so that the first step builds no kernel; a
+  worker process warms itself before it registers), else 503; it follows
+  the fleet through a rolling restart.
 - ``GET /metrics``: the router's metrics in the Prometheus text format
   (fleet counters and per-replica gauges; utils/telemetry.py).
 
 Single-threaded on purpose, as the engine and the router are: one
-stepping task calls ``router.step()`` between socket reads, and a step blocks the
-loop for one engine step a replica.
+stepping task calls ``router.step()`` between socket reads, and a step
+blocks the loop for one engine step a replica (a worker process's step
+is one blocking RPC). A multi-process fleet's supervisor
+(faults/procsup.py) is ticked by the same task after every step and on
+idle turns, so that restarts progress while the fleet waits.
 
 A peer that does not complete its headers (slow-loris), stalls mid-body
 or stops reading its SSE stream is dropped after ``idle_timeout_s``. The
@@ -192,13 +198,16 @@ class ServeApp:
     stepping task's sleep when the fleet is idle. ``idle_timeout_s`` is the
     slow-loris budget: a peer that stalls mid-headers, mid-body, or
     mid-SSE-consumption is dropped after it (0 disables).
+    ``supervisor`` (``faults.procsup.ProcSupervisor``, a multi-process
+    fleet's) is ticked by the stepping task.
     """
 
     def __init__(self, router: Router, idle_sleep_s: float = 0.002,
                  step_wait_s: float = 0.5,
-                 idle_timeout_s: float = 30.0,
+                 idle_timeout_s: float = 30.0, supervisor=None,
                  rate_limit: Optional[RateLimitConfig] = None):
         self.router = router
+        self.supervisor = supervisor
         self.idle_sleep_s = idle_sleep_s
         self.step_wait_s = step_wait_s
         self.idle_timeout_s = idle_timeout_s
@@ -225,9 +234,13 @@ class ServeApp:
         self._step_fut = loop.create_future()
         while self._running:
             if self.router.idle:
+                if self.supervisor is not None:
+                    self.supervisor.tick()
                 await asyncio.sleep(self.idle_sleep_s)
                 continue
             self.router.step()
+            if self.supervisor is not None:
+                self.supervisor.tick()
             for rid in [r for r in self._abandoned
                         if not self.router.knows(r)
                         or self.router.result(r) is not None]:
@@ -309,7 +322,7 @@ class ServeApp:
     async def serve_forever(self, host: str, port: int) -> None:
         h, p = await self.start(host, port)
         print(f"serving on http://{h}:{p} "
-              f"({self.router.rcfg.n_replicas} replica(s))",
+              f"({len(self.router.replicas)} replica(s))",
               file=sys.stderr, flush=True)
         async with self._server:
             await self._server.serve_forever()
@@ -446,10 +459,24 @@ class ServeApp:
 
     def _vocab_size(self) -> int:
         """The token-id bound of ingress validation: the replicas'
-        vocabulary."""
-        if not self._vocab:
-            self._vocab = int(self.router.replicas[0].engine.cfg.vocab_size)
-        return self._vocab
+        vocabulary (a worker's from its health RPC, once; 0, which skips
+        the check, only while no worker was ever reachable)."""
+        if self._vocab:
+            return self._vocab
+        for rep in self.router.replicas:
+            if rep.is_local:
+                self._vocab = int(rep.engine.cfg.vocab_size)
+                return self._vocab
+            try:
+                # a short budget: this runs in a submit handler on the
+                # loop, and a hung worker must not stall every connection
+                self._vocab = int(rep.refresh_health(timeout_s=1.0)
+                                  .get("vocab_size", 0))
+                if self._vocab:
+                    return self._vocab
+            except Exception:  # noqa: BLE001 — an unreachable worker:
+                continue       # try the next, or skip the check
+        return 0
 
     def _submit(self, body: bytes):
         """Parse + route one submit; returns (id, None) or

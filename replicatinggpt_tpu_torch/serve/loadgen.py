@@ -57,6 +57,10 @@ class SessionLoadConfig:
     think_time_s: float = 0.0      # finish -> next-turn gap
     greedy: bool = True
     seed: int = 0
+    #: the autoscaler's trace: session arrivals in thirds, the first at
+    #: ``rate``, the second at 2x (a sustained backlog: scale up), the
+    #: last at half (a sustained lull: scale down); the same seeded draws
+    load_step: bool = False
 
 
 @dataclass
@@ -161,8 +165,14 @@ def make_sessions(mcfg: ModelConfig, lcfg: SessionLoadConfig
                              dtype=np.int64).astype(np.int32)
                 for _ in range(lcfg.n_prefix_groups)]
     # every scalar draw vectorized up front
-    starts = np.cumsum(rng.exponential(1.0 / max(lcfg.rate, 1e-9),
-                                       lcfg.n_sessions))
+    gaps = rng.exponential(1.0 / max(lcfg.rate, 1e-9), lcfg.n_sessions)
+    if lcfg.load_step:
+        # base -> 2x -> 0.5x the arrival rate by thirds: a gap at k times
+        # the rate is the base gap over k
+        third = max(lcfg.n_sessions // 3, 1)
+        gaps[third:2 * third] /= 2.0
+        gaps[2 * third:] *= 2.0
+    starts = np.cumsum(gaps)
     groups = rng.integers(0, lcfg.n_prefix_groups, lcfg.n_sessions)
     skew_draws = rng.random(lcfg.n_sessions)
     out: List[_Session] = []

@@ -1,5 +1,5 @@
-"""Multi-replica router: the fleet tier in one process (the port of the
-in-process part of ``replicatinggpt_tpu/serve/router.py``).
+"""Multi-replica router: the fleet tier, in one process or across worker
+processes (the port of ``replicatinggpt_tpu/serve/router.py``).
 
 One engine is one card's worth of slots; a fleet is N engine replicas.
 This module balances requests across them and keeps the fleet's
@@ -34,13 +34,27 @@ promises when a replica misbehaves:
   in the request journal's format. A restarted router requeues the
   accepted-but-unfinished set it finds there.
 
-All replicas live in this process and share one cast copy of the
-weights, as the JAX ``Router`` shares ``params``; each has its own
-``Engine``, page pool and journal. Single-threaded, like the engine: one
-loop drives :meth:`Router.step` (the HTTP front door, serve/http.py, and
-the fleet replay, serve/loadgen.py). Worker processes (``backends=``,
-the RPC protocol, the process supervisor) are ROADMAP.md queue A item
-10; per-replica tiers and page transfers are queue A item 9(e).
+Two replica backends speak one interface (:class:`ReplicaBase`):
+:class:`Replica`, an engine in this process (the replicas share one cast
+copy of the weights on a 1x1 mesh, as the JAX ``Router`` shares
+``params``), and :class:`RemoteReplica`, a worker process
+(serve/worker.py) behind the serve/rpc.py protocol (``backends=``, from
+``faults.procsup.spawn_fleet``). The router drives a worker with the same
+verbs, reads its committed tokens from the step reply, and treats a
+transport failure as what it is: an RPC timeout is a slow step for the
+wedge probe (SIGSTOP, a wedged card), a refused or reset connection marks
+the replica down for the supervisor to restart. A restarted worker
+replays its own journal, and :meth:`Router.attach_replica` reconciles the
+router's ledger with what it recovered (read through the
+``journal_drain`` RPC: the router never opens a worker's path); a worker
+whose host vanished, journal and all, is recovered from the router's own
+ledger. ``proc_kill``, ``proc_hang`` and ``host_loss`` go to the
+supervisor (``Router.supervisor``).
+
+Single-threaded, like the engine: one loop drives :meth:`Router.step`
+(the HTTP front door, serve/http.py, and the fleet replay,
+serve/loadgen.py). Per-replica tiers and page transfers are ROADMAP.md
+queue A item 9(e).
 """
 
 from __future__ import annotations
@@ -50,11 +64,11 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
-from ..device import resolve_device
-from ..faults.fleet import (KIND_PROC_KILL, KIND_REPLICA_KILL,
+from ..faults.fleet import (KIND_HOST_LOSS, KIND_PROC_HANG,
+                            KIND_PROC_KILL, KIND_REPLICA_KILL,
                             KIND_REPLICA_WEDGE, REFUSED_KINDS,
                             fleet_step_fault)
-from ..models.gpt import compute_params
+from ..faults.netchaos import FaultyTransport
 from ..utils.jsonl import load_jsonl_if_exists
 from ..utils.logging import Metrics
 from .journal import RequestJournal
@@ -63,10 +77,9 @@ from .requests import (FINISH_CANCELLED, FINISH_DEADLINE,
                        REJECT_PROMPT_TOO_LONG, REJECT_QUEUE_FULL,
                        REJECT_REPLICA_DOWN, REJECT_REPLICA_TIMEOUT, Request,
                        RequestResult)
-
-#: the ROADMAP.md items a fleet's unported parts wait for
-REMOTE_ITEM = "queue A item 10 (worker processes behind the router)"
-DISAGG_ITEM = "queue A item 9(e) (disaggregation)"
+from .rpc import (DISAGG_ITEM, RpcClient, RpcError, RpcProtocolError,
+                  RpcTimeout, request_from_wire, request_to_wire,
+                  result_from_wire)
 
 #: rejections every replica would give alike (same config, same clock):
 #: trying another replica, or again later, is pointless
@@ -105,6 +118,9 @@ class RouterConfig:
     wedge_skip_steps: int = 3
     #: router steps a wedged replica sits out before it rejoins
     quarantine_steps: int = 8
+    #: a worker process's step RPC budget: past it the call is abandoned
+    #: and the elapsed time feeds the wedge probe
+    step_timeout_s: float = 10.0
     #: per-replica tier labels of a disaggregated fleet: not in this
     #: port yet (DISAGG_ITEM); None is the colocated fleet
     tiers: Optional[Tuple[str, ...]] = None
@@ -131,11 +147,15 @@ class _Requeue:
     t_requeued: float = 0.0    # when it left its replica
 
 
+class ReplicaDownError(RuntimeError):
+    """A worker's transport is gone (refused, reset): the process died or
+    is restarting. The router marks it down; the supervisor recovers."""
+
+
 class ReplicaBase:
     """The router's view of one replica: the health state every backend
-    shares, and the verbs the router drives. :class:`Replica` is the
-    in-process engine; a worker process behind the RPC protocol is
-    ROADMAP.md queue A item 10."""
+    shares, and the verbs the router drives. :class:`Replica` is an
+    engine in this process, :class:`RemoteReplica` a worker process."""
 
     is_local = True
 
@@ -149,6 +169,7 @@ class ReplicaBase:
         self.skip_steps = 0
         self.quarantine_until = 0
         self.last_step_s = 0.0
+        self.steps = 0
 
     @property
     def routable(self) -> bool:
@@ -299,6 +320,335 @@ class Replica(ReplicaBase):
             self.journal.close()
 
 
+class RemoteReplica(ReplicaBase):
+    """A worker process behind serve/rpc.py. The router's view of it is
+    built from step replies (gauges, committed tokens, finished results)
+    cached between calls, so that ``partial_tokens`` and ``health`` never
+    block the routing loop on a sick worker.
+
+    The worker redelivers finished results until they are acked (a reply
+    lost to a timeout must not lose a finish): ``step_engine`` dedupes
+    redeliveries against the previous reply and acks them on the next
+    call, so the router sees each finish once. An id leaves the dedupe
+    set when the router resubmits it here."""
+
+    is_local = False
+
+    #: verbs whose handlers mutate worker state: each call carries an
+    #: idempotency key, so that a duplicate or a blind protocol retry is
+    #: answered from the worker's reply cache (serve/worker.py
+    #: ``IDEMPOTENT_VERBS``)
+    MUTATING_VERBS = ("submit", "page_transfer", "journal_drain")
+
+    #: the budget of the routing path's RPC (the prefix peek): affinity is
+    #: an optimization, and a hung worker must not stall every submit for
+    #: a whole rpc_timeout_s
+    ROUTE_RPC_TIMEOUT_S = 1.0
+
+    def __init__(self, idx: int, journal_path: Optional[str] = None,
+                 host: str = "127.0.0.1", port: int = 0,
+                 rpc_timeout_s: float = 10.0,
+                 step_timeout_s: float = 10.0):
+        # journal_path is never read here (the worker's disk may be
+        # another machine's): operator metadata only
+        super().__init__(idx, journal_path)
+        self.host = host
+        self.client = None
+        self.rpc_timeout_s = rpc_timeout_s
+        self.step_timeout_s = step_timeout_s
+        self.pid: Optional[int] = None
+        self.gen = -1
+        self.restarts = 0
+        self.rpc_timeouts = 0
+        self._warmed = False
+        self._idle = True
+        self._gauges = {"queue_depth": 0, "slots_active": 0,
+                        "pages_in_use": 0, "n_steps": 0,
+                        "prefix_hit_tokens": 0, "prompt_tokens": 0}
+        self._partials: Dict[str, List[int]] = {}
+        self._seen: set = set()        # finish ids delivered, unacked
+        self._acks: List[str] = []
+        #: the fleet's metrics (set by the Router): the rpc_* counters
+        self.metrics: Optional[Metrics] = None
+        #: each logical call attempt gets a fresh key (a resubmission must
+        #: execute again); wire duplicates and retries of one attempt
+        #: reuse it
+        self._idem_seq = 0
+        #: the last time an RPC round-tripped: Router._probe_heartbeat
+        #: closes a silent client past ``heartbeat_deadline_s``
+        self.last_ok_t = time.monotonic()
+        self.heartbeat_deadline_s: Optional[float] = None
+        #: the steps of the worker process ``pid`` as the router timed
+        #: them (count, seconds): beside the worker's own step times in
+        #: its ``summary``, the same steps, the RPC's share of a step
+        self.timed_steps = 0
+        self.timed_step_s = 0.0
+        if port:
+            self.connect(port)
+
+    def _next_idem(self, op: str) -> str:
+        self._idem_seq += 1
+        return f"r{self.idx}.{op}.{self._idem_seq}"
+
+    # ------------------------------------------------------- connection
+
+    def connect(self, port: int, pid: Optional[int] = None,
+                gen: Optional[int] = None,
+                host: Optional[str] = None) -> None:
+        if self.client is not None:
+            self.client.close()
+        if host:
+            # the registration's peer address: a respawned worker may come
+            # back on another machine
+            self.host = host
+        # a pass-through while no FaultPlan is installed: chaos runs and
+        # clean runs take the same path
+        self.client = FaultyTransport(
+            RpcClient(self.host, port, timeout_s=self.rpc_timeout_s),
+            src="router", dst=f"worker{self.idx}", observer=self)
+        if pid is not None:
+            if pid != self.pid:
+                self.timed_steps, self.timed_step_s = 0, 0.0
+            self.pid = pid
+        if gen is not None:
+            self.gen = gen
+
+    def close(self) -> None:
+        if self.client is not None:
+            self.client.close()
+
+    def _call(self, op: str, timeout_s: Optional[float] = None,
+              **kw) -> dict:
+        if self.client is None:
+            raise ReplicaDownError(f"worker {self.idx}: never attached")
+        if op in self.MUTATING_VERBS and "idem" not in kw:
+            kw["idem"] = self._next_idem(op)
+        if self.gen >= 0 and "gen" not in kw:
+            # the incarnation we believe we talk to: a restarted worker
+            # at a newer generation fences this call off
+            kw["gen"] = self.gen
+        try:
+            resp = self.client.call(op, timeout_s=timeout_s, **kw)
+        except RpcProtocolError as e:
+            resp = self._retry_protocol(op, timeout_s, kw, e)
+        except RpcTimeout:
+            raise
+        except RpcError as e:
+            # RpcDown, or a worker whose dispatch raises: both are the
+            # supervisor's to recover
+            raise ReplicaDownError(f"worker {self.idx}: {e}") from e
+        self._note_response(resp)
+        return resp
+
+    def _retry_protocol(self, op: str, timeout_s: Optional[float],
+                        kw: dict, err: RpcProtocolError) -> dict:
+        """A broken stream, not a broken call: reconnect and retry once
+        with the same kwargs (the same idem key: if the first copy
+        executed, the reply cache answers). A generation fence means this
+        router is stale: the replica goes down and the attach path
+        renegotiates."""
+        if "stale generation" in str(err):
+            if self.metrics is not None:
+                self.metrics.inc("rpc_stale_generation_rejects")
+            raise ReplicaDownError(f"worker {self.idx}: {err}") from err
+        if self.metrics is not None:
+            self.metrics.inc("rpc_corrupt_frames")
+        self.client.close()
+        try:
+            return self.client.call(op, timeout_s=timeout_s, **kw)
+        except RpcTimeout:
+            raise
+        except RpcError as e2:
+            raise ReplicaDownError(f"worker {self.idx}: {e2}") from e2
+
+    def _note_response(self, resp) -> None:
+        """Every round trip feeds the heartbeat and the duplicate
+        suppression count (``idem_hit``: a reply from the worker's
+        cache)."""
+        self.last_ok_t = time.monotonic()
+        if (isinstance(resp, dict) and resp.get("idem_hit")
+                and self.metrics is not None):
+            self.metrics.inc("rpc_dup_suppressed")
+
+    def net_chaos_response(self, resp) -> None:
+        """A reply the chaos layer swallowed (reorder, one-way partition):
+        its call took effect on the worker, so it is counted too."""
+        self._note_response(resp)
+
+    def net_chaos_partition(self, active: bool) -> None:
+        if active and self.metrics is not None:
+            self.metrics.inc("rpc_partitions_active")
+
+    # ----------------------------------------------------- backend verbs
+
+    def submit(self, req: Request) -> Optional[RequestResult]:
+        try:
+            resp = self._call("submit", timeout_s=self.rpc_timeout_s,
+                              idem=self._next_idem("submit"),
+                              req=request_to_wire(req, time.monotonic()))
+        except RpcTimeout:
+            # the hung worker may still execute it when it resumes: the
+            # router supersedes that copy before it routes the id again
+            return RequestResult(id=req.id, tokens=[],
+                                 finish_reason=REJECT_REPLICA_TIMEOUT)
+        except ReplicaDownError:
+            return RequestResult(id=req.id, tokens=[],
+                                 finish_reason=REJECT_REPLICA_DOWN)
+        if resp.get("accepted"):
+            # a legal reuse of a finished id must pass the finish dedupe
+            self._seen.discard(req.id)
+            return None
+        return result_from_wire(resp["rejection"])
+
+    def cancel(self, request_id: str, migrated: bool = False) -> bool:
+        try:
+            resp = self._call("cancel", timeout_s=self.rpc_timeout_s,
+                              id=request_id, migrated=migrated)
+        except (ReplicaDownError, RpcTimeout):
+            return False
+        return bool(resp.get("found"))
+
+    def step_engine(self) -> List[RequestResult]:
+        try:
+            resp = self._call("step", acks=self._acks,
+                              timeout_s=self.step_timeout_s)
+        except RpcTimeout:
+            # a hung worker: the caller's wall time feeds the wedge probe;
+            # the call may still execute on resume, which the ack and
+            # redelivery make safe
+            self.rpc_timeouts += 1
+            return []
+        self._acks = []
+        self._absorb(resp)
+        delivered = [result_from_wire(d) for d in resp.get("finished", [])]
+        fresh = [r for r in delivered if r.id not in self._seen]
+        # what this reply carried stays buffered worker-side until the
+        # next call acks it; what it did not was pruned by an earlier ack
+        self._seen = {r.id for r in delivered}
+        self._acks = sorted(self._seen)
+        return fresh
+
+    def stream_drain(self) -> None:
+        """Refresh the committed-token cache without a step."""
+        resp = self._call("stream_drain", timeout_s=self.rpc_timeout_s)
+        self._partials.update({rid: list(toks) for rid, toks
+                               in resp.get("partials", {}).items()})
+
+    def journal_state(self, kinds: Tuple[str, ...] = ("finished",)
+                      ) -> Tuple[Dict[str, str], List[Request]]:
+        """The worker's journal state, paged through the ``journal_drain``
+        RPC; an unreachable worker yields an empty view (the caller falls
+        back to the router's ledger: the host-loss path). ``kinds``
+        defaults to the finish records (attach gets the unfinished set
+        from the worker's ``in_flight``)."""
+        finished: Dict[str, str] = {}
+        unfinished: List[Request] = []
+        cursor = 0
+        while True:
+            try:
+                resp = self._call("journal_drain",
+                                  timeout_s=self.rpc_timeout_s,
+                                  idem=self._next_idem("journal_drain"),
+                                  cursor=cursor, kinds=list(kinds))
+            except (ReplicaDownError, RpcTimeout):
+                break
+            for rec in resp.get("records", []):
+                if rec.get("kind") == "finished":
+                    finished[rec["id"]] = rec.get("reason", "")
+                elif rec.get("kind") == "unfinished":
+                    unfinished.append(request_from_wire(rec["req"],
+                                                        time.monotonic()))
+            nxt = int(resp.get("cursor", cursor))
+            if resp.get("eof", True) or nxt <= cursor:
+                break
+            cursor = nxt
+        return finished, unfinished
+
+    def _absorb(self, resp: dict) -> None:
+        for k in self._gauges:
+            if k in resp:
+                self._gauges[k] = int(resp[k])
+        if "idle" in resp:
+            self._idle = bool(resp["idle"])
+        if "warmed" in resp:
+            self._warmed = bool(resp["warmed"])
+        self._partials = {rid: list(toks) for rid, toks
+                          in resp.get("partials", {}).items()}
+
+    def partial_tokens(self, request_id: str) -> Optional[List[int]]:
+        return self._partials.get(request_id)
+
+    def cached_prefix_tokens(self, prompt) -> int:
+        import numpy as np
+        try:
+            resp = self._call("prefix", prompt=np.asarray(prompt).tolist(),
+                              timeout_s=min(self.ROUTE_RPC_TIMEOUT_S,
+                                            self.rpc_timeout_s))
+        except (ReplicaDownError, RpcTimeout):
+            return 0
+        return int(resp.get("tokens", 0))
+
+    @property
+    def queue_depth(self) -> int:
+        return self._gauges["queue_depth"]
+
+    @property
+    def slots_active(self) -> int:
+        return self._gauges["slots_active"]
+
+    @property
+    def pages_in_use(self) -> int:
+        return self._gauges["pages_in_use"]
+
+    @property
+    def engine_idle(self) -> bool:
+        return self._idle
+
+    @property
+    def warmed(self) -> bool:
+        return self._warmed
+
+    def refresh_health(self, timeout_s: Optional[float] = None) -> dict:
+        """One live ``health`` RPC (attach, the front door's vocabulary
+        lookup), its gauges absorbed. On the serving path pass a short
+        ``timeout_s``."""
+        resp = self._call("health", timeout_s=timeout_s)
+        self._absorb(resp)
+        return resp
+
+    def hit_tokens(self) -> Tuple[int, int]:
+        return (self._gauges["prefix_hit_tokens"],
+                self._gauges["prompt_tokens"])
+
+    def health(self) -> dict:
+        """Cached state only: /healthz must never block on a sick worker
+        (the supervisor's probe and :meth:`refresh_health` call it)."""
+        h = dict(self._base_health())
+        h.update({
+            "queue_depth": self.queue_depth,
+            "slots_active": self.slots_active,
+            "pages_in_use": self.pages_in_use,
+            "pid": self.pid, "gen": self.gen,
+            "restarts": self.restarts,
+            "rpc_timeouts": self.rpc_timeouts,
+            "warmed": self.warmed,
+        })
+        return h
+
+    def summary_block(self) -> dict:
+        try:
+            block = self._call("summary",
+                               timeout_s=self.rpc_timeout_s).get("block", {})
+        except (ReplicaDownError, RpcTimeout):
+            block = {"occupancy_mean": 0.0,
+                     "n_steps": self._gauges["n_steps"], "pages": {},
+                     "finished": {}, "unreachable": True}
+        block["health"] = self.health()
+        block["router_timed"] = {"pid": self.pid, "steps": self.timed_steps,
+                                 "step_s_sum": self.timed_step_s}
+        return block
+
+
 class Router:
     """N-replica front tier: submit/cancel/step/drain over the fleet.
 
@@ -306,46 +656,41 @@ class Router:
     terminal rejection, ``step`` advances every live replica one
     scheduling iteration and returns the fleet's newly finished results,
     ``drain`` runs to idle. ``model`` (a ``models.gpt.GPT``) is cast once
-    to the compute dtype on ``device`` and shared by every replica."""
+    to the compute dtype on ``device`` and shared by every replica (a
+    replica on a serving mesh splits its own). Pass ``backends`` (a list
+    of :class:`ReplicaBase`, e.g. :class:`RemoteReplica` proxies from
+    ``faults.procsup.spawn_fleet``) to run the fleet across worker
+    processes; ``model``, ``cfg``, ``ecfg`` and ``device`` are unused then
+    (each worker owns its model)."""
 
     def __init__(self, model=None, cfg=None,
                  rcfg: RouterConfig = RouterConfig(), ecfg=None,
                  clock: Callable[[], float] = time.monotonic,
                  device=None,
                  backends: Optional[List[ReplicaBase]] = None):
-        if backends is not None:
-            raise NotImplementedError(
-                f"replicas behind the RPC protocol (backends=) are not "
-                f"implemented in replicatinggpt_tpu_torch yet: ROADMAP.md "
-                f"{REMOTE_ITEM}")
         if rcfg.tiers is not None:
             raise NotImplementedError(
                 f"replica tiers {rcfg.tiers} are not implemented in "
                 f"replicatinggpt_tpu_torch yet: ROADMAP.md {DISAGG_ITEM}")
-        assert rcfg.n_replicas >= 1, rcfg.n_replicas
-        from .engine import Engine, EngineConfig
-        ecfg = ecfg or EngineConfig()
-        if ecfg.mesh_data * ecfg.mesh_model > 1:
-            raise NotImplementedError(
-                f"a {ecfg.mesh_data}x{ecfg.mesh_model} serving mesh a "
-                f"replica is not implemented in replicatinggpt_tpu_torch "
-                f"yet: ROADMAP.md {REMOTE_ITEM}")
         self.rcfg = rcfg
         self.clock = clock
         self.metrics = Metrics()
-        dev = resolve_device(device)
-        params = compute_params(model, dev)
+        #: the process supervisor (faults/procsup.py, set by its
+        #: attach_router): proc_kill, proc_hang and host_loss go to it
+        self.supervisor = None
         self.replicas: List[ReplicaBase] = []
-        for i in range(rcfg.n_replicas):
-            jpath = jr = None
-            if rcfg.journal_dir is not None:
-                jpath = os.path.join(rcfg.journal_dir, f"replica{i}.jsonl")
-                jr = RequestJournal(jpath)
-            eng = Engine(model, cfg, ecfg, clock=clock, device=dev,
-                         journal=jr, params=params)
-            self.replicas.append(Replica(
-                idx=i, engine=eng, journal_path=jpath, journal=jr,
-                skip_steps=rcfg.wedge_skip_steps))
+        if backends is not None:
+            self.replicas = list(backends)
+            for rep in self.replicas:
+                rep.skip_steps = rcfg.wedge_skip_steps
+                if not rep.is_local:
+                    # the rpc_* counters land in the fleet's metrics; a
+                    # half-open socket is closed after three silent step
+                    # budgets
+                    rep.metrics = self.metrics
+                    rep.heartbeat_deadline_s = rcfg.step_timeout_s * 3.0
+        else:
+            self._build_replicas(model, cfg, ecfg, device)
         self.n_steps = 0
         self._inflight: Dict[str, _InFlight] = {}
         self._requeue: List[_Requeue] = []
@@ -385,13 +730,36 @@ class Router:
                             f"{rcfg.ledger_path}")
         self._gauges()
 
+    def _build_replicas(self, model, cfg, ecfg, device) -> None:
+        from ..device import resolve_device
+        from ..models.gpt import compute_params
+        from .engine import Engine, EngineConfig
+        rcfg = self.rcfg
+        assert rcfg.n_replicas >= 1, rcfg.n_replicas
+        ecfg = ecfg or EngineConfig()
+        dev = resolve_device(device)
+        params = (compute_params(model, dev)
+                  if ecfg.mesh_data * ecfg.mesh_model == 1 else None)
+        for i in range(rcfg.n_replicas):
+            jpath = jr = None
+            if rcfg.journal_dir is not None:
+                jpath = os.path.join(rcfg.journal_dir, f"replica{i}.jsonl")
+                jr = RequestJournal(jpath)
+            eng = Engine(model, cfg, ecfg, clock=self.clock, device=dev,
+                         journal=jr, params=params)
+            self.replicas.append(Replica(
+                idx=i, engine=eng, journal_path=jpath, journal=jr,
+                skip_steps=rcfg.wedge_skip_steps))
+
     # ---------------------------------------------------------------- API
 
     def warmup(self) -> None:
-        """Warm every live replica's engine (``Engine.warmup``: on the
-        card its kernels built and loaded), then mark them warm together:
-        ``readyz`` says ready only once every replica is."""
-        reps = [r for r in self.replicas if r.alive and not r.warmed]
+        """Warm every live in-process replica's engine (``Engine.warmup``:
+        on the card its kernels built and loaded), then mark them warm
+        together: ``readyz`` says ready only once every replica is. A
+        worker process warms itself before it registers."""
+        reps = [r for r in self.replicas
+                if r.is_local and r.alive and not r.warmed]
         for rep in reps:
             rep.engine.warmup()
         for rep in reps:
@@ -452,9 +820,9 @@ class Router:
                 self._kill(int(flt.arg), step_idx)
             elif flt.kind == KIND_REPLICA_WEDGE:
                 wedge_delay[int(flt.arg2)] = float(flt.arg)
-            elif flt.kind == KIND_PROC_KILL:
-                self._event(f"step {step_idx}: proc_kill ignored (no "
-                            f"supervisor attached)")
+            elif flt.kind in (KIND_PROC_KILL, KIND_PROC_HANG,
+                              KIND_HOST_LOSS):
+                self._process_fault(flt, step_idx)
             elif flt.kind in REFUSED_KINDS:
                 raise NotImplementedError(
                     f"fleet fault {flt.kind!r} is not implemented in "
@@ -474,8 +842,23 @@ class Router:
                 # the injected wedge stalls the replica's step inside the
                 # router's measurement
                 time.sleep(delay)
-            finished = rep.step_engine()
+            try:
+                finished = rep.step_engine()
+            except ReplicaDownError as e:
+                rep.last_step_s = time.perf_counter() - t_wall
+                self.mark_down(rep.idx, str(e))
+                continue
             rep.last_step_s = time.perf_counter() - t_wall
+            rep.steps += 1
+            if not rep.is_local:
+                # a worker's step as the router times it, and the size of
+                # its reply frame (it carries every active slot's tokens)
+                self.metrics.observe(f"replica{rep.idx}_step_s",
+                                     rep.last_step_s)
+                self.metrics.observe(f"replica{rep.idx}_step_frame_bytes",
+                                     rep.client.last_frame_bytes)
+                rep.timed_steps += 1
+                rep.timed_step_s += rep.last_step_s
             # finishes before the wedge probe: a request that finished in
             # the step that trips the probe leaves the ledger first, or
             # _wedge would decode it a second time
@@ -484,6 +867,7 @@ class Router:
                 if done is not None:
                     out.append(done)
             self._probe(rep, step_idx)
+            self._probe_heartbeat(rep, step_idx)
         self._observe_ttft(now)
         self._drain_requeue(step_idx)
         if self._router_finished:      # retry exhaustion in this step
@@ -491,6 +875,21 @@ class Router:
             self._router_finished = []
         self._gauges()
         return out
+
+    def _process_fault(self, flt, step_idx: int) -> None:
+        """``proc_kill`` (worker ``arg``), ``proc_hang`` (worker ``arg2``
+        for ``arg`` ticks) and ``host_loss`` (worker ``arg``) go to the
+        supervisor; without one they are logged and ignored."""
+        sup = self.supervisor
+        if sup is None:
+            self._event(f"step {step_idx}: {flt.kind} ignored (no "
+                        f"supervisor attached)")
+        elif flt.kind == KIND_PROC_KILL:
+            sup.chaos_kill(int(flt.arg))
+        elif flt.kind == KIND_PROC_HANG:
+            sup.chaos_hang(int(flt.arg2), int(flt.arg))
+        else:
+            sup.chaos_host_loss(int(flt.arg))
 
     def drain(self, max_steps: int = 1_000_000) -> List[RequestResult]:
         out: List[RequestResult] = []
@@ -563,8 +962,8 @@ class Router:
     def add_replica(self, rep: ReplicaBase) -> int:
         """Grow the fleet at run time: append the backend and return its
         index. An in-process replica is routable at once (its engine is
-        built); a worker process would wait for its registration
-        (ROADMAP.md queue A item 10)."""
+        built); a worker process joins down, and :meth:`attach_replica`
+        makes it routable once its registration completes."""
         assert rep.idx == len(self.replicas), (
             f"replica indices are append-only: got {rep.idx}, "
             f"expected {len(self.replicas)}")
@@ -576,9 +975,72 @@ class Router:
                     f"(fleet grows to {len(self.replicas)})")
         return rep.idx
 
+    def attach_replica(self, idx: int, port: int, pid: Optional[int] = None,
+                       gen: Optional[int] = None,
+                       host: Optional[str] = None) -> dict:
+        """(Re)connect a worker and reconcile the router's ledger with what
+        the (restarted) worker recovered from its journal, read through
+        the ``journal_drain`` RPC:
+
+        - ids the worker replayed keep their entries (they regenerate from
+          token 0; the delivery ledger suppresses the delivered prefix);
+        - ids its journal says finished (the result died undelivered with
+          the process) surface their journaled reason;
+        - ids the worker lost (a torn submit record, a vanished host's
+          empty journal) requeue from the router's ledger;
+        - ids the worker replayed that the router does not own there
+          (stale ghosts, work that migrated away) are cancelled."""
+        rep = self.replicas[idx]
+        assert isinstance(rep, RemoteReplica), "attach is remote-only"
+        rep.connect(port, pid=pid, gen=gen, host=host)
+        h = rep.refresh_health()
+        rep.stream_drain()
+        worker_ids = set(h.get("in_flight", []))
+        mine = [rid for rid, fi in self._inflight.items()
+                if fi.replica == idx]
+        finished_reasons, _ = rep.journal_state()
+        kept = lost = 0
+        now = self.clock()
+        for rid in mine:
+            if rid in worker_ids:
+                kept += 1
+                continue
+            fi = self._inflight.pop(rid)
+            if rid in finished_reasons:
+                self._record_result(RequestResult(
+                    id=rid, tokens=[], finish_reason=finished_reasons[rid]),
+                    fi.t_submit)
+            else:
+                self._requeue.append(_Requeue(
+                    req=fi.req, t_submit=fi.t_submit, attempts=fi.attempts,
+                    due_step=self.n_steps, t_requeued=now))
+                self.metrics.inc("fleet_requeued_requests")
+                lost += 1
+        ghosts = [rid for rid in worker_ids
+                  if rid not in self._inflight
+                  or self._inflight[rid].replica != idx]
+        for rid in ghosts:
+            rep.cancel(rid, migrated=True)
+            self.metrics.inc("fleet_ghost_cancels")
+        # superseded copies this incarnation can never deliver died with
+        # the process before it
+        self._superseded = {rid: i for rid, i in self._superseded.items()
+                            if i != idx or rid in worker_ids}
+        rep.alive = True
+        rep.wedged = False
+        rep.draining = False
+        rep.suspect_streak = 0
+        rep.skip_steps = self.rcfg.wedge_skip_steps
+        self.metrics.inc("fleet_replica_attaches")
+        self._event(f"step {self.n_steps}: worker {idx} attached (pid "
+                    f"{rep.pid}, gen {rep.gen}, kept {kept}, requeued "
+                    f"{lost}, ghosts {len(ghosts)})")
+        return {"kept": kept, "requeued": lost, "ghosts": len(ghosts)}
+
     def abandon_replica(self, idx: int) -> None:
-        """Give up on a replica for good: the journal-driven requeue of a
-        ``replica_kill``."""
+        """Give up on a replica for good (its restart budget ran out, or a
+        ``replica_kill``): requeue its in-flight work onto the
+        survivors."""
         self._kill(idx, self.n_steps)
 
     def offered_load(self) -> dict:
@@ -755,6 +1217,12 @@ class Router:
             rep.suspect_streak = 0
             self.metrics.inc("fleet_replica_rejoins")
             self._event(f"step {step_idx}: replica {rep.idx} rejoined")
+            # a worker that wedged (SIGSTOP) may still hold superseded
+            # copies the hedge could not cancel while it did not answer
+            if not rep.is_local:
+                for rid, sidx in list(self._superseded.items()):
+                    if sidx == rep.idx:
+                        rep.cancel(rid, migrated=True)
         if cfg.wedge_budget_s <= 0 or rep.wedged:
             return
         if rep.skip_steps > 0:        # a warm-up step is not a wedge
@@ -766,6 +1234,25 @@ class Router:
             rep.suspect_streak = 0
         if rep.suspect_streak >= cfg.wedge_patience:
             self._wedge(rep, step_idx)
+
+    def _probe_heartbeat(self, rep: ReplicaBase, step_idx: int) -> None:
+        """Half-open socket detection: a worker whose RPCs all time out
+        (a one-way partition, dropped packets) never raises, every call
+        just spends its budget. Once nothing round-tripped for
+        ``heartbeat_deadline_s``, the client is closed, so that the next
+        call connects afresh: a dead peer then fails fast as ``RpcDown``
+        (down, then the supervisor), a healed one gets a clean socket."""
+        deadline = getattr(rep, "heartbeat_deadline_s", None)
+        if rep.is_local or deadline is None or rep.client is None:
+            return
+        silent_s = time.monotonic() - rep.last_ok_t
+        if silent_s <= deadline:
+            return
+        rep.client.close()
+        rep.last_ok_t = time.monotonic()   # one reconnect a deadline
+        self._event(f"step {step_idx}: replica {rep.idx} heartbeat "
+                    f"deadline blown ({silent_s:.1f}s silent) — forcing "
+                    f"reconnect")
 
     def _migrate(self, rep: ReplicaBase, step_idx: int) -> int:
         """Cancel (``migrated=True``) every request the ledger has on
@@ -799,8 +1286,11 @@ class Router:
         self._migrate(rep, step_idx)
 
     def _kill(self, idx: int, step_idx: int) -> None:
-        """Abandon a replica (the in-process stand-in for a process
-        death): close its journal, replay it, requeue the unfinished."""
+        """Abandon a replica (a worker the supervisor gave up on, or the
+        in-process stand-in for a process death) and requeue its
+        unfinished requests: an in-process replica's from its journal, a
+        worker's from the router's own ledger (its host may be gone,
+        journal and all)."""
         if not (0 <= idx < len(self.replicas)):
             return
         rep = self.replicas[idx]
@@ -813,7 +1303,15 @@ class Router:
                     f"its journal")
         now = self.clock()
         rep.close()
-        finished_reasons, pending = rep.journal_state()
+        if rep.is_local:
+            finished_reasons, pending = rep.journal_state()
+        else:
+            # every in-flight id re-decodes; the delivery ledger
+            # suppresses the streamed prefix, so a finish that died unacked
+            # is delivered in full instead of as a tokenless reason
+            finished_reasons = {}
+            pending = [fi.req for fi in self._inflight.values()
+                       if fi.replica == idx]
         # the in-memory ledger is authoritative for this run: replay only
         # the ids it has in flight ON THE DEAD REPLICA. Anything else is
         # a ghost (a stale record of an earlier run sharing the journal
@@ -845,12 +1343,16 @@ class Router:
         """The bounded retry ladder, with exponential backoff, for the
         requests between replicas; exhaustion records a terminal result
         (surfaced with this step's batch)."""
-        # no routable replica BECAUSE one is draining on purpose: hold the
-        # requeue without burning attempts (a fleet with nothing coming
+        # no routable replica BECAUSE recovery is under way (a replica
+        # draining on purpose, a worker respawning): hold the requeue
+        # without burning attempts, which router steps would spend in
+        # milliseconds of a restart's seconds (a fleet with nothing coming
         # back still exhausts honestly)
         if not any(r.routable for r in self.replicas):
-            if (any(r.alive and r.draining for r in self.replicas)
-                    and self._requeue):
+            recovering = (any(r.alive and r.draining for r in self.replicas)
+                          or (self.supervisor is not None
+                              and self.supervisor.reviving))
+            if recovering and self._requeue:
                 for item in self._requeue:
                     item.due_step = max(item.due_step, step_idx + 1)
                 return

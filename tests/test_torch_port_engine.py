@@ -198,7 +198,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     names = {str(f.relative_to(REPO)) for f in files}
     assert {f"replicatinggpt_tpu_torch/{m}.py" for m in (
         "faults/watchdog", "serve/journal", "serve/speculative",
-        "serve/cache_pool")} <= names
+        "serve/cache_pool", "serve/rpc", "serve/worker", "faults/procsup",
+        "faults/netchaos")} <= names
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "replicatinggpt_tpu",
                                   "regex")]

@@ -39,6 +39,7 @@ from replicatinggpt_tpu_torch.faults import Fault, FaultPlan, installed
 from replicatinggpt_tpu_torch.faults.fleet import (FLEET_SESSION, FLEET_STEP,
                                                    KIND_HOST_LOSS,
                                                    KIND_HOT_KEY_SKEW,
+                                                   KIND_PROC_HANG,
                                                    KIND_PROC_KILL,
                                                    KIND_REPLICA_KILL,
                                                    KIND_REPLICA_WEDGE)
@@ -365,20 +366,17 @@ def test_cancel_of_requeued_request_surfaces_from_step(model, tmp_path):
 
 
 def test_process_fault_kinds(model):
-    """``proc_kill`` is logged and ignored in one process, as the JAX
-    router does without a supervisor; ``host_loss`` is refused with its
+    """``proc_kill``, ``proc_hang`` and ``host_loss`` are logged and
+    ignored by a router without a supervisor (the in-process fleet), as
+    the JAX router does; ``transfer_kill``'s tiers are refused with their
     ROADMAP item."""
-    for kind, ok in ((KIND_PROC_KILL, True), (KIND_HOST_LOSS, False)):
+    for kind in (KIND_PROC_KILL, KIND_PROC_HANG, KIND_HOST_LOSS):
         with installed(FaultPlan(Fault(site=FLEET_STEP, kind=kind, at=0,
                                        arg=0))):
             r = Router(model, TCFG, RouterConfig(n_replicas=1),
                        EngineConfig(**POOL), device="cpu")
-            if ok:
-                r.step()
-                assert "proc_kill ignored" in r.events[-1]
-            else:
-                with pytest.raises(NotImplementedError, match="item 10"):
-                    r.step()
+            r.step()
+            assert f"{kind} ignored" in r.events[-1]
             r.close()
     with pytest.raises(NotImplementedError, match=r"item 9\(e\)"):
         Router(model, TCFG, RouterConfig(tiers=("prefill", "decode")),

@@ -530,13 +530,6 @@ def test_serve_cli_subprocess_smoke(tmp_path):
       "--process-id", "0"], "torchrun"),
     (["train", "--num-processes", "2"], "torchrun"),
     (["train", "--process-id", "1"], "torchrun"),
-    (["serve", "--multiproc"], "item 10"),
-    (["serve", "--restart-budget", "5"], "item 10"),
-    (["serve", "--autoscale-max", "4"], "item 10"),
-    (["serve", "--autoscale-min", "2"], "item 10"),
-    (["serve", "--listen-host", "0.0.0.0"], "item 10"),
-    (["serve", "--step-timeout-s", "3"], "item 10"),
-    (["serve", "--no-fsync"], "item 10"),
     (["serve", "--trace-out", "t.json"], "item 12"),
     (["serve", "--trace-jsonl", "t.jsonl"], "item 12"),
     (["serve", "--weight-quant", "int8"], "item 8"),
@@ -544,9 +537,15 @@ def test_serve_cli_subprocess_smoke(tmp_path):
     (["train", "--backend", "jax"], "ground rules"),
     (["serve", "--tp", "2"], "item 11"),
     (["serve", "--act-quant", "int8"], "item 8"),
-    (["serve", "--mesh-shape", "2x1", "--device", "cpu"], "item 10"),
     (["import-hf", "--model-type", "gpt2"], "item 7"),
-    (["serve-worker", "--journal", "j", "--router-addr", "h:1"], "item 10"),
+    (["serve-worker", "--tier", "prefill"], r"item 9\(e\)"),
+    (["serve-worker", "--weight-quant", "int8"], "item 8"),
+    (["serve-worker", "--backend", "jax"], "ground rules"),
+    (["generate", "--backend", "jax"], "ground rules"),
+    (["eval", "--backend", "jax"], "ground rules"),
+    (["export-torch", "--backend", "jax"], "ground rules"),
+    (["serve-replay", "--backend", "jax"], "ground rules"),
+    (["eval", "--tp", "2"], "item 11"),
     (["lint", "replicatinggpt_tpu_torch"], "item 12"),
 ])
 def test_refused_flags_and_commands_name_their_item(argv, item):
@@ -559,39 +558,92 @@ def test_refused_flags_and_commands_name_their_item(argv, item):
         assert e.value.code == 2
 
 
-def test_serve_and_train_take_every_jax_flag(monkeypatch):
-    """Every option string of the JAX ``serve`` and ``train`` parsers is
-    one of the port's parsers' (each works or is refused by the tests
-    above), so that no JAX command line fails on argparse's
-    "unrecognized arguments"."""
+#: each subcommand's refusals (train's ported flags with refused values
+#: too)
+UNPORTED_BY_COMMAND = {
+    "train": (cli.TRAIN_UNPORTED_FLAGS, cli.TRAIN_UNPORTED_VALUES),
+    "generate": (cli.GENERATE_UNPORTED_FLAGS, ()),
+    "eval": (cli.EVAL_UNPORTED_FLAGS, ()),
+    "export-torch": (cli.CONFIG_UNPORTED_FLAGS, ()),
+    "serve-replay": (cli.UNPORTED_FLAGS, ()),
+    "serve": (cli.SERVE_UNPORTED_FLAGS, ()),
+    "serve-worker": (cli.SERVE_WORKER_UNPORTED_FLAGS, ()),
+}
+#: a value for a JAX option that takes one and has no choices
+OPTION_VALUES = {"--dtype": "float32", "--mesh-shape": "1x1",
+                 "--router-addr": "127.0.0.1:1"}
+_JAX_COMMANDS = {}
+
+
+def _jax_subcommands():
+    """The JAX CLI's subparsers, grabbed from its own ``main``."""
+    if not _JAX_COMMANDS:
+        import argparse
+
+        from replicatinggpt_tpu import cli as jcli
+
+        class Grabbed(Exception):
+            pass
+
+        grabbed = []
+
+        def grab(self, args=None, namespace=None):
+            grabbed.append(self)
+            raise Grabbed
+
+        real = argparse.ArgumentParser.parse_args
+        argparse.ArgumentParser.parse_args = grab
+        try:
+            with pytest.raises(Grabbed):
+                jcli.main(["serve"])
+        finally:
+            argparse.ArgumentParser.parse_args = real
+        _JAX_COMMANDS.update(_subcommands(grabbed[0]))
+    return _JAX_COMMANDS
+
+
+def _subcommands(p):
     import argparse
+    return next(a.choices for a in p._actions
+                if isinstance(a, argparse._SubParsersAction))
 
-    from replicatinggpt_tpu import cli as jcli
 
-    class Grabbed(Exception):
-        pass
+def _option_argv(action, opt):
+    if action.nargs == 0:
+        return [opt]
+    if action.choices:
+        return [opt, str(next(iter(action.choices)))]
+    if action.type in (int, float):
+        return [opt, "1"]
+    return [opt, OPTION_VALUES.get(opt, "x")]
 
-    grabbed = []
 
-    def grab(self, args=None, namespace=None):
-        grabbed.append(self)
-        raise Grabbed
-
-    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", grab)
-    with pytest.raises(Grabbed):
-        jcli.main(["serve"])
-    monkeypatch.undo()
-
-    def subcommands(p):
-        return next(a.choices for a in p._actions
-                    if isinstance(a, argparse._SubParsersAction))
-
-    jax_cmds, port_cmds = subcommands(grabbed[0]), subcommands(
-        cli.build_parser())
-    for name in ("serve", "train"):
-        want = {o for a in jax_cmds[name]._actions for o in a.option_strings}
-        have = {o for a in port_cmds[name]._actions
-                for o in a.option_strings}
-        assert want <= have, (name, sorted(want - have))
-    assert set(jax_cmds) <= set(port_cmds), sorted(set(jax_cmds)
-                                                    - set(port_cmds))
+@pytest.mark.parametrize("name", ["train", "generate", "eval",
+                                  "export-torch", "serve-replay", "serve",
+                                  "serve-worker", "import-hf", "lint"])
+def test_serve_and_train_take_every_jax_flag(name):
+    """Every option string of each JAX subcommand parses in the port's
+    subcommand of that name, with a value the JAX option takes, and then
+    either works or is refused with its ROADMAP item or ground rule: no
+    JAX command line fails on argparse's "unrecognized arguments" (C3).
+    The subcommands the port refuses whole exit 2 with their item."""
+    jax_cmds = _jax_subcommands()
+    parser = cli.build_parser()
+    assert set(jax_cmds) <= set(_subcommands(parser))
+    opts = [(a, o) for a in jax_cmds[name]._actions
+            for o in a.option_strings if o not in ("-h", "--help")]
+    assert opts
+    for action, opt in opts:
+        argv = [name, *_option_argv(action, opt)]
+        if name in cli.REFUSED_COMMANDS:
+            with pytest.raises(SystemExit, match="ROADMAP.md") as e:
+                cli.main(argv)
+            assert e.value.code == 2
+            continue
+        args = parser.parse_args(argv)
+        flags, values = UNPORTED_BY_COMMAND[name]
+        try:
+            cli.check_unported(args, flags, values)
+        except SystemExit as e:
+            assert re.search(r"ROADMAP\.md (queue A item|ground rules)",
+                             str(e)), (argv, str(e))
